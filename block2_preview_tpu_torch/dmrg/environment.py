@@ -1,0 +1,299 @@
+"""Moving environments: left/right contracted operator tensors per bond.
+
+Copied from block2_preview_tpu/dmrg/environment.py and cut to the port's
+two paths:
+
+* host (``device=None``, backend="numpy"): every bond is a host map
+  {mpo bond symbol -> BlockMatrix}, built by the plan-cached host blocking
+  of ``ops/blocking_plan.py`` — the reference's numpy path, the oracle;
+* device: every bond is a flat slab pool (``ops/stacked.StackedMeta``
+  layout) held as a torch tensor on ``device`` in ``_stk_l``/``_stk_r``.
+  ``init_environments``, ``update_left`` and ``update_right`` block on the
+  device from the source bond's pool (``ops/blockv2``, kernels K5 + K3),
+  the counterpart of the reference's resident chain (:440-554).  Only the
+  edge boundaries (bond 0 left, bond L right) are host maps, packed and
+  uploaded on first use.  A bond with no usable plan raises, naming the
+  bond: there is no host-fallback bond on the device path.
+
+Reading ``left_envs[t]``/``right_envs[t]`` of a device bond unpacks its
+pool to a host map (a download) and counts one ``host_env_materialized``;
+the device path never does that.  The reference's disk spill, device-memory
+budget with host mirrors, parallel compile warm-up and older blocking
+engines are not carried.
+
+Counterpart of block2's MovingEnvironment + Partition (reference
+src/dmrg/moving_environment.hpp:149, src/dmrg/partition.hpp:39) and of
+TensorFunctions::left_contract/right_contract + tensor_rotate (reference
+src/core/tensor_functions.hpp:2842, operator_functions.hpp:175).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..core.blocks import BlockMatrix
+from .mpo import MPO
+from .mps import MPS
+
+EnvMap = Dict[int, BlockMatrix]   # mpo bond symbol -> operator on bond basis
+
+
+class _StkMarker:
+    """Sentinel stored in env lists when the bond lives as a device pool;
+    materialized (downloaded and unpacked) on dict-style access."""
+
+
+_STK = _StkMarker()
+
+
+class _EnvList(list):
+    """Env list that materializes device pools on access."""
+
+    def __init__(self, me: "MovingEnvironment", side: str, n: int):
+        super().__init__([None] * n)
+        self._me = me
+        self._side = side
+
+    def __getitem__(self, i):
+        v = list.__getitem__(self, i)
+        if v is _STK:
+            v = self._me._materialize(self._side, i)
+            list.__setitem__(self, i, v)
+        return v
+
+
+class MovingEnvironment:
+    def __init__(self, mpo: MPO, ket: MPS, bra: Optional[MPS] = None,
+                 device=None, dtype=np.float64):
+        """``device`` None keeps host maps (backend="numpy"); a torch
+        device keeps every bond but the boundaries as a pool there, in
+        ``dtype`` (float64 or float32)."""
+        self.mpo = mpo
+        self.ket = ket
+        self.bra = bra if bra is not None else ket
+        self.g = mpo.group
+        self.device = device
+        self.dtype = np.dtype(dtype)
+        L = mpo.n_sites
+        self.left_envs: List[Optional[EnvMap]] = _EnvList(self, "l", L + 1)
+        self.right_envs: List[Optional[EnvMap]] = _EnvList(self, "r", L + 1)
+        # device pools per bond: (meta, torch pool)
+        self._stk_l: Dict[int, tuple] = {}
+        self._stk_r: Dict[int, tuple] = {}
+        # device blocking plans per (t, direction): (structure sig, plan)
+        self._stk_plans: Dict = {}
+        # device pools unpacked to host maps (a download each); 0 on the
+        # device path
+        self.host_env_materialized = 0
+        # assembled LW/RW pools downloaded (ResidentSite.host_ops); 0 on
+        # the device path
+        self.host_ops_downloads = 0
+        # largest ROT pool (elements) of a v3 blocking plan this run
+        self.max_rot_pool = 0
+        # boundaries; the final MPO bond symbol may carry a nonzero charge
+        # (site MPOs like c/c+ change particle number: bra target differs)
+        vac = self.g.zero
+        lb = BlockMatrix(self.g, vac)
+        lb.add_block(vac, vac, np.ones((1, 1)))
+        self.left_envs[0] = {0: lb}
+        tk = ket.info.target
+        tb = self.bra.info.target
+        dq_fin = mpo.bond_dqs[L][0]
+        assert self.g.add(tk, dq_fin) == tb or self.bra is ket, \
+            "bra target must equal ket target + MPO charge"
+        rb = BlockMatrix(self.g, self.g.sub(tb, tk))
+        rb.add_block(tb, tk, np.ones((1, 1)))
+        self.right_envs[L] = {0: rb}
+
+    # ------------------------------------------------------------------
+    def init_environments(self) -> None:
+        """Build all right environments down to bond 1 (for a forward sweep
+        starting at center 0; reference moving_environment.hpp:1245)."""
+        for t in range(self.mpo.n_sites - 1, 0, -1):
+            self.update_right(t)
+
+    def update_left(self, t: int) -> None:
+        if self.device is not None:
+            self._stk_contract(t, "left")
+        else:
+            self.left_envs[t + 1] = self._left_contract(t)
+
+    def update_right(self, t: int) -> None:
+        if self.device is not None:
+            self._stk_contract(t, "right")
+        else:
+            self.right_envs[t] = self._right_contract(t)
+
+    def invalidate_left(self, t: int) -> None:
+        for i in range(t + 1, len(self.left_envs)):
+            self.left_envs[i] = None
+            self._stk_l.pop(i, None)
+
+    def invalidate_right(self, t: int) -> None:
+        for i in range(t, -1, -1):
+            self.right_envs[i] = None
+            self._stk_r.pop(i, None)
+
+    # ------------------------------------------------------------------
+    # device pools
+    # ------------------------------------------------------------------
+    def device_pool(self, side: str, bond: int):
+        """(meta, device pool) of a bond.  A bond without a pool must be
+        an edge boundary with a host map, which is packed and uploaded."""
+        import torch
+
+        from ..ops.stacked import env_pool
+        store = self._stk_l if side == "l" else self._stk_r
+        ent = store.get(bond)
+        if ent is not None:
+            return ent
+        envs = self.left_envs if side == "l" else self.right_envs
+        env = list.__getitem__(envs, bond)
+        if not isinstance(env, dict):
+            raise RuntimeError(f"no environment at bond {bond} ({side})")
+        meta, pool = env_pool(env, self.mpo.bond_dqs[bond], self.dtype)
+        ent = (meta, torch.as_tensor(pool, device=self.device))
+        store[bond] = ent
+        return ent
+
+    def free_pool(self, side: str, bond: int) -> None:
+        """Drop a consumed bond's device pool that the sweep no longer
+        needs (an edge boundary is re-packed from its host map on the next
+        use)."""
+        store = self._stk_l if side == "l" else self._stk_r
+        if store.pop(bond, None) is None:
+            return
+        envs = self.left_envs if side == "l" else self.right_envs
+        if list.__getitem__(envs, bond) is _STK:
+            list.__setitem__(envs, bond, None)
+
+    def _materialize(self, side: str, t: int) -> EnvMap:
+        meta, pool = (self._stk_l if side == "l" else self._stk_r)[t]
+        self.host_env_materialized += 1
+        return meta.unpack(pool.cpu().numpy(), self.g, None)
+
+    def _stk_plan_for(self, t: int, direction: str, meta_in):
+        """The device blocking plan of one bond, cached by structure
+        signature.  On a signature hit the plan's captured site-tensor
+        values are refreshed: sweeps that have converged in shape would
+        otherwise contract stale rotation matrices and settle ~1e-6 off
+        (reference :329-340)."""
+        from ..ops.blockv2 import build_blocking_v2
+        from ..ops.stacked import refresh_plan_sites
+        left = direction == "left"
+        src_bond = t if left else t + 1
+        key = (t, direction)
+        sig = hash((
+            tuple((dq, tuple(ss)) for dq, ss in meta_in.groups),
+            tuple(tuple(sorted(s.items())) for s in meta_in.sectors),
+            tuple(sorted((k, b.shape) for k, b in
+                         self.bra.tensors[t].blocks.items())),
+            tuple(sorted((k, b.shape) for k, b in
+                         self.ket.tensors[t].blocks.items()))))
+        cached = self._stk_plans.get(key)
+        if cached is not None and cached[0] == sig:
+            plan = cached[1]
+            refresh_plan_sites(plan, self.bra.tensors[t],
+                               self.ket.tensors[t], self.mpo.site_quanta[t])
+        else:
+            plan = build_blocking_v2(
+                meta_in, self.mpo.tensors[t], self.mpo.site_quanta[t],
+                self.bra.tensors[t], self.ket.tensors[t], self.g,
+                direction, self.mpo.bond_dqs[src_bond],
+                self.mpo.bond_dqs[t + 1 if left else t], gemm_mix=True)
+            if plan is None:
+                raise RuntimeError(
+                    f"no device blocking plan for bond {t} {direction} "
+                    "(no contributions)")
+            self._stk_plans[key] = (sig, plan)
+        return plan
+
+    def _stk_contract(self, t: int, direction: str) -> None:
+        """One blocking step on the device: source bond pool -> plan ->
+        kernels K5 (+ K3 for v3 plans) -> destination bond pool."""
+        from ..ops.blockv2 import (BlockingV3Plan, execute_blocking_v2,
+                                   execute_blocking_v3)
+        left = direction == "left"
+        side = "l" if left else "r"
+        src_bond = t if left else t + 1
+        meta_in, pool_in = self.device_pool(side, src_bond)
+        plan = self._stk_plan_for(t, direction, meta_in)
+        if isinstance(plan, BlockingV3Plan):
+            self.max_rot_pool = max(self.max_rot_pool, plan.rot_total)
+            pool_out = execute_blocking_v3(plan, pool_in)
+        else:
+            pool_out = execute_blocking_v2(plan, pool_in)
+        dst = t + 1 if left else t
+        if left:
+            self._stk_l[dst] = (plan.meta_out, pool_out)
+            list.__setitem__(self.left_envs, dst, _STK)
+        else:
+            self._stk_r[dst] = (plan.meta_out, pool_out)
+            list.__setitem__(self.right_envs, dst, _STK)
+
+    # ------------------------------------------------------------------
+    # host blocking (backend="numpy")
+    # ------------------------------------------------------------------
+    def _contract_planned(self, env, t: int, direction: str,
+                          dq_out) -> EnvMap:
+        """Plan-cached blocking (ConnectionInfo-style reuse across sweeps)."""
+        from ..ops.blocking_plan import (build_plan, execute_plan_native,
+                                         execute_plan_numpy,
+                                         structure_signature)
+        if not hasattr(self, "_plan_cache"):
+            self._plan_cache = {}
+        bra_T = self.bra.tensors[t]
+        ket_T = self.ket.tensors[t]
+        sig = structure_signature(env, (t, direction), bra_T, ket_T)
+        key = (t, direction)
+        cached = self._plan_cache.get(key)
+        if cached is None or cached[0] != sig:
+            plan = build_plan(env, self.mpo.tensors[t],
+                              self.mpo.site_quanta[t], bra_T, ket_T,
+                              dq_out, self.g, direction)
+            self._plan_cache[key] = (sig, plan)
+        else:
+            plan = cached[1]
+        if plan is None:
+            return {}
+        dt = self._dtype_of(env, t)
+        if dt == np.float64:
+            out = execute_plan_native(plan, env, bra_T, ket_T, self.g)
+            if out is not None:
+                return out
+        return execute_plan_numpy(plan, env, bra_T, ket_T, self.g,
+                                  dtype=dt)
+
+    def _dtype_of(self, env, t):
+        dt = np.float64
+        for bm in env.values():
+            for b in bm.blocks.values():
+                dt = np.result_type(dt, b.dtype)
+                break
+            break
+        # scan every MPO entry: a site can mix real and complex operators
+        for w in self.mpo.tensors[t].values():
+            dt = np.result_type(dt, w.dtype)
+        for T in (self.bra.tensors[t], self.ket.tensors[t]):
+            for b in T.blocks.values():
+                dt = np.result_type(dt, b.dtype)
+                break
+        return dt
+
+    def _left_contract(self, t: int) -> EnvMap:
+        """E_L[t+1][o] = sum_i A_t^dag (E_L[t][i] (x) W_t[(i,o)]) A_t."""
+        env = self.left_envs[t]
+        assert env is not None
+        return self._contract_planned(env, t, "left",
+                                      self.mpo.bond_dqs[t + 1])
+
+    def _right_contract(self, t: int) -> EnvMap:
+        """E_R[t][i] = sum_o B_t (E_R[t+1][o] (x) W_t[(i,o)]) B_t^dag."""
+        g = self.g
+        env = self.right_envs[t + 1]
+        assert env is not None
+        dq_out = [g.sub(self.mpo.bond_dqs[-1][0], dq)
+                  for dq in self.mpo.bond_dqs[t]]
+        return self._contract_planned(env, t, "right", dq_out)

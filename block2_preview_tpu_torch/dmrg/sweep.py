@@ -1,43 +1,266 @@
-"""Two-site DMRG on the port's device-resident step.
+"""Two-site ground-state DMRG sweeps of the port.
 
-``DMRG`` subclasses the reference driver (block2_preview_tpu/dmrg/
-sweep.py:379) and replaces ``update_two_dot`` (reference :710-889): every
-two-site step runs through the port's :class:`ResidentSite` — LW/RW mix,
-diagonal, sigma matvec and Davidson on the device, for every site and
-size.  The rest of the step is the reference's host code: environment
-blocking (the host environment maps of backend="numpy"), the perturbative
-noise term (from LW/RW downloaded by ``host_ops``) and the decimation.
-Those are this slice's boundary, not fallbacks.
+Copied from block2_preview_tpu/dmrg/sweep.py (reference
+src/dmrg/sweep_algorithm.hpp:71: update_two_dot at :811, sweep :2551,
+solve :3032) and cut to the SZ two-site single-root Hermitian ground
+state.  One class, two paths:
+
+* ``backend="numpy"``: the reference's host path unchanged — host
+  environment maps, host LW/RW assembly, the host Davidson and the host
+  noise term.  It is the oracle the device path is held to.
+* ``backend="torch_resident"`` (default) on ``device`` (default "cuda";
+  the CPU only when asked for): every two-site step runs through
+  :class:`ResidentSite` — environment pools and blocking (K5 + K3), LW/RW
+  mix (K3 + K4), diagonal (K2), sigma matvec (K1) inside the device
+  Davidson, and the perturbative-noise density matrix (K6).  Only the
+  center wavefunction, the initial guess, the small noise density matrix
+  and scalars cross between host and device: the reference's jax_resident
+  contract (ops/resident.py:1166-1170).  ``host_env_materialized`` and
+  ``host_ops_downloads`` count the device-to-host unpacks of environments
+  and of LW/RW; both stay 0 on this path.
 
 Guards carried from the reference (sweep.py:752-790): in float32 a Ritz
 pair whose residual ``||Hx - th x||`` exceeds 1.0 Ha is rejected, as is a
 site energy below B2TPU_E_FLOOR when that is set.  On a CUDA device a
-rejected pair raises, naming the site, theta and the failed check.  Only on
-CPU tensors is the site redone by the reference's host solver in
-float64; each such redo adds one to ``host_redo_count``.
+rejected pair raises, naming the site, theta and the failed check.  Only
+on CPU tensors is the site redone by the host solver in float64; each
+such redo adds one to ``host_redo_count``.
+
+Density-matrix decimation with perturbative noise follows the reference
+(moving_environment.hpp density_matrix / split_density_matrix;
+effective_hamiltonian.hpp:253 perturbative_noise).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import List, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from block2_preview_tpu.dmrg.effective import EffectiveHamiltonian2
-from block2_preview_tpu.dmrg.sweep import (DMRG as _RefDMRG,
-                                           _bond_window, _eff_flops,
-                                           split_backward_update,
-                                           split_forward_update)
-
-from ..ops.resident import ResidentSite
-from ..runtime import resolve_device, torch_dtype
-
+from ..core.symmetry import QN
+from ..ops.davidson import davidson
+from .effective import EffectiveHamiltonian2, Key2
+from .environment import MovingEnvironment
+from .mpo import MPO
+from .mps import MPS, MPSTensor
 
 # f32 Ritz guard: a spurious f32 Ritz pair has a residual at least its
 # eigenvalue error (Ha-scale); a true one sits at the f32 convergence floor
 _GUARD_HA = 1.0
+# density-matrix eigenvalues at or below this share of the trace are
+# dropped (the reference's default trunc_cutoff)
+_TRUNC_CUTOFF = 1e-16
+
+
+@dataclass
+class SweepTimings:
+    """Per-phase wall-clock accumulators (reference sweep_algorithm.hpp
+    teig/teff/tdm/tblk counters printed at :3128-3180)."""
+    teff: float = 0.0       # effective-H set-up (spaces, plans, LW/RW, diag)
+    teig: float = 0.0       # Davidson / eigensolver
+    tdm: float = 0.0        # density matrix (noise term) + decimation
+    tblk: float = 0.0       # environment move (blocking)
+
+    def reset(self):
+        self.teff = self.teig = self.tdm = self.tblk = 0.0
+
+    def line(self) -> str:
+        return (f"Teff = {self.teff:8.2f} | Teig = {self.teig:8.2f} | "
+                f"Tdm = {self.tdm:8.2f} | Tblk = {self.tblk:8.2f}")
+
+
+def _apply_noise(rho: Dict[QN, np.ndarray], rho_n: Dict,
+                 noise: float) -> Dict[QN, np.ndarray]:
+    """Add the trace-normalized noise density matrix (reference
+    moving_environment.hpp density-matrix + noise scaling)."""
+    tr = sum(np.trace(v).real for v in rho_n.values())
+    if tr > 1e-30:
+        for q, v in rho_n.items():
+            blk = rho.get(q)
+            add = (noise / tr) * v
+            rho[q] = add if blk is None else blk + add
+    return rho
+
+
+def _average_rho_forward(eff: EffectiveHamiltonian2,
+                         psis: Sequence[Dict[Key2, np.ndarray]],
+                         weights: Sequence[float],
+                         noise: float,
+                         rho_noise: Optional[Dict] = None
+                         ) -> Dict[QN, np.ndarray]:
+    g, target = eff.g, eff.target
+    rho: Dict[QN, np.ndarray] = {}
+    for w_r, psi in zip(weights, psis):
+        for (qL, qR), b in psi.items():
+            acc = rho.get(qL)
+            contrib = w_r * (b @ b.conj().T)
+            rho[qL] = contrib if acc is None else acc + contrib
+    if noise > 0 and rho_noise is not None:
+        # device-computed sum_m (W_m psi)(W_m psi)^T (kernel K6)
+        return _apply_noise(rho, rho_noise, noise)
+    if noise > 0:
+        rho_n: Dict[QN, np.ndarray] = {}
+        for w_r, psi in zip(weights, psis):
+            for m, lw in eff.LW.items():
+                xs: Dict[Tuple[QN, QN], np.ndarray] = {}
+                for (qLb, qLk), blk in lw.items():
+                    pk = (qLk, g.sub(target, qLk))
+                    if pk not in psi:
+                        continue
+                    x = blk @ psi[pk]
+                    key = (qLb, pk[1])
+                    xs[key] = xs.get(key, 0) + x
+                for (qLb, _), x in xs.items():
+                    acc = rho_n.get(qLb)
+                    contrib = w_r * (x @ x.conj().T)
+                    rho_n[qLb] = contrib if acc is None else acc + contrib
+        rho = _apply_noise(rho, rho_n, noise)
+    return rho
+
+
+def _average_rho_backward(eff: EffectiveHamiltonian2,
+                          psis: Sequence[Dict[Key2, np.ndarray]],
+                          weights: Sequence[float],
+                          noise: float,
+                          rho_noise: Optional[Dict] = None
+                          ) -> Dict[QN, np.ndarray]:
+    g, target = eff.g, eff.target
+    rho: Dict[QN, np.ndarray] = {}
+    for w_r, psi in zip(weights, psis):
+        for (qL, qR), b in psi.items():
+            acc = rho.get(qR)
+            contrib = w_r * (b.T @ b.conj())
+            rho[qR] = contrib if acc is None else acc + contrib
+    if noise > 0 and rho_noise is not None:
+        return _apply_noise(rho, rho_noise, noise)
+    if noise > 0:
+        rho_n: Dict[QN, np.ndarray] = {}
+        for w_r, psi in zip(weights, psis):
+            for m, rw in eff.RW.items():
+                xs: Dict[Tuple[QN, QN], np.ndarray] = {}
+                for (qRb, qRk), blk in rw.items():
+                    pk = (g.sub(target, qRk), qRk)
+                    if pk not in psi:
+                        continue
+                    x = psi[pk] @ blk.T
+                    key = (pk[0], qRb)
+                    xs[key] = xs.get(key, 0) + x
+                for (_, qRb), x in xs.items():
+                    acc = rho_n.get(qRb)
+                    contrib = w_r * (x.T @ x.conj())
+                    rho_n[qRb] = contrib if acc is None else acc + contrib
+        rho = _apply_noise(rho, rho_n, noise)
+    return rho
+
+
+def _decimate(rho: Dict[QN, np.ndarray], bond_dim: int
+              ) -> Tuple[Dict[QN, np.ndarray], float]:
+    eigs: List[Tuple[float, QN, int]] = []
+    vecs: Dict[QN, np.ndarray] = {}
+    for q, r in rho.items():
+        w, v = np.linalg.eigh(0.5 * (r + r.conj().T))
+        vecs[q] = v
+        for i, x in enumerate(w):
+            eigs.append((float(x.real), q, i))
+    eigs.sort(key=lambda z: -z[0])
+    total = sum(max(x, 0.0) for x, _, _ in eigs)
+    kept: Dict[QN, List[int]] = {}
+    kept_w = 0.0
+    for (x, q, i) in eigs[:bond_dim]:
+        if x <= max(_TRUNC_CUTOFF * max(total, 1e-300), 0.0):
+            break
+        kept.setdefault(q, []).append(i)
+        kept_w += x
+    rot: Dict[QN, np.ndarray] = {}
+    for q, idxs in kept.items():
+        rot[q] = vecs[q][:, idxs]
+    dw = max(0.0, (total - kept_w) / max(total, 1e-300))
+    return rot, dw
+
+
+def split_forward_update(eff, psis, weights, noise, bond_dim,
+                         rho_noise=None):
+    """Decimate psis into a left-canonical site tensor + per-root center
+    tensors at t+1.  Returns (A_tensor, center_tensors, dw)."""
+    g, target = eff.g, eff.target
+    rho = _average_rho_forward(eff, psis, weights, noise,
+                               rho_noise=rho_noise)
+    rot, dw = _decimate(rho, bond_dim)
+    a_blocks: Dict[Tuple[QN, QN, QN], np.ndarray] = {}
+    for qL, vmat in rot.items():
+        for (ql, qp, off, dl, dp) in eff.fl.maps[qL]:
+            a_blocks[(ql, qp, qL)] = vmat[off:off + dl * dp, :] \
+                .reshape(dl, dp, -1)
+    centers = []
+    for psi in psis:
+        c_blocks: Dict[Tuple[QN, QN, QN], np.ndarray] = {}
+        for qL, vmat in rot.items():
+            qR = g.sub(target, qL)
+            pk = (qL, qR)
+            if pk not in psi:
+                continue
+            mmat = vmat.conj().T @ psi[pk]
+            for (qp, qc2, off, dp, db) in eff.fr.maps[qR]:
+                qr2 = g.sub(target, qc2)
+                blk = mmat[:, off:off + dp * db].reshape(-1, dp, db)
+                key = (qL, qp, qr2)
+                c_blocks[key] = c_blocks.get(key, 0) + blk
+        centers.append(MPSTensor(g, c_blocks))
+    return MPSTensor(g, a_blocks), centers, dw
+
+
+def split_backward_update(eff, psis, weights, noise, bond_dim,
+                          rho_noise=None):
+    """Decimate psis into a right-canonical site tensor at t+1 + per-root
+    center tensors at t.  Returns (B_tensor, center_tensors, dw)."""
+    g, target = eff.g, eff.target
+    rho = _average_rho_backward(eff, psis, weights, noise,
+                                rho_noise=rho_noise)
+    rot, dw = _decimate(rho, bond_dim)
+    b_blocks: Dict[Tuple[QN, QN, QN], np.ndarray] = {}
+    for qR, vmat in rot.items():
+        ql_new = g.sub(target, qR)
+        for (qp, qc2, off, dp, db) in eff.fr.maps[qR]:
+            qr2 = g.sub(target, qc2)
+            b_blocks[(ql_new, qp, qr2)] = vmat[off:off + dp * db, :] \
+                .T.reshape(-1, dp, db)
+    centers = []
+    for psi in psis:
+        c_blocks: Dict[Tuple[QN, QN, QN], np.ndarray] = {}
+        for qR, vmat in rot.items():
+            qL = g.sub(target, qR)
+            pk = (qL, qR)
+            if pk not in psi:
+                continue
+            mmat = psi[pk] @ vmat.conj()
+            for (ql, qp, off, dl, dp) in eff.fl.maps[qL]:
+                blk = mmat[off:off + dl * dp, :].reshape(dl, dp, -1)
+                key = (ql, qp, qL)
+                c_blocks[key] = c_blocks.get(key, 0) + blk
+        centers.append(MPSTensor(g, c_blocks))
+    return MPSTensor(g, b_blocks), centers, dw
+
+
+@dataclass
+class SweepResults:
+    energies: List[np.ndarray] = field(default_factory=list)
+    discarded: List[float] = field(default_factory=list)
+    n_matvec: int = 0
+    n_flop: float = 0.0      # true (unpadded) sigma-matvec FLOPs
+
+
+def _eff_flops(eff) -> float:
+    """True FLOPs of one host sigma matvec (reference
+    BatchGEMMSeq::cumulative_nflop, sweep_algorithm.hpp:3128)."""
+    fl = 0
+    for (m, lk, pk, rk, ok) in eff.triples:
+        a, k = eff.LW[m][lk].shape
+        p, n = eff.RW[m][rk].shape
+        fl += 2 * a * k * n + 2 * a * n * p
+    return float(fl)
 
 
 class _DeviceEigenRejected(Exception):
@@ -45,42 +268,78 @@ class _DeviceEigenRejected(Exception):
     the host solver."""
 
 
-class DMRG(_RefDMRG):
-    """SZ two-site ground-state DMRG with the effective-Hamiltonian step
-    on ``device`` (explicit: 'cuda', 'cuda:0' or 'cpu')."""
+class DMRG:
+    """SZ two-site single-root ground-state DMRG (reference
+    sweep_algorithm.hpp:71)."""
 
-    def __init__(self, mpo, mps, device, dtype=np.float64, iprint: int = 1,
-                 dav_max_iter: int = 200, **kw):
-        for k in ("backend", "n_roots", "hermitian", "proj_mpss", "mesh"):
-            if k in kw:
-                raise TypeError(f"{k!r} is not supported by the port "
-                                "(single-root Hermitian ground state)")
-        torch_dtype(dtype)
-        self.device = resolve_device(device)
-        # backend="numpy": host environment maps, no JAX anywhere
-        super().__init__(mpo, mps, backend="numpy", iprint=iprint,
-                         dtype=dtype, dav_max_iter=dav_max_iter, **kw)
-        self.backend = "torch_resident"
-        self._res_caches = {}
+    def __init__(self, mpo: MPO, mps: MPS, device="cuda",
+                 backend: str = "torch_resident", dtype=np.float64,
+                 iprint: int = 1, dav_max_iter: int = 200):
+        if backend not in ("torch_resident", "numpy"):
+            raise ValueError(f"unknown backend '{backend}' "
+                             "(torch_resident | numpy)")
+        self.mpo = mpo
+        self.mps = mps
+        self.backend = backend
+        self.dtype = dtype
+        self.iprint = iprint
+        self.dav_max_iter = dav_max_iter
+        self.weights = [1.0]
         self.host_redo_count = 0
         # per sweep: (energy, wall s, teff, teig, tdm, tblk)
         self.sweep_log: List[Tuple[float, ...]] = []
+        if backend == "numpy":
+            self.device = None
+            self.me = MovingEnvironment(mpo, mps)
+        else:
+            from ..runtime import resolve_device, torch_dtype
+            torch_dtype(dtype)
+            self.device = resolve_device(device)
+            self._res_caches: Dict = {}
+            self.me = MovingEnvironment(mpo, mps, device=self.device,
+                                        dtype=dtype)
+        self.me.init_environments()
+        self.energies: List[np.ndarray] = []
+        self.discarded_weights: List[float] = []
+        self.timings = SweepTimings()
+        # center wavefunction tensors; None means "use the MPS center
+        # tensor" (cold start)
+        self._center_tensors: Optional[List[MPSTensor]] = None
+        self._center_pos = -1
 
-    def sweep(self, forward: bool, bond_dim: int, noise: float,
-              dav_thrd: float, dot: int = 2):
-        tm = self.timings
-        before = (tm.teff, tm.teig, tm.tdm, tm.tblk)
-        t0 = time.time()
-        res = super().sweep(forward, bond_dim, noise, dav_thrd, dot=dot)
-        wall = time.time() - t0
-        after = (tm.teff, tm.teig, tm.tdm, tm.tblk)
-        e = float(np.stack(res.energies).min()) if res.energies \
-            else float("nan")
-        self.sweep_log.append((e, wall) + tuple(
-            a - b for a, b in zip(after, before)))
-        return res
+    @property
+    def host_env_materialized(self) -> int:
+        """Device environment pools unpacked to host maps (downloads)."""
+        return self.me.host_env_materialized
 
-    def _guard(self, rs: ResidentSite, th: float, xv: np.ndarray, t: int):
+    @property
+    def host_ops_downloads(self) -> int:
+        """Assembled LW/RW pools downloaded to the host."""
+        return self.me.host_ops_downloads
+
+    # ------------------------------------------------------------------
+    def _initial_guesses(self, eff: EffectiveHamiltonian2, t: int
+                         ) -> np.ndarray:
+        if self._center_tensors is not None and \
+                self._center_pos in (t, t + 1):
+            ct = self._center_tensors[0]
+            g0 = (eff.initial_guess(tensor_l=ct) if self._center_pos == t
+                  else eff.initial_guess(tensor_r=ct))
+        else:
+            g0 = eff.initial_guess()
+        x0 = eff.flatten(g0)[:, None]
+        nrm = np.linalg.norm(x0[:, 0])
+        if nrm < 1e-14:
+            x0[:, 0] = np.random.RandomState(7).standard_normal(eff.size)
+            nrm = np.linalg.norm(x0[:, 0])
+        x0[:, 0] /= nrm
+        return x0
+
+    def _solve_eff(self, eff: EffectiveHamiltonian2, x0, diag, dav_thrd):
+        return davidson(eff.matvec_np, diag, x0, n_roots=1,
+                        conv_thrd=dav_thrd, max_iter=self.dav_max_iter)
+
+    def _guard(self, rs, th: float, xv: np.ndarray, t: int):
         """Check the eigenpair of site t against the f32 Ritz-residual
         guard and the variational floor.  A failure raises RuntimeError on
         a CUDA device and _DeviceEigenRejected on CPU tensors."""
@@ -105,49 +364,63 @@ class DMRG(_RefDMRG):
                   flush=True)
         raise _DeviceEigenRejected(msg)
 
-    def update_two_dot(self, t: int, forward: bool, bond_dim: int,
-                       noise: float, dav_thrd: float):
-        tm = self.timings
-        t0 = time.time()
-        eff = EffectiveHamiltonian2(
-            self.me, t, key_filter=_bond_window(self.mps.info, t + 1),
-            assemble=False)
+    def _eigen_host(self, t: int, dav_thrd: float):
+        """Host path of one site: assembled eff, host Davidson."""
+        eff = EffectiveHamiltonian2(self.me, t)
+        x0 = self._initial_guesses(eff, t)
+        diag = eff.diagonal()
+        t1 = time.time()
+        w, v, nmv = self._solve_eff(eff, x0, diag, dav_thrd)
+        self._last_flop = _eff_flops(eff) * nmv
+        return eff, t1, w, v, nmv, None
+
+    def _eigen_device(self, t: int, noise: float, forward: bool,
+                      dav_thrd: float):
+        """Device path of one site: ResidentSite, device Davidson, and the
+        device noise density matrix when noise > 0."""
+        from ..ops.resident import ResidentSite
+        eff = EffectiveHamiltonian2(self.me, t, assemble=False)
         rs = ResidentSite(self.me, eff, self.device, dtype=self.dtype,
                           caches=self._res_caches)
         x0 = self._initial_guesses(eff, t)
         t1 = time.time()
-        tm.teff += t1 - t0
         th, xv, nmv = rs.solve_ground_state(
             x0[:, 0], conv_thrd=dav_thrd,
-            max_iter=self.dav_soft_max_iter or self.dav_max_iter)
+            max_iter=self.dav_max_iter)
         try:
             self._guard(rs, th, xv, t)
         except _DeviceEigenRejected:
-            # CPU tensors only: the reference's host solver redoes the site
+            # CPU tensors only: the host solver redoes the site in f64
             self.host_redo_count += 1
             eff.ensure_assembled()
             w, v, nmv = self._solve_eff(eff, x0, eff.diagonal(), dav_thrd)
             self._last_flop = _eff_flops(eff) * nmv
+            return eff, t1, w, v, nmv, None
+        self._last_flop = float(rs.ex.struct["flops"]) * nmv
+        return eff, t1, np.array([th]), xv[:, None], nmv, rs
+
+    def update_two_dot(self, t: int, forward: bool, bond_dim: int,
+                       noise: float, dav_thrd: float):
+        tm = self.timings
+        t0 = time.time()
+        if self.backend == "numpy":
+            eff, t1, w, v, nmv, rs = self._eigen_host(t, dav_thrd)
         else:
-            w, v = np.array([th]), xv[:, None]
-            self._last_flop = float(rs.ex.struct["flops"]) * nmv
-            if noise > 0:
-                # host noise term from the downloaded LW/RW operators
-                if forward:
-                    eff.LW = rs.host_ops("lw")
-                else:
-                    eff.RW = rs.host_ops("rw")
+            eff, t1, w, v, nmv, rs = self._eigen_device(t, noise, forward,
+                                                        dav_thrd)
+        tm.teff += t1 - t0
         t2 = time.time()
         tm.teig += t2 - t1
+        # the noise term: on the device from the converged psi (K6); the
+        # host path (and a host redo) forms it from the host LW/RW
+        rho_noise = (rs.noise_rho(v[:, 0], forward)
+                     if rs is not None and noise > 0 else None)
         energies = w[:1] + self.mpo.const_e
         psis = [eff.unflatten(v[:, 0])]
-        spectra = [] if self.store_wfn_spectra else None
         if forward:
             a_tensor, centers, dw = split_forward_update(
                 eff, psis, self.weights, noise, bond_dim,
-                allowed=_bond_window(self.mps.info, t + 1),
-                decomp_type=self.decomp_type,
-                trunc_cutoff=self.trunc_cutoff, keep_out=spectra)
+                rho_noise=rho_noise)
             t3 = time.time()
             tm.tdm += t3 - t2
             self.mps.tensors[t] = a_tensor
@@ -156,13 +429,12 @@ class DMRG(_RefDMRG):
             self._center_pos = t + 1
             self.me.update_left(t)
             self.me.invalidate_right(t + 1)
+            # the consumed right pool is dead for this sweep
+            self.me.free_pool("r", t + 2)
         else:
             b_tensor, centers, dw = split_backward_update(
                 eff, psis, self.weights, noise, bond_dim,
-                allowed=_bond_window(self.mps.info, t + 1,
-                                     complement_of=eff.target),
-                decomp_type=self.decomp_type,
-                trunc_cutoff=self.trunc_cutoff, keep_out=spectra)
+                rho_noise=rho_noise)
             t3 = time.time()
             tm.tdm += t3 - t2
             self.mps.tensors[t + 1] = b_tensor
@@ -171,7 +443,73 @@ class DMRG(_RefDMRG):
             self._center_pos = t
             self.me.update_right(t + 1)
             self.me.invalidate_left(t)
-        if spectra:
-            self.wfn_spectra.append(spectra[0])
+            self.me.free_pool("l", t)
+        if self.device is not None and self.device.type == "cuda":
+            # blocking only enqueues K5/K3: wait for them, so that Tblk
+            # holds their device time rather than the next site's Teff
+            import torch
+            torch.cuda.synchronize(self.device)
         tm.tblk += time.time() - t3
         return energies, dw, nmv
+
+    # ------------------------------------------------------------------
+    def sweep(self, forward: bool, bond_dim: int, noise: float,
+              dav_thrd: float) -> SweepResults:
+        L = self.mpo.n_sites
+        res = SweepResults()
+        tm = self.timings
+        before = (tm.teff, tm.teig, tm.tdm, tm.tblk)
+        t0 = time.time()
+        for t in (range(L - 1) if forward else range(L - 2, -1, -1)):
+            tsite = time.time()
+            e, dw, nmv = self.update_two_dot(t, forward, bond_dim, noise,
+                                             dav_thrd)
+            res.energies.append(e)
+            res.discarded.append(dw)
+            res.n_matvec += nmv
+            res.n_flop += self._last_flop
+            if self.iprint >= 2:
+                estr = " ".join(f"{x:.12f}" for x in e)
+                print(f"   {'-->' if forward else '<--'} site {t:3d} "
+                      f"E = {estr}  dw = {dw:.2e}  nmv = {nmv}  "
+                      f"t = {time.time() - tsite:.2f}s", flush=True)
+        after = (tm.teff, tm.teig, tm.tdm, tm.tblk)
+        self.sweep_log.append(
+            (float(np.stack(res.energies).min()), time.time() - t0)
+            + tuple(a - b for a, b in zip(after, before)))
+        return res
+
+    def solve(self, bond_dims: List[int], noises: List[float],
+              dav_thrds: List[float], n_sweeps: int = 20,
+              tol: float = 1e-8) -> float:
+        def sched(lst, i):
+            return lst[min(i, len(lst) - 1)]
+
+        # start away from the current center: a previous solve() that
+        # converged on a forward sweep leaves the center at the right end
+        forward = self._center_pos <= 0
+        last_e = np.full(1, np.inf)
+        for isw in range(n_sweeps):
+            bd = sched(bond_dims, isw)
+            ns = sched(noises, isw)
+            dt = sched(dav_thrds, isw)
+            res = self.sweep(forward, bd, ns, dt)
+            e = np.stack(res.energies).min(axis=0)
+            dw = max(res.discarded) if res.discarded else 0.0
+            self.energies.append(e)
+            self.discarded_weights.append(dw)
+            if self.iprint >= 1:
+                gfs = res.n_flop / max(self.timings.teig, 1e-9) / 1e9
+                print(f"sweep {isw:3d} {'F' if forward else 'B'} D={bd:5d} "
+                      f"noise={ns:.1e}  E = {e[0]:.12f}  "
+                      f"dE = {np.max(np.abs(e - last_e)):+.3e} "
+                      f" dw = {dw:.2e}  nmv = {res.n_matvec}  "
+                      f"FLOP/SWP = {res.n_flop:.3e} ({gfs:.1f} GF/s)")
+                if self.iprint >= 2:
+                    print("    " + self.timings.line(), flush=True)
+                self.timings.reset()
+            if np.max(np.abs(e - last_e)) < tol and ns == 0:
+                break
+            last_e = e
+            forward = not forward
+        return float(self.energies[-1][0]) if self.energies else np.nan

@@ -1,46 +1,122 @@
-"""DMRGDriver of the port: the reference driver with ``dmrg`` running the
-port's device-resident DMRG.
+"""DMRGDriver of the port: the user-facing API.
 
-Usage is the reference's (pyblock2 style):
+Copied from block2_preview_tpu/driver/core.py (reference
+pyblock2/driver/core.py:544: initialize_system at :854, get_qc_mpo at :3282
+with FastBipartite, get_mpo at :3885, dmrg at :4437, get_random_mps at
+:7494) and cut to what the SZ two-site ground state needs.  The other
+methods of the reference driver come back with their slices (ROADMAP).
 
     drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
     drv.initialize_system(n_sites=8, n_elec=8, spin=0)
     mpo = drv.get_qc_mpo(h1e=h1e, g2e=g2e, ecore=ecore)
     ket = drv.get_random_mps(bond_dim=80)
-    energy = drv.dmrg(mpo, ket, bond_dims=[80], device="cuda")
+    energy = drv.dmrg(mpo, ket, bond_dims=[80])      # on the CUDA card
 
-MPO and MPS construction are the reference's host code, unchanged.
+``dmrg`` runs on the card unless the caller asks for the CPU
+(``device="cpu"``) or for the host reference (``backend="numpy"``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import enum
+from typing import Optional, Sequence
 
 import numpy as np
 
-from block2_preview_tpu.driver.core import DMRGDriver as _RefDMRGDriver
-from block2_preview_tpu.driver.core import SymmetryTypes
-
+from ..core.expr import TermTable, qc_term_table
+from ..core.fcidump import FCIDUMP
+from ..core.symmetry import SZ_GROUP, SymmetryGroup
+from ..dmrg.mpo import MPO
+from ..dmrg.mpo_builder import build_mpo
+from ..dmrg.mps import MPS, MPSInfo
 from ..dmrg.sweep import DMRG
+from ..ops.local_ops import SZ_SITE
 
 __all__ = ["DMRGDriver", "SymmetryTypes"]
 
 
-class DMRGDriver(_RefDMRGDriver):
-    def dmrg(self, mpo, ket, bond_dims: Sequence[int] = (250,),
+class SymmetryTypes(enum.Enum):
+    """Mirrors reference pyblock2/driver/core.py:25 (the port runs SZ)."""
+    SZ = "sz"
+
+
+class DMRGDriver:
+    def __init__(self, symm_type: SymmetryTypes = SymmetryTypes.SZ):
+        if symm_type != SymmetryTypes.SZ:
+            raise NotImplementedError("the port runs SZ symmetry only")
+        self.symm_type = symm_type
+        self.group: SymmetryGroup = SZ_GROUP
+        self.spec = SZ_SITE
+        self.n_sites = 0
+        self.n_elec = 0
+        self.spin = 0
+        self.pg_irrep = 0
+        self.orb_sym: Optional[np.ndarray] = None
+
+    def initialize_system(self, n_sites: int, n_elec: int = 0, spin: int = 0,
+                          orb_sym: Optional[Sequence[int]] = None,
+                          pg_irrep: int = 0) -> None:
+        """reference pyblock2/driver/core.py:854."""
+        self.n_sites = n_sites
+        self.n_elec = n_elec
+        self.spin = spin
+        self.pg_irrep = pg_irrep
+        self.orb_sym = (np.zeros(n_sites, dtype=np.int64)
+                        if orb_sym is None else np.asarray(orb_sym))
+
+    @property
+    def target(self):
+        return (self.n_elec, self.spin, self.pg_irrep)
+
+    # ------------------------------------------------------------------
+    def read_fcidump(self, filename: str) -> FCIDUMP:
+        fd = FCIDUMP.parse(filename)
+        self.initialize_system(fd.n_sites, fd.n_elec, fd.twos,
+                               orb_sym=fd.orb_sym, pg_irrep=fd.ipg)
+        return fd
+
+    def get_qc_mpo(self, h1e=None, g2e=None, ecore: float = 0.0,
+                   fcidump: Optional[FCIDUMP] = None,
+                   cutoff: float = 1e-13) -> MPO:
+        """Quantum-chemistry MPO, bipartite construction (reference
+        pyblock2/driver/core.py:3282, the FastBipartite analog)."""
+        if fcidump is None:
+            assert h1e is not None and g2e is not None
+            fcidump = FCIDUMP(n_sites=self.n_sites, n_elec=self.n_elec,
+                              twos=self.spin, ipg=self.pg_irrep,
+                              orb_sym=self.orb_sym, const_e=ecore,
+                              h1e=np.asarray(h1e), g2e=np.asarray(g2e))
+        tt = qc_term_table(fcidump, group=self.group, cutoff=cutoff)
+        return build_mpo(tt, site_pgs=fcidump.orb_sym,
+                         const_e=fcidump.const_e, spec=self.spec)
+
+    def get_mpo(self, term_table: TermTable, const_e: float = 0.0) -> MPO:
+        """MPO from a term table, bipartite construction (reference
+        pyblock2/driver/core.py:3885)."""
+        return build_mpo(term_table, site_pgs=self.orb_sym, const_e=const_e)
+
+    def get_random_mps(self, bond_dim: int = 250, target=None,
+                       seed: int = 1234) -> MPS:
+        """reference pyblock2/driver/core.py:7494."""
+        site_quanta = [self.spec.quanta(int(p)) for p in self.orb_sym]
+        info = MPSInfo(self.group, site_quanta, target or self.target,
+                       bond_dim)
+        return MPS.random(info, seed=seed)
+
+    def dmrg(self, mpo: MPO, ket: MPS, bond_dims: Sequence[int] = (250,),
              noises: Sequence[float] = (1e-4, 1e-5, 0.0),
              thrds: Sequence[float] = (1e-10,), n_sweeps: int = 16,
-             tol: float = 1e-9, iprint: int = 1, device=None,
-             dtype=np.float64, **kw) -> float:
-        """SZ ground-state DMRG with the effective-Hamiltonian step on
-        ``device`` (required: 'cuda', 'cuda:0' or 'cpu').  The solver is
-        kept as ``self._last_dmrg`` (energies, timings, sweep_log,
-        host_redo_count)."""
-        if self.symm_type != SymmetryTypes.SZ or \
-                getattr(self, "_sany_su2_h", None) is not None:
-            raise NotImplementedError("the port runs SZ symmetry only")
-        solver = DMRG(mpo, ket, device=device, dtype=dtype, iprint=iprint,
-                      **kw)
+             tol: float = 1e-9, iprint: int = 1, device="cuda",
+             backend: str = "torch_resident", dtype=np.float64,
+             **kw) -> float:
+        """SZ ground-state DMRG.  backend="torch_resident" runs every
+        two-site step on ``device`` ("cuda" by default; it raises where
+        there is no CUDA, with no fallback); backend="numpy" is the host
+        reference.  The solver is kept as ``self._last_dmrg`` (energies,
+        timings, sweep_log, host_redo_count and the host transfer
+        counters)."""
+        solver = DMRG(mpo, ket, device=device, backend=backend,
+                      dtype=dtype, iprint=iprint, **kw)
         e = solver.solve(list(bond_dims), list(noises), list(thrds),
                          n_sweeps=n_sweeps, tol=tol)
         self._last_dmrg = solver

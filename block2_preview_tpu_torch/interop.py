@@ -1,11 +1,12 @@
 """Reference host objects -> the port's structures.
 
 The JAX package's plan builders and the port's copies produce the same
-tables; these helpers take a plan built by the reference and hand it to
-the port's executors, so one plan can run through a JAX kernel and the
-matching port kernel side by side.  Only attributes are read: nothing
-here imports JAX.  The MPO and MPS are the reference's host objects and
-need no conversion.
+tables; these helpers take an object built by the reference — an MPO, an
+MPS, a plan — and rebuild it as the port's class from its numpy arrays
+and plain attributes, so the two packages can be fed the same state and
+one plan can run through a JAX kernel and the matching port kernel side
+by side.  Only attributes are read: nothing here imports the reference
+package or JAX.
 """
 
 from __future__ import annotations
@@ -13,10 +14,52 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.blocks import MPSTensor
+from .core.state_info import StateInfo
+from .core.symmetry import SymmetryGroup
+from .dmrg.mpo import MPO
+from .dmrg.mps import MPS, MPSInfo
 from .ops.mixv4 import MixPlanV4
 from .ops.stacked import StackedMeta
 from .ops.tilev2 import MatvecV2
 from .runtime import torch_dtype
+
+
+def _qn(q):
+    return tuple(int(x) for x in q)
+
+
+def group(ref_group) -> SymmetryGroup:
+    """Port SymmetryGroup with the reference group's factors."""
+    return SymmetryGroup(tuple(ref_group.kinds), tuple(ref_group.names),
+                         fermion_index=int(ref_group.fermion_index))
+
+
+def mpo(ref_mpo) -> MPO:
+    """Port MPO with copies of the reference MPO's site tensors."""
+    return MPO(group=group(ref_mpo.group), n_sites=int(ref_mpo.n_sites),
+               site_quanta=[[_qn(q) for q in qs]
+                            for qs in ref_mpo.site_quanta],
+               bond_dqs=[[_qn(q) for q in b] for b in ref_mpo.bond_dqs],
+               tensors=[{(int(i), int(o)): np.array(w)
+                         for (i, o), w in ent.items()}
+                        for ent in ref_mpo.tensors],
+               const_e=float(ref_mpo.const_e))
+
+
+def mps(ref_mps) -> MPS:
+    """Port MPS with copies of the reference MPS's site tensors and bond
+    spaces."""
+    ri = ref_mps.info
+    g = group(ri.group)
+    info = MPSInfo(g, [[_qn(q) for q in qs] for qs in ri.site_quanta],
+                   _qn(ri.target), int(ri.bond_dim))
+    info.bonds = [StateInfo(g, {_qn(q): int(n) for q, n in b.items()})
+                  for b in ri.bonds]
+    tensors = [MPSTensor(g, {tuple(_qn(q) for q in k): np.array(b)
+                             for k, b in t.blocks.items()})
+               for t in ref_mps.tensors]
+    return MPS(info, tensors, center=int(ref_mps.center))
 
 
 def stacked_meta(ref_meta) -> StackedMeta:

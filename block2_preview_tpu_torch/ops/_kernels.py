@@ -1,9 +1,10 @@
 """Build, bind and count the port's CUDA kernels.
 
 The sources under ``block2_preview_tpu_torch/csrc/`` are compiled at first
-use by ``nvcc`` for ``sm_90a`` into ONE shared library with a plain C
-interface (``build/kernels/`` beside the package; the file name carries
-a hash of the sources and flags, so an edit rebuilds).  The library is
+use by ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all started
+together — and linked into ONE shared library with a plain C interface
+(``build/kernels/`` beside the package; the file name carries a hash of
+the sources and flags, so an edit rebuilds).  The library is
 loaded with ``ctypes``.  Nothing is built or loaded at import: the CPU
 tests import every module on a machine without ``nvcc``.
 
@@ -30,7 +31,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass
@@ -56,6 +57,13 @@ KERNELS: Dict[str, KernelInfo] = {
     "K4_place": KernelInfo(
         "cuda", "block2_preview_tpu_torch/csrc/place.cu",
         "block2_preview_tpu/ops/mixv4.py:65 _place4_exec_packed"),
+    "K5_block": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/blocking.cu",
+        "block2_preview_tpu/ops/blockv2.py:60 _blk_scan (jits :177 "
+        "_blk_exec_chunkp, :157 _blk_exec_chunk)"),
+    "K6_noise": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/noise.cu",
+        "block2_preview_tpu/ops/resident.py:862 _noise_exec"),
 }
 
 _P = ctypes.c_void_p
@@ -69,6 +77,9 @@ _SIGS = {
     "b2t_diag": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "b2t_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
     "b2t_place": (_P, _P, _P, _I, _L, _P, _P),
+    "b2t_block": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P),
+    "b2t_noise_x": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
+    "b2t_noise_rho": (_P, _P, _P, _I, _L, _I, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -105,16 +116,37 @@ def build() -> float:
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, obj, proc in jobs:
+        logs.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"{obj.name}: nvcc exit {proc.returncode}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link: nvcc exit {proc.returncode}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     dt = time.time() - t0
-    build_log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + build_log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "\n".join(logs)
+    (BUILD_DIR / "build.log").write_text(build_log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n"
+                           f"{build_log}")
     os.replace(tmp, out)
     return dt
 

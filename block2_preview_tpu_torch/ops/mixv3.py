@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from block2_preview_tpu.ops.csr import w_nonzero as _w_nonzero
+from .csr import w_nonzero as _w_nonzero
 
 from .stacked import StackedMeta, _cap_class, _pow2
 

@@ -1,34 +1,35 @@
-"""Device-resident two-site effective-Hamiltonian step (torch) — kernel K2.
+"""Device-resident two-site effective-Hamiltonian step (torch) — kernels
+K2 (diagonal) and K6 (noise density matrix).
 
-Port of block2_preview_tpu/ops/resident.py:594-711, 1159-1472 for the
-SZ ground-state path.  Per center site t:
+Port of block2_preview_tpu/ops/resident.py:594-711, 853-1133, 1159-1472
+for the SZ ground-state path.  Per center site t:
 
-  host env maps --pack--> env slab pools (device)
+  env slab pools on the device (MovingEnvironment.device_pool)
   --execute_mix_v4 (K3 + K4)--> LW/RW slab pools (device)
   --execute_diag (K2)--> diagonal     --davidson around K1--> psi (host)
+  --noise_rho (K6, noise > 0)--> {qb: rho_noise [D, D]} (host)
 
-``build_diag_struct`` is copied from the reference so the diagonal task
-tables are byte-identical.  Environment blocking and the perturbative
-noise term stay on the host in this slice: ``host_ops`` downloads the
-assembled LW/RW operators for the host noise term, as the reference does
-when its device noise plan does not apply.
+Only the center wavefunction, the initial guess, the small noise density
+matrix and scalars cross between host and device.  ``build_diag_struct``
+and ``NoisePlan`` are copied from the reference so their tables equal it.
+``host_ops`` (a download of assembled LW/RW, for tests) is not on the
+sweep's path; each call counts one ``host_ops_downloads``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
 
-from block2_preview_tpu.ops.blocking import _plan_args_sig
-
 from . import _kernels
+from .blocking import _plan_args_sig
 from .device_davidson import davidson
 from .mixv3 import build_mix_plan_v3
 from .mixv4 import execute_mix_v4, plan_v4
-from .stacked import StackedMeta, _pow2, env_pool
-from .tilev2 import MatvecV2, gather_tiles, mv_exec
+from .stacked import StackedMeta, _pow2
+from .tilev2 import MatvecV2, _locate, gather_tiles, mv_exec
 from ..runtime import torch_dtype
 
 # diag tile tasks per chunk of the plain version
@@ -223,6 +224,228 @@ def execute_diag(dstruct, lpool, rpool):
 
 
 # ---------------------------------------------------------------------------
+# kernel K6 (perturbative-noise density matrix) and its plain twin
+# rho_n[qb] += sum_m (W_m psi)(W_m psi)^T (reference
+# src/dmrg/effective_hamiltonian.hpp:253 perturbative_noise)
+# ---------------------------------------------------------------------------
+
+# stage tasks per chunk of the plain version (bounds its temporaries)
+_TWIN_NOISE_TASKS = 8192
+
+
+class NoisePlan:
+    """Per-(site, side) task structure of the device noise term, copied
+    from the reference (block2_preview_tpu/ops/resident.py:913-1133)
+    without the TPU task groups and the pre-materialised W tile pool.
+
+    side='lw' (forward): x[qLb, qR] = LW[m][(qLb, qLk)] @ psi[(qLk, qR)],
+    rho[qLb] += x x^T — W tiles read from the LW slab pool, psi tiles
+    through the matvec's ``psi_idx``.  side='rw' (backward): y = x^T =
+    RW[m] @ psi^T — the same kernel with the RW slab pool and a TRANSPOSED
+    psi tile gather (built here), and rho[qRb] += y y^T.
+
+    it [n, 10] int32: wbase, wstride, DB, pb, na, nk, nn, tb, rb, DK, as
+    the reference's, except ``tb``: here the item's first tile in ONE x
+    scratch pool of ``n_x`` tiles (the reference restarted it per task
+    group).  cum1/cum2 [n+1]: stage-1 tasks (ai, ni, ki) and stage-2 tasks
+    (ar, ac, ni) per item.  rho tiles: [nrho + 1, T, T]."""
+
+    __slots__ = ("it", "cum1", "cum2", "nrho", "T", "sectors", "psi_idx",
+                 "n_x", "flops", "_dev")
+
+    def __init__(self, space, meta, group, side, T, psi_idx):
+        self.T = T
+        # psi tile layout bases (must match the psi_idx tile order)
+        vbk = {}
+        nv = 0
+        for k in space.keys:
+            r, c = space.shapes[k]
+            if side == "rw":
+                r, c = c, r
+            vbk[k] = nv
+            nv += (-(-r // T)) * (-(-c // T))
+        if side == "rw" and psi_idx is None:
+            # transposed psi tiles: tile grid over [DRk, DLk]
+            sp = _pow2(space.size + 1)
+            psi_idx = np.full((_pow2(nv + 1), T, T), sp, dtype=np.int32)
+            for k in space.keys:
+                off = space.offsets[k]
+                r, c = space.shapes[k]   # psi block [r, c] row-major
+                base = vbk[k]
+                ncc = -(-r // T)         # cols of psi^T = r
+                # element (i, j) of psi^T = psi[j, i] at off + j*c + i
+                fr, fc = np.divmod(np.arange(c * r), r)   # psi^T coords
+                tidx = ((base + (fr // T) * ncc + (fc // T)) * (T * T)
+                        + (fr % T) * T + (fc % T))
+                psi_idx.reshape(-1)[tidx] = off + fc * c + fr
+        self.psi_idx = psi_idx
+
+        dq_of = {}
+        for gi, (dq, syms) in enumerate(meta.groups):
+            for s in syms:
+                dq_of[int(s)] = dq
+        # rho sectors over the bond quantum qb; tiled [na, na] per sector
+        rows = []       # wbase, wstride, DB, pb, DK, DN
+        rkeys = []      # qb per row
+        sec_dims = {}
+        for m, (gm, jm) in sorted(meta.sym_pos.items()):
+            dq = dq_of[m]
+            sec = meta.sectors[gm]
+            for k in space.keys:
+                qLk, qRk = k
+                if side == "lw":
+                    qb = group.add(qLk, dq)
+                    ent = sec.get(qb)
+                    if ent is None:
+                        continue
+                    off, DB, DKw = ent
+                    DK, DN = space.shapes[k]
+                else:
+                    # RW meta group dq is the left-cumulative MPO bond
+                    # charge: qRk = qRb + dq (see host_ops), so
+                    # qRb = qRk - dq
+                    qb = group.sub(qRk, dq)
+                    ent = sec.get(qb)
+                    if ent is None:
+                        continue
+                    off, DB, DKw = ent
+                    DN, DK = space.shapes[k]
+                if DKw != DK:
+                    continue
+                rows.append((off + jm * DB * DKw, DKw, DB, vbk[k], DK,
+                             DN))
+                rkeys.append(qb)
+                d = sec_dims.get(qb)
+                if d is None or DB > d:
+                    sec_dims[qb] = DB
+        if not rows:
+            raise RuntimeError("no noise items")
+        # rho tile layout
+        roff = {}
+        nrho = 0
+        for qb in sorted(sec_dims):
+            na = -(-sec_dims[qb] // T)
+            roff[qb] = (nrho, na, sec_dims[qb])
+            nrho += na * na
+        self.sectors = roff
+        self.nrho = _pow2(nrho + 1) - 1
+
+        n = len(rows)
+        # x = W psi (DB x DK x DN) and x x^T (DB x DB x DN) per item
+        self.flops = float(sum(2 * DB * DN * (DK + DB)
+                               for (_, _, DB, _, DK, DN) in rows))
+        itf = np.zeros((n, 10), dtype=np.int64)
+        for i, ((wb, ws, DB, pb, DK, DN), qb) in enumerate(
+                zip(rows, rkeys)):
+            itf[i] = (wb, ws, DB, pb, -(-DB // T), -(-DK // T),
+                      -(-DN // T), 0, roff[qb][0], DK)
+        na_a, nk_a, nn_a = itf[:, 4], itf[:, 5], itf[:, 6]
+        nx_a = na_a * nn_a
+        itf[:, 7] = np.concatenate([[0], np.cumsum(nx_a)[:-1]])
+        self.n_x = int(nx_a.sum())
+        c1 = np.concatenate([[0], np.cumsum(nx_a * nk_a)])
+        c2 = np.concatenate([[0], np.cumsum(na_a * na_a * nn_a)])
+        n_q = _pow2(n)
+        it32 = np.zeros((n_q, 10), dtype=np.int32)
+        it32[:n] = itf
+        it32[n:, 4:7] = 1
+        self.it = it32
+        self.cum1 = np.concatenate(
+            [c1, np.full(n_q - n, c1[-1])]).astype(np.int32)
+        self.cum2 = np.concatenate(
+            [c2, np.full(n_q - n, c2[-1])]).astype(np.int32)
+        self._dev = {}
+
+    def tables(self, device) -> Dict:
+        """Device tables for K6 (and its twin), cached per device.
+        Derived here: ``cumr`` [n+1], prefix sums of the stage-2 units
+        na * na of the live items (K6's x kernel runs one block per x
+        tile, ``n_x`` of them)."""
+        key = str(device)
+        d = self._dev.get(key)
+        if d is None:
+            it = self.it.astype(np.int64)
+            live = np.diff(self.cum1.astype(np.int64)) > 0
+            cumr = np.concatenate([[0], np.cumsum(
+                np.where(live, it[:, 4] * it[:, 4], 0))])
+            cumx = np.concatenate([[0], np.cumsum(
+                np.where(live, it[:, 4] * it[:, 6], 0))])
+
+            def i32(a):
+                return torch.as_tensor(
+                    np.ascontiguousarray(a, dtype=np.int32), device=device)
+
+            d = {"it": i32(self.it), "cum1": i32(self.cum1),
+                 "cum2": i32(self.cum2), "cumx": i32(cumx),
+                 "cumr": i32(cumr), "n_r": int(cumr[-1]),
+                 "psi_idx": i32(self.psi_idx.reshape(-1)),
+                 "n_x": self.n_x, "nrho": self.nrho}
+            self._dev[key] = d
+        return d
+
+    def unpack(self, rho_tiles: np.ndarray):
+        """Tiled rho pool [nrho + 1, T, T] -> {qb: dense [D, D]} (f64)."""
+        T = self.T
+        out = {}
+        for qb, (base, na, D) in self.sectors.items():
+            blk = rho_tiles[base:base + na * na] \
+                .reshape(na, na, T, T).transpose(0, 2, 1, 3) \
+                .reshape(na * T, na * T)[:D, :D]
+            out[qb] = np.asarray(blk, dtype=np.float64)
+        return out
+
+
+def noise_twin(xp, wpool, d: Dict, T: int):
+    """Plain PyTorch version of K6 (same signature as :func:`noise_exec`):
+    stage 1 forms the x tiles into the scratch pool, stage 2 adds their
+    outer products into the rho tiles."""
+    it = d["it"].long()
+    cum1, cum2 = d["cum1"].long(), d["cum2"].long()
+    pp = xp[d["psi_idx"].long()].reshape(-1, T, T)
+    x = torch.zeros((d["n_x"] + 1, T, T), dtype=xp.dtype, device=xp.device)
+    tot1 = int(cum1[-1])
+    for s in range(0, tot1, _TWIN_NOISE_TASKS):
+        item, o = _locate(cum1, s, min(s + _TWIN_NOISE_TASKS, tot1))
+        f = it[item]
+        nk, nn = f[:, 5], f[:, 6]
+        ai, ni, ki = o // (nn * nk), (o // nk) % nn, o % nk
+        W = gather_tiles(wpool, f[:, 0] + ai * T * f[:, 1] + ki * T,
+                         f[:, 1], f[:, 2] - ai * T, f[:, 1] - ki * T, T)
+        x.index_add_(0, f[:, 7] + ai * nn + ni,
+                     torch.bmm(W, pp[f[:, 3] + ki * nn + ni]))
+    rho = torch.zeros((d["nrho"] + 1, T, T), dtype=xp.dtype,
+                      device=xp.device)
+    tot2 = int(cum2[-1])
+    for s in range(0, tot2, _TWIN_NOISE_TASKS):
+        item, o = _locate(cum2, s, min(s + _TWIN_NOISE_TASKS, tot2))
+        f = it[item]
+        na, nn = f[:, 4], f[:, 6]
+        ar, ac, ni = o // (na * nn), (o // nn) % na, o % nn
+        rho.index_add_(0, f[:, 8] + ar * na + ac,
+                       torch.bmm(x[f[:, 7] + ar * nn + ni],
+                                 x[f[:, 7] + ac * nn + ni].transpose(1, 2)))
+    return rho
+
+
+def noise_exec(xp, wpool, d: Dict, T: int):
+    """Noise density-matrix tiles [nrho + 1, T, T] (kernel K6) from the
+    padded flat psi ``xp`` [size_p + 1] (zero last slot) and the LW (or RW)
+    slab pool; ``d`` from :meth:`NoisePlan.tables`."""
+    if xp.device.type == "cpu":
+        return noise_twin(xp, wpool, d, T)
+    if not xp.is_cuda:
+        raise ValueError(f"unsupported device {xp.device}")
+    dt, dev = xp.dtype, xp.device
+    x = torch.empty(max(d["n_x"], 1) * T * T, dtype=dt, device=dev)
+    rho = torch.zeros((d["nrho"] + 1) * T * T, dtype=dt, device=dev)
+    _kernels.call("b2t_noise_x", dt, xp, wpool, d["psi_idx"], d["it"],
+                  d["cumx"], d["it"].shape[0], d["n_x"], T, x)
+    _kernels.launch("K6_noise", "b2t_noise_rho", dt, x, d["it"], d["cumr"],
+                    d["it"].shape[0], d["n_r"], T, rho)
+    return rho.reshape(-1, T, T)
+
+
+# ---------------------------------------------------------------------------
 # per-site orchestration
 # ---------------------------------------------------------------------------
 
@@ -288,8 +511,8 @@ class ResidentSite:
         active_lk = {qL for (qL, _) in eff.ket_space.keys}
         active_rk = {qR for (_, qR) in eff.ket_space.keys}
 
-        meta_l, pool_l = self._env_pool("l", t)
-        meta_r, pool_r = self._env_pool("r", t + 2)
+        meta_l, pool_l = me.device_pool("l", t)
+        meta_r, pool_r = me.device_pool("r", t + 2)
 
         def plan(key, build, sig):
             ent = caches["mix"].get(key)
@@ -328,22 +551,15 @@ class ResidentSite:
                            bra_space=eff.bra_space)
         self.size = eff.size
 
-    def _env_pool(self, side: str, bond: int):
-        """(meta, device pool) of a bond's host environment map."""
-        envs = self.me.left_envs if side == "l" else self.me.right_envs
-        env = envs[bond]
-        if env is None:
-            raise RuntimeError(f"no environment at bond {bond} ({side})")
-        meta, pool = env_pool(env, self.me.mpo.bond_dqs[bond], self.dtype)
-        return meta, torch.as_tensor(pool, device=self.device)
-
-    # -- LW/RW download for the host noise term ----------------------------
+    # -- LW/RW download (tests; not on the sweep's path) --------------------
     def host_ops(self, which: str):
         """Download + unpack one side's assembled operators as
-        {sym -> {(qb, qk) -> ndarray}} on the host (noise term)."""
+        {sym -> {(qb, qk) -> ndarray}} on the host; counts one
+        ``host_ops_downloads`` on the environment."""
         meta, pool = ((self.pl.meta_out, self.lw_pool) if which == "lw"
                       else (self.pr.meta_out, self.rw_pool))
         flat = pool.cpu().numpy()
+        self.me.host_ops_downloads += 1
         g = self.me.mpo.group
         out: Dict[int, Dict] = {}
         for gi, (dq, syms) in enumerate(meta.groups):
@@ -403,3 +619,27 @@ class ResidentSite:
         th, xv, it = davidson(mv, diag_p, xp0, conv_thrd=conv_thrd,
                               max_iter=max_iter, max_subspace=max_subspace)
         return th, xv.cpu().numpy().astype(np.float64)[:self.size], it
+
+    def noise_rho(self, x: np.ndarray, forward: bool):
+        """Perturbative-noise density matrix {q_bond: [D, D]} (host, f64)
+        for the converged wavefunction x (host flat), from the LW (forward)
+        or RW (backward) slab pool on the device (kernel K6)."""
+        side = "lw" if forward else "rw"
+        meta = self.pl.meta_out if forward else self.pr.meta_out
+        s = self.ex.struct
+        key = (self.eff.t, side)
+        sig = hash((meta.signature(), tuple(self.eff.ket_space.keys),
+                    tuple(sorted(self.eff.ket_space.shapes.items())),
+                    s["T"]))
+        cache = self.caches.setdefault("noise", {})
+        ent = cache.get(key)
+        if ent is not None and ent[0] == sig:
+            plan = ent[1]
+        else:
+            plan = NoisePlan(self.eff.ket_space, meta, self.me.mpo.group,
+                             side, s["T"], s["psi_idx"] if forward else None)
+            cache[key] = (sig, plan)
+        xp = torch.as_tensor(self.ex.pad(x), device=self.device)
+        pool = self.lw_pool if forward else self.rw_pool
+        rho = noise_exec(xp, pool, plan.tables(self.device), plan.T)
+        return plan.unpack(rho.cpu().numpy())

@@ -1,9 +1,10 @@
 """Symbol-stacked environment layout (host side, numpy).
 
-Copied from block2_preview_tpu/ops/stacked.py:44-160, 547-554 without the
-JAX kernels of that file: ``_pow2``, ``_cap_class``, ``StackedMeta`` and
-``meta_from_env`` must give byte-identical layouts to the reference, so
-every port kernel reads the same flat pools as its JAX counterpart.
+Copied from block2_preview_tpu/ops/stacked.py:44-160, 234-288, 547-554
+without the JAX kernels of that file: ``_pow2``, ``_cap_class``,
+``StackedMeta`` and ``meta_from_env`` must give byte-identical layouts to
+the reference, so every port kernel reads the same flat pools as its JAX
+counterpart; ``refresh_plan_sites`` keeps cached blocking plans current.
 
 The environment of one bond lives in ONE flat pool, slab-contiguous: the
 slab for (group g, sector qb) holds the S_g symbols of the group as
@@ -17,8 +18,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from block2_preview_tpu.core.blocks import BlockMatrix
-from block2_preview_tpu.core.symmetry import QN
+from ..core.blocks import BlockMatrix
+from ..core.symmetry import QN
 
 
 def _pow2(n: int) -> int:
@@ -160,3 +161,44 @@ def env_pool(env: Dict[int, BlockMatrix], bond_dqs: Sequence[QN], dtype
     pp = np.zeros(_cap_class(len(pool) + 1), dtype=dtype)
     pp[:len(pool)] = pool
     return meta, pp
+
+
+def site_value_mats(T, quanta):
+    """Site-tensor value matrices in plan registration order (the order
+    ``build_blocking_v2``'s reg() emits: sorted block keys x physical
+    quanta).  Copied from block2_preview_tpu/ops/stacked.py:234-245."""
+    mats = []
+    for (ql, qp, qr), b in sorted(T.blocks.items()):
+        for p, q in enumerate(quanta):
+            if q != qp:
+                continue
+            mats.append(b.reshape(b.shape[0], b.shape[2]))
+    return mats
+
+
+def refresh_plan_sites(plan, bra_T, ket_T, quanta):
+    """Refresh the site-tensor VALUES captured inside a cached blocking
+    plan (BlockingV2Plan / BlockingV3Plan) and drop its uploaded
+    bra/ket pools, so the next execution uploads the new values.
+
+    The plan caches key on structure only (block keys/shapes); the value
+    matrices are captured at build time.  Once an MPS converges in
+    *shape*, every later sweep hits the cache — and without this refresh
+    the environments are contracted with rotation matrices from the
+    build-time sweep, settling the run ~1e-6 off the true fixed point
+    (copied from block2_preview_tpu/ops/stacked.py:248-286)."""
+    src = plan._src
+    if src is not None and src[0] is bra_T and src[1] is ket_T:
+        return plan
+    bmats = site_value_mats(bra_T, quanta)
+    kmats = site_value_mats(ket_T, quanta)
+    old_b, boffs = plan.bra_pool
+    old_k, koffs = plan.ket_pool
+    assert len(old_b) == len(bmats) and len(old_k) == len(kmats)
+    plan.bra_pool = (bmats, boffs)
+    plan.ket_pool = (kmats, koffs)
+    inner = getattr(plan, "rot", plan)
+    for key in [k for k in inner._dev if k[0] == "pools"]:
+        del inner._dev[key]
+    plan._src = (bra_T, ket_T)
+    return plan

@@ -1,7 +1,8 @@
 """Device and dtype policy of the port.
 
-Nothing in the port picks a device on its own: every entry point takes a
-``device`` argument and resolves it here.  Matmuls in float32 run in full
+Every entry point takes a ``device`` argument, "cuda" unless the caller
+asks for the CPU, and resolves it here: a CUDA device must exist, there is
+no fallback to the CPU.  Matmuls in float32 run in full
 float32 (TF32 off) — the analog of the reference's ``Precision.HIGHEST``
 pin (block2_preview_tpu/ops/tiled.py:94-97): reduced-precision products
 break Davidson convergence.
@@ -24,8 +25,8 @@ def set_precision_policy() -> None:
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; None is refused (no implicit pick).
-    A CUDA device must exist: there is no fallback to the CPU."""
+    """``device`` as a torch.device; None is refused.  A CUDA device must
+    exist: there is no fallback to the CPU."""
     if device is None:
         raise ValueError("an explicit device is required "
                          "(e.g. device='cuda' or device='cpu')")

@@ -1,21 +1,29 @@
 """Chip smoke test of the PyTorch + CUDA port (block2_preview_tpu_torch).
 
 Drives the port's main path on one CUDA card and checks it against the
-JAX package's jax-free host reference (backend="numpy"):
+port's own host reference (backend="numpy", held equal to the JAX
+package's host path by the CPU tests):
 
   1. device    card name and power limit (nvidia-smi), torch / CUDA
-  2. build     nvcc builds kernels K1-K4 from block2_preview_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K6 from block2_preview_tpu_torch/csrc
+               (one nvcc per source, all at once)
   4. parity    Hubbard-L8, D=80, 6 sweeps with noise, f64: |dE| < 1e-8 Ha
   5. full      seeded K=16 quantum-chemistry Hamiltonian (16 electrons,
                full QC MPO), D=[250, 250], noise [1e-4, 0], Davidson
-               |r|^2 < 1e-14, f64: |dE| < 1e-6 Ha, every kernel
-               launched, no host redo
+               |r|^2 < 1e-14, f64: |dE| < 1e-6 Ha, every kernel K1-K6
+               launched, no host redo, no environment or LW/RW download
   3. kernels   each kernel against its plain PyTorch twin on the card, f64
                and f32, at a mid-chain site of the MPS that phase 5
                leaves — the shapes the main path gives the kernels (it
                runs last for that reason; its launches are not counted) —
                and again at the mid-chain site of a Hubbard-L16 MPS of
-               bond dimension 1000, whose plan picks K1's T=128 tiles
+               bond dimension 1000, whose plans pick K1's T=128 tiles
+               (K5's blocking plans are built with T=128 there).  Each
+               row carries the kernel's time, its twin's, one PyTorch
+               call's where one computes the same function, and the bound
+               (the least time the card could take: the live bytes the
+               kernel must move — no pool or table padding — over
+               3.35 TB/s or FLOPs over 67 TFLOP/s, whichever is larger)
 
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card and exits non-zero (printing no result) without
@@ -37,6 +45,8 @@ F64_TOL = 1e-11     # kernel vs twin, relative to max |twin|
 F32_TOL = 1e-5
 HUB_TOL = 1e-8      # Ha, phase 4
 QC_TOL = 1e-6       # Ha, phase 5
+HBM_BPS = 3.35e12   # H100 SXM memory rate, bytes/s
+PEAK_FLOPS = 67e12  # H100 SXM f64 tensor-core / f32 CUDA-core peak, FLOP/s
 
 
 def fail(msg: str):
@@ -95,6 +105,37 @@ def rel_err(a, b):
     return float((a - b).abs().max()) / scale, float((a - b).abs().max())
 
 
+def live_bytes(esize: int, values: int, ints: int = 0) -> int:
+    """Bytes a kernel must move: ``values`` live pool elements of
+    ``esize`` bytes and ``ints`` int32 table entries, each counted once.
+    The callers count live data only: the padding of the pools (their
+    size classes) and of the item tables (powers of two) is never read."""
+    return esize * int(values) + 4 * int(ints)
+
+
+def live_items(cum) -> int:
+    """Rows of an item table that own tasks (the pad rows own none)."""
+    return int(np.count_nonzero(np.diff(np.asarray(cum, np.int64)) > 0))
+
+
+def item_ints(cum, ncol: int) -> int:
+    """int32 entries of an item table's live rows and their prefix sums."""
+    n = live_items(cum)
+    return n * ncol + n + 1
+
+
+def n_tiles(space, T: int) -> int:
+    """T x T tiles of a wavefunction space's blocks (edge tiles included)."""
+    return sum(-(-r // T) * -(-c // T) for r, c in
+               (space.shapes[k] for k in space.keys))
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """(least time in ms, what bounds it) on an H100 SXM at 700 W."""
+    tb, tf = n_bytes / HBM_BPS, flops / PEAK_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -149,15 +190,16 @@ def phase_build():
     if not usage:
         fail("no ptxas register report in the build log")
     for name, regs, spill in usage:
-        if name.startswith("mv_kernel") or not spill.startswith("0 bytes "
-                                                                "stack"):
+        if name.startswith(("mv_kernel", "blk_kernel", "noise_")) or \
+                not spill.startswith("0 bytes stack"):
             print(f"    ptxas {name}: {regs} registers; {spill}", flush=True)
 
 
 def mid_site(mpo, mps, t):
-    """The environments a two-site center t needs, for a given MPS."""
-    from block2_preview_tpu.dmrg.effective import EffectiveHamiltonian2
-    from block2_preview_tpu.dmrg.environment import MovingEnvironment
+    """Host environments (backend="numpy" blocking) around the two-site
+    center t of a given MPS, and its effective-Hamiltonian spaces."""
+    from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+    from block2_preview_tpu_torch.dmrg.environment import MovingEnvironment
     me = MovingEnvironment(mpo, mps)
     for s in range(mpo.n_sites - 1, t + 1, -1):
         me.update_right(s)
@@ -171,7 +213,7 @@ def wide_system(L: int = 16, D: int = 1000):
     dimension D.  At L=16, D=1000 the mid-chain center's p90 block
     dimension is 192, so K1 runs with T=128 tiles there (the D>=500 QC
     regime); the Hubbard MPO keeps the host environments cheap."""
-    from block2_preview_tpu.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
     from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
     fd = FCIDUMP.hubbard(L, u=2, t=1)
     drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
@@ -180,11 +222,32 @@ def wide_system(L: int = 16, D: int = 1000):
     return mpo, drv.get_random_mps(D, seed=13)
 
 
-def phase_kernels(device, mpo, mps, t, tile=None):
-    """K1-K4 against their twins at site t; returns the summary rows.
-    With ``tile`` set, the plan must pick that K1 tile size."""
+def _index_add_call(plan, tdt, device):
+    """K4's function as one PyTorch call, res.index_add_(0, dst, out[src]),
+    on element index lists built from the plan's windows (the yardstick
+    only; the port never calls it)."""
     import torch
-    from block2_preview_tpu_torch.ops import mixv4, resident, tilev2
+    w = plan.pit[plan.pit[:, 5] > 0].astype(np.int64)
+    n = w[:, 5] * w[:, 6]
+    wi = np.repeat(np.arange(len(w)), n)
+    o = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    r, c = o // w[wi, 6], o % w[wi, 6]
+    src = torch.as_tensor(w[wi, 0] + r * w[wi, 1] + c, device=device)
+    dst = torch.as_tensor(w[wi, 2] + r * w[wi, 3] + c * w[wi, 4],
+                          device=device)
+
+    def call(o):
+        res = torch.zeros(plan.ncap_out + 1, dtype=tdt, device=device)
+        return res.index_add_(0, dst, o[src])
+    return call
+
+
+def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
+    """K1-K6 against their twins at site t; returns the summary rows.
+    With ``tile`` set, the matvec plan must pick that K1 tile size;
+    ``blk_tile`` sets the blocking plans' tile size (K5's instance)."""
+    import torch
+    from block2_preview_tpu_torch.ops import blockv2, mixv4, resident, tilev2
     from block2_preview_tpu_torch.ops._kernels import KERNELS
     from block2_preview_tpu_torch.ops.stacked import env_pool
     me, eff = mid_site(mpo, mps, t)
@@ -205,9 +268,10 @@ def phase_kernels(device, mpo, mps, t, tile=None):
                    mpo.site_quanta[t], flb),
             "rw": (me.right_envs[t + 2], mpo.bond_dqs[t + 2],
                    mpo.tensors[t + 1], mpo.site_quanta[t + 1], frb)}
-    plans, host_pools = {}, {}
+    plans, host_pools, metas = {}, {}, {}
     for side, (env, dqs, ent, quanta, fused) in envs.items():
         meta, host_pools[side] = env_pool(env, dqs, np.float64)
+        metas[side] = meta
         plans[side] = resident.build_mix_plan(
             meta, ent, quanta, fused, group=g,
             out_bond_dqs=mpo.bond_dqs[t + 1], **kw[side])
@@ -222,6 +286,24 @@ def phase_kernels(device, mpo, mps, t, tile=None):
     ds = resident.build_diag_struct(eff.ket_space, pl.meta_out, pr.meta_out,
                                     s["T"], s["nt2"], s["sig_idx"])
     dd = resident.diag_tables(ds, device)
+    # blocking steps next to the center: left t -> t+1 (from the bond-t
+    # pool) and right t+1 -> t+1 (from the bond-(t+2) pool), each as the
+    # v3 plan the sweep runs and as the v2 (entry fan-out) form
+    blk = {}
+    for direction, bond, st in (("left", t, t), ("right", t + 2, t + 1)):
+        env = me.left_envs[bond] if direction == "left" \
+            else me.right_envs[bond]
+        meta, pool = env_pool(env, mpo.bond_dqs[bond], np.float64)
+        for mix in (True, False):
+            blk[(direction, mix)] = (blockv2.build_blocking_v2(
+                meta, mpo.tensors[st], mpo.site_quanta[st], mps.tensors[st],
+                mps.tensors[st], g, direction,
+                mpo.bond_dqs[bond], mpo.bond_dqs[t + 1], T=blk_tile,
+                gemm_mix=mix), pool, meta.total)
+    noise = {"lw": resident.NoisePlan(eff.ket_space, pl.meta_out, g, "lw",
+                                      s["T"], s["psi_idx"]),
+             "rw": resident.NoisePlan(eff.ket_space, pr.meta_out, g, "rw",
+                                      s["T"], None)}
     rows = {}
     for dtype, tol in ((np.float64, F64_TOL), (np.float32, F32_TOL)):
         tdt = torch.float64 if dtype == np.float64 else torch.float32
@@ -230,6 +312,16 @@ def phase_kernels(device, mpo, mps, t, tile=None):
             ep = torch.as_tensor(host_pools[side], dtype=tdt, device=device)
             d = mixv4.plan_tables(plan, device, tdt)
             otp = mixv4._cap_class(plan.out_total + 1)
+            it = plan.it.astype(np.int64)
+            k3_flops = 2.0 * float((it[:, 2] * it[:, 11] * it[:, 10]).sum())
+            # K3 reads the env pool, each item's W rows (nw x wstride from
+            # wbase) and its table rows; it writes out_total OUT elements
+            w_live = int((it[:, 0] + it[:, 2] * it[:, 1])[
+                np.diff(plan.cum1.astype(np.int64)) > 0].max())
+            k3_bytes = live_bytes(
+                ep.element_size(),
+                metas[side].total + 1 + w_live + plan.out_total,
+                item_ints(plan.cum2, it.shape[1]))
 
             def k3(fn, ep=ep, d=d, otp=otp):
                 return fn(ep, d["wpool"], d,
@@ -238,71 +330,192 @@ def phase_kernels(device, mpo, mps, t, tile=None):
             o_k, o_t = k3(mixv4.mix_exec), k3(mixv4.mix_twin)
             _check(rows, "K3_mix", dtype, side, o_k, o_t, tol,
                    time_ms(lambda: k3(mixv4.mix_exec), device),
-                   time_ms(lambda: k3(mixv4.mix_twin), device),
-                   f"items {plan.it.shape[0]} tasks {d['n2']}")
+                   time_ms(lambda: k3(mixv4.mix_twin), device), None,
+                   k3_bytes, k3_flops,
+                   f"items {live_items(plan.cum2)} tasks {d['n2']}")
 
             def k4(fn, d=d, o=o_t[:otp], plan=plan):
                 return fn(o, d, torch.zeros(plan.ncap_out + 1, dtype=tdt,
                                             device=device))
 
             s_k, s_t = k4(mixv4.place_exec), k4(mixv4.place_twin)
+            lib = _index_add_call(plan, tdt, device)
+            s_l = lib(o_t[:otp])
+            if not torch.equal(s_l, s_t):
+                fail(f"K4 {side}: the index_add_ yardstick disagrees")
             _check(rows, "K4_place", dtype, side, s_k, s_t, tol,
                    time_ms(lambda: k4(mixv4.place_exec), device),
                    time_ms(lambda: k4(mixv4.place_twin), device),
-                   f"windows {plan.pit.shape[0]} tasks {d['np']}")
+                   time_ms(lambda: lib(o_t[:otp]), device),
+                   live_bytes(o_t.element_size(),
+                              plan.out_total + plan.meta_out.total,
+                              item_ints(plan.pcum, plan.pit.shape[1])), 0.0,
+                   f"windows {live_items(plan.pcum)} tasks {d['np']}")
             pools[side] = s_t
         xp = torch.as_tensor(xh, dtype=tdt, device=device)
 
         def k1(fn):
             return fn(xp, pools["lw"], pools["rw"], dv, s["T"], s["nt2"])
 
-        _check(rows, "K1_matvec", dtype, "", k1(tilev2.mv_exec),
-               k1(tilev2.mv_twin), tol,
+        y_k = k1(tilev2.mv_exec)
+        _check(rows, "K1_matvec", dtype, "", y_k, k1(tilev2.mv_twin), tol,
                time_ms(lambda: k1(tilev2.mv_exec), device),
-               time_ms(lambda: k1(tilev2.mv_twin), device),
+               time_ms(lambda: k1(tilev2.mv_twin), device), None,
+               # psi, LW, RW in; sigma out; psi_idx of the live psi tiles,
+               # sig_idx of the live sigma, the live item rows with cumt
+               live_bytes(xp.element_size(),
+                          eff.size + pl.meta_out.total + pr.meta_out.total
+                          + eff.bra_space.size,
+                          n_tiles(eff.ket_space, s["T"]) * s["T"] ** 2
+                          + eff.bra_space.size
+                          + item_ints(s["cum1"], s["it"].shape[1])),
+               float(s["flops"]),
                f"T {s['T']} items {s['it'].shape[0]} units {dv['n_units']} "
                f"size {eff.size} GFLOP {s['flops'] / 1e9:.2f}")
 
         def k2(fn):
             return fn(pools["lw"], pools["rw"], dd)
 
-        _check(rows, "K2_diag", dtype, "", k2(resident.diag_exec),
-               k2(resident.diag_twin), tol,
+        a4 = ds["a4"].astype(np.int64)
+        b4 = ds["b4"].astype(np.int64)
+        T = s["T"]
+        live = a4[0] >= 0
+        k2_flops = 2.0 * float((np.clip(a4[2], 0, T) * np.clip(a4[3], 0, T)
+                                * np.clip(b4[3], 0, T))[live].sum())
+        # K2 reads only the diagonals of the LW/RW blocks it gathers, the
+        # live columns of its task tables and sig_idx; it writes the
+        # diagonal of the bra space
+        gl, gr = ds["gl"].astype(np.int64), ds["gr"].astype(np.int64)
+        k2_bytes = live_bytes(
+            xp.element_size(),
+            sum(int(np.clip(g[2][g[0] >= 0], 0, T).sum()) for g in (gl, gr))
+            + eff.bra_space.size,
+            4 * int(np.count_nonzero(gl[0] >= 0))
+            + 4 * int(np.count_nonzero(gr[0] >= 0))
+            + 9 * int(np.count_nonzero(live)) + eff.bra_space.size)
+        d_k = k2(resident.diag_exec)
+        _check(rows, "K2_diag", dtype, "", d_k, k2(resident.diag_twin), tol,
                time_ms(lambda: k2(resident.diag_exec), device),
-               time_ms(lambda: k2(resident.diag_twin), device),
-               f"tasks {ds['a4'].shape[1]}")
+               time_ms(lambda: k2(resident.diag_twin), device), None,
+               k2_bytes, k2_flops, f"tasks {int(np.count_nonzero(live))}")
+
+        for (direction, mix), (plan, pool, e_total) in blk.items():
+            rp = plan.rot if mix else plan
+            ep = torch.as_tensor(pool, dtype=tdt, device=device)
+            bp, kp = blockv2.blk_pools(rp, device, tdt)
+            d5 = blockv2.blk_tables(rp, device, tdt)
+            # env, bra and ket values in, the live output out (the ROT
+            # pool for v3); live item rows with cumu and efs, and the
+            # live entries' ef rows with their coefficients
+            out_total = plan.rot_total if mix else plan.meta_out.total
+            n_ent = live_items(rp.cum3)
+            k5_bytes = live_bytes(
+                ep.element_size(),
+                e_total + 1 + bp.numel() + kp.numel() + n_ent + out_total,
+                item_ints(rp.cum1, rp.it.shape[1]) + live_items(rp.cum1) + 1
+                + 4 * n_ent)
+
+            def k5(fn, ep=ep, bp=bp, kp=kp, d5=d5, rp=rp):
+                return fn(ep, bp, kp, d5, rp.T, rp.left,
+                          torch.zeros(rp.ncap, dtype=tdt, device=device))
+
+            o_k, o_t = k5(blockv2.blk_exec), k5(blockv2.blk_twin)
+            tag = f"{direction[0]}{3 if mix else 2}"
+            _check(rows, "K5_block", dtype, tag, o_k, o_t, tol,
+                   time_ms(lambda: k5(blockv2.blk_exec), device),
+                   time_ms(lambda: k5(blockv2.blk_twin), device), None,
+                   k5_bytes, rp.flops,
+                   f"T {rp.T} items {live_items(rp.cum1)} units "
+                   f"{d5['n_units']} entries {n_ent} out {out_total} "
+                   f"GFLOP {rp.flops / 1e9:.2f}")
+            if float(o_k[out_total:].abs().max()) != 0.0:
+                fail(f"K5 {tag}: nonzero sentinel slots")
+            if mix:
+                full = blockv2.execute_blocking_v3(plan, ep)
+                d3 = blockv2.mix_tables(plan, device, tdt)
+                ref = mixv4.mix_twin(o_t, d3["wpool"], d3, torch.zeros(
+                    plan.ncap, dtype=tdt, device=device))
+                rel, _ = rel_err(full, ref)
+                if not rel <= tol:
+                    fail(f"blocking v3 {tag}: rel err {rel:.3e} > {tol:.0e}")
+        for side, npl in noise.items():
+            d6 = npl.tables(device)
+            wp = pools[side]
+            xs = xp
+
+            def k6(fn, d6=d6, wp=wp, npl=npl):
+                return fn(xs, wp, d6, npl.T)
+
+            # psi and the LW (RW) pool in, the live rho tiles out; the
+            # psi_idx of the live psi tiles and the live item rows
+            n_rho = sum(na * na for (_, na, _) in npl.sectors.values())
+            k6_bytes = live_bytes(
+                xs.element_size(),
+                eff.size + plans[side].meta_out.total + n_rho * npl.T ** 2,
+                n_tiles(eff.ket_space, npl.T) * npl.T ** 2
+                + item_ints(npl.cum1, npl.it.shape[1]))
+            r_k = k6(resident.noise_exec)
+            _check(rows, "K6_noise", dtype, side, r_k,
+                   k6(resident.noise_twin), tol,
+                   time_ms(lambda: k6(resident.noise_exec), device),
+                   time_ms(lambda: k6(resident.noise_twin), device), None,
+                   k6_bytes, npl.flops,
+                   f"items {live_items(npl.cum1)} "
+                   f"x tiles {npl.n_x} (scratch "
+                   f"{npl.n_x * npl.T ** 2 * xs.element_size() / 2 ** 20:.1f}"
+                   f" MiB) rho tiles {n_rho}")
     out = []
     for name, info in KERNELS.items():
         r = rows[name]
+        b_ms = max(r["bytes_ms"], r["flops_ms"])
         out.append({"name": name, "route": info.route,
-                     "source": info.source, "replaces": info.replaces,
-                     "launches": 0, "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                    "source": info.source, "replaces": info.replaces,
+                    "launches": 0, "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": b_ms,
+                    "bound_by": ("bytes" if r["bytes_ms"] >= r["flops_ms"]
+                                 else "operations"),
+                    "library_ms": r["library_ms"]})
     return out
 
 
-def _check(rows, name, dtype, side, got, ref, tol, ms, plain_ms, shape):
+def _check(rows, name, dtype, side, got, ref, tol, ms, plain_ms, lib_ms,
+           n_bytes, flops, shape):
     import torch
     if got.is_cuda:
         torch.cuda.synchronize()
     rel, mabs = rel_err(got, ref)
     tag = "f64" if dtype == np.float64 else "f32"
-    print(f"[3 kernels] {name:9s} {tag} {side:2s} rel {rel:.2e} "
-          f"abs {mabs:.2e}  kernel {ms:.3f} ms  twin {plain_ms:.3f} ms  "
-          f"({shape})", flush=True)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    lib = "" if lib_ms is None else f"  library {lib_ms:.3f} ms"
+    print(f"[3 kernels] {name:9s} {tag} {side:3s} rel {rel:.2e} "
+          f"abs {mabs:.2e}  kernel {ms:.3f} ms  twin {plain_ms:.3f} ms{lib}"
+          f"  bound {b_ms:.4f} ms ({b_by})  ({shape})", flush=True)
     if not rel <= tol:
         fail(f"{name} {tag} {side}: rel err {rel:.3e} > {tol:.0e}")
     if dtype == np.float64:
         r = rows.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                   "plain_ms": 0.0})
+                                   "plain_ms": 0.0, "library_ms": None,
+                                   "bytes_ms": 0.0, "flops_ms": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], mabs)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+        r["bytes_ms"] += n_bytes / HBM_BPS * 1e3
+        r["flops_ms"] += flops / PEAK_FLOPS * 1e3
+
+
+def _host_reference(mpo, mps, sched):
+    """The same schedule on the port's host path (backend="numpy")."""
+    from block2_preview_tpu_torch.dmrg.sweep import DMRG
+    return DMRG(mpo, mps, backend="numpy", iprint=0).solve(
+        sched["bond_dims"], sched["noises"], sched["thrds"],
+        n_sweeps=sched["n_sweeps"], tol=sched["tol"])
 
 
 def phase_hubbard(device):
-    from block2_preview_tpu.core.fcidump import FCIDUMP
-    from block2_preview_tpu.dmrg.sweep import DMRG as RefDMRG
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
     from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
     L, D, ns = 8, 80, 6
     fd = FCIDUMP.hubbard(L, u=2, t=1)
@@ -310,14 +523,12 @@ def phase_hubbard(device):
     drv.initialize_system(n_sites=L, n_elec=L, spin=0)
     mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
     sched = dict(bond_dims=[D] * ns, noises=[1e-5] * ns + [0],
-                 thrds=[1e-10], n_sweeps=ns, tol=0)
+                 thrds=[1e-10], n_sweeps=ns, tol=0, iprint=0)
     t0 = time.time()
-    e_port = drv.dmrg(mpo, drv.get_random_mps(D, seed=7), iprint=0,
-                      device=device, **sched)
+    e_port = drv.dmrg(mpo, drv.get_random_mps(D, seed=7), device=device,
+                      **sched)
     t1 = time.time()
-    e_ref = RefDMRG(mpo, drv.get_random_mps(D, seed=7), backend="numpy",
-                    iprint=0).solve(sched["bond_dims"], sched["noises"],
-                                    sched["thrds"], n_sweeps=ns, tol=0)
+    e_ref = _host_reference(mpo, drv.get_random_mps(D, seed=7), sched)
     de = e_port - e_ref
     print(f"[4 parity] Hubbard-L8 D={D} x{ns} port {e_port:.12f} "
           f"({t1 - t0:.1f} s) host {e_ref:.12f} ({time.time() - t1:.1f} s) "
@@ -335,22 +546,20 @@ def phase_full(device, drv, mpo, D=250, n_orb=16):
     the port's Davidson (M=20, thick restart) and the host's (M=30,
     restart to one vector) stop at different vectors within the
     residual threshold.  At |r|^2 < 1e-10 that alone moves the two
-    energies ~2e-6 Ha apart (K=10, D=80 on the CPU: port - host 2.0e-6,
-    while the port and the JAX package's jax_resident backend, the same
-    Davidson family, agree to 3.8e-8; at 1e-14: 5.9e-9 and 1.5e-10), so
-    both solve to |r|^2 < 1e-14 and the gap measures the port, not the
-    threshold."""
+    energies ~2e-6 Ha apart (K=10, D=80 on the CPU), so both solve to
+    |r|^2 < 1e-14 and the gap measures the port, not the threshold."""
     import torch
-    from block2_preview_tpu.dmrg.sweep import DMRG as RefDMRG
     from block2_preview_tpu_torch.ops import _kernels
     sched = dict(bond_dims=[D, D], noises=[1e-4, 0], thrds=[1e-14],
-                 n_sweeps=2, tol=0)
+                 n_sweeps=2, tol=0, iprint=0)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_counts()
     ket = drv.get_random_mps(D, seed=11)
+    _kernels.reset_counts()
     t0 = time.time()
-    e_port = drv.dmrg(mpo, ket, iprint=0, device=device, **sched)
+    e_port = drv.dmrg(mpo, ket, device=device, **sched)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
     t1 = time.time()
     counts = _kernels.launch_counts()
     solver = drv._last_dmrg
@@ -361,19 +570,22 @@ def phase_full(device, drv, mpo, D=250, n_orb=16):
     mem = (torch.cuda.max_memory_allocated() / 2 ** 30
            if device.type == "cuda" else float("nan"))
     print(f"[5 full] port total {t1 - t0:.1f} s  launches {counts}  "
-          f"max_memory_allocated {mem:.2f} GiB  host_redo_count "
-          f"{solver.host_redo_count}", flush=True)
-    e_ref = RefDMRG(mpo, drv.get_random_mps(D, seed=11), backend="numpy",
-                    iprint=0).solve(sched["bond_dims"], sched["noises"],
-                                    sched["thrds"], n_sweeps=2, tol=0)
+          f"max_memory_allocated {mem:.2f} GiB  largest ROT pool "
+          f"{solver.me.max_rot_pool} elements  host_redo_count "
+          f"{solver.host_redo_count}  host_env_materialized "
+          f"{solver.host_env_materialized}  host_ops_downloads "
+          f"{solver.host_ops_downloads}", flush=True)
+    e_ref = _host_reference(mpo, drv.get_random_mps(D, seed=11), sched)
     de = e_port - e_ref
     print(f"[5 full] K={n_orb} QC host reference {e_ref:.10f} "
           f"({time.time() - t1:.1f} s)  port {e_port:.10f}  dE {de:.2e}",
           flush=True)
     if not abs(de) < QC_TOL:
         fail(f"QC |dE| {abs(de):.3e} >= {QC_TOL}")
-    if solver.host_redo_count != 0:
-        fail(f"host_redo_count {solver.host_redo_count}")
+    for what in ("host_redo_count", "host_env_materialized",
+                 "host_ops_downloads"):
+        if getattr(solver, what) != 0:
+            fail(f"{what} {getattr(solver, what)}")
     return counts, ket
 
 
@@ -406,9 +618,9 @@ def main():
     wide = wide_system()
     print(f"[3 kernels] Hubbard-L16 D=1000 site 7 (T=128 tiles; MPS built "
           f"in {time.time() - t0:.1f} s)", flush=True)
-    phase_kernels(device, *wide, 7, tile=128)
-    if "jax" in sys.modules:
-        fail("JAX was imported")
+    phase_kernels(device, *wide, 7, tile=128, blk_tile=128)
+    if "jax" in sys.modules or "block2_preview_tpu" in sys.modules:
+        fail("JAX or the JAX package was imported")
     for r in rows:
         r["launches"] = counts[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

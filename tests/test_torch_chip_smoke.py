@@ -33,25 +33,33 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_chip_smoke_phases_on_cpu(capsys):
-    """Phase 5 (main path against the host reference, launch counts) and
-    phase 3 (kernel vs twin rows on the MPS phase 5 leaves) at K=6, D=20
-    on the CPU."""
+    """Phase 5 (main path against the port's host reference, launch
+    counts, host transfer counters) and phase 3 (K1-K6 vs twin rows on the
+    MPS phase 5 leaves, with bound and library columns) at K=6, D=20 on
+    the CPU."""
     dev = torch.device("cpu")
     n_orb, D = 6, 20
     drv, mpo, _ = chip_smoke.qc_system(n_orb, n_orb)
     counts, ket = chip_smoke.phase_full(dev, drv, mpo, D=D, n_orb=n_orb)
     # CPU tensors run the twins, which launch nothing
     assert counts == {"K1_matvec": 0, "K2_diag": 0, "K3_mix": 0,
-                      "K4_place": 0}
+                      "K4_place": 0, "K5_block": 0, "K6_noise": 0}
     assert drv._last_dmrg.mps is ket
     rows = chip_smoke.phase_kernels(dev, mpo, ket, n_orb // 2 - 1)
     assert [r["name"] for r in rows] == list(counts)
     for r in rows:
         assert r["max_abs_err"] == 0.0      # twin against itself
         assert r["route"] == "cuda" and (ROOT / r["source"]).is_file()
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes",
+                                                       "operations")
+    lib = {r["name"]: r["library_ms"] for r in rows}
+    assert lib.pop("K4_place") > 0 and set(lib.values()) == {None}
     out = capsys.readouterr().out
     assert "[5 full] sweep 1" in out and "dE" in out
-    assert "[3 kernels] K1_matvec f64" in out
+    assert "host_env_materialized 0  host_ops_downloads 0" in out
+    for k in ("K1_matvec f64", "K5_block  f64 l3", "K5_block  f32 r2",
+              "K6_noise  f64 lw", "K6_noise  f32 rw"):
+        assert f"[3 kernels] {k}" in out, k
     json.dumps(rows)
     assert np.isfinite([r["ms"] for r in rows]).all()
 
@@ -62,8 +70,8 @@ def test_wide_site_checks_its_tile():
     whose plan picks T=16)."""
     dev = torch.device("cpu")
     mpo, mps = chip_smoke.wide_system(L=8, D=60)
-    rows = chip_smoke.phase_kernels(dev, mpo, mps, 3, tile=16)
-    assert len(rows) == 4
+    rows = chip_smoke.phase_kernels(dev, mpo, mps, 3, tile=16, blk_tile=32)
+    assert len(rows) == 6
     with pytest.raises(SystemExit):
         chip_smoke.phase_kernels(dev, mpo, mps, 3, tile=128)
 

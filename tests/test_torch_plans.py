@@ -1,7 +1,9 @@
 """The port's copied host plan builders (block2_preview_tpu_torch.ops)
-give arrays equal to the reference builders' on the same environments:
-stacked pools, mix v3/v4 plans, the MatvecV2 struct and the diag struct,
-at an edge and a mid-chain site, left and right.
+give arrays equal to the reference builders' on the same state: stacked
+pools, mix v3/v4 plans, the MatvecV2 struct and the diag struct, at an
+edge and a mid-chain site, left and right.  The port's side is built
+from its own classes: the reference MPO and MPS go through the
+``interop`` converters and the port's host environments.
 
 Also holds the Hubbard-L8 helpers the other tests/test_torch_*.py files
 import (Hamiltonians are built in code, not read from decks)."""
@@ -21,6 +23,11 @@ from block2_preview_tpu.ops import resident as ref_resident
 from block2_preview_tpu.ops import stacked as ref_stacked
 from block2_preview_tpu.ops import tilev2 as ref_tilev2
 
+from block2_preview_tpu_torch import interop
+from block2_preview_tpu_torch.dmrg.effective import (
+    EffectiveHamiltonian2 as PortEff)
+from block2_preview_tpu_torch.dmrg.environment import (
+    MovingEnvironment as PortME)
 from block2_preview_tpu_torch.ops import mixv3, mixv4, resident, stacked
 from block2_preview_tpu_torch.ops import tilev2
 
@@ -50,23 +57,11 @@ def hubbard_system(D=60, n_sweeps=2):
     return mpo, mps
 
 
-class Site:
-    """Host environments + plan-builder arguments of the two-site center
-    t (assembled host LW/RW on eff for host oracles)."""
-
-    def __init__(self, mpo, mps, t):
-        me = MovingEnvironment(mpo, mps)
-        me.init_environments()
-        for s in range(t):
-            me.update_left(s)
-        self.t = t
-        self.mpo = mpo
-        self.eff = eff = EffectiveHamiltonian2(me, t)
-        g = mpo.group
-        self.env = {"lw": me.left_envs[t], "rw": me.right_envs[t + 2]}
-        self.dqs = {"lw": mpo.bond_dqs[t], "rw": mpo.bond_dqs[t + 2]}
-        tk = eff.target
-        self.kw = {
+def _mix_args(mpo, eff, t):
+    """Mix-plan keyword and positional arguments of center t."""
+    g = mpo.group
+    tk = eff.target
+    kw = {
             "lw": dict(bond_is_first=True, join_on_input=True, group=g,
                        out_bond_dqs=mpo.bond_dqs[t + 1],
                        active={q for (q, _) in eff.bra_space.keys},
@@ -77,10 +72,37 @@ class Site:
                        active={q for (_, q) in eff.bra_space.keys},
                        fused_ket=eff.ket_space.fr, comp_target_ket=tk,
                        active_ket={q for (_, q) in eff.ket_space.keys})}
-        self.pos = {"lw": (mpo.tensors[t], mpo.site_quanta[t],
-                           eff.bra_space.fl),
-                    "rw": (mpo.tensors[t + 1], mpo.site_quanta[t + 1],
-                           eff.bra_space.fr)}
+    pos = {"lw": (mpo.tensors[t], mpo.site_quanta[t], eff.bra_space.fl),
+           "rw": (mpo.tensors[t + 1], mpo.site_quanta[t + 1],
+                  eff.bra_space.fr)}
+    return kw, pos
+
+
+class Site:
+    """Host environments + plan-builder arguments of the two-site center
+    t, on both sides: the reference's (``eff``, ``mpo``; assembled host
+    LW/RW on eff for host oracles) and the port's (``peff``, ``pmpo``,
+    ``pmps``, from the converted MPO/MPS and the port's host blocking)."""
+
+    def __init__(self, mpo, mps, t):
+        me = MovingEnvironment(mpo, mps)
+        me.init_environments()
+        for s in range(t):
+            me.update_left(s)
+        self.t = t
+        self.mpo = mpo
+        self.eff = eff = EffectiveHamiltonian2(me, t)
+        self.env = {"lw": me.left_envs[t], "rw": me.right_envs[t + 2]}
+        self.dqs = {"lw": mpo.bond_dqs[t], "rw": mpo.bond_dqs[t + 2]}
+        self.kw, self.pos = _mix_args(mpo, eff, t)
+        self.pmpo, self.pmps = interop.mpo(mpo), interop.mps(mps)
+        pme = PortME(self.pmpo, self.pmps)
+        pme.init_environments()
+        for s in range(t):
+            pme.update_left(s)
+        self.peff = PortEff(pme, t, assemble=False)
+        self.penv = {"lw": pme.left_envs[t], "rw": pme.right_envs[t + 2]}
+        self.pkw, self.ppos = _mix_args(self.pmpo, self.peff, t)
 
     def ref_pool(self, side, dtype=np.float64):
         """Reference meta + padded pool, as MovingEnvironment._ensure_stk
@@ -98,9 +120,10 @@ class Site:
         return p3, ref_mixv4.plan_v4(p3), pool
 
     def port_plans(self, side):
-        meta, pool = stacked.env_pool(self.env[side], self.dqs[side],
+        meta, pool = stacked.env_pool(self.penv[side], self.dqs[side],
                                       np.float64)
-        p3 = mixv3.build_mix_plan_v3(meta, *self.pos[side], **self.kw[side])
+        p3 = mixv3.build_mix_plan_v3(meta, *self.ppos[side],
+                                     **self.pkw[side])
         return p3, mixv4.plan_v4(p3), pool
 
     def ref_matvec(self, pl, pr, **kw):
@@ -137,7 +160,8 @@ def _eq(a, b, what):
 def test_stacked_pool_layout(system, t, side):
     site = Site(*system, t)
     ref_meta, ref_pool = site.ref_pool(side)
-    meta, pool = stacked.env_pool(site.env[side], site.dqs[side], np.float64)
+    meta, pool = stacked.env_pool(site.penv[side], site.dqs[side],
+                                  np.float64)
     assert meta.signature() == ref_meta.signature()
     assert meta.total == ref_meta.total
     _eq(pool, ref_pool, "pool")
@@ -150,10 +174,10 @@ def test_stacked_unpack_matches_reference(system, side):
     which are the environment's own non-zero blocks."""
     site = Site(*system, SITES[1])
     ref_meta, pool = site.ref_pool(side)
-    meta, _ = stacked.env_pool(site.env[side], site.dqs[side], np.float64)
-    g = site.mpo.group
+    meta, _ = stacked.env_pool(site.penv[side], site.dqs[side], np.float64)
+    g = site.pmpo.group
     got = meta.unpack(pool, g, site.dqs[side])
-    ref = ref_meta.unpack(pool, g, site.dqs[side])
+    ref = ref_meta.unpack(pool, site.mpo.group, site.dqs[side])
     assert set(got) == set(ref) and got
     for s, bm in ref.items():
         assert got[s].dq == bm.dq
@@ -184,16 +208,16 @@ def test_matvec_and_diag_structs_equal(system, t):
     rl, rr = site.ref_plans("lw")[1], site.ref_plans("rw")[1]
     pl, pr = site.port_plans("lw")[1], site.port_plans("rw")[1]
     ref = site.ref_matvec(rl, rr)
-    eff = site.eff
+    eff = site.peff
     ex = tilev2.MatvecV2(eff.ket_space, pl.meta_out, pr.meta_out,
-                         site.mpo.group, eff.target, dtype=np.float64,
+                         site.pmpo.group, eff.target, dtype=np.float64,
                          bra_space=eff.bra_space)
     _eq(ex.struct, {k: v for k, v in ref.struct.items()
                     if not k.startswith("_")}, "struct")
     s = ex.struct
     ds = resident.build_diag_struct(eff.ket_space, pl.meta_out, pr.meta_out,
                                     s["T"], s["nt2"], s["sig_idx"])
-    rds = ref_resident.build_diag_struct(eff.ket_space, rl.meta_out,
+    rds = ref_resident.build_diag_struct(site.eff.ket_space, rl.meta_out,
                                          rr.meta_out, s["T"], s["nt2"],
                                          s["sig_idx"])
     _eq(ds, rds, "diag")

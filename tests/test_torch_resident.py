@@ -1,7 +1,8 @@
 """Kernel K2 (diagonal) of the port against the reference's execute_diag
 (JAX) on the same plan (< 1e-10), the torch Davidson through a thick
-restart, and the port's ResidentSite against the host effective
-Hamiltonian."""
+restart, and the port's ResidentSite — on the port's device environment
+chain (CPU tensors), built from the converted MPO/MPS — against the host
+effective Hamiltonian."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,10 @@ from block2_preview_tpu.ops.resident import (build_diag_struct as
                                              execute_diag as ref_execute_diag)
 
 from block2_preview_tpu_torch import interop
+from block2_preview_tpu_torch.dmrg.effective import (
+    EffectiveHamiltonian2 as PortEff)
+from block2_preview_tpu_torch.dmrg.environment import (
+    MovingEnvironment as PortME)
 from block2_preview_tpu_torch.ops.device_davidson import davidson
 from block2_preview_tpu_torch.ops.resident import ResidentSite, execute_diag
 
@@ -89,8 +94,15 @@ def test_davidson_thick_restart():
 
 
 def _resident(system, t, dtype=np.float64):
+    """Reference Site (host oracle) and the port's ResidentSite at t, its
+    environment pools blocked on the device path (CPU tensors)."""
     site = Site(*system, t)
-    me, eff = site.eff.me, site.eff
+    me = PortME(site.pmpo, site.pmps, device=torch.device("cpu"),
+                dtype=dtype)
+    me.init_environments()
+    for s in range(t):
+        me.update_left(s)
+    eff = PortEff(me, t, assemble=False)
     return site, ResidentSite(me, eff, "cpu", dtype=dtype, caches={})
 
 
@@ -111,11 +123,14 @@ def test_resident_site_ground_state(system, t):
 
 
 def test_resident_site_host_ops(system):
-    """host_ops (the download for the host noise term) returns the host
-    assembly's LW/RW blocks."""
+    """host_ops (a download of the assembled LW/RW, not on the sweep's
+    path) returns the host assembly's LW/RW blocks and counts each
+    download."""
     site, rs = _resident(system, SITES[1])
-    for which, ops in (("lw", site.eff.LW), ("rw", site.eff.RW)):
+    for n, (which, ops) in enumerate((("lw", site.eff.LW),
+                                      ("rw", site.eff.RW))):
         got = rs.host_ops(which)
+        assert rs.me.host_ops_downloads == n + 1
         for m, blocks in ops.items():
             for key, blk in blocks.items():
                 if not blk.any():

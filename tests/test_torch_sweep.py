@@ -1,8 +1,11 @@
 """The port's slice as a whole: DMRGDriver.dmrg(..., device="cpu") of
-block2_preview_tpu_torch against the reference's jax_resident backend and
-its host numpy backend (Hubbard-L8, D=80, 6 sweeps, noise 1e-5, f64:
-|dE| < 1e-8 Ha, the bar of test_resident_backend_end_to_end), and a
-subprocess proof that the port never needs JAX."""
+block2_preview_tpu_torch — blocking, mix, diagonal, matvec, Davidson and
+noise on the device path (CPU tensors run the kernels' twins) — against
+the reference's jax_resident backend and its host numpy backend
+(Hubbard-L8, D=80, 6 sweeps, noise 1e-5, f64: |dE| < 1e-8 Ha, the bar of
+test_resident_backend_end_to_end), with no environment or LW/RW download
+on the way; and a subprocess proof that the port needs neither JAX nor
+the JAX package."""
 
 import os
 import re
@@ -14,6 +17,8 @@ import numpy as np
 import pytest
 
 from block2_preview_tpu.dmrg.sweep import DMRG as RefDMRG
+
+from block2_preview_tpu_torch import interop
 
 from test_torch_plans import hubbard_driver
 
@@ -39,14 +44,22 @@ def test_port_matches_jax_resident_and_numpy(monkeypatch):
                  dtype=np.float64)
     port = DMRGDriver()
     port.initialize_system(n_sites=8, n_elec=8, spin=0)
-    e_port = port.dmrg(mpo, port.get_random_mps(D, seed=7), iprint=0,
+    pmpo = interop.mpo(mpo)
+    e_port = port.dmrg(pmpo, port.get_random_mps(D, seed=7), iprint=0,
                        device="cpu", **SCHED)
     assert abs(e_port - e_np) < 1e-8, (e_port, e_np)
     assert abs(e_port - e_res) < 1e-8, (e_port, e_res)
     solver = port._last_dmrg
     assert solver.backend == "torch_resident"
     assert solver.host_redo_count == 0
+    assert solver.host_env_materialized == 0
+    assert solver.host_ops_downloads == 0
+    assert solver.me.max_rot_pool > 0
     assert len(solver.sweep_log) == NS
+    # the port's own host path (the oracle chip_smoke.py uses) agrees too
+    e_host = port.dmrg(pmpo, port.get_random_mps(D, seed=7), iprint=0,
+                       backend="numpy", **SCHED)
+    assert abs(e_host - e_np) < 1e-10, (e_host, e_np)
 
 
 def test_port_float32_sweep():
@@ -57,12 +70,13 @@ def test_port_float32_sweep():
     d, ns = 40, 4
     e_np = RefDMRG(mpo, drv.get_random_mps(d, seed=3), iprint=0).solve(
         [d] * ns, [1e-5] * (ns - 1) + [0], [1e-8], n_sweeps=ns, tol=0)
-    s = DMRG(mpo, drv.get_random_mps(d, seed=3), device="cpu",
-             dtype=np.float32, iprint=0)
+    s = DMRG(interop.mpo(mpo), interop.mps(drv.get_random_mps(d, seed=3)),
+             device="cpu", dtype=np.float32, iprint=0)
     e = s.solve([d] * ns, [1e-5] * (ns - 1) + [0], [1e-8], n_sweeps=ns,
                 tol=0)
     assert abs(e - e_np) < 1e-4, (e, e_np)
     assert s.host_redo_count == 0
+    assert s.host_env_materialized == 0 and s.host_ops_downloads == 0
 
 
 def test_energy_floor_redoes_on_host(monkeypatch):
@@ -74,7 +88,8 @@ def test_energy_floor_redoes_on_host(monkeypatch):
     e_np = RefDMRG(mpo, drv.get_random_mps(d, seed=5), iprint=0).solve(
         [d] * 2, [0], [1e-10], n_sweeps=2, tol=0)
     monkeypatch.setenv("B2TPU_E_FLOOR", "100.0")   # every site is below
-    s = DMRG(mpo, drv.get_random_mps(d, seed=5), device="cpu", iprint=0)
+    s = DMRG(interop.mpo(mpo), interop.mps(drv.get_random_mps(d, seed=5)),
+             device="cpu", iprint=0)
     e = s.solve([d] * 2, [0], [1e-10], n_sweeps=2, tol=0)
     assert s.host_redo_count == 2 * (mpo.n_sites - 1)
     assert abs(e - e_np) < 1e-8
@@ -86,7 +101,8 @@ def test_guard_raises_on_the_card(monkeypatch):
     import torch
     from block2_preview_tpu_torch.dmrg.sweep import DMRG
     drv, mpo = hubbard_driver(L=4)
-    s = DMRG(mpo, drv.get_random_mps(10, seed=1), device="cpu", iprint=0)
+    s = DMRG(interop.mpo(mpo), interop.mps(drv.get_random_mps(10, seed=1)),
+             device="cpu", iprint=0)
     monkeypatch.setenv("B2TPU_E_FLOOR", "100.0")
     s.device = torch.device("cuda", 0)      # the check, not a launch
     with pytest.raises(RuntimeError, match=r"site 2 rejected.*theta -1\.5"):
@@ -95,35 +111,55 @@ def test_guard_raises_on_the_card(monkeypatch):
 
 
 def test_driver_requires_explicit_device():
+    """The CPU must be asked for explicitly: with no device given,
+    DMRGDriver.dmrg and DMRG pick "cuda".  That resolves to the card where
+    there is one and raises where there is none — there is no fallback to
+    the CPU."""
+    import inspect
+    import torch
     from block2_preview_tpu_torch.driver.core import DMRGDriver
+    from block2_preview_tpu_torch.dmrg.sweep import DMRG
+    from block2_preview_tpu_torch.runtime import resolve_device
+    for fn in (DMRGDriver.dmrg, DMRG.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+        return
     drv = DMRGDriver()
     drv.initialize_system(n_sites=4, n_elec=4, spin=0)
-    _, mpo = hubbard_driver(L=4)
-    with pytest.raises(ValueError):
-        drv.dmrg(mpo, drv.get_random_mps(10), device=None)
+    mpo = interop.mpo(hubbard_driver(L=4)[1])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        drv.dmrg(mpo, drv.get_random_mps(10))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DMRG(mpo, drv.get_random_mps(10))
 
 
 _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["block2_preview_tpu"] = None   # and of the JAX package
+import pkgutil
 import block2_preview_tpu_torch
-import block2_preview_tpu_torch.interop
-from block2_preview_tpu_torch.ops import (device_davidson, mixv3, mixv4,
-                                          resident, stacked, tilev2)
+for m in pkgutil.walk_packages(block2_preview_tpu_torch.__path__,
+                               "block2_preview_tpu_torch."):
+    __import__(m.name)
+import chip_smoke
+from block2_preview_tpu_torch.core.fcidump import FCIDUMP
 from block2_preview_tpu_torch.driver.core import DMRGDriver
-from block2_preview_tpu.core.fcidump import FCIDUMP
-from block2_preview_tpu.dmrg.sweep import DMRG as RefDMRG
 fd = FCIDUMP.hubbard(4, u=2, t=1)
 drv = DMRGDriver()
 drv.initialize_system(n_sites=4, n_elec=4, spin=0)
 mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
-kw = dict(n_sweeps=4, tol=0)
-e = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), bond_dims=[20],
-             noises=[1e-5, 1e-5, 0], thrds=[1e-10], iprint=0, device="cpu",
-             **kw)
-e_ref = RefDMRG(mpo, drv.get_random_mps(20, seed=3), iprint=0).solve(
-    [20], [1e-5, 1e-5, 0], [1e-10], **kw)
+kw = dict(bond_dims=[20], noises=[1e-5, 1e-5, 0], thrds=[1e-10],
+          n_sweeps=4, tol=0, iprint=0)
+e = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), device="cpu", **kw)
+s = drv._last_dmrg
+assert s.host_env_materialized == 0 and s.host_ops_downloads == 0
+e_ref = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), backend="numpy",
+                 **kw)
 assert abs(e - e_ref) < 1e-10, (e, e_ref)
+assert not any(k == "jax" or k.startswith(("jax.", "block2_preview_tpu."))
+               for k, v in sys.modules.items() if v is not None)
 print("ENERGY", e, e_ref)
 """
 
@@ -138,8 +174,11 @@ def test_port_never_imports_jax():
 
 
 def test_port_sources_have_no_jax_import():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    """No port file and not chip_smoke.py imports JAX or the JAX package
+    (file:line strings in comments may still name the reference)."""
+    pat = re.compile(r"^\s*(import jax|from jax"
+                     r"|(from|import)\s+block2_preview_tpu(?!_torch))", re.M)
     files = list((ROOT / "block2_preview_tpu_torch").rglob("*.py"))
     assert files
-    for f in files + [ROOT / "chip_smoke.py"]:
+    for f in files + [ROOT / "chip_smoke.py", ROOT / "profile_port.py"]:
         assert not pat.search(f.read_text()), f

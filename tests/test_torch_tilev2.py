@@ -90,9 +90,11 @@ def test_matvec_twin_multigroup(monkeypatch):
     assert ref_ex.struct["ng_live"] > 2, "budgets did not force groups"
     _compare(ref_ex, lw, rw, n_vec=1, seed=11)
     # the port's own builder gives the same grouping under the budgets
-    port = tv2.MatvecV2(site.eff.ket_space, pl.meta_out, pr.meta_out,
-                        site.mpo.group, site.eff.target, dtype=np.float64,
-                        T=16, bra_space=site.eff.bra_space)
+    port = tv2.MatvecV2(site.peff.ket_space,
+                        interop.stacked_meta(pl.meta_out),
+                        interop.stacked_meta(pr.meta_out), site.pmpo.group,
+                        site.peff.target, dtype=np.float64, T=16,
+                        bra_space=site.peff.bra_space)
     for k in ("it", "cum1", "cum2", "g1", "g2"):
         assert np.array_equal(port.struct[k], ref_ex.struct[k]), k
 
@@ -103,11 +105,11 @@ def test_matvec_twin_matches_host_operator(system):
     site = Site(*system, SITES[1])
     pools = _ref_pools(site)
     (pl, lw), (pr, rw) = pools["lw"], pools["rw"]
-    eff = site.eff
-    ex = tv2.MatvecV2(eff.ket_space, interop.stacked_meta(pl.meta_out),
-                      interop.stacked_meta(pr.meta_out), site.mpo.group,
-                      eff.target, dtype=np.float64,
-                      bra_space=eff.bra_space)
+    eff, peff = site.eff, site.peff
+    ex = tv2.MatvecV2(peff.ket_space, interop.stacked_meta(pl.meta_out),
+                      interop.stacked_meta(pr.meta_out), site.pmpo.group,
+                      peff.target, dtype=np.float64,
+                      bra_space=peff.bra_space)
     x = np.random.RandomState(7).standard_normal(eff.size)
     got = ex.matvec_device(torch.as_tensor(ex.pad(x)),
                            interop.slab_pool(lw, "cpu"),
