@@ -19,11 +19,13 @@ Supports bra != ket (mixed bases): the operator then maps ket-space vectors to
 bra-space vectors — the engine behind compression / MPO-fitting / linear
 solves (the reference's Linear sweep, sweep_algorithm.hpp:3270).
 
-Copied from block2_preview_tpu/dmrg/effective.py (EffectiveHamiltonian2
-only; the one-site operators come back with one-site sweeps).  The host
-assembly runs from host environment maps; on the device path the operators
-are assembled on the card (ops/resident.ResidentSite) and this class only
-supplies the sector spaces.
+Copied from block2_preview_tpu/dmrg/effective.py: EffectiveHamiltonian2
+and EffectiveHamiltonian1 (:414-583, the one-site back-evolution operator
+of two-site TDVP; the right-fused EffectiveHamiltonian1R comes back with
+one-site sweeps).  The host assembly runs from host environment maps; on
+the resident device path the two-site operators are assembled on the card
+(ops/resident.ResidentSite) and EffectiveHamiltonian2 only supplies the
+sector spaces.
 
 Charge conventions: a psi sector is (qL, qR) with qL + qR = target; qL is the
 accumulated charge of sites <= t and qR the charge of sites >= t+1 (bond
@@ -295,3 +297,169 @@ class EffectiveHamiltonian2:
                 psi[(qL, qR)][lo:lo + dl_ * dp_, ro:ro + dq_ * dr_] += \
                     mat.reshape(dl_ * dp_, dq_ * dr_)
         return psi
+
+
+class EffectiveHamiltonian1:
+    """One-site effective Hamiltonian at site s, built from E_L[s], W_s, and
+    E_R[s+1] — the back-evolution operator of two-site TDVP (reference
+    src/dmrg/sweep_algorithm_td.hpp:794 TimeEvolution 1-site steps) and the
+    single-site update operator of 1-site DMRG.
+
+    The one-site center tensor C[(qm, qp, qr2)] is viewed as a matrix between
+    the fused (bond_s (x) site_s) basis and the complemented bond_{s+1} basis;
+    sigma = sum_m LW[m] psi RW[m]^T with RW[m] = E_R[s+1][m] relabeled.
+    """
+
+    def __init__(self, me: MovingEnvironment, s: int):
+        self.me = me
+        self.s = s
+        mpo, ket = me.mpo, me.ket
+        g = mpo.group
+        self.g = g
+        self.target = ket.info.target
+        env_l = me.left_envs[s]
+        env_r = me.right_envs[s + 1]
+        assert env_l is not None and env_r is not None
+
+        bond_l = ket.bond_info_at(s)
+        # bond s+1 basis from the current center tensor's right index
+        dims: Dict[QN, int] = {}
+        for (ql, qp, qr), b in ket.tensors[s].blocks.items():
+            dims[qr] = max(dims.get(qr, 0), b.shape[2])
+        bond_r = StateInfo(g, dims)
+        comp_r = StateInfo(g, {g.sub(self.target, q): d
+                               for q, d in bond_r.items()})
+        self.fl = FusedBasis(g, bond_l, ket.info.site_infos[s])
+        self.comp_r = comp_r
+
+        # dtype
+        dt = np.float64
+        for w in (mpo.tensors[s],):
+            for blk in w.values():
+                dt = np.result_type(dt, blk.dtype)
+        for env in (env_l, env_r):
+            for bm in env.values():
+                for b in bm.blocks.values():
+                    dt = np.result_type(dt, b.dtype)
+                    break
+                break
+        for b in ket.tensors[s].blocks.values():
+            dt = np.result_type(dt, b.dtype)
+            break
+        self.dtype = dt
+
+        # sector keys
+        self.keys: List[Key2] = []
+        for qL in self.fl.sectors():
+            qc = g.sub(self.target, qL)
+            if qc in comp_r:
+                self.keys.append((qL, qc))
+        self.keys.sort()
+        self.shapes = {(qL, qc): (self.fl.info[qL], comp_r[qc])
+                       for (qL, qc) in self.keys}
+        self.offsets: Dict[Key2, int] = {}
+        off = 0
+        for k in self.keys:
+            self.offsets[k] = off
+            dl, dr = self.shapes[k]
+            off += dl * dr
+        self.size = off
+
+        active_l = {qL for (qL, _) in self.keys}
+        active_r = {qc for (_, qc) in self.keys}
+        quanta = mpo.site_quanta[s]
+
+        # degenerate-quanta-safe vectorized assembly
+        LW = assemble_fused_ops(
+            env_l, mpo.tensors[s], quanta, self.fl, bond_is_first=True,
+            join_on_input=True, group=g, active=active_l,
+            fused_ket=self.fl, active_ket=active_l, dtype=self.dtype)
+        RW: Dict[int, Dict[Key2, np.ndarray]] = {}
+        for m, bm in env_r.items():
+            dm = RW.setdefault(m, {})
+            for (qb2, qk2), eb in bm.blocks.items():
+                qcb = g.sub(self.target, qb2)
+                qck = g.sub(self.target, qk2)
+                if qcb in active_r and qck in active_r:
+                    dm[(qcb, qck)] = eb
+        self.LW, self.RW = LW, RW
+
+        triples = []
+        for m, lw in self.LW.items():
+            rw = self.RW.get(m)
+            if rw is None:
+                continue
+            for (qLb, qLk) in lw:
+                qck = g.sub(self.target, qLk)
+                qcb = g.sub(self.target, qLb)
+                if (qLk, qck) in self.offsets and (qcb, qck) in rw \
+                        and (qLb, qcb) in self.offsets:
+                    triples.append((m, (qLb, qLk), (qLk, qck),
+                                    (qcb, qck), (qLb, qcb)))
+        self.triples = triples
+
+    # ------------------------------------------------------------------
+    def tensor_to_vec(self, T) -> np.ndarray:
+        g = self.g
+        dt = self.dtype
+        for b in T.blocks.values():
+            dt = np.result_type(dt, b.dtype)
+        x = np.zeros(self.size, dtype=dt)
+        for (ql, qp, qr2), b in T.blocks.items():
+            qL = g.add(ql, qp)
+            qc = g.sub(self.target, qr2)
+            key = (qL, qc)
+            if key not in self.offsets:
+                continue
+            off = self.offsets[key]
+            dl, dr = self.shapes[key]
+            so, d1, d2 = self.fl.sub_offset(qL, ql, qp)
+            mat = b.reshape(-1, b.shape[2])
+            base = off + so * dr
+            x[base:base + mat.size] = mat.ravel()
+        return x
+
+    def vec_to_tensor(self, x: np.ndarray):
+        from .mps import MPSTensor
+        g = self.g
+        blocks = {}
+        for key in self.keys:
+            qL, qc = key
+            off = self.offsets[key]
+            dl, dr = self.shapes[key]
+            mat = x[off:off + dl * dr].reshape(dl, dr)
+            qr2 = g.sub(self.target, qc)
+            for (ql, qp, so, d1, d2) in self.fl.maps[qL]:
+                blocks[(ql, qp, qr2)] = \
+                    mat[so:so + d1 * d2, :].reshape(d1, d2, dr)
+        return MPSTensor(g, blocks)
+
+    def matvec_np(self, x: np.ndarray) -> np.ndarray:
+        psi = {}
+        for k in self.keys:
+            dl, dr = self.shapes[k]
+            off = self.offsets[k]
+            psi[k] = x[off:off + dl * dr].reshape(dl, dr)
+        dt = np.result_type(self.dtype, x.dtype)
+        out = np.zeros(self.size, dtype=dt)
+        for (m, lk, pk, rk, ok) in self.triples:
+            contrib = self.LW[m][lk] @ psi[pk] @ self.RW[m][rk].T
+            off = self.offsets[ok]
+            out[off:off + contrib.size] += contrib.ravel()
+        return out
+
+    def diagonal(self) -> np.ndarray:
+        diag = np.zeros(self.size)
+        for m, lw in self.LW.items():
+            rw = self.RW.get(m)
+            if rw is None:
+                continue
+            for (qL, qc) in self.keys:
+                lb = lw.get((qL, qL))
+                rb = rw.get((qc, qc))
+                if lb is not None and rb is not None:
+                    off = self.offsets[(qL, qc)]
+                    dl, dr = self.shapes[(qL, qc)]
+                    d2 = (np.diag(lb)[:, None] * np.diag(rb)[None, :]).real
+                    diag[off:off + dl * dr] += d2.ravel()
+        return diag

@@ -259,8 +259,9 @@ class MovingEnvironment:
         if plan is None:
             return {}
         dt = self._dtype_of(env, t)
-        if dt == np.float64:
-            out = execute_plan_native(plan, env, bra_T, ket_T, self.g)
+        if dt in (np.float64, np.complex128):
+            out = execute_plan_native(plan, env, bra_T, ket_T, self.g,
+                                      dtype=dt)
             if out is not None:
                 return out
         return execute_plan_numpy(plan, env, bra_T, ket_T, self.g,

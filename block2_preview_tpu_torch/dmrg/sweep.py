@@ -3,7 +3,7 @@
 Copied from block2_preview_tpu/dmrg/sweep.py (reference
 src/dmrg/sweep_algorithm.hpp:71: update_two_dot at :811, sweep :2551,
 solve :3032) and cut to the SZ two-site single-root Hermitian ground
-state.  One class, two paths:
+state.  One class, three paths:
 
 * ``backend="numpy"``: the reference's host path unchanged — host
   environment maps, host LW/RW assembly, the host Davidson and the host
@@ -18,6 +18,11 @@ state.  One class, two paths:
   contract (ops/resident.py:1166-1170).  ``host_env_materialized`` and
   ``host_ops_downloads`` count the device-to-host unpacks of environments
   and of LW/RW; both stay 0 on this path.
+* ``backend="torch_tiled"`` on ``device``: the reference's jax_tiled
+  (sweep.py:655-684) — host environments, host LW/RW and host noise, and
+  the single-root eigensolve as the device Davidson around the tiled
+  matvec (``TiledExecutor.solve_ground_state``, kernel K7) at every site
+  (no small-site host shortcut).
 
 Guards carried from the reference (sweep.py:752-790): in float32 a Ritz
 pair whose residual ``||Hx - th x||`` exceeds 1.0 Ha is rejected, as is a
@@ -275,9 +280,9 @@ class DMRG:
     def __init__(self, mpo: MPO, mps: MPS, device="cuda",
                  backend: str = "torch_resident", dtype=np.float64,
                  iprint: int = 1, dav_max_iter: int = 200):
-        if backend not in ("torch_resident", "numpy"):
+        if backend not in ("torch_resident", "torch_tiled", "numpy"):
             raise ValueError(f"unknown backend '{backend}' "
-                             "(torch_resident | numpy)")
+                             "(torch_resident | torch_tiled | numpy)")
         self.mpo = mpo
         self.mps = mps
         self.backend = backend
@@ -295,9 +300,13 @@ class DMRG:
             from ..runtime import resolve_device, torch_dtype
             torch_dtype(dtype)
             self.device = resolve_device(device)
-            self._res_caches: Dict = {}
-            self.me = MovingEnvironment(mpo, mps, device=self.device,
-                                        dtype=dtype)
+            if backend == "torch_tiled":
+                self._tiled_cache: Dict = {}
+                self.me = MovingEnvironment(mpo, mps)
+            else:
+                self._res_caches: Dict = {}
+                self.me = MovingEnvironment(mpo, mps, device=self.device,
+                                            dtype=dtype)
         self.me.init_environments()
         self.energies: List[np.ndarray] = []
         self.discarded_weights: List[float] = []
@@ -339,13 +348,14 @@ class DMRG:
         return davidson(eff.matvec_np, diag, x0, n_roots=1,
                         conv_thrd=dav_thrd, max_iter=self.dav_max_iter)
 
-    def _guard(self, rs, th: float, xv: np.ndarray, t: int):
+    def _guard(self, matvec, th: float, xv: np.ndarray, t: int):
         """Check the eigenpair of site t against the f32 Ritz-residual
-        guard and the variational floor.  A failure raises RuntimeError on
-        a CUDA device and _DeviceEigenRejected on CPU tensors."""
+        guard (``matvec``: the device operator on host vectors) and the
+        variational floor.  A failure raises RuntimeError on a CUDA device
+        and _DeviceEigenRejected on CPU tensors."""
         why = None
         if np.dtype(self.dtype) == np.float32:
-            resid = float(np.linalg.norm(rs.matvec(xv) - th * xv))
+            resid = float(np.linalg.norm(matvec(xv) - th * xv))
             if resid > _GUARD_HA:
                 why = (f"Ritz residual {resid:.3e} > {_GUARD_HA} Ha "
                        f"(theta {th:.10f})")
@@ -388,16 +398,42 @@ class DMRG:
             x0[:, 0], conv_thrd=dav_thrd,
             max_iter=self.dav_max_iter)
         try:
-            self._guard(rs, th, xv, t)
+            self._guard(rs.matvec, th, xv, t)
         except _DeviceEigenRejected:
-            # CPU tensors only: the host solver redoes the site in f64
-            self.host_redo_count += 1
-            eff.ensure_assembled()
-            w, v, nmv = self._solve_eff(eff, x0, eff.diagonal(), dav_thrd)
-            self._last_flop = _eff_flops(eff) * nmv
-            return eff, t1, w, v, nmv, None
+            return self._redo_host(eff, x0, t1, dav_thrd)
         self._last_flop = float(rs.ex.struct["flops"]) * nmv
         return eff, t1, np.array([th]), xv[:, None], nmv, rs
+
+    def _redo_host(self, eff, x0, t1, dav_thrd):
+        """CPU tensors only: the host solver redoes a rejected site in
+        f64."""
+        self.host_redo_count += 1
+        eff.ensure_assembled()
+        w, v, nmv = self._solve_eff(eff, x0, eff.diagonal(), dav_thrd)
+        self._last_flop = _eff_flops(eff) * nmv
+        return eff, t1, w, v, nmv, None
+
+    def _eigen_tiled(self, t: int, dav_thrd: float):
+        """Tiled path of one site: host LW/RW, device Davidson around the
+        tiled matvec (kernel K7)."""
+        from ..ops.tiled import TiledExecutor
+        eff = EffectiveHamiltonian2(self.me, t)
+        x0 = self._initial_guesses(eff, t)
+        diag = eff.diagonal()
+        ex = TiledExecutor(eff, dtype=self.dtype, cache=self._tiled_cache,
+                           cache_key=("EffectiveHamiltonian2", t),
+                           device=self.device)
+        t1 = time.time()
+        th, xv, nmv = ex.solve_ground_state(
+            x0[:, 0], diag, conv_thrd=dav_thrd, max_iter=self.dav_max_iter)
+        try:
+            self._guard(ex.matvec, th, xv, t)
+        except _DeviceEigenRejected:
+            return self._redo_host(eff, x0, t1, dav_thrd)
+        finally:
+            ex.free()
+        self._last_flop = _eff_flops(eff) * nmv
+        return eff, t1, np.array([th]), xv[:, None], nmv, None
 
     def update_two_dot(self, t: int, forward: bool, bond_dim: int,
                        noise: float, dav_thrd: float):
@@ -405,6 +441,8 @@ class DMRG:
         t0 = time.time()
         if self.backend == "numpy":
             eff, t1, w, v, nmv, rs = self._eigen_host(t, dav_thrd)
+        elif self.backend == "torch_tiled":
+            eff, t1, w, v, nmv, rs = self._eigen_tiled(t, dav_thrd)
         else:
             eff, t1, w, v, nmv, rs = self._eigen_device(t, noise, forward,
                                                         dav_thrd)

@@ -4,16 +4,18 @@ Copied from block2_preview_tpu/driver/core.py (reference
 pyblock2/driver/core.py:544: initialize_system at :854, get_qc_mpo at :3282
 with FastBipartite, get_mpo at :3885, dmrg at :4437, get_random_mps at
 :7494) and cut to what the SZ two-site ground state needs.  The other
-methods of the reference driver come back with their slices (ROADMAP).
+methods of the reference driver come back with their slices (ROADMAP);
+``td_dmrg`` (time evolution, reference :4785) is here.
 
     drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
     drv.initialize_system(n_sites=8, n_elec=8, spin=0)
     mpo = drv.get_qc_mpo(h1e=h1e, g2e=g2e, ecore=ecore)
     ket = drv.get_random_mps(bond_dim=80)
     energy = drv.dmrg(mpo, ket, bond_dims=[80])      # on the CUDA card
+    e, te = drv.td_dmrg(mpo, ket, delta_t=0.05, n_steps=2, bond_dim=80)
 
-``dmrg`` runs on the card unless the caller asks for the CPU
-(``device="cpu"``) or for the host reference (``backend="numpy"``).
+``dmrg`` and ``td_dmrg`` run on the card unless the caller asks for the
+CPU (``device="cpu"``) or for the host reference (``backend="numpy"``).
 """
 
 from __future__ import annotations
@@ -111,7 +113,9 @@ class DMRGDriver:
              **kw) -> float:
         """SZ ground-state DMRG.  backend="torch_resident" runs every
         two-site step on ``device`` ("cuda" by default; it raises where
-        there is no CUDA, with no fallback); backend="numpy" is the host
+        there is no CUDA, with no fallback); backend="torch_tiled" keeps
+        environments and LW/RW on the host and solves each site on the
+        tiled engine (kernel K7) there; backend="numpy" is the host
         reference.  The solver is kept as ``self._last_dmrg`` (energies,
         timings, sweep_log, host_redo_count and the host transfer
         counters)."""
@@ -121,3 +125,21 @@ class DMRGDriver:
                          n_sweeps=n_sweeps, tol=tol)
         self._last_dmrg = solver
         return e
+
+    def td_dmrg(self, mpo: MPO, ket: MPS, delta_t: float, n_steps: int,
+                bond_dim: int, imaginary: bool = False, normalize=None,
+                iprint: int = 0, device="cuda",
+                backend: str = "torch_tiled"):
+        """Two-site TDVP time evolution of ``ket`` (in place; reference
+        pyblock2/driver/core.py:4785): real time in complex128, or
+        imaginary time in f64 with ``imaginary=True``.  Every Krylov
+        matvec runs on the tiled engine on ``device`` ("cuda" by default,
+        no fallback); backend="numpy" is the host reference.  Returns (the
+        final energy, the TimeEvolution with energies, norms, timings and
+        counters)."""
+        from ..dmrg.tdvp import TimeEvolution
+        te = TimeEvolution(mpo, ket, imaginary=imaginary,
+                           normalize=normalize, iprint=iprint,
+                           backend=backend, device=device)
+        e = te.solve(n_steps, delta_t, bond_dim)
+        return e, te

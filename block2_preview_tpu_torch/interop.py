@@ -89,6 +89,13 @@ def matvec_v2(ref_ex, dtype=np.float64) -> MatvecV2:
     return ex
 
 
+def tiled_struct(ref_ex) -> dict:
+    """The host struct of a reference TiledExecutor as numpy arrays (its
+    device-cache token dropped)."""
+    return {k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
+            for k, v in ref_ex.struct.items() if not k.startswith("_")}
+
+
 def diag_struct(ref_ds) -> dict:
     """Port diag struct from the reference's build_diag_struct output."""
     return {k: v for k, v in ref_ds.items() if not k.startswith("_")}

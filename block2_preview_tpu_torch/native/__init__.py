@@ -2,10 +2,11 @@
 with g++ and bound with ctypes.
 
 Copied from block2_preview_tpu/native/__init__.py: ``sandwich.cpp`` runs the
-host blocking plans (``ops/blocking_plan.execute_plan_native``) and the host
-LW/RW assembly (``ops/blocking.assemble_fused_ops``) of backend="numpy",
-where numpy overhead over millions of tiny quantum-number blocks would
-otherwise dominate.  The library is built into ``build/native/`` beside the
+host blocking plans (``ops/blocking_plan.execute_plan_native``) and the
+host LW/RW assembly (``ops/blocking.assemble_fused_ops``) of the host
+environments, in float64 and (``_z`` entries, real coefficients)
+complex128, where numpy overhead over millions of tiny quantum-number
+blocks would otherwise dominate.  The library is built into ``build/native/`` beside the
 package (git-ignored; the file name carries a hash of the source), never at
 import.  Without g++ the callers fall back to numpy.
 """
@@ -21,7 +22,9 @@ from typing import Optional
 
 _SRC = Path(__file__).resolve().parent / "sandwich.cpp"
 BUILD_DIR = _SRC.parents[2] / "build" / "native"
-_CMD = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
+# -fcx-limited-range: plain complex products (no C99 inf/nan recovery)
+_CMD = ["g++", "-O3", "-march=native", "-fopenmp", "-fcx-limited-range",
+        "-shared", "-fPIC"]
 
 _LIB = None
 _TRIED = False
@@ -43,8 +46,7 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         lib = ctypes.CDLL(str(so))
     except OSError:
         return None
-    lib.assemble_exec.restype = None
-    lib.assemble_exec.argtypes = [
+    asm_args = [
         ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
         ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
@@ -54,8 +56,7 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_double),
     ]
-    lib.sandwich_exec.restype = None
-    lib.sandwich_exec.argtypes = [
+    sw_args = [
         ctypes.c_int, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
         ctypes.POINTER(ctypes.c_double),
@@ -67,6 +68,13 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
     ]
+    # the _z entries take complex128 pools through the same double
+    # pointers (interleaved re, im)
+    for name, args in (("assemble_exec", asm_args),
+                       ("sandwich_exec", sw_args)):
+        for fn in (getattr(lib, name), getattr(lib, name + "_z")):
+            fn.restype = None
+            fn.argtypes = args
     return lib
 
 

@@ -64,6 +64,10 @@ KERNELS: Dict[str, KernelInfo] = {
     "K6_noise": KernelInfo(
         "cuda", "block2_preview_tpu_torch/csrc/noise.cu",
         "block2_preview_tpu/ops/resident.py:862 _noise_exec"),
+    "K7_tiled": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/tiled.cu",
+        "block2_preview_tpu/ops/tiled.py:86 _tiled_matvec_impl (+ :391 "
+        "_tiled_dav)"),
 }
 
 _P = ctypes.c_void_p
@@ -80,7 +84,13 @@ _SIGS = {
     "b2t_block": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P),
     "b2t_noise_x": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_noise_rho": (_P, _P, _P, _I, _L, _I, _P, _P),
+    "b2t_tiled": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
+# entry-point suffix per value type; the complex instances exist only for
+# the entries listed in _COMPLEX
+_SUFFIX = {"float64": "_f64", "float32": "_f32", "complex128": "_c128",
+           "complex64": "_c64"}
+_COMPLEX = {"b2t_tiled"}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
@@ -158,7 +168,8 @@ def lib() -> ctypes.CDLL:
         build()
         cdll = ctypes.CDLL(str(library_path()))
         for name, args in _SIGS.items():
-            for sfx in ("_f64", "_f32"):
+            for sfx in (("_f64", "_f32", "_c128", "_c64")
+                        if name in _COMPLEX else ("_f64", "_f32")):
                 fn = getattr(cdll, name + sfx)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
@@ -169,11 +180,11 @@ def lib() -> ctypes.CDLL:
 
 
 def call(entry: str, dtype, *args) -> None:
-    """Call C entry ``entry`` (``_f64``/``_f32`` picked from ``dtype``, a
-    torch dtype) with ``args`` followed by the current CUDA stream; raise
-    on a CUDA error.  Tensor arguments are validated (contiguous CUDA
-    tensors of ``dtype`` or int32, the only types the kernels take) and
-    passed as device pointers."""
+    """Call C entry ``entry`` (``_f64``/``_f32``/``_c128``/``_c64`` picked
+    from ``dtype``, a torch dtype) with ``args`` followed by the current
+    CUDA stream; raise on a CUDA error.  Tensor arguments are validated
+    (contiguous CUDA tensors of ``dtype`` or int32, the only types the
+    kernels take) and passed as device pointers."""
     import torch
     cargs = []
     for a in args:
@@ -187,7 +198,9 @@ def call(entry: str, dtype, *args) -> None:
                                 f"(expected {dtype} or int32)")
             a = a.data_ptr()
         cargs.append(a)
-    sfx = "_f64" if dtype == torch.float64 else "_f32"
+    sfx = _SUFFIX[str(dtype).rsplit(".", 1)[-1]]
+    if sfx.startswith("_c") and entry not in _COMPLEX:
+        raise TypeError(f"{entry} takes real types only (got {dtype})")
     fn = getattr(lib(), entry + sfx)
     err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:

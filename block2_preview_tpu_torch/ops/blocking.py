@@ -66,9 +66,10 @@ def _round_vec(d: np.ndarray) -> np.ndarray:
     return np.where(d <= 1, 1, np.where(d <= 16, p2, m16))
 
 
-def _exec_assembly_cached(struct, env, group):
+def _exec_assembly_cached(struct, env, group, dtype=np.float64):
     """Execute a cached assembly plan: refill the env pool and run the
-    native scatter kernel."""
+    native scatter kernel (float64, or complex128 when ``dtype`` or an env
+    block is complex)."""
     import ctypes
 
     from ..native import get_lib
@@ -76,17 +77,20 @@ def _exec_assembly_cached(struct, env, group):
     if lib is None:
         return None
     eoffs = struct["eoffs"]
-    epool = np.zeros(int(eoffs[-1]) + 1, dtype=np.float64)
-    for ii, (sym, k) in enumerate(struct["env_order"]):
-        blk = env[sym].blocks[k]
-        if np.iscomplexobj(blk):
-            return None
+    blocks = [env[sym].blocks[k] for sym, k in struct["env_order"]]
+    if any(np.iscomplexobj(b) for b in blocks):
+        dtype = np.complex128
+    if dtype not in (np.float64, np.complex128):
+        return None
+    epool = np.zeros(int(eoffs[-1]) + 1, dtype=dtype)
+    for ii, blk in enumerate(blocks):
         epool[eoffs[ii]:eoffs[ii + 1]] = blk.ravel()
-    flat = np.zeros(struct["total"], dtype=np.float64)
+    flat = np.zeros(struct["total"], dtype=dtype)
     dp = ctypes.POINTER(ctypes.c_double)
     i64 = ctypes.POINTER(ctypes.c_int64)
     i32 = ctypes.POINTER(ctypes.c_int32)
-    lib.assemble_exec(
+    fn = lib.assemble_exec_z if dtype == np.complex128 else lib.assemble_exec
+    fn(
         len(struct["eoff_c"]), epool.ctypes.data_as(dp),
         struct["eoff_c"].ctypes.data_as(i64),
         struct["d1_c"].ctypes.data_as(i32),
@@ -182,7 +186,7 @@ def assemble_fused_ops(env, entries, quanta, fused, bond_is_first: bool,
         sig = _assembly_sig(env, args_sig)
         ent = plan_cache.get(plan_key)
         if ent is not None and ent[0] == sig:
-            out = _exec_assembly_cached(ent[1], env, group)
+            out = _exec_assembly_cached(ent[1], env, group, dtype)
             if out is not None:
                 return out
     # bond sector codes
@@ -326,8 +330,9 @@ def assemble_fused_ops(env, entries, quanta, fused, bond_is_first: bool,
         epool[eoffs[ii]:eoffs[ii + 1]] = m.ravel()
     epool[-1] = 0.0
 
-    # native (C++/OpenMP) scatter-assembly fast path for real data
-    if dtype == np.float64 and not np.iscomplexobj(coefs):
+    # native (C++/OpenMP) scatter-assembly fast path (real coefficients,
+    # float64 or complex128 data)
+    if dtype in (np.float64, np.complex128) and not np.iscomplexobj(coefs):
         from ..native import get_lib
         lib = get_lib()
         if lib is not None:
@@ -349,7 +354,9 @@ def assemble_fused_ops(env, entries, quanta, fused, bond_is_first: bool,
             dp = ctypes.POINTER(ctypes.c_double)
             i64 = ctypes.POINTER(ctypes.c_int64)
             i32 = ctypes.POINTER(ctypes.c_int32)
-            lib.assemble_exec(
+            fn = (lib.assemble_exec_z if dtype == np.complex128
+                  else lib.assemble_exec)
+            fn(
                 len(order2), epool.ctypes.data_as(dp),
                 eoff_c.ctypes.data_as(i64),
                 d1_c.ctypes.data_as(i32), d2_c.ctypes.data_as(i32),

@@ -352,28 +352,31 @@ def execute_plan_numpy(plan: BlockingPlan, env, bra_T, ket_T, group,
     return out
 
 
-def execute_plan_native(plan: BlockingPlan, env, bra_T, ket_T, group
+def execute_plan_native(plan: BlockingPlan, env, bra_T, ket_T, group,
+                        dtype=np.float64
                         ) -> Optional[Dict[int, BlockMatrix]]:
-    """C++/OpenMP execution of a blocking plan (f64 only); returns None when
-    the native library is unavailable (caller falls back to numpy)."""
+    """C++/OpenMP execution of a blocking plan in float64 or complex128
+    (``dtype``; the MPO coefficients must be real); returns None when the
+    native library is unavailable or the coefficients are complex (caller
+    falls back to numpy)."""
     import ctypes
 
     from ..native import get_lib
     lib = get_lib()
-    if lib is None or plan.native is None:
-        return None
-    epool, bpool, kpool = _pools(plan, env, bra_T, ket_T, np.float64)
-    if any(np.iscomplexobj(p) for p in (epool, bpool, kpool)) or \
+    if lib is None or plan.native is None or \
             np.iscomplexobj(plan.native["coefs"]):
         return None
+    dtype = np.dtype(dtype)
+    epool, bpool, kpool = _pools(plan, env, bra_T, ket_T, dtype)
     nat = plan.native
     n = len(nat["eoff"])
-    flat = np.zeros(plan.total_out + 1, dtype=np.float64)
+    flat = np.zeros(plan.total_out + 1, dtype=dtype)
     dp = ctypes.POINTER(ctypes.c_double)
     i64 = ctypes.POINTER(ctypes.c_int64)
     i32 = ctypes.POINTER(ctypes.c_int32)
     coefs = np.ascontiguousarray(nat["coefs"], dtype=np.float64)
-    lib.sandwich_exec(
+    fn = lib.sandwich_exec_z if dtype.kind == "c" else lib.sandwich_exec
+    fn(
         0 if plan.direction == "left" else 1, n,
         epool.ctypes.data_as(dp), bpool.ctypes.data_as(dp),
         kpool.ctypes.data_as(dp),

@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 _TORCH_DTYPES = {np.dtype(np.float64): torch.float64,
-                 np.dtype(np.float32): torch.float32}
+                 np.dtype(np.float32): torch.float32,
+                 np.dtype(np.complex128): torch.complex128,
+                 np.dtype(np.complex64): torch.complex64}
 
 
 def set_precision_policy() -> None:
@@ -40,9 +42,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def torch_dtype(dtype) -> torch.dtype:
-    """numpy float64/float32 -> torch dtype; other types are refused."""
+def torch_dtype(dtype, complex_ok: bool = False) -> torch.dtype:
+    """numpy float64/float32 (and complex128/complex64 where the caller
+    takes them, the tiled engine of time evolution) -> torch dtype; other
+    types are refused."""
     dt = np.dtype(dtype)
-    if dt not in _TORCH_DTYPES:
-        raise TypeError(f"unsupported dtype {dt} (float64 | float32)")
+    if dt not in _TORCH_DTYPES or (dt.kind == "c" and not complex_ok):
+        ok = " | complex128 | complex64" if complex_ok else ""
+        raise TypeError(f"unsupported dtype {dt} (float64 | float32{ok})")
     return _TORCH_DTYPES[dt]

@@ -5,19 +5,35 @@ port's own host reference (backend="numpy", held equal to the JAX
 package's host path by the CPU tests):
 
   1. device    card name and power limit (nvidia-smi), torch / CUDA
-  2. build     nvcc builds kernels K1-K6 from block2_preview_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K7 from block2_preview_tpu_torch/csrc
                (one nvcc per source, all at once)
   4. parity    Hubbard-L8, D=80, 6 sweeps with noise, f64: |dE| < 1e-8 Ha
   5. full      seeded K=16 quantum-chemistry Hamiltonian (16 electrons,
                full QC MPO), D=[250, 250], noise [1e-4, 0], Davidson
                |r|^2 < 1e-14, f64: |dE| < 1e-6 Ha, every kernel K1-K6
                launched, no host redo, no environment or LW/RW download
-  3. kernels   each kernel against its plain PyTorch twin on the card, f64
-               and f32, at a mid-chain site of the MPS that phase 5
-               leaves — the shapes the main path gives the kernels (it
-               runs last for that reason; its launches are not counted) —
-               and again at the mid-chain site of a Hubbard-L16 MPS of
-               bond dimension 1000, whose plans pick K1's T=128 tiles
+  6a. tiled    Hubbard-L8: backend="torch_tiled" ground state (D=80, 6
+               sweeps with noise) against the host reference to 1e-8 Ha;
+               from it, real-time (complex128, dt 0.05) and imaginary-time
+               (f64, dt 0.1) TDVP, 2 steps each, on the card against the
+               host backend: every step's energy to 1e-8 Ha, norms to
+               1e-10, no host matvec
+  6b. tdvp     DMRGDriver.td_dmrg: one real-time TDVP step (complex128,
+               dt 0.02, bond dimension 250) of the K=16 MPS phase 5
+               leaves, every Krylov matvec on K7; per-sweep wall split,
+               K7 launches, energies, |psi| and the discarded weight;
+               fails unless K7 launched, all finite, no host matvec and
+               |1 - |psi|| within the discarded weight + 1e-10
+  3. kernels   each kernel against its plain PyTorch twin on the card, at
+               a mid-chain site of the MPS that phase 5 leaves — the
+               shapes the main path gives the kernels (it runs last for
+               that reason; its launches are not counted): K1-K6 in f64
+               and f32, K7 in f64, f32, complex128 and complex64 (the
+               same operators cast to complex) and in complex128 on the
+               complex environments of the state phase 6b leaves, and the
+               tiled Davidson (K7) against the host Davidson; then again
+               at the mid-chain site of a Hubbard-L16 MPS of bond
+               dimension 1000, whose plans pick K1's and K7's T=128 tiles
                (K5's blocking plans are built with T=128 there).  Each
                row carries the kernel's time, its twin's, one PyTorch
                call's where one computes the same function, and the bound
@@ -28,7 +44,9 @@ package's host path by the CPU tests):
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card and exits non-zero (printing no result) without
 one.  The last line is {"ok": true, "device": {...}}; the line before it
-is the per-kernel JSON summary.
+is the per-kernel JSON summary: K1-K6 from their f64 rows at the K=16
+site, K7 from its complex128 row on phase 6b's state, with the launches
+of phases 5 (K1-K6) and 6b (K7).
 """
 
 from __future__ import annotations
@@ -43,8 +61,13 @@ import numpy as np
 
 F64_TOL = 1e-11     # kernel vs twin, relative to max |twin|
 F32_TOL = 1e-5
-HUB_TOL = 1e-8      # Ha, phase 4
+# K7 vs twin: atomic stage-2 sums change order between runs, so the f64
+# / c128 results agree to rounding (~1e-15 relative), not bitwise
+K7_TOL = {np.float64: 1e-12, np.complex128: 1e-12, np.float32: 1e-5,
+          np.complex64: 1e-5}
+HUB_TOL = 1e-8      # Ha, phases 4 and 6a
 QC_TOL = 1e-6       # Ha, phase 5
+NORM_TOL = 1e-10    # phase 6a norms; phase 6b |psi| slack
 HBM_BPS = 3.35e12   # H100 SXM memory rate, bytes/s
 PEAK_FLOPS = 67e12  # H100 SXM f64 tensor-core / f32 CUDA-core peak, FLOP/s
 
@@ -162,11 +185,18 @@ def ptxas_usage(log: str):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"([a-z][a-z_]*_kernel)I([df])(?:Li(\d+)E)?",
-                          m.group(1))
-            name = (f"{k.group(1)}<{'double' if k.group(2) == 'd' else 'float'}"
-                    f"{',' + k.group(3) if k.group(3) else ''}>"
-                    if k else m.group(1))
+            # value type: d / f, or cplx<d / f> of the same anonymous
+            # namespace (mangled NS_4cplxI.EE)
+            k = re.search(r"([a-z][a-z_]*_kernel)I(?:NS_4cplxI([df])EE|([df]))"
+                          r"(?:Li(\d+)E)?", m.group(1))
+            if k:
+                real = "double" if (k.group(2) or k.group(3)) == "d" \
+                    else "float"
+                vt = f"complex<{real}>" if k.group(2) else real
+                name = (f"{k.group(1)}<{vt}"
+                        f"{',' + k.group(4) if k.group(4) else ''}>")
+            else:
+                name = m.group(1)
             spill = ""
         elif "spill stores" in ln:
             spill = ln.strip()
@@ -190,7 +220,8 @@ def phase_build():
     if not usage:
         fail("no ptxas register report in the build log")
     for name, regs, spill in usage:
-        if name.startswith(("mv_kernel", "blk_kernel", "noise_")) or \
+        if name.startswith(("mv_kernel", "blk_kernel", "noise_",
+                            "tiled_kernel")) or \
                 not spill.startswith("0 bytes stack"):
             print(f"    ptxas {name}: {regs} registers; {spill}", flush=True)
 
@@ -242,15 +273,15 @@ def _index_add_call(plan, tdt, device):
     return call
 
 
-def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
+def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
     """K1-K6 against their twins at site t; returns the summary rows.
     With ``tile`` set, the matvec plan must pick that K1 tile size;
-    ``blk_tile`` sets the blocking plans' tile size (K5's instance)."""
+    ``blk_tile`` sets the blocking plans' tile size (K5's instance);
+    ``site`` is mid_site(mpo, mps, t) when the caller has built it."""
     import torch
     from block2_preview_tpu_torch.ops import blockv2, mixv4, resident, tilev2
-    from block2_preview_tpu_torch.ops._kernels import KERNELS
     from block2_preview_tpu_torch.ops.stacked import env_pool
-    me, eff = mid_site(mpo, mps, t)
+    me, eff = site or mid_site(mpo, mps, t)
     tk = eff.target
     g = mpo.group
     flb, frb = eff.bra_space.fl, eff.bra_space.fr
@@ -307,6 +338,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
     rows = {}
     for dtype, tol in ((np.float64, F64_TOL), (np.float32, F32_TOL)):
         tdt = torch.float64 if dtype == np.float64 else torch.float32
+        acc = rows if dtype == np.float64 else None   # the JSON row: f64
         pools = {}
         for side, plan in plans.items():
             ep = torch.as_tensor(host_pools[side], dtype=tdt, device=device)
@@ -328,7 +360,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
                           torch.zeros(otp + 1, dtype=tdt, device=device))
 
             o_k, o_t = k3(mixv4.mix_exec), k3(mixv4.mix_twin)
-            _check(rows, "K3_mix", dtype, side, o_k, o_t, tol,
+            _check(acc, "K3_mix", dtype, side, o_k, o_t, tol,
                    time_ms(lambda: k3(mixv4.mix_exec), device),
                    time_ms(lambda: k3(mixv4.mix_twin), device), None,
                    k3_bytes, k3_flops,
@@ -343,7 +375,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
             s_l = lib(o_t[:otp])
             if not torch.equal(s_l, s_t):
                 fail(f"K4 {side}: the index_add_ yardstick disagrees")
-            _check(rows, "K4_place", dtype, side, s_k, s_t, tol,
+            _check(acc, "K4_place", dtype, side, s_k, s_t, tol,
                    time_ms(lambda: k4(mixv4.place_exec), device),
                    time_ms(lambda: k4(mixv4.place_twin), device),
                    time_ms(lambda: lib(o_t[:otp]), device),
@@ -358,7 +390,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
             return fn(xp, pools["lw"], pools["rw"], dv, s["T"], s["nt2"])
 
         y_k = k1(tilev2.mv_exec)
-        _check(rows, "K1_matvec", dtype, "", y_k, k1(tilev2.mv_twin), tol,
+        _check(acc, "K1_matvec", dtype, "", y_k, k1(tilev2.mv_twin), tol,
                time_ms(lambda: k1(tilev2.mv_exec), device),
                time_ms(lambda: k1(tilev2.mv_twin), device), None,
                # psi, LW, RW in; sigma out; psi_idx of the live psi tiles,
@@ -394,7 +426,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
             + 4 * int(np.count_nonzero(gr[0] >= 0))
             + 9 * int(np.count_nonzero(live)) + eff.bra_space.size)
         d_k = k2(resident.diag_exec)
-        _check(rows, "K2_diag", dtype, "", d_k, k2(resident.diag_twin), tol,
+        _check(acc, "K2_diag", dtype, "", d_k, k2(resident.diag_twin), tol,
                time_ms(lambda: k2(resident.diag_exec), device),
                time_ms(lambda: k2(resident.diag_twin), device), None,
                k2_bytes, k2_flops, f"tasks {int(np.count_nonzero(live))}")
@@ -421,7 +453,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
 
             o_k, o_t = k5(blockv2.blk_exec), k5(blockv2.blk_twin)
             tag = f"{direction[0]}{3 if mix else 2}"
-            _check(rows, "K5_block", dtype, tag, o_k, o_t, tol,
+            _check(acc, "K5_block", dtype, tag, o_k, o_t, tol,
                    time_ms(lambda: k5(blockv2.blk_exec), device),
                    time_ms(lambda: k5(blockv2.blk_twin), device), None,
                    k5_bytes, rp.flops,
@@ -455,7 +487,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
                 n_tiles(eff.ket_space, npl.T) * npl.T ** 2
                 + item_ints(npl.cum1, npl.it.shape[1]))
             r_k = k6(resident.noise_exec)
-            _check(rows, "K6_noise", dtype, side, r_k,
+            _check(acc, "K6_noise", dtype, side, r_k,
                    k6(resident.noise_twin), tol,
                    time_ms(lambda: k6(resident.noise_exec), device),
                    time_ms(lambda: k6(resident.noise_twin), device), None,
@@ -464,8 +496,17 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
                    f"x tiles {npl.n_x} (scratch "
                    f"{npl.n_x * npl.T ** 2 * xs.element_size() / 2 ** 20:.1f}"
                    f" MiB) rho tiles {n_rho}")
+    return summary(rows)
+
+
+def summary(rows):
+    """The JSON rows of the kernels in ``rows`` (f64 sums of _check), in
+    kernel order; main fills in the launches of the main-path run."""
+    from block2_preview_tpu_torch.ops._kernels import KERNELS
     out = []
     for name, info in KERNELS.items():
+        if name not in rows:
+            continue
         r = rows[name]
         b_ms = max(r["bytes_ms"], r["flops_ms"])
         out.append({"name": name, "route": info.route,
@@ -481,11 +522,14 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None):
 
 def _check(rows, name, dtype, side, got, ref, tol, ms, plain_ms, lib_ms,
            n_bytes, flops, shape):
+    """Print and hold one kernel row to ``tol``; unless ``rows`` is None,
+    sum the row into the kernel's JSON row there."""
     import torch
     if got.is_cuda:
         torch.cuda.synchronize()
     rel, mabs = rel_err(got, ref)
-    tag = "f64" if dtype == np.float64 else "f32"
+    tag = {np.float64: "f64", np.float32: "f32", np.complex128: "c128",
+           np.complex64: "c64"}[dtype]
     b_ms, b_by = bound_ms(n_bytes, flops)
     lib = "" if lib_ms is None else f"  library {lib_ms:.3f} ms"
     print(f"[3 kernels] {name:9s} {tag} {side:3s} rel {rel:.2e} "
@@ -493,7 +537,7 @@ def _check(rows, name, dtype, side, got, ref, tol, ms, plain_ms, lib_ms,
           f"  bound {b_ms:.4f} ms ({b_by})  ({shape})", flush=True)
     if not rel <= tol:
         fail(f"{name} {tag} {side}: rel err {rel:.3e} > {tol:.0e}")
-    if dtype == np.float64:
+    if rows is not None:
         r = rows.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
                                    "plain_ms": 0.0, "library_ms": None,
                                    "bytes_ms": 0.0, "flops_ms": 0.0})
@@ -504,6 +548,108 @@ def _check(rows, name, dtype, side, got, ref, tol, ms, plain_ms, lib_ms,
             r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
         r["bytes_ms"] += n_bytes / HBM_BPS * 1e3
         r["flops_ms"] += flops / PEAK_FLOPS * 1e3
+
+
+def copy_mps(mps):
+    """A copy of a port MPS whose site blocks are new arrays."""
+    from block2_preview_tpu_torch.dmrg.mps import MPS, MPSTensor
+    return MPS(mps.info, [MPSTensor(t.group, {k: v.copy() for k, v in
+                                              t.blocks.items()})
+                          for t in mps.tensors], center=mps.center)
+
+
+def k7_bytes_flops(eff, dtype):
+    """Least bytes and FLOPs of one sigma matvec on ``eff`` in ``dtype``, at
+    the true block shapes (no tile padding): every LW/RW matrix that a
+    triple reads, psi in and sigma out, each once; the products of the
+    triples (2 a k n + 2 a n p each, x4 for complex)."""
+    from block2_preview_tpu_torch.dmrg.sweep import _eff_flops
+    dtype = np.dtype(dtype)
+    lw = {(m, lk) for (m, lk, _, _, _) in eff.triples}
+    rw = {(m, rk) for (m, _, _, rk, _) in eff.triples}
+    n = (sum(eff.LW[m][k].size for m, k in lw)
+         + sum(eff.RW[m][k].size for m, k in rw) + 2 * eff.size)
+    flops = _eff_flops(eff) * (4 if dtype.kind == "c" else 1)
+    return dtype.itemsize * n, flops
+
+
+def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True):
+    """K7 against its twin at center t of the host environments ``me``:
+    f64 and f32, complex128 and complex64 on the same operators cast to
+    complex (a seeded complex vector), and complex128 on the complex
+    environments ``complex_me`` (the state phase 6b leaves).  With
+    ``davidson``, the tiled Davidson (K7) against the host Davidson on
+    matvec_np.  Returns the summary row: the complex128 row on
+    ``complex_me`` (the inputs phase 6b gives K7) when given, else f64."""
+    import torch
+    from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+    from block2_preview_tpu_torch.ops.davidson import davidson as host_dav
+    from block2_preview_tpu_torch.ops.tiled import (TiledExecutor,
+                                                    plain_tables,
+                                                    tiled_matvec,
+                                                    tiled_matvec_plain,
+                                                    unit_tables)
+    t0 = time.time()
+    eff = EffectiveHamiltonian2(me, t)
+    cases = [(np.float64, eff, ""), (np.float32, eff, ""),
+             (np.complex128, eff, ""), (np.complex64, eff, "")]
+    if complex_me is not None:
+        ceff = EffectiveHamiltonian2(complex_me, t)
+        if ceff.dtype != np.complex128:
+            fail(f"phase 6b left a {ceff.dtype} state, not complex128")
+        cases.append((np.complex128, ceff, "6b"))
+    print(f"[3 kernels] K7 site {t}: host LW/RW in {time.time() - t0:.1f} s",
+          flush=True)
+    summary_case = cases[-1] if complex_me is not None else cases[0]
+    rng = np.random.default_rng(5)
+    rows = {}
+    for case in cases:
+        dtype, e, side = case
+        ex = TiledExecutor(e, dtype=dtype, T=T, device=device)
+        s = ex.struct
+        x = rng.standard_normal(e.size)
+        if ex.dtype.kind == "c":
+            x = x + 1j * rng.standard_normal(e.size)
+        xp = torch.as_tensor(ex.pad(x), device=device)
+        dp = plain_tables(s, device)
+
+        def k7(fn, d):
+            return fn(xp, ex.lpool, ex.rpool, d, s["nt1"], s["nt2"], s["T"])
+
+        n_bytes, flops = k7_bytes_flops(e, dtype)
+        # what K7 multiplies: whole T x T tiles, zero padding included
+        tile_gflop = (unit_tables(s)["flops"] / 1e9
+                      * (4 if ex.dtype.kind == "c" else 1))
+        _check(rows if case is summary_case else None, "K7_tiled", dtype,
+               side, k7(tiled_matvec, ex._dev),
+               k7(tiled_matvec_plain, dp), K7_TOL[dtype],
+               time_ms(lambda: k7(tiled_matvec, ex._dev), device),
+               time_ms(lambda: k7(tiled_matvec_plain, dp), device), None,
+               n_bytes, flops,
+               f"T {s['T']} size {e.size} units {ex._dev.get('n_units', 0)} "
+               f"struct {ex.t_struct:.2f} s pack+upload {ex.t_pack:.2f} s "
+               f"tables {ex.t_tables:.3f} s "
+               f"GFLOP {flops / 1e9:.2f} (whole tiles {tile_gflop:.2f})")
+        ex.free()
+    if davidson:
+        x0 = eff.flatten(eff.initial_guess())
+        x0 /= np.linalg.norm(x0)
+        diag = eff.diagonal()
+        t0 = time.time()
+        ex = TiledExecutor(eff, dtype=np.float64, T=T, device=device)
+        th, _, it = ex.solve_ground_state(x0, diag, conv_thrd=1e-12,
+                                          max_iter=100)
+        ex.free()
+        t1 = time.time()
+        w, _, nmv = host_dav(eff.matvec_np, diag, x0[:, None], n_roots=1,
+                             conv_thrd=1e-12)
+        d_th = th - float(w[0])
+        print(f"[3 kernels] K7 Davidson site {t}: tiled {th:.12f} ({it} it, "
+              f"{t1 - t0:.1f} s) host {w[0]:.12f} ({nmv} mv, "
+              f"{time.time() - t1:.1f} s) dtheta {d_th:.2e}", flush=True)
+        if not abs(d_th) < 1e-8:
+            fail(f"tiled Davidson |dtheta| {abs(d_th):.3e} >= 1e-8")
+    return summary(rows)
 
 
 def _host_reference(mpo, mps, sched):
@@ -535,6 +681,109 @@ def phase_hubbard(device):
           f"dE {de:.2e}", flush=True)
     if not abs(de) < HUB_TOL:
         fail(f"Hubbard parity |dE| {abs(de):.3e} >= {HUB_TOL}")
+    return e_ref
+
+
+def phase_tiled_parity(device, L=8, D=80, ns=6, e_ref=None):
+    """Phase 6a: the torch_tiled ground state and both kinds of TDVP
+    against the host backend at a small size.  ``e_ref``: the host energy
+    of the same schedule and seed (phase 4's), computed when None."""
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    from block2_preview_tpu_torch.ops import _kernels
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
+    drv.initialize_system(n_sites=L, n_elec=L, spin=0)
+    mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
+    sched = dict(bond_dims=[D] * ns, noises=[1e-5] * ns + [0],
+                 thrds=[1e-10], n_sweeps=ns, tol=0, iprint=0)
+    _kernels.reset_counts()
+    t0 = time.time()
+    e_port = drv.dmrg(mpo, drv.get_random_mps(D, seed=7), device=device,
+                      backend="torch_tiled", **sched)
+    t1 = time.time()
+    gs = drv._last_dmrg.mps
+    if e_ref is None:
+        e_ref = _host_reference(mpo, drv.get_random_mps(D, seed=7), sched)
+    de = e_port - e_ref
+    print(f"[6a tiled] Hubbard-L{L} D={D} x{ns} torch_tiled {e_port:.12f} "
+          f"({t1 - t0:.1f} s, K7 launches "
+          f"{_kernels.launch_counts()['K7_tiled']}) host {e_ref:.12f} "
+          f"dE {de:.2e}", flush=True)
+    if not abs(de) < HUB_TOL:
+        fail(f"torch_tiled parity |dE| {abs(de):.3e} >= {HUB_TOL}")
+    for imaginary, dt in ((False, 0.05), (True, 0.1)):
+        kind = "imaginary" if imaginary else "real"
+        t0 = time.time()
+        _, te = drv.td_dmrg(mpo, copy_mps(gs), dt, 2, D, imaginary=imaginary,
+                            device=device)
+        t1 = time.time()
+        _, th = drv.td_dmrg(mpo, copy_mps(gs), dt, 2, D, imaginary=imaginary,
+                            backend="numpy")
+        de = np.abs(np.subtract(te.energies, th.energies)).max()
+        dn = np.abs(np.subtract(te.norms, th.norms)).max()
+        print(f"[6a tiled] {kind}-time TDVP dt {dt} x2: energies "
+              f"{', '.join(f'{e:.12f}' for e in te.energies)} ({t1 - t0:.1f} "
+              f"s, {te.n_matvec} matvecs) host "
+              f"{', '.join(f'{e:.12f}' for e in th.energies)} "
+              f"({time.time() - t1:.1f} s) max dE {de:.2e} max d|psi| "
+              f"{dn:.2e} host matvecs {te.host_matvec_count}", flush=True)
+        if not (de < HUB_TOL and dn < NORM_TOL):
+            fail(f"{kind}-time TDVP parity dE {de:.3e} d|psi| {dn:.3e}")
+        if te.host_matvec_count != 0:
+            fail(f"{kind}-time TDVP ran {te.host_matvec_count} host matvecs")
+    return gs
+
+
+def phase_tdvp(device, drv, mpo, ket, D=250, dt=0.02):
+    """Phase 6b: DMRGDriver.td_dmrg, one real-time step of ``ket`` (in
+    place) at bond dimension D.  Returns the K7 launches of the run."""
+    import torch
+    from block2_preview_tpu_torch.ops import _kernels
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t0 = time.time()
+    e, te = drv.td_dmrg(mpo, ket, delta_t=dt, n_steps=1, bond_dim=D,
+                        device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    k7 = _kernels.launch_counts()["K7_tiled"]
+    log = te.sweep_log
+    init = te.timings.blk - sum(r["blk"] for r in log)
+    print(f"[6b tdvp] real-time step dt {dt} D={D}: {wall:.1f} s, host "
+          f"environment init {init:.1f} s", flush=True)
+    for r in log:
+        print(f"[6b tdvp] sweep {'F' if r['forward'] else 'B'} wall "
+              f"{r['wall']:.1f} s  blk {r['blk']:.1f} asm {r['asm']:.1f} "
+              f"struct {r['struct']:.1f} pack+upload {r['pack']:.1f} "
+              f"tables {r['tables']:.2f} krylov {r['krylov']:.1f} "
+              f"dm {r['dm']:.1f}  K7 launches "
+              f"{r['k7_launches']} matvecs {r['matvecs']} discarded "
+              f"{r['discarded']:.3e}", flush=True)
+    nrm, dw = te.norms[-1], te.discarded_weight
+    mem = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+           else float("nan"))
+    e0, n0 = te.initial
+    print(f"[6b tdvp] E before {e0:.10f} (|psi| {n0:.12f}) after {e:.10f}  "
+          f"|psi| {nrm:.12f}  summed discarded weight "
+          f"{dw:.3e}  K7 launches {k7}  host matvecs "
+          f"{te.host_matvec_count}  max_memory_allocated {mem:.2f} GiB",
+          flush=True)
+    if cuda and k7 == 0:
+        fail("phase 6b never launched K7")
+    nums = [e0, n0, e, nrm, dw] + [v for r in log for v in r.values()
+                           if isinstance(v, float)]
+    if not np.isfinite(nums).all():
+        fail(f"phase 6b: a number is not finite ({nums})")
+    if te.host_matvec_count != 0:
+        fail(f"phase 6b ran {te.host_matvec_count} host matvecs")
+    if not abs(1.0 - nrm) <= dw + NORM_TOL:
+        fail(f"|1 - |psi|| {abs(1.0 - nrm):.3e} exceeds the discarded "
+             f"weight {dw:.3e} + {NORM_TOL}")
+    return k7
 
 
 def phase_full(device, drv, mpo, D=250, n_orb=16):
@@ -609,16 +858,26 @@ def main():
     nbond = max(len(b) for b in mpo.bond_dqs)
     print(f"[5 full] K={n_orb} QC MPO built in {t_mpo:.1f} s, max MPO "
           f"bond {nbond}", flush=True)
-    phase_hubbard(device)
+    e_hub = phase_hubbard(device)
     counts, ket = phase_full(device, drv, mpo, D=D, n_orb=n_orb)
+    counts.pop("K7_tiled")      # phase 6b's path
     if not all(c > 0 for c in counts.values()):
         fail(f"a kernel of the path was never launched: {counts}")
-    rows = phase_kernels(device, mpo, ket, n_orb // 2 - 1)
+    ket5 = copy_mps(ket)
+    phase_tiled_parity(device, e_ref=e_hub)
+    counts["K7_tiled"] = phase_tdvp(device, drv, mpo, ket, D=D)
+    t = n_orb // 2 - 1
+    site = mid_site(mpo, ket5, t)
+    rows = phase_kernels(device, mpo, ket5, t, site=site)
+    rows += phase_tiled(device, site[0], t,
+                        complex_me=mid_site(mpo, ket, t)[0])
     t0 = time.time()
     wide = wide_system()
     print(f"[3 kernels] Hubbard-L16 D=1000 site 7 (T=128 tiles; MPS built "
           f"in {time.time() - t0:.1f} s)", flush=True)
-    phase_kernels(device, *wide, 7, tile=128, blk_tile=128)
+    site = mid_site(*wide, 7)
+    phase_kernels(device, *wide, 7, tile=128, blk_tile=128, site=site)
+    phase_tiled(device, site[0], 7, T=128, davidson=False)
     if "jax" in sys.modules or "block2_preview_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     for r in rows:

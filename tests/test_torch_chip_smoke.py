@@ -43,10 +43,11 @@ def test_chip_smoke_phases_on_cpu(capsys):
     counts, ket = chip_smoke.phase_full(dev, drv, mpo, D=D, n_orb=n_orb)
     # CPU tensors run the twins, which launch nothing
     assert counts == {"K1_matvec": 0, "K2_diag": 0, "K3_mix": 0,
-                      "K4_place": 0, "K5_block": 0, "K6_noise": 0}
+                      "K4_place": 0, "K5_block": 0, "K6_noise": 0,
+                      "K7_tiled": 0}
     assert drv._last_dmrg.mps is ket
     rows = chip_smoke.phase_kernels(dev, mpo, ket, n_orb // 2 - 1)
-    assert [r["name"] for r in rows] == list(counts)
+    assert [r["name"] for r in rows] == list(counts)[:6]
     for r in rows:
         assert r["max_abs_err"] == 0.0      # twin against itself
         assert r["route"] == "cuda" and (ROOT / r["source"]).is_file()
@@ -62,6 +63,39 @@ def test_chip_smoke_phases_on_cpu(capsys):
         assert f"[3 kernels] {k}" in out, k
     json.dumps(rows)
     assert np.isfinite([r["ms"] for r in rows]).all()
+
+
+def test_chip_smoke_tiled_phases_on_cpu(capsys):
+    """Phase 6a (torch_tiled ground state, real- and imaginary-time TDVP
+    against the host backend), phase 6b (td_dmrg, one real-time step with
+    its per-sweep split) and the phase-3 K7 rows with the tiled Davidson
+    check at a small size on the CPU."""
+    dev = torch.device("cpu")
+    chip_smoke.phase_tiled_parity(dev, L=4, D=20, ns=4)
+    n_orb, D = 6, 20
+    drv, mpo, _ = chip_smoke.qc_system(n_orb, n_orb)
+    ket = drv.get_random_mps(D, seed=11)
+    drv.dmrg(mpo, ket, bond_dims=[D], noises=[1e-4, 0], thrds=[1e-12],
+             n_sweeps=2, tol=0, iprint=0, backend="numpy")
+    ket5 = chip_smoke.copy_mps(ket)
+    assert chip_smoke.phase_tdvp(dev, drv, mpo, ket, D=D) == 0
+    t = n_orb // 2 - 1
+    me5 = chip_smoke.mid_site(mpo, ket5, t)[0]
+    rows = chip_smoke.phase_tiled(dev, me5, t,
+                                  complex_me=chip_smoke.mid_site(mpo, ket,
+                                                                 t)[0])
+    assert [r["name"] for r in rows] == ["K7_tiled"]
+    r = rows[0]
+    assert r["max_abs_err"] == 0.0      # the plain version against itself
+    assert r["route"] == "cuda" and (ROOT / r["source"]).is_file()
+    assert r["bound_ms"] > 0 and r["library_ms"] is None
+    out = capsys.readouterr().out
+    for k in ("[6a tiled] Hubbard-L4", "[6a tiled] real-time TDVP",
+              "[6a tiled] imaginary-time TDVP", "[6b tdvp] sweep F",
+              "[6b tdvp] sweep B", "summed discarded weight",
+              "[3 kernels] K7_tiled  f64", "[3 kernels] K7_tiled  c64",
+              "[3 kernels] K7_tiled  c128 6b", "[3 kernels] K7 Davidson"):
+        assert k in out, k
 
 
 def test_wide_site_checks_its_tile():

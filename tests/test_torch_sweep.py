@@ -4,8 +4,9 @@ noise on the device path (CPU tensors run the kernels' twins) — against
 the reference's jax_resident backend and its host numpy backend
 (Hubbard-L8, D=80, 6 sweeps, noise 1e-5, f64: |dE| < 1e-8 Ha, the bar of
 test_resident_backend_end_to_end), with no environment or LW/RW download
-on the way; and a subprocess proof that the port needs neither JAX nor
-the JAX package."""
+on the way; and a subprocess proof that the port — the resident and
+tiled ground states and time evolution — needs neither JAX nor the JAX
+package."""
 
 import os
 import re
@@ -110,7 +111,7 @@ def test_guard_raises_on_the_card(monkeypatch):
     assert s.host_redo_count == 0
 
 
-def test_driver_requires_explicit_device():
+def test_default_device_is_cuda():
     """The CPU must be asked for explicitly: with no device given,
     DMRGDriver.dmrg and DMRG pick "cuda".  That resolves to the card where
     there is one and raises where there is none — there is no fallback to
@@ -158,6 +159,17 @@ assert s.host_env_materialized == 0 and s.host_ops_downloads == 0
 e_ref = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), backend="numpy",
                  **kw)
 assert abs(e - e_ref) < 1e-10, (e, e_ref)
+e_t = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), device="cpu",
+               backend="torch_tiled", **kw)
+assert abs(e_t - e_ref) < 1e-8, (e_t, e_ref)
+gs = drv._last_dmrg.mps
+for imaginary in (False, True):
+    _, te = drv.td_dmrg(mpo, chip_smoke.copy_mps(gs), 0.05, 1, 20,
+                        imaginary=imaginary, device="cpu")
+    _, th = drv.td_dmrg(mpo, chip_smoke.copy_mps(gs), 0.05, 1, 20,
+                        imaginary=imaginary, backend="numpy")
+    assert te.host_matvec_count == 0 and te.n_matvec > 0
+    assert abs(te.energies[-1] - th.energies[-1]) < 1e-8
 assert not any(k == "jax" or k.startswith(("jax.", "block2_preview_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ENERGY", e, e_ref)
