@@ -1,11 +1,18 @@
 """Moving environments: left/right contracted operator tensors per bond.
 
 Copied from block2_preview_tpu/dmrg/environment.py and cut to the port's
-two paths:
+paths:
 
-* host (``device=None``, backend="numpy"): every bond is a host map
-  {mpo bond symbol -> BlockMatrix}, built by the plan-cached host blocking
-  of ``ops/blocking_plan.py`` — the reference's numpy path, the oracle;
+* host (``device=None``, backends "numpy", "torch", "torch_tiled"): every
+  bond is a host map {mpo bond symbol -> BlockMatrix}, built by the
+  plan-cached host blocking of ``ops/blocking_plan.py`` — the reference's
+  numpy path, the oracle;
+* host maps blocked on the device (``blocking_device`` set, backend
+  "torch_device"; the reference's ``me.device`` flag, :132, 647-658):
+  every plan of ``_contract_planned``, ``init_environments`` included,
+  runs through ``ops/blocking_device.execute_plan_device`` (kernel K9);
+  the bonds stay host maps between steps.  ``blk_transfers`` counts the
+  uploads and downloads (and their bytes) this mode makes;
 * device: every bond is a flat slab pool (``ops/stacked.StackedMeta``
   layout) held as a torch tensor on ``device`` in ``_stk_l``/``_stk_r``.
   ``init_environments``, ``update_left`` and ``update_right`` block on the
@@ -66,16 +73,21 @@ class _EnvList(list):
 
 class MovingEnvironment:
     def __init__(self, mpo: MPO, ket: MPS, bra: Optional[MPS] = None,
-                 device=None, dtype=np.float64):
+                 device=None, dtype=np.float64, blocking_device=None):
         """``device`` None keeps host maps (backend="numpy"); a torch
         device keeps every bond but the boundaries as a pool there, in
-        ``dtype`` (float64 or float32)."""
+        ``dtype`` (float64 or float32).  ``blocking_device`` (with
+        ``device`` None) keeps host maps but runs their blocking plans on
+        that torch device."""
         self.mpo = mpo
         self.ket = ket
         self.bra = bra if bra is not None else ket
         self.g = mpo.group
         self.device = device
         self.dtype = np.dtype(dtype)
+        self.blocking_device = blocking_device
+        self.blk_transfers = {"uploads": 0, "downloads": 0, "bytes_up": 0,
+                              "bytes_down": 0}
         L = mpo.n_sites
         self.left_envs: List[Optional[EnvMap]] = _EnvList(self, "l", L + 1)
         self.right_envs: List[Optional[EnvMap]] = _EnvList(self, "r", L + 1)
@@ -234,7 +246,7 @@ class MovingEnvironment:
             list.__setitem__(self.right_envs, dst, _STK)
 
     # ------------------------------------------------------------------
-    # host blocking (backend="numpy")
+    # host maps, blocked on the host or on ``blocking_device``
     # ------------------------------------------------------------------
     def _contract_planned(self, env, t: int, direction: str,
                           dq_out) -> EnvMap:
@@ -259,6 +271,11 @@ class MovingEnvironment:
         if plan is None:
             return {}
         dt = self._dtype_of(env, t)
+        if self.blocking_device is not None:
+            from ..ops.blocking_device import execute_plan_device
+            return execute_plan_device(plan, env, bra_T, ket_T, self.g,
+                                       dtype=dt, device=self.blocking_device,
+                                       transfers=self.blk_transfers)
         if dt in (np.float64, np.complex128):
             out = execute_plan_native(plan, env, bra_T, ket_T, self.g,
                                       dtype=dt)

@@ -1,13 +1,18 @@
-"""Two-site ground-state DMRG sweeps of the port.
+"""Two-site DMRG sweeps of the port: ground states, state-averaged roots
+and state-specific excited states.
 
 Copied from block2_preview_tpu/dmrg/sweep.py (reference
 src/dmrg/sweep_algorithm.hpp:71: update_two_dot at :811, sweep :2551,
-solve :3032) and cut to the SZ two-site single-root Hermitian ground
-state.  One class, three paths:
+solve :3032) and cut to SZ two-site Hermitian sweeps.  ``n_roots`` > 1
+averages the density matrix over the roots with ``weights`` (equal by
+default); ``proj_mpss`` projects previously converged MPSs out of every
+local solve, or with ``proj_weights`` adds the penalty w_i |phi_i><phi_i|
+(``dmrg/projection.py``; the reference's sweep.py:382-457, 595-708).
+One class, five paths:
 
 * ``backend="numpy"``: the reference's host path unchanged — host
   environment maps, host LW/RW assembly, the host Davidson and the host
-  noise term.  It is the oracle the device path is held to.
+  noise term.  It is the oracle the device paths are held to.
 * ``backend="torch_resident"`` (default) on ``device`` (default "cuda";
   the CPU only when asked for): every two-site step runs through
   :class:`ResidentSite` — environment pools and blocking (K5 + K3), LW/RW
@@ -17,12 +22,26 @@ state.  One class, three paths:
   and scalars cross between host and device: the reference's jax_resident
   contract (ops/resident.py:1166-1170).  ``host_env_materialized`` and
   ``host_ops_downloads`` count the device-to-host unpacks of environments
-  and of LW/RW; both stay 0 on this path.
+  and of LW/RW; both stay 0 on this path.  One root and no projection,
+  as the reference's ``use_res`` (sweep.py:721-722); anything else raises.
+* ``backend="torch"`` and ``backend="torch_device"`` on ``device``: the
+  reference's ``jax`` and ``jax_device`` (sweep.py:463-464, 685-705) —
+  host LW/RW and host noise, and the local solve as the host Davidson
+  (``n_roots``, projection) around the bucketed sigma matvec
+  (``BucketExecutor.matvec``, kernel K8).  ``torch_device`` also blocks
+  every environment on the device (kernel K9; the environments stay host
+  maps between steps) and, in float32 with one root and no projection,
+  runs the whole Davidson on the device around K8 (the reference's
+  ``_dav_jit``).  Every site goes through K8: the reference's small-site
+  host shortcut (``eff.size < 4096``, sweep.py:655-659) is not copied, so
+  K8's launches equal the matvecs (in float32 the Ritz guard below adds
+  one per root and site).  Real types only.
 * ``backend="torch_tiled"`` on ``device``: the reference's jax_tiled
-  (sweep.py:655-684) — host environments, host LW/RW and host noise, and
-  the single-root eigensolve as the device Davidson around the tiled
-  matvec (``TiledExecutor.solve_ground_state``, kernel K7) at every site
-  (no small-site host shortcut).
+  (sweep.py:660-684) — host environments, host LW/RW and host noise; one
+  root without projection solves with the device Davidson around the
+  tiled matvec (``TiledExecutor.solve_ground_state``, kernel K7), more
+  roots or a projection with the host Davidson around
+  ``TiledExecutor.matvec`` — at every site (no small-site host shortcut).
 
 Guards carried from the reference (sweep.py:752-790): in float32 a Ritz
 pair whose residual ``||Hx - th x||`` exceeds 1.0 Ha is rejected, as is a
@@ -273,26 +292,51 @@ class _DeviceEigenRejected(Exception):
     the host solver."""
 
 
+_BACKENDS = ("torch_resident", "torch", "torch_device", "torch_tiled",
+             "numpy")
+
+
 class DMRG:
-    """SZ two-site single-root ground-state DMRG (reference
-    sweep_algorithm.hpp:71)."""
+    """SZ two-site DMRG: ground state, state-averaged roots and
+    state-specific excited states (reference sweep_algorithm.hpp:71)."""
 
     def __init__(self, mpo: MPO, mps: MPS, device="cuda",
                  backend: str = "torch_resident", dtype=np.float64,
-                 iprint: int = 1, dav_max_iter: int = 200):
-        if backend not in ("torch_resident", "torch_tiled", "numpy"):
+                 iprint: int = 1, dav_max_iter: int = 200,
+                 n_roots: int = 1, weights: Optional[Sequence[float]] = None,
+                 proj_mpss: Optional[Sequence[MPS]] = None,
+                 proj_weights: Optional[Sequence[float]] = None):
+        if backend not in _BACKENDS:
             raise ValueError(f"unknown backend '{backend}' "
-                             "(torch_resident | torch_tiled | numpy)")
+                             f"({' | '.join(_BACKENDS)})")
         self.mpo = mpo
         self.mps = mps
         self.backend = backend
         self.dtype = dtype
         self.iprint = iprint
         self.dav_max_iter = dav_max_iter
-        self.weights = [1.0]
+        self.n_roots = n_roots
+        self.weights = list(weights) if weights is not None \
+            else [1.0 / n_roots] * n_roots
+        if proj_mpss:
+            from .projection import OverlapEnvs
+            self._proj = [OverlapEnvs(mps, phi, 1.0) for phi in proj_mpss]
+            self._proj_weights = list(proj_weights) if proj_weights \
+                else None
+            if self._proj_weights is not None and \
+                    len(self._proj_weights) != len(self._proj):
+                raise ValueError("one proj_weight per proj_mps")
+        else:
+            self._proj = []
+            self._proj_weights = None
+        if backend == "torch_resident" and (n_roots != 1 or self._proj):
+            raise ValueError("backend='torch_resident' solves one root "
+                             "without projection; use backend='torch' or "
+                             "'torch_device' for n_roots > 1 or proj_mpss")
         self.host_redo_count = 0
-        # per sweep: (energy, wall s, teff, teig, tdm, tblk)
-        self.sweep_log: List[Tuple[float, ...]] = []
+        # one dict per sweep: lowest energy, per-root energies, wall s,
+        # teff/teig/tdm/tblk, matvecs, kernel launches, blocking transfers
+        self.sweep_log: List[Dict] = []
         if backend == "numpy":
             self.device = None
             self.me = MovingEnvironment(mpo, mps)
@@ -300,19 +344,23 @@ class DMRG:
             from ..runtime import resolve_device, torch_dtype
             torch_dtype(dtype)
             self.device = resolve_device(device)
-            if backend == "torch_tiled":
-                self._tiled_cache: Dict = {}
-                self.me = MovingEnvironment(mpo, mps)
-            else:
+            if backend == "torch_resident":
                 self._res_caches: Dict = {}
                 self.me = MovingEnvironment(mpo, mps, device=self.device,
                                             dtype=dtype)
+            else:
+                # struct caches keyed (kind, site), as the reference's
+                # _tiled_cache / _exec_cache
+                self._exec_cache: Dict = {}
+                self.me = MovingEnvironment(
+                    mpo, mps, blocking_device=(
+                        self.device if backend == "torch_device" else None))
         self.me.init_environments()
         self.energies: List[np.ndarray] = []
         self.discarded_weights: List[float] = []
         self.timings = SweepTimings()
-        # center wavefunction tensors; None means "use the MPS center
-        # tensor" (cold start)
+        # per-root center wavefunction tensors; None means "use the MPS
+        # center tensor" (cold start)
         self._center_tensors: Optional[List[MPSTensor]] = None
         self._center_pos = -1
 
@@ -329,24 +377,45 @@ class DMRG:
     # ------------------------------------------------------------------
     def _initial_guesses(self, eff: EffectiveHamiltonian2, t: int
                          ) -> np.ndarray:
+        """One column per root: the center tensors carried from the last
+        step (the MPS center at a cold start), random columns from
+        RandomState(7) for the roots beyond them (reference
+        sweep.py:595-619)."""
+        guesses = []
         if self._center_tensors is not None and \
                 self._center_pos in (t, t + 1):
-            ct = self._center_tensors[0]
-            g0 = (eff.initial_guess(tensor_l=ct) if self._center_pos == t
-                  else eff.initial_guess(tensor_r=ct))
+            for ct in self._center_tensors:
+                g0 = (eff.initial_guess(tensor_l=ct) if self._center_pos == t
+                      else eff.initial_guess(tensor_r=ct))
+                guesses.append(eff.flatten(g0))
         else:
-            g0 = eff.initial_guess()
-        x0 = eff.flatten(g0)[:, None]
-        nrm = np.linalg.norm(x0[:, 0])
-        if nrm < 1e-14:
-            x0[:, 0] = np.random.RandomState(7).standard_normal(eff.size)
-            nrm = np.linalg.norm(x0[:, 0])
-        x0[:, 0] /= nrm
+            guesses.append(eff.flatten(eff.initial_guess()))
+        x0 = np.stack(guesses, axis=1)
+        rng = np.random.RandomState(7)
+        while x0.shape[1] < self.n_roots:
+            x0 = np.concatenate(
+                [x0, rng.standard_normal((eff.size, 1))], axis=1)
+        for r in range(x0.shape[1]):
+            nrm = np.linalg.norm(x0[:, r])
+            if nrm < 1e-14:
+                x0[:, r] = rng.standard_normal(eff.size)
+                nrm = np.linalg.norm(x0[:, r])
+            x0[:, r] /= nrm
         return x0
 
-    def _solve_eff(self, eff: EffectiveHamiltonian2, x0, diag, dav_thrd):
-        return davidson(eff.matvec_np, diag, x0, n_roots=1,
-                        conv_thrd=dav_thrd, max_iter=self.dav_max_iter)
+    def _proj_vecs(self, eff) -> Optional[list]:
+        """Local images of the projector MPSs (not normalized: the
+        reference's ors semantics)."""
+        if not self._proj:
+            return None
+        return [p.two_dot_vector(eff) for p in self._proj]
+
+    def _host_davidson(self, matvec, diag, x0, dav_thrd, proj_vecs):
+        """The host Davidson (n_roots, projection) around ``matvec``."""
+        pv = dict(ortho=proj_vecs, proj_weights=self._proj_weights) \
+            if proj_vecs else {}
+        return davidson(matvec, diag, x0, n_roots=self.n_roots,
+                        conv_thrd=dav_thrd, max_iter=self.dav_max_iter, **pv)
 
     def _guard(self, matvec, th: float, xv: np.ndarray, t: int):
         """Check the eigenpair of site t against the f32 Ritz-residual
@@ -380,7 +449,8 @@ class DMRG:
         x0 = self._initial_guesses(eff, t)
         diag = eff.diagonal()
         t1 = time.time()
-        w, v, nmv = self._solve_eff(eff, x0, diag, dav_thrd)
+        w, v, nmv = self._host_davidson(eff.matvec_np, diag, x0, dav_thrd,
+                                        self._proj_vecs(eff))
         self._last_flop = _eff_flops(eff) * nmv
         return eff, t1, w, v, nmv, None
 
@@ -409,31 +479,50 @@ class DMRG:
         f64."""
         self.host_redo_count += 1
         eff.ensure_assembled()
-        w, v, nmv = self._solve_eff(eff, x0, eff.diagonal(), dav_thrd)
+        w, v, nmv = self._host_davidson(eff.matvec_np, eff.diagonal(), x0,
+                                        dav_thrd, self._proj_vecs(eff))
         self._last_flop = _eff_flops(eff) * nmv
         return eff, t1, w, v, nmv, None
 
-    def _eigen_tiled(self, t: int, dav_thrd: float):
-        """Tiled path of one site: host LW/RW, device Davidson around the
-        tiled matvec (kernel K7)."""
-        from ..ops.tiled import TiledExecutor
+    def _eigen_executor(self, t: int, dav_thrd: float):
+        """Bucketed (K8) or tiled (K7) path of one site: host LW/RW, the
+        executor's matvec on the device inside the host Davidson, or the
+        device Davidson around it for one float32 root without projection
+        (torch_device) and for one root without projection (torch_tiled)."""
         eff = EffectiveHamiltonian2(self.me, t)
         x0 = self._initial_guesses(eff, t)
         diag = eff.diagonal()
-        ex = TiledExecutor(eff, dtype=self.dtype, cache=self._tiled_cache,
-                           cache_key=("EffectiveHamiltonian2", t),
-                           device=self.device)
+        pv = self._proj_vecs(eff)
+        key = ("EffectiveHamiltonian2", t)
+        if self.backend == "torch_tiled":
+            from ..ops.tiled import TiledExecutor
+            ex = TiledExecutor(eff, dtype=self.dtype, cache=self._exec_cache,
+                               cache_key=key, device=self.device)
+            on_device = self.n_roots == 1 and not pv
+        else:
+            from ..ops.exec_bucket import BucketExecutor
+            ex = BucketExecutor(eff, dtype=self.dtype, cache=self._exec_cache,
+                                cache_key=key, device=self.device)
+            on_device = (self.backend == "torch_device" and self.n_roots == 1
+                         and not pv and np.dtype(self.dtype) == np.float32)
         t1 = time.time()
-        th, xv, nmv = ex.solve_ground_state(
-            x0[:, 0], diag, conv_thrd=dav_thrd, max_iter=self.dav_max_iter)
         try:
-            self._guard(ex.matvec, th, xv, t)
+            if on_device:
+                th, xv, nmv = ex.solve_ground_state(
+                    x0[:, 0], diag, conv_thrd=dav_thrd,
+                    max_iter=self.dav_max_iter)
+                w, v = np.array([th]), xv[:, None]
+            else:
+                w, v, nmv = self._host_davidson(ex.matvec, diag, x0,
+                                                dav_thrd, pv)
+            for r in range(self.n_roots):
+                self._guard(ex.matvec, float(w[r]), v[:, r], t)
         except _DeviceEigenRejected:
             return self._redo_host(eff, x0, t1, dav_thrd)
         finally:
             ex.free()
         self._last_flop = _eff_flops(eff) * nmv
-        return eff, t1, np.array([th]), xv[:, None], nmv, None
+        return eff, t1, w, v, nmv, None
 
     def update_two_dot(self, t: int, forward: bool, bond_dim: int,
                        noise: float, dav_thrd: float):
@@ -441,20 +530,20 @@ class DMRG:
         t0 = time.time()
         if self.backend == "numpy":
             eff, t1, w, v, nmv, rs = self._eigen_host(t, dav_thrd)
-        elif self.backend == "torch_tiled":
-            eff, t1, w, v, nmv, rs = self._eigen_tiled(t, dav_thrd)
-        else:
+        elif self.backend == "torch_resident":
             eff, t1, w, v, nmv, rs = self._eigen_device(t, noise, forward,
                                                         dav_thrd)
+        else:
+            eff, t1, w, v, nmv, rs = self._eigen_executor(t, dav_thrd)
         tm.teff += t1 - t0
         t2 = time.time()
         tm.teig += t2 - t1
         # the noise term: on the device from the converged psi (K6); the
-        # host path (and a host redo) forms it from the host LW/RW
+        # host paths (and a host redo) form it from the host LW/RW
         rho_noise = (rs.noise_rho(v[:, 0], forward)
                      if rs is not None and noise > 0 else None)
-        energies = w[:1] + self.mpo.const_e
-        psis = [eff.unflatten(v[:, 0])]
+        energies = w[:self.n_roots] + self.mpo.const_e
+        psis = [eff.unflatten(v[:, r]) for r in range(self.n_roots)]
         if forward:
             a_tensor, centers, dw = split_forward_update(
                 eff, psis, self.weights, noise, bond_dim,
@@ -482,6 +571,8 @@ class DMRG:
             self.me.update_right(t + 1)
             self.me.invalidate_left(t)
             self.me.free_pool("l", t)
+        for p in self._proj:
+            p.dirty(t, t + 1)
         if self.device is not None and self.device.type == "cuda":
             # blocking only enqueues K5/K3: wait for them, so that Tblk
             # holds their device time rather than the next site's Teff
@@ -493,10 +584,13 @@ class DMRG:
     # ------------------------------------------------------------------
     def sweep(self, forward: bool, bond_dim: int, noise: float,
               dav_thrd: float) -> SweepResults:
+        from ..ops import _kernels
         L = self.mpo.n_sites
         res = SweepResults()
         tm = self.timings
         before = (tm.teff, tm.teig, tm.tdm, tm.tblk)
+        launches = _kernels.launch_counts()
+        moved = dict(self.me.blk_transfers)
         t0 = time.time()
         for t in (range(L - 1) if forward else range(L - 2, -1, -1)):
             tsite = time.time()
@@ -511,22 +605,31 @@ class DMRG:
                 print(f"   {'-->' if forward else '<--'} site {t:3d} "
                       f"E = {estr}  dw = {dw:.2e}  nmv = {nmv}  "
                       f"t = {time.time() - tsite:.2f}s", flush=True)
-        after = (tm.teff, tm.teig, tm.tdm, tm.tblk)
-        self.sweep_log.append(
-            (float(np.stack(res.energies).min()), time.time() - t0)
-            + tuple(a - b for a, b in zip(after, before)))
+        earr = np.stack(res.energies)
+        self.sweep_log.append(dict(
+            energy=float(earr.min()), energies=earr.min(axis=0),
+            wall=time.time() - t0, matvecs=res.n_matvec,
+            **{k: a - b for k, a, b in zip(
+                ("teff", "teig", "tdm", "tblk"),
+                (tm.teff, tm.teig, tm.tdm, tm.tblk), before)},
+            launches={k: n - launches[k]
+                      for k, n in _kernels.launch_counts().items()},
+            **{k: n - moved[k] for k, n in self.me.blk_transfers.items()}))
         return res
 
     def solve(self, bond_dims: List[int], noises: List[float],
               dav_thrds: List[float], n_sweeps: int = 20,
-              tol: float = 1e-8) -> float:
+              tol: float = 1e-8):
+        """Sweeps until the energies move less than ``tol`` on a sweep
+        without noise.  Returns the lowest root's energy (a float) with
+        one root, else every root's energy (an array), as the reference."""
         def sched(lst, i):
             return lst[min(i, len(lst) - 1)]
 
         # start away from the current center: a previous solve() that
         # converged on a forward sweep leaves the center at the right end
         forward = self._center_pos <= 0
-        last_e = np.full(1, np.inf)
+        last_e = np.full(self.n_roots, np.inf)
         for isw in range(n_sweeps):
             bd = sched(bond_dims, isw)
             ns = sched(noises, isw)
@@ -537,9 +640,10 @@ class DMRG:
             self.energies.append(e)
             self.discarded_weights.append(dw)
             if self.iprint >= 1:
+                estr = " ".join(f"{x:.12f}" for x in e)
                 gfs = res.n_flop / max(self.timings.teig, 1e-9) / 1e9
                 print(f"sweep {isw:3d} {'F' if forward else 'B'} D={bd:5d} "
-                      f"noise={ns:.1e}  E = {e[0]:.12f}  "
+                      f"noise={ns:.1e}  E = {estr}  "
                       f"dE = {np.max(np.abs(e - last_e)):+.3e} "
                       f" dw = {dw:.2e}  nmv = {res.n_matvec}  "
                       f"FLOP/SWP = {res.n_flop:.3e} ({gfs:.1f} GF/s)")
@@ -550,4 +654,6 @@ class DMRG:
                 break
             last_e = e
             forward = not forward
-        return float(self.energies[-1][0]) if self.energies else np.nan
+        final = self.energies[-1] if self.energies else \
+            np.full(self.n_roots, np.nan)
+        return float(final[0]) if self.n_roots == 1 else final

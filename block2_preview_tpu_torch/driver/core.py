@@ -3,7 +3,7 @@
 Copied from block2_preview_tpu/driver/core.py (reference
 pyblock2/driver/core.py:544: initialize_system at :854, get_qc_mpo at :3282
 with FastBipartite, get_mpo at :3885, dmrg at :4437, get_random_mps at
-:7494) and cut to what the SZ two-site ground state needs.  The other
+:7494) and cut to what SZ two-site ground and excited states need.  The other
 methods of the reference driver come back with their slices (ROADMAP);
 ``td_dmrg`` (time evolution, reference :4785) is here.
 
@@ -12,6 +12,9 @@ methods of the reference driver come back with their slices (ROADMAP);
     mpo = drv.get_qc_mpo(h1e=h1e, g2e=g2e, ecore=ecore)
     ket = drv.get_random_mps(bond_dim=80)
     energy = drv.dmrg(mpo, ket, bond_dims=[80])      # on the CUDA card
+    roots = drv.dmrg(mpo, drv.get_random_mps(bond_dim=80), bond_dims=[80],
+                     backend="torch_device", n_roots=3)  # three energies
+    first = drv.extract_root(0)                      # one root as an MPS
     e, te = drv.td_dmrg(mpo, ket, delta_t=0.05, n_steps=2, bond_dim=80)
 
 ``dmrg`` and ``td_dmrg`` run on the card unless the caller asks for the
@@ -110,21 +113,57 @@ class DMRGDriver:
              thrds: Sequence[float] = (1e-10,), n_sweeps: int = 16,
              tol: float = 1e-9, iprint: int = 1, device="cuda",
              backend: str = "torch_resident", dtype=np.float64,
-             **kw) -> float:
-        """SZ ground-state DMRG.  backend="torch_resident" runs every
-        two-site step on ``device`` ("cuda" by default; it raises where
-        there is no CUDA, with no fallback); backend="torch_tiled" keeps
-        environments and LW/RW on the host and solves each site on the
-        tiled engine (kernel K7) there; backend="numpy" is the host
-        reference.  The solver is kept as ``self._last_dmrg`` (energies,
-        timings, sweep_log, host_redo_count and the host transfer
-        counters)."""
+             n_roots: int = 1,
+             proj_mpss: Optional[Sequence[MPS]] = None,
+             proj_weights: Optional[Sequence[float]] = None,
+             **kw):
+        """Ground-state, state-averaged (``n_roots``) or state-specific
+        (``proj_mpss``: project previously converged states out, or with
+        ``proj_weights`` penalize them) SZ DMRG (reference
+        pyblock2/driver/core.py:4437).  Returns the energy (a float) with
+        one root, else every root's energy (an array).  On ``device``
+        ("cuda" by default; it raises where there is no CUDA, with no
+        fallback), one backend of four:
+
+        * "torch_resident": every two-site step on the device (K1-K6); one
+          root, no projection;
+        * "torch": host environments and LW/RW, the sigma matvec of every
+          site on the bucketed engine (kernel K8);
+        * "torch_device": as "torch", and every environment blocking on
+          the device (kernel K9); one float32 root solves entirely on the
+          device;
+        * "torch_tiled": host environments and LW/RW, the matvec on the
+          tiled engine (kernel K7); it alone carries complex states.
+
+        backend="numpy" is the host reference.  The solver is kept as
+        ``self._last_dmrg`` (energies, timings, sweep_log,
+        host_redo_count and the host transfer counters)."""
         solver = DMRG(mpo, ket, device=device, backend=backend,
-                      dtype=dtype, iprint=iprint, **kw)
+                      dtype=dtype, iprint=iprint, n_roots=n_roots,
+                      proj_mpss=proj_mpss, proj_weights=proj_weights, **kw)
         e = solver.solve(list(bond_dims), list(noises), list(thrds),
                          n_sweeps=n_sweeps, tol=tol)
         self._last_dmrg = solver
         return e
+
+    def extract_root(self, r: int) -> MPS:
+        """Single-root MPS from the last state-averaged solve (reference
+        MultiMPS::extract + make_single, state_averaged.hpp:157; used by
+        the statespecific workflow, block2main:2260)."""
+        import copy
+        s = self._last_dmrg
+        m = copy.copy(s.mps)
+        m.tensors = list(s.mps.tensors)
+        if s._center_tensors is not None and \
+                0 <= r < len(s._center_tensors):
+            m.tensors[s._center_pos] = s._center_tensors[r]
+        return m
+
+    def get_dmrg_results(self):
+        """(per-sweep energies, per-sweep discarded weights) of the last
+        solve (reference pyblock2/driver/core.py:4988)."""
+        s = self._last_dmrg
+        return s.energies, s.discarded_weights
 
     def td_dmrg(self, mpo: MPO, ket: MPS, delta_t: float, n_steps: int,
                 bond_dim: int, imaginary: bool = False, normalize=None,

@@ -19,6 +19,7 @@ from .core.state_info import StateInfo
 from .core.symmetry import SymmetryGroup
 from .dmrg.mpo import MPO
 from .dmrg.mps import MPS, MPSInfo
+from .ops.blocking_plan import BlockingPlan
 from .ops.mixv4 import MixPlanV4
 from .ops.stacked import StackedMeta
 from .ops.tilev2 import MatvecV2
@@ -94,6 +95,26 @@ def tiled_struct(ref_ex) -> dict:
     device-cache token dropped)."""
     return {k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
             for k, v in ref_ex.struct.items() if not k.startswith("_")}
+
+
+def bucket_struct(ref_struct) -> dict:
+    """A reference FusedPlanExecutor's bucket struct (what its
+    ``_build_struct`` returns and its structure cache holds; the executor
+    keeps only the device arrays) as numpy: ``buckets`` [{ga, gr, pidx}],
+    ``perm``, ``seg_ids``, ``mask``."""
+    return {"buckets": [{k: np.asarray(v) for k, v in b.items()}
+                        for b in ref_struct["buckets"]],
+            **{k: np.asarray(ref_struct[k])
+               for k in ("perm", "seg_ids", "mask")}}
+
+
+def blocking_plan(ref_plan) -> BlockingPlan:
+    """Port BlockingPlan with the fields of a reference BlockingPlan (its
+    device struct cache is not carried)."""
+    p = BlockingPlan()
+    for k in BlockingPlan.__slots__:
+        setattr(p, k, getattr(ref_plan, k))
+    return p
 
 
 def diag_struct(ref_ds) -> dict:

@@ -68,6 +68,13 @@ KERNELS: Dict[str, KernelInfo] = {
         "cuda", "block2_preview_tpu_torch/csrc/tiled.cu",
         "block2_preview_tpu/ops/tiled.py:86 _tiled_matvec_impl (+ :391 "
         "_tiled_dav)"),
+    "K8_bucket": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/bucket.cu",
+        "block2_preview_tpu/ops/exec_jax.py:136 _fused_sigma_impl (jit "
+        ":150 _fused_sigma; + :347 _dav_jit)"),
+    "K9_bucket_blocking": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/bucket_blocking.cu",
+        "block2_preview_tpu/ops/blocking_jax.py:87 _blk_exec"),
 }
 
 _P = ctypes.c_void_p
@@ -85,6 +92,8 @@ _SIGS = {
     "b2t_noise_x": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_noise_rho": (_P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_tiled": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "b2t_bucket": (_P, _P, _P, _P, _P, _I, _L, _P, _P),
+    "b2t_bucket_blk": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
 }
 # entry-point suffix per value type; the complex instances exist only for
 # the entries listed in _COMPLEX

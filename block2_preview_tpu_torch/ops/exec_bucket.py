@@ -1,0 +1,358 @@
+"""Bucketed sigma-vector executor — kernel K8.
+
+Counterpart of block2_preview_tpu/ops/exec_jax.py (``FusedPlanExecutor``,
+``_fused_sigma`` :136-150, ``_dav_jit`` :347), the sigma matvec of the
+reference's ``jax`` and ``jax_device`` backends.  Every triple
+``sigma[ok] += LW[m][lk] @ psi[pk] @ RW[m][rk].T`` of an effective
+Hamiltonian is one item; the reference groups the items into buckets of
+``_round_dim``-padded shapes (a, k, n, p), sorted, with the batch padded by
+``_round_batch``.
+
+Host side: :func:`build_struct` makes that bucketing (the reference's
+``_build_struct`` :226-314, copied in its grouping and order) but keeps
+each item as eight scalars — LW offset, a, k, psi offset, n, RW offset, p,
+sigma offset — instead of element-wise gather tables;
+:func:`reference_struct` expands them into the reference's fields
+(``buckets[*].ga/gr/pidx``, ``perm``, ``seg_ids``, ``mask``), which the
+tests hold equal to the JAX package's.  The LW and RW matrices go to the
+device once per executor as two flat pools (:func:`pack_pool`); the
+reference's padded stacks ``A = lpool[ga]``, ``R = rpool[gr]`` are not
+formed, and no element-wise index tensor is made on the device.
+
+Device side: :func:`bucket_sigma` is the wrapper of kernel K8
+(``csrc/bucket.cu``) in float32 and float64.  On CPU tensors it runs
+:func:`bucket_sigma_plain`, the plain PyTorch version of the reference's
+``_fused_sigma_impl`` bucket by bucket; on CUDA tensors it launches K8 or
+raises.  The port takes real types only: a complex effective Hamiltonian
+raises and names ``torch_tiled``, the backend that carries complex (the
+reference casts the bucketed matvec to float64, exec_jax.py:328, which
+drops an imaginary part).
+
+:class:`BucketExecutor` holds one center: ``matvec`` (host vectors),
+``matvec_device`` (padded device vectors), ``solve_ground_state`` (the
+port's device Davidson around K8, the reference's ``_dav_jit``), ``pad``
+and ``free``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from . import _kernels
+
+VEC_PAD = 2048      # flat psi/sigma vectors padded to multiples of this
+
+# CUDA blocks per K8/K9 item: 32-row strips times groups of 128 columns
+# of its output (csrc/chain.cuh chain_block)
+_STRIP, _YGROUP = 32, 128
+# elements of one padded gather of the plain versions (bounds their int64
+# index temporaries)
+_PLAIN_CHUNK = 1 << 24
+
+
+def _round_dim(d: int) -> int:
+    """Pad block dims into a small set of bucket sizes."""
+    if d <= 1:
+        return 1
+    if d <= 16:
+        return 1 << (d - 1).bit_length()
+    return ((d + 15) // 16) * 16
+
+
+def _round_batch(b: int) -> int:
+    """Pad batch counts to powers of two (the reference's jit signatures;
+    here only :func:`reference_struct` uses it)."""
+    return 1 << max(b - 1, 0).bit_length() if b > 0 else 1
+
+
+def chain_blocks(rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """CUDA blocks of one K8/K9 item of output (rows x cols)."""
+    return -(-rows // _STRIP) * -(-cols // _YGROUP)
+
+
+def padded_size(size: int) -> int:
+    return ((size + VEC_PAD) // VEC_PAD) * VEC_PAD
+
+
+# item columns
+_LOFF, _A, _K, _POFF, _N, _ROFF, _P, _OOFF = range(8)
+
+
+def build_struct(eff, lw_ids, rw_ids, lw_shapes, rw_shapes) -> Dict:
+    """The bucketed structure of ``eff``: buckets keyed (a, k, n, p) =
+    _round_dim of the true dims, sorted, items in triple order — the
+    reference's grouping — with each item as the eight scalars of
+    ``items`` [N, 8] (int64).  ``bounds`` [nb + 1] delimit the buckets'
+    items.  A triple whose psi or sigma block does not have the LW/RW
+    dims raises."""
+    size_p = padded_size(eff.size)
+    lsz = np.asarray([s[0] * s[1] for s in lw_shapes] or [0], np.int64)
+    loffs = np.concatenate([[0], np.cumsum(lsz)])
+    rsz = np.asarray([s[0] * s[1] for s in rw_shapes] or [0], np.int64)
+    roffs = np.concatenate([[0], np.cumsum(rsz)])
+    buckets: Dict[Tuple[int, int, int, int], List] = {}
+    for (m, lk, pk, rk, ok) in eff.triples:
+        li, ri = lw_ids[(m, lk)], rw_ids[(m, rk)]
+        a0, k0 = lw_shapes[li]
+        p0, n0 = rw_shapes[ri]
+        if tuple(eff.shapes[pk]) != (k0, n0) or \
+                tuple(eff.shapes[ok]) != (a0, p0):
+            raise ValueError(f"triple {(m, lk, pk, rk, ok)}: psi block "
+                             f"{eff.shapes[pk]} / sigma block "
+                             f"{eff.shapes[ok]} do not match LW {(a0, k0)}"
+                             f" and RW {(p0, n0)}")
+        key = (_round_dim(a0), _round_dim(k0), _round_dim(n0),
+               _round_dim(p0))
+        buckets.setdefault(key, []).append(
+            (loffs[li], a0, k0, eff.offsets[pk], n0, roffs[ri], p0,
+             eff.offsets[ok]))
+    keys = sorted(buckets)
+    items = np.asarray([it for key in keys for it in buckets[key]],
+                       dtype=np.int64).reshape(-1, 8)
+    bounds = np.concatenate([[0], np.cumsum([len(buckets[k])
+                                             for k in keys])])
+    return {"size": eff.size, "size_p": size_p, "keys": keys,
+            "bounds": bounds.astype(np.int64), "items": items,
+            "nl": int(loffs[-1]), "nr": int(roffs[-1])}
+
+
+def reference_struct(struct: Dict) -> Dict:
+    """The reference's struct (exec_jax.py:226-314) from the compact one:
+    per bucket the padded gather tables ``ga`` [B, a, k], ``gr`` [B, p, n]
+    (int64, into the LW/RW pools, sentinel their end) and ``pidx``
+    [B, k, n] (int32, into the padded psi, sentinel size_p); the stable
+    sort ``perm`` of the flat sigma targets, ``seg_ids`` and ``mask``."""
+    size_p = struct["size_p"]
+    bnd = struct["bounds"]
+
+    def grid(off, rows, cols, R, C, sent, dt):
+        r = np.arange(R)[None, :, None]
+        c = np.arange(C)[None, None, :]
+        rt, ct = rows[:, None, None], cols[:, None, None]
+        return np.where((r < rt) & (c < ct), off[:, None, None] + r * ct + c,
+                        sent).astype(dt)
+
+    buckets, targets = [], []
+    for i, (a, k, n, p) in enumerate(struct["keys"]):
+        f = struct["items"][bnd[i]:bnd[i + 1]]
+        B = _round_batch(len(f))
+        f = np.concatenate([f, np.zeros((B - len(f), 8), np.int64)])
+        a0, k0, n0, p0 = f[:, _A], f[:, _K], f[:, _N], f[:, _P]
+        buckets.append({
+            "ga": grid(f[:, _LOFF], a0, k0, a, k, struct["nl"], np.int64),
+            "gr": grid(f[:, _ROFF], p0, n0, p, n, struct["nr"], np.int64),
+            "pidx": grid(f[:, _POFF], k0, n0, k, n, size_p, np.int32)})
+        targets.append(grid(f[:, _OOFF], a0, p0, a, p, size_p,
+                            np.int32).reshape(-1))
+    targets = np.concatenate(targets) if targets else np.zeros(0, np.int32)
+    perm = np.argsort(targets, kind="stable").astype(np.int32)
+    mask = np.zeros(size_p + 1, dtype=np.float64)
+    mask[:struct["size"]] = 1.0
+    return {"buckets": buckets, "perm": perm, "seg_ids": targets[perm],
+            "mask": mask}
+
+
+def pack_pool(mats: List[np.ndarray], dtype, device) -> torch.Tensor:
+    """The matrices raveled one after another, plus one zero, as one flat
+    tensor on ``device``.  A complex matrix into a real pool raises."""
+    from ..runtime import torch_dtype
+    tdt = torch_dtype(dtype)
+    flat = np.empty(sum(m.size for m in mats) + 1, dtype=dtype)
+    if mats:
+        np.concatenate([np.asarray(m).ravel() for m in mats], out=flat[:-1],
+                       casting="same_kind")
+    flat[-1] = 0
+    return torch.as_tensor(flat, dtype=tdt, device=device)
+
+
+def _int32(a: np.ndarray, what: str) -> np.ndarray:
+    if a.size and (a.max() >= 2 ** 31 or a.min() < 0):
+        raise ValueError(f"{what} does not fit int32")
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel K8 and its plain twin
+# ---------------------------------------------------------------------------
+
+def _grid(off, rows, cols, R: int, C: int, sent: int):
+    """Flat indices of padded (R x C) blocks at ``off`` with true dims
+    (rows, cols) ([n, 1, 1] tensors); padding points at ``sent``."""
+    r = torch.arange(R, device=off.device)[None, :, None]
+    c = torch.arange(C, device=off.device)[None, None, :]
+    return torch.where((r < rows) & (c < cols), off + r * cols + c, sent)
+
+
+def bucket_sigma_plain(xp, lpool, rpool, d: Dict, size_p: int):
+    """Plain PyTorch version of K8: the reference's ``_fused_sigma_impl``
+    bucket by bucket — padded gathers from the pools, one batched einsum,
+    a scatter-add of the true elements into sigma.  ``d`` from
+    :func:`plain_tables`.  Returns sigma [size_p]."""
+    sig = xp.new_zeros(size_p + 1)
+    sent_l, sent_r = lpool.shape[0] - 1, rpool.shape[0] - 1
+    items = d["items"]
+    for lo, hi, (a, k, n, p) in d["buckets"]:
+        step = max(1, _PLAIN_CHUNK // max(a * k, k * n, p * n, a * p))
+        for s in range(lo, hi, step):
+            f = items[s:min(s + step, hi), :, None, None]
+            a0, k0, n0, p0 = f[:, _A], f[:, _K], f[:, _N], f[:, _P]
+            A = lpool[_grid(f[:, _LOFF], a0, k0, a, k, sent_l)]
+            P = xp[_grid(f[:, _POFF], k0, n0, k, n, size_p)]
+            R = rpool[_grid(f[:, _ROFF], p0, n0, p, n, sent_r)]
+            out = torch.einsum("bak,bkn,bpn->bap", A, P, R)
+            sig.index_add_(0, _grid(f[:, _OOFF], a0, p0, a, p,
+                                    size_p).reshape(-1), out.reshape(-1))
+    return sig[:size_p]
+
+
+def bucket_sigma(xp, lpool, rpool, d: Dict, size_p: int):
+    """Sigma matvec (kernel K8): flat sigma [size_p] from the padded flat
+    psi ``xp`` [size_p + 1] and the flat LW/RW pools, on the device of
+    ``xp``: ``d`` holds :func:`kernel_tables` there.  CPU tensors run
+    :func:`bucket_sigma_plain` (``d`` from :func:`plain_tables`)."""
+    if xp.shape != (size_p + 1,) or lpool.dim() != 1 or rpool.dim() != 1:
+        raise ValueError(f"bucket_sigma: psi {tuple(xp.shape)} (expected "
+                         f"({size_p + 1},)), pools {lpool.dim()}-D / "
+                         f"{rpool.dim()}-D (expected flat)")
+    if xp.device.type == "cpu":
+        return bucket_sigma_plain(xp, lpool, rpool, d, size_p)
+    if not xp.is_cuda:
+        raise ValueError(f"unsupported device {xp.device}")
+    out = xp.new_zeros(size_p + 1)
+    _kernels.launch("K8_bucket", "b2t_bucket", xp.dtype, xp, lpool, rpool,
+                    d["it"], d["cum"], d["n_items"], d["n_blocks"], out)
+    return out[:size_p]
+
+
+def plain_tables(struct: Dict, device) -> Dict:
+    """The tables :func:`bucket_sigma_plain` reads, on ``device``: the
+    items (int64) and each bucket's item range and padded shape."""
+    b = struct["bounds"]
+    return {"items": torch.as_tensor(struct["items"], device=device),
+            "buckets": [(int(b[i]), int(b[i + 1]), key)
+                        for i, key in enumerate(struct["keys"])]}
+
+
+def kernel_tables(struct: Dict, device) -> Dict:
+    """The tables K8 reads, on ``device``: the items as int32 [N, 8] and
+    the prefix sums ``cum`` [N + 1] of their CUDA blocks."""
+    it = struct["items"]
+    nb = chain_blocks(it[:, _A], it[:, _P])
+    cum = np.concatenate([[0], np.cumsum(nb)])
+    return {"it": torch.as_tensor(_int32(it, "a K8 item offset"),
+                                  device=device),
+            "cum": torch.as_tensor(_int32(cum, "K8's block count"),
+                                   device=device),
+            "n_items": len(it), "n_blocks": int(cum[-1])}
+
+
+# ---------------------------------------------------------------------------
+# executor
+# ---------------------------------------------------------------------------
+
+class BucketExecutor:
+    """Sigma-vector executor of one effective Hamiltonian on the bucketed
+    engine (kernel K8).
+
+    The bucket structure depends only on the triple/shape layout and is
+    cached across center steps and sweeps via ``cache``/``cache_key`` (the
+    reference keys it on ``(type(eff).__name__, eff.t)``, sweep.py:698-702,
+    and checks a signature of the shapes on every hit); the LW/RW pools and
+    the item tables are uploaded per executor.  ``t_struct`` and
+    ``t_pack`` hold the seconds spent on the struct and on packing and
+    uploading the pools."""
+
+    def __init__(self, eff, dtype=np.float64, cache: dict = None,
+                 cache_key=None, device="cuda"):
+        from ..runtime import resolve_device, torch_dtype
+        if np.dtype(getattr(eff, "dtype", np.float64)).kind == "c":
+            raise TypeError("the bucketed executor is real only (got a "
+                            f"{np.dtype(eff.dtype)} effective Hamiltonian);"
+                            " backend='torch_tiled' carries complex")
+        torch_dtype(dtype)
+        self.size = eff.size
+        self.size_p = padded_size(eff.size)
+        self.dtype = np.dtype(dtype)
+        self.device = resolve_device(device)
+        t0 = time.perf_counter()
+        lw_ids: Dict[Tuple, int] = {}
+        rw_ids: Dict[Tuple, int] = {}
+        lw_mats: List[np.ndarray] = []
+        rw_mats: List[np.ndarray] = []
+        for m, d in sorted(eff.LW.items()):
+            for k2, mat in sorted(d.items()):
+                lw_ids[(m, k2)] = len(lw_mats)
+                lw_mats.append(mat)
+        for m, d in sorted(eff.RW.items()):
+            for k2, mat in sorted(d.items()):
+                rw_ids[(m, k2)] = len(rw_mats)
+                rw_mats.append(mat)
+        struct = None
+        if cache is not None and cache_key is not None:
+            sig = hash((self.size, tuple(sorted(eff.shapes.items())),
+                        tuple(eff.triples),
+                        tuple(m.shape for m in lw_mats),
+                        tuple(m.shape for m in rw_mats)))
+            ent = cache.get(cache_key)
+            if ent is not None and ent[0] == sig:
+                struct = ent[1]
+        if struct is None:
+            struct = build_struct(eff, lw_ids, rw_ids,
+                                  [m.shape for m in lw_mats],
+                                  [m.shape for m in rw_mats])
+            if cache is not None and cache_key is not None:
+                cache[cache_key] = (sig, struct)
+        self.struct = struct
+        t1 = time.perf_counter()
+        self.lpool = pack_pool(lw_mats, self.dtype, self.device)
+        self.rpool = pack_pool(rw_mats, self.dtype, self.device)
+        self._sync()
+        t2 = time.perf_counter()
+        self._dev = (plain_tables if self.device.type == "cpu"
+                     else kernel_tables)(struct, self.device)
+        self.t_struct = t1 - t0
+        self.t_pack = t2 - t1
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def pad(self, x: np.ndarray) -> np.ndarray:
+        xp = np.zeros(self.size_p + 1, dtype=self.dtype)
+        xp[:self.size] = x
+        return xp
+
+    def matvec_device(self, xp: torch.Tensor) -> torch.Tensor:
+        """Flat sigma [size_p] of the padded psi ``xp`` [size_p + 1] on
+        this executor's device (zero past ``size``)."""
+        return bucket_sigma(xp, self.lpool, self.rpool, self._dev,
+                            self.size_p)
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        xp = torch.as_tensor(self.pad(x), device=self.device)
+        out = self.matvec_device(xp).cpu().numpy()
+        return out[:self.size].astype(np.float64)
+
+    def free(self):
+        """Release the pools and tables of this executor."""
+        self.lpool = self.rpool = self._dev = None
+
+    def solve_ground_state(self, x0: np.ndarray, diag: np.ndarray,
+                           conv_thrd: float = 1e-8, max_iter: int = 100,
+                           max_subspace: int = 20):
+        """Lowest eigenpair by the port's device Davidson around K8 (one
+        solve per call).  Returns (theta, x [size] float64, n_iter)."""
+        from .device_davidson import davidson
+        dp = np.ones(self.size_p + 1, dtype=self.dtype)
+        dp[:self.size] = diag
+        th, xv, it = davidson(
+            self.matvec_device, torch.as_tensor(dp, device=self.device),
+            torch.as_tensor(self.pad(x0), device=self.device),
+            conv_thrd=conv_thrd, max_iter=max_iter,
+            max_subspace=max_subspace)
+        return (float(th), xv.cpu().numpy().astype(np.float64)[:self.size],
+                int(it))

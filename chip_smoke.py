@@ -5,7 +5,7 @@ port's own host reference (backend="numpy", held equal to the JAX
 package's host path by the CPU tests):
 
   1. device    card name and power limit (nvidia-smi), torch / CUDA
-  2. build     nvcc builds kernels K1-K7 from block2_preview_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K9 from block2_preview_tpu_torch/csrc
                (one nvcc per source, all at once)
   4. parity    Hubbard-L8, D=80, 6 sweeps with noise, f64: |dE| < 1e-8 Ha
   5. full      seeded K=16 quantum-chemistry Hamiltonian (16 electrons,
@@ -24,6 +24,23 @@ package's host path by the CPU tests):
                K7 launches, energies, |psi| and the discarded weight;
                fails unless K7 launched, all finite, no host matvec and
                |1 - |psi|| within the discarded weight + 1e-10
+  7a. excited  Hubbard-L8, D=80, 6 sweeps with noise, Davidson
+               |r|^2 < 1e-14, against the host backend: three
+               state-averaged roots on backend="torch" and on
+               "torch_device" (f64), the first excited state on "torch"
+               with the ground state projected out, one f32 root on
+               "torch_device", two roots on "torch_tiled"; every root to
+               1e-8 Ha (f32 to 1e-5); fails unless K8 launched on each
+               bucketed run, K9 on each "torch_device" run, K7 on the
+               tiled one
+  7b. roots    the K=16 system of phase 5 on backend="torch_device", f64,
+               three roots, D=[250, 250], noise [1e-4, 0], Davidson
+               |r|^2 < 1e-10, 2 sweeps from get_random_mps(250, seed=11):
+               per sweep the wall split, every root's energy, K8 and K9
+               launches, matvecs, the blocking uploads and downloads, and
+               the peak device memory; fails unless K8 and K9 launched,
+               K8's launches equal the matvecs, the energies are finite
+               and ascending and no site was redone on the host
   3. kernels   each kernel against its plain PyTorch twin on the card, at
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
@@ -31,10 +48,14 @@ package's host path by the CPU tests):
                and f32, K7 in f64, f32, complex128 and complex64 (the
                same operators cast to complex) and in complex128 on the
                complex environments of the state phase 6b leaves, and the
-               tiled Davidson (K7) against the host Davidson; then again
+               tiled Davidson (K7) against the host Davidson; K8 in f64
+               and f32, K9 on the site's left and right blocking plans in
+               f64 and f32, and a three-root host Davidson around K8
+               against the host Davidson on the host matvec; then again
                at the mid-chain site of a Hubbard-L16 MPS of bond
                dimension 1000, whose plans pick K1's and K7's T=128 tiles
-               (K5's blocking plans are built with T=128 there).  Each
+               (K5's blocking plans are built with T=128 there; K8 meets
+               its widest buckets there).  Each
                row carries the kernel's time, its twin's, one PyTorch
                call's where one computes the same function, and the bound
                (the least time the card could take: the live bytes the
@@ -43,10 +64,14 @@ package's host path by the CPU tests):
 
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card and exits non-zero (printing no result) without
-one.  The last line is {"ok": true, "device": {...}}; the line before it
-is the per-kernel JSON summary: K1-K6 from their f64 rows at the K=16
-site, K7 from its complex128 row on phase 6b's state, with the launches
-of phases 5 (K1-K6) and 6b (K7).
+one.  The host references of phase 5 and of phase 3's three-root
+Davidson run in two spawned worker processes beside the device phases
+(their numerical libraries held to 3 threads each); the script
+terminates them before it exits.  The last line is {"ok": true,
+"device": {...}}; the line before it is the per-kernel JSON summary:
+K1-K6, K8 and K9 from their f64 rows at
+the K=16 site, K7 from its complex128 row on phase 6b's state, with the
+launches of phases 5 (K1-K6), 6b (K7) and 7b (K8, K9).
 """
 
 from __future__ import annotations
@@ -61,11 +86,12 @@ import numpy as np
 
 F64_TOL = 1e-11     # kernel vs twin, relative to max |twin|
 F32_TOL = 1e-5
-# K7 vs twin: atomic stage-2 sums change order between runs, so the f64
-# / c128 results agree to rounding (~1e-15 relative), not bitwise
-K7_TOL = {np.float64: 1e-12, np.complex128: 1e-12, np.float32: 1e-5,
-          np.complex64: 1e-5}
-HUB_TOL = 1e-8      # Ha, phases 4 and 6a
+# K7-K9 vs twin: atomic sums change order between runs, so the f64 /
+# c128 results agree to rounding (~1e-15 relative), not bitwise
+ATOMIC_TOL = {np.float64: 1e-12, np.complex128: 1e-12, np.float32: 1e-5,
+              np.complex64: 1e-5}
+HUB_TOL = 1e-8      # Ha, phases 4, 6a and 7a
+F32_E_TOL = 1e-5    # Ha, phase 7a's f32 root (f32 keeps ~7 digits of -6 Ha)
 QC_TOL = 1e-6       # Ha, phase 5
 NORM_TOL = 1e-10    # phase 6a norms; phase 6b |psi| slack
 HBM_BPS = 3.35e12   # H100 SXM memory rate, bytes/s
@@ -221,7 +247,7 @@ def phase_build():
         fail("no ptxas register report in the build log")
     for name, regs, spill in usage:
         if name.startswith(("mv_kernel", "blk_kernel", "noise_",
-                            "tiled_kernel")) or \
+                            "tiled_kernel", "bucket_")) or \
                 not spill.startswith("0 bytes stack"):
             print(f"    ptxas {name}: {regs} registers; {spill}", flush=True)
 
@@ -496,10 +522,10 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
                    f"x tiles {npl.n_x} (scratch "
                    f"{npl.n_x * npl.T ** 2 * xs.element_size() / 2 ** 20:.1f}"
                    f" MiB) rho tiles {n_rho}")
-    return summary(rows)
+    return summary_rows(rows)
 
 
-def summary(rows):
+def summary_rows(rows):
     """The JSON rows of the kernels in ``rows`` (f64 sums of _check), in
     kernel order; main fills in the launches of the main-path run."""
     from block2_preview_tpu_torch.ops._kernels import KERNELS
@@ -558,7 +584,7 @@ def copy_mps(mps):
                           for t in mps.tensors], center=mps.center)
 
 
-def k7_bytes_flops(eff, dtype):
+def sigma_bytes_flops(eff, dtype):
     """Least bytes and FLOPs of one sigma matvec on ``eff`` in ``dtype``, at
     the true block shapes (no tile padding): every LW/RW matrix that a
     triple reads, psi in and sigma out, each once; the products of the
@@ -573,10 +599,12 @@ def k7_bytes_flops(eff, dtype):
     return dtype.itemsize * n, flops
 
 
-def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True):
-    """K7 against its twin at center t of the host environments ``me``:
-    f64 and f32, complex128 and complex64 on the same operators cast to
-    complex (a seeded complex vector), and complex128 on the complex
+def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True,
+                eff=None):
+    """K7 against its twin at center t of the host environments ``me``
+    (``eff``: its assembled two-site operator when the caller has built
+    it): f64 and f32, complex128 and complex64 on the same operators cast
+    to complex (a seeded complex vector), and complex128 on the complex
     environments ``complex_me`` (the state phase 6b leaves).  With
     ``davidson``, the tiled Davidson (K7) against the host Davidson on
     matvec_np.  Returns the summary row: the complex128 row on
@@ -590,7 +618,7 @@ def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True):
                                                     tiled_matvec_plain,
                                                     unit_tables)
     t0 = time.time()
-    eff = EffectiveHamiltonian2(me, t)
+    eff = eff if eff is not None else EffectiveHamiltonian2(me, t)
     cases = [(np.float64, eff, ""), (np.float32, eff, ""),
              (np.complex128, eff, ""), (np.complex64, eff, "")]
     if complex_me is not None:
@@ -616,13 +644,13 @@ def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True):
         def k7(fn, d):
             return fn(xp, ex.lpool, ex.rpool, d, s["nt1"], s["nt2"], s["T"])
 
-        n_bytes, flops = k7_bytes_flops(e, dtype)
+        n_bytes, flops = sigma_bytes_flops(e, dtype)
         # what K7 multiplies: whole T x T tiles, zero padding included
         tile_gflop = (unit_tables(s)["flops"] / 1e9
                       * (4 if ex.dtype.kind == "c" else 1))
         _check(rows if case is summary_case else None, "K7_tiled", dtype,
                side, k7(tiled_matvec, ex._dev),
-               k7(tiled_matvec_plain, dp), K7_TOL[dtype],
+               k7(tiled_matvec_plain, dp), ATOMIC_TOL[dtype],
                time_ms(lambda: k7(tiled_matvec, ex._dev), device),
                time_ms(lambda: k7(tiled_matvec_plain, dp), device), None,
                n_bytes, flops,
@@ -649,7 +677,264 @@ def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True):
               f"{time.time() - t1:.1f} s) dtheta {d_th:.2e}", flush=True)
         if not abs(d_th) < 1e-8:
             fail(f"tiled Davidson |dtheta| {abs(d_th):.3e} >= 1e-8")
-    return summary(rows)
+    return summary_rows(rows)
+
+
+def _blocking_plans(mpo, mps, me, t):
+    """The two blocking steps next to center t as host BlockingPlans with
+    their inputs: left t -> t+1 from bond t, right t+1 -> t+1 from bond
+    t+2 (the plans backend="torch_device" sends to K9)."""
+    from block2_preview_tpu_torch.ops.blocking_plan import build_plan
+    g = mpo.group
+    out = {}
+    for direction, st, env in (("left", t, me.left_envs[t]),
+                               ("right", t + 1, me.right_envs[t + 2])):
+        dq_out = (mpo.bond_dqs[t + 1] if direction == "left" else
+                  [g.sub(mpo.bond_dqs[-1][0], dq)
+                   for dq in mpo.bond_dqs[st]])
+        out[direction] = (build_plan(env, mpo.tensors[st],
+                                     mpo.site_quanta[st], mps.tensors[st],
+                                     mps.tensors[st], dq_out, g, direction),
+                          env, mps.tensors[st])
+    return out
+
+
+def k9_bytes_flops(plan, esize):
+    """Least bytes and FLOPs of one blocking plan: the env, bra and ket
+    pools in and the output out, each once, the contributions' int32
+    items and coefficients once; 2 (dl dk dy + dx dl dy) per
+    contribution."""
+    nat = plan.native
+    dl, dx, dk, dy = (nat[k].astype(np.int64) for k in ("dl", "dx", "dk",
+                                                         "dy"))
+    n = len(dl)
+    values = (plan.env_sizes[1] + plan.bra_sizes[1] + plan.ket_sizes[1]
+              + plan.total_out + n)
+    return (live_bytes(esize, values, 8 * n + n + 1),
+            2.0 * float((dl * dk * dy + dx * dl * dy).sum()))
+
+
+def davidson3(eff, matvec):
+    """The host Davidson's three lowest roots of ``eff`` around ``matvec``
+    to |r|^2 < 1e-12, from the sweep's start (the MPS guess and two
+    RandomState(7) columns): (roots, matvecs, seconds)."""
+    from block2_preview_tpu_torch.ops.davidson import davidson
+    x0 = np.concatenate([eff.flatten(eff.initial_guess())[:, None],
+                         np.random.RandomState(7).standard_normal(
+                             (eff.size, 2))], axis=1)
+    x0 /= np.linalg.norm(x0, axis=0)
+    t0 = time.time()
+    w, _, nmv = davidson(matvec, eff.diagonal(), x0, n_roots=3,
+                         conv_thrd=1e-12)
+    return w, nmv, time.time() - t0
+
+
+def host_davidson3(mpo, mps, t):
+    """:func:`davidson3` on the host matvec at center t of ``mps``."""
+    from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+    eff = EffectiveHamiltonian2(mid_site(mpo, mps, t)[0], t)
+    return davidson3(eff, eff.matvec_np)
+
+
+def phase_bucket(device, mpo, mps, me, eff, t, summary=True, kinds="all",
+                 host3=None):
+    """K8 (f64, f32) and, unless ``kinds`` is "K8", K9 (left and right, f64
+    and f32) against their twins at center t (host environments ``me``,
+    its assembled operator ``eff``), and a three-root host Davidson around
+    K8 against the host Davidson on matvec_np (``host3``: that result of
+    :func:`host_davidson3` when the caller has it).  Returns the summary
+    rows of the f64 cases (none unless ``summary``)."""
+    import torch
+    from block2_preview_tpu_torch.ops import blocking_device, exec_bucket
+    from block2_preview_tpu_torch.ops.blocking_plan import _pools
+    rows = {}
+    rng = np.random.default_rng(5)
+    it = None
+    for dtype in (np.float64, np.float32):
+        acc = rows if summary and dtype == np.float64 else None
+        ex = exec_bucket.BucketExecutor(eff, dtype=dtype, device=device)
+        st = ex.struct
+        it = st["items"]
+        xp = torch.as_tensor(ex.pad(rng.standard_normal(eff.size)),
+                             device=device)
+        dp = exec_bucket.plain_tables(st, device)
+
+        def k8(fn, d):
+            return fn(xp, ex.lpool, ex.rpool, d, ex.size_p)
+
+        n_bytes, flops = sigma_bytes_flops(eff, dtype)
+        # the products _round_dim's buckets would multiply, padding included
+        pad_flops = sum(
+            2.0 * (hi - lo) * a * n * (k + p)
+            for (a, k, n, p), lo, hi in zip(st["keys"], st["bounds"][:-1],
+                                            st["bounds"][1:]))
+        _check(acc, "K8_bucket", dtype, "", k8(exec_bucket.bucket_sigma,
+                                               ex._dev),
+               k8(exec_bucket.bucket_sigma_plain, dp), ATOMIC_TOL[dtype],
+               time_ms(lambda: k8(exec_bucket.bucket_sigma, ex._dev),
+                       device),
+               time_ms(lambda: k8(exec_bucket.bucket_sigma_plain, dp),
+                       device), None, n_bytes, flops,
+               f"size {eff.size} items {len(it)} buckets {len(st['keys'])} "
+               f"blocks {ex._dev.get('n_blocks', 0)} struct "
+               f"{ex.t_struct:.2f} s pack+upload {ex.t_pack:.2f} s "
+               f"GFLOP {flops / 1e9:.2f} (bucket-padded "
+               f"{pad_flops / 1e9:.2f})")
+        ex.free()
+        if kinds == "K8":
+            continue
+        tdt = torch.float64 if dtype == np.float64 else torch.float32
+        for direction, (plan, env, T) in _blocking_plans(
+                mpo, mps, me, t).items():
+            left = direction == "left"
+            pools = [torch.as_tensor(p, device=device)
+                     for p in _pools(plan, env, T, T, np.dtype(dtype))]
+            dq = blocking_device.plain_tables(plan, device, tdt)
+            dk = (blocking_device.kernel_tables(plan, device, tdt)
+                  if device.type == "cuda" else dq)
+
+            def k9(fn, d, left=left, pools=pools, plan=plan):
+                return fn(*pools, d, left, torch.zeros(
+                    plan.total_out + 1, dtype=tdt, device=device))
+
+            n_bytes, flops = k9_bytes_flops(plan, pools[0].element_size())
+            _check(acc, "K9_bucket_blocking", dtype, direction[0],
+                   k9(blocking_device.bucket_blocking, dk),
+                   k9(blocking_device.bucket_blocking_plain, dq),
+                   ATOMIC_TOL[dtype],
+                   time_ms(lambda: k9(blocking_device.bucket_blocking, dk),
+                           device),
+                   time_ms(lambda: k9(blocking_device.bucket_blocking_plain,
+                                      dq), device), None, n_bytes, flops,
+                   f"contributions {len(plan.native['dl'])} blocks "
+                   f"{dk.get('n_blocks', 0)} out {plan.total_out} GFLOP "
+                   f"{flops / 1e9:.3f}")
+    if kinds == "K8":
+        return summary_rows(rows)
+    # three roots: the host Davidson around K8 against the host matvec
+    ex = exec_bucket.BucketExecutor(eff, dtype=np.float64, device=device)
+    w, nmv, secs = davidson3(eff, ex.matvec)
+    ex.free()
+    w_h, nmv_h, secs_h = host3 or davidson3(eff, eff.matvec_np)
+    d_th = np.abs(w - w_h).max()
+    print(f"[3 kernels] K8 Davidson site {t}, 3 roots: "
+          f"{' '.join(f'{x:.12f}' for x in w)} ({nmv} mv, {secs:.1f} s) "
+          f"host {' '.join(f'{x:.12f}' for x in w_h)} ({nmv_h} mv, "
+          f"{secs_h:.1f} s) max dtheta {d_th:.2e}", flush=True)
+    if not d_th < 1e-10:
+        fail(f"3-root Davidson around K8: max |dtheta| {d_th:.3e} >= 1e-10")
+    return summary_rows(rows)
+
+
+def phase_excited(device, L=8, D=80, ns=6):
+    """Phase 7a: state-averaged roots, a projected excited state and an
+    f32 root on the bucketed backends, and two roots on torch_tiled,
+    against the host backend at a small size."""
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    from block2_preview_tpu_torch.ops import _kernels
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
+    drv.initialize_system(n_sites=L, n_elec=L, spin=0)
+    mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
+    sched = dict(bond_dims=[D] * ns, noises=[1e-5] * ns + [0],
+                 thrds=[1e-14], n_sweeps=ns, tol=0, iprint=0)
+
+    def host(seed, **kw):
+        e = drv.dmrg(mpo, drv.get_random_mps(D, seed=seed), backend="numpy",
+                     **sched, **kw)
+        return np.atleast_1d(e), drv._last_dmrg.mps
+
+    t0 = time.time()
+    ref = {n: host(7, n_roots=n)[0] for n in (2, 3)}
+    ref[1], gs = host(7)
+    ref["proj"], _ = host(9, proj_mpss=[gs])
+    print(f"[7a excited] Hubbard-L{L} D={D} x{ns} host references "
+          f"({time.time() - t0:.1f} s): roots "
+          f"{' '.join(f'{x:.12f}' for x in ref[3])}, projected "
+          f"{ref['proj'][0]:.12f}", flush=True)
+    runs = [("torch", np.float64, dict(n_roots=3), 3, 7, HUB_TOL,
+             ("K8_bucket",)),
+            ("torch_device", np.float64, dict(n_roots=3), 3, 7, HUB_TOL,
+             ("K8_bucket", "K9_bucket_blocking")),
+            ("torch", np.float64, dict(proj_mpss=[gs]), "proj", 9, HUB_TOL,
+             ("K8_bucket",)),
+            ("torch_device", np.float32, {}, 1, 7, F32_E_TOL,
+             ("K8_bucket", "K9_bucket_blocking")),
+            ("torch_tiled", np.float64, dict(n_roots=2), 2, 7, HUB_TOL,
+             ("K7_tiled",))]
+    for backend, dtype, kw, which, seed, tol, must in runs:
+        _kernels.reset_counts()
+        t0 = time.time()
+        e = np.atleast_1d(drv.dmrg(mpo, drv.get_random_mps(D, seed=seed),
+                                   device=device, backend=backend,
+                                   dtype=dtype, **sched, **kw))
+        counts = _kernels.launch_counts()
+        de = np.abs(e - ref[which]).max()
+        what = "projected" if which == "proj" else f"{len(e)} roots"
+        print(f"[7a excited] {backend} {np.dtype(dtype).name} {what}: "
+              f"{' '.join(f'{x:.12f}' for x in e)} ({time.time() - t0:.1f} "
+              f"s) max dE {de:.2e}  launches "
+              f"{ {k: counts[k] for k in must} }  host_redo_count "
+              f"{drv._last_dmrg.host_redo_count}", flush=True)
+        if not de < tol:
+            fail(f"7a {backend} {what}: max |dE| {de:.3e} >= {tol}")
+        if device.type == "cuda" and not all(counts[k] > 0 for k in must):
+            fail(f"7a {backend}: a kernel of the path was never launched "
+                 f"({counts})")
+
+
+def phase_roots(device, drv, mpo, D=250, n_sweeps=2):
+    """Phase 7b: three roots on torch_device at full width.  Returns the
+    kernel launch counts of the run."""
+    import torch
+    from block2_preview_tpu_torch.ops import _kernels
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ket = drv.get_random_mps(D, seed=11)
+    _kernels.reset_counts()
+    t0 = time.time()
+    e = drv.dmrg(mpo, ket, bond_dims=[D, D], noises=[1e-4, 0],
+                 thrds=[1e-10], n_sweeps=n_sweeps, tol=0, iprint=0,
+                 device=device, backend="torch_device", n_roots=3)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _kernels.launch_counts()
+    solver = drv._last_dmrg
+    log = solver.sweep_log
+    for i, r in enumerate(log):
+        print(f"[7b roots] sweep {i} D={D} wall {r['wall']:.1f} s  Teff "
+              f"{r['teff']:.1f} Teig {r['teig']:.1f} Tdm {r['tdm']:.1f} "
+              f"Tblk {r['tblk']:.1f}  E "
+              f"{' '.join(f'{x:.10f}' for x in r['energies'])}  K8 "
+              f"{r['launches']['K8_bucket']} K9 "
+              f"{r['launches']['K9_bucket_blocking']} matvecs "
+              f"{r['matvecs']}  uploads {r['uploads']} "
+              f"({r['bytes_up'] / 2 ** 20:.1f} MiB) downloads "
+              f"{r['downloads']} ({r['bytes_down'] / 2 ** 20:.1f} MiB)",
+              flush=True)
+    mem = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+           else float("nan"))
+    k8, k9 = counts["K8_bucket"], counts["K9_bucket_blocking"]
+    init_k9 = k9 - sum(r["launches"]["K9_bucket_blocking"] for r in log)
+    matvecs = sum(r["matvecs"] for r in log)
+    print(f"[7b roots] torch_device f64 3 roots {wall:.1f} s (environment "
+          f"init {wall - sum(r['wall'] for r in log):.1f} s, K9 {init_k9}) "
+          f" E {' '.join(f'{x:.10f}' for x in e)}  K8 {k8} K9 {k9} matvecs "
+          f"{matvecs}  host_redo_count {solver.host_redo_count}  "
+          f"max_memory_allocated {mem:.2f} GiB", flush=True)
+    if cuda and not (k8 > 0 and k9 > 0):
+        fail(f"phase 7b never launched K8 or K9 ({counts})")
+    if cuda and k8 != matvecs:
+        fail(f"phase 7b: K8 launches {k8} != matvecs {matvecs}")
+    nums = [x for r in log for x in r["energies"]] + list(e)
+    if not (np.isfinite(nums).all() and np.all(np.diff(e) > 0)):
+        fail(f"phase 7b: energies not finite and ascending ({e})")
+    if solver.host_redo_count != 0:
+        fail(f"phase 7b: host_redo_count {solver.host_redo_count}")
+    return counts
 
 
 def _host_reference(mpo, mps, sched):
@@ -799,23 +1084,21 @@ def phase_full(device, drv, mpo, D=250, n_orb=16):
     |r|^2 < 1e-14 and the gap measures the port, not the threshold."""
     import torch
     from block2_preview_tpu_torch.ops import _kernels
-    sched = dict(bond_dims=[D, D], noises=[1e-4, 0], thrds=[1e-14],
-                 n_sweeps=2, tol=0, iprint=0)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ket = drv.get_random_mps(D, seed=11)
     _kernels.reset_counts()
     t0 = time.time()
-    e_port = drv.dmrg(mpo, ket, device=device, **sched)
+    e_port = drv.dmrg(mpo, ket, device=device, **qc_sched(D))
     if device.type == "cuda":
         torch.cuda.synchronize()
     t1 = time.time()
     counts = _kernels.launch_counts()
     solver = drv._last_dmrg
-    for i, (e, wall, teff, teig, tdm, tblk) in enumerate(solver.sweep_log):
-        print(f"[5 full] sweep {i} D={D} E {e:.10f} wall {wall:.1f} s  "
-              f"Teff {teff:.1f} Teig {teig:.1f} Tdm {tdm:.1f} "
-              f"Tblk {tblk:.1f}", flush=True)
+    for i, r in enumerate(solver.sweep_log):
+        print(f"[5 full] sweep {i} D={D} E {r['energy']:.10f} wall "
+              f"{r['wall']:.1f} s  Teff {r['teff']:.1f} Teig {r['teig']:.1f} "
+              f"Tdm {r['tdm']:.1f} Tblk {r['tblk']:.1f}", flush=True)
     mem = (torch.cuda.max_memory_allocated() / 2 ** 30
            if device.type == "cuda" else float("nan"))
     print(f"[5 full] port total {t1 - t0:.1f} s  launches {counts}  "
@@ -824,18 +1107,55 @@ def phase_full(device, drv, mpo, D=250, n_orb=16):
           f"{solver.host_redo_count}  host_env_materialized "
           f"{solver.host_env_materialized}  host_ops_downloads "
           f"{solver.host_ops_downloads}", flush=True)
-    e_ref = _host_reference(mpo, drv.get_random_mps(D, seed=11), sched)
-    de = e_port - e_ref
-    print(f"[5 full] K={n_orb} QC host reference {e_ref:.10f} "
-          f"({time.time() - t1:.1f} s)  port {e_port:.10f}  dE {de:.2e}",
-          flush=True)
-    if not abs(de) < QC_TOL:
-        fail(f"QC |dE| {abs(de):.3e} >= {QC_TOL}")
     for what in ("host_redo_count", "host_env_materialized",
                  "host_ops_downloads"):
         if getattr(solver, what) != 0:
             fail(f"{what} {getattr(solver, what)}")
-    return counts, ket
+    return counts, ket, e_port
+
+
+def check_full(e_port, ref, n_orb=16):
+    """Phase 5's energy against the host reference ``ref`` = (energy,
+    seconds) of :func:`timed_host_reference` on the same schedule."""
+    e_ref, secs = ref
+    de = e_port - e_ref
+    print(f"[5 full] K={n_orb} QC host reference {e_ref:.10f} ({secs:.1f} "
+          f"s)  port {e_port:.10f}  dE {de:.2e}", flush=True)
+    if not abs(de) < QC_TOL:
+        fail(f"QC |dE| {abs(de):.3e} >= {QC_TOL}")
+
+
+def qc_sched(D):
+    """Phase 5's schedule (see phase_full)."""
+    return dict(bond_dims=[D, D], noises=[1e-4, 0], thrds=[1e-14],
+                n_sweeps=2, tol=0, iprint=0)
+
+
+def timed_host_reference(mpo, mps, sched):
+    """(energy, seconds) of :func:`_host_reference`."""
+    t0 = time.time()
+    return _host_reference(mpo, mps, sched), time.time() - t0
+
+
+def host_pool(threads: int = 3):
+    """Two worker processes (spawned, their numerical libraries held to
+    ``threads`` threads each) for the host references of phases 5 and 3,
+    so that they run beside the device phases instead of after them.  Use
+    it in a ``with`` block: leaving the block terminates the workers."""
+    import multiprocessing as mp
+    import os
+    env = {k: str(threads) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                     "MKL_NUM_THREADS")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return mp.get_context("spawn").Pool(2)   # the workers start here
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
 def main():
@@ -850,6 +1170,7 @@ def main():
     except ImportError as exc:
         fail(f"the port package is not importable ({exc}); run from the "
              "repository root")
+    from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
     device = resolve_device("cuda")
     phase_device()
     phase_build()
@@ -858,26 +1179,42 @@ def main():
     nbond = max(len(b) for b in mpo.bond_dqs)
     print(f"[5 full] K={n_orb} QC MPO built in {t_mpo:.1f} s, max MPO "
           f"bond {nbond}", flush=True)
-    e_hub = phase_hubbard(device)
-    counts, ket = phase_full(device, drv, mpo, D=D, n_orb=n_orb)
-    counts.pop("K7_tiled")      # phase 6b's path
-    if not all(c > 0 for c in counts.values()):
-        fail(f"a kernel of the path was never launched: {counts}")
-    ket5 = copy_mps(ket)
-    phase_tiled_parity(device, e_ref=e_hub)
-    counts["K7_tiled"] = phase_tdvp(device, drv, mpo, ket, D=D)
     t = n_orb // 2 - 1
-    site = mid_site(mpo, ket5, t)
-    rows = phase_kernels(device, mpo, ket5, t, site=site)
-    rows += phase_tiled(device, site[0], t,
-                        complex_me=mid_site(mpo, ket, t)[0])
+    with host_pool() as pool:
+        ref5 = pool.apply_async(timed_host_reference, (
+            mpo, drv.get_random_mps(D, seed=11), qc_sched(D)))
+        e_hub = phase_hubbard(device)
+        counts, ket, e5 = phase_full(device, drv, mpo, D=D, n_orb=n_orb)
+        for k in ("K7_tiled", "K8_bucket", "K9_bucket_blocking"):
+            counts.pop(k)           # the paths of phases 6b and 7b
+        if not all(c > 0 for c in counts.values()):
+            fail(f"a kernel of the path was never launched: {counts}")
+        ket5 = copy_mps(ket)
+        ref3 = pool.apply_async(host_davidson3, (mpo, ket5, t))
+        phase_tiled_parity(device, e_ref=e_hub)
+        counts["K7_tiled"] = phase_tdvp(device, drv, mpo, ket, D=D)
+        phase_excited(device)
+        roots = phase_roots(device, drv, mpo, D=D)
+        for k in ("K8_bucket", "K9_bucket_blocking"):
+            counts[k] = roots[k]
+        check_full(e5, ref5.get(), n_orb)
+        site = mid_site(mpo, ket5, t)
+        rows = phase_kernels(device, mpo, ket5, t, site=site)
+        eff = EffectiveHamiltonian2(site[0], t)
+        rows += phase_tiled(device, site[0], t,
+                            complex_me=mid_site(mpo, ket, t)[0], eff=eff)
+        rows += phase_bucket(device, mpo, ket5, site[0], eff, t,
+                             host3=ref3.get())
     t0 = time.time()
     wide = wide_system()
     print(f"[3 kernels] Hubbard-L16 D=1000 site 7 (T=128 tiles; MPS built "
           f"in {time.time() - t0:.1f} s)", flush=True)
     site = mid_site(*wide, 7)
     phase_kernels(device, *wide, 7, tile=128, blk_tile=128, site=site)
-    phase_tiled(device, site[0], 7, T=128, davidson=False)
+    eff = EffectiveHamiltonian2(site[0], 7)
+    phase_tiled(device, site[0], 7, T=128, davidson=False, eff=eff)
+    phase_bucket(device, wide[0], wide[1], site[0], eff, 7, summary=False,
+                 kinds="K8")
     if "jax" in sys.modules or "block2_preview_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     for r in rows:

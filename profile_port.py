@@ -68,9 +68,10 @@ def main():
         e, wall = run()
     s = drv._last_dmrg
     print(f"[untraced] E {e:.10f} wall {wall:.2f} s", flush=True)
-    for i, (_e, w, teff, teig, tdm, tblk) in enumerate(s.sweep_log):
-        print(f"[untraced] sweep {i} wall {w:.2f} Teff {teff:.2f} Teig "
-              f"{teig:.2f} Tdm {tdm:.2f} Tblk {tblk:.2f}", flush=True)
+    for i, r in enumerate(s.sweep_log):
+        print(f"[untraced] sweep {i} wall {r['wall']:.2f} Teff "
+              f"{r['teff']:.2f} Teig {r['teig']:.2f} Tdm {r['tdm']:.2f} "
+              f"Tblk {r['tblk']:.2f}", flush=True)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

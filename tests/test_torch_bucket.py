@@ -1,0 +1,290 @@
+"""The port's bucketed engines against the JAX package's on the same state:
+``ops/exec_bucket.py`` (kernel K8) against ``FusedPlanExecutor``
+(exec_jax.py) and ``ops/blocking_device.py`` (kernel K9) against
+``execute_plan_jax`` (blocking_jax.py), at a Hubbard-L8 and a K=8
+quantum-chemistry center built in code: the bucket struct field by field,
+the plain versions of K8 and K9 against the JAX kernels (f64 to 1e-12 and
+f32 to 1e-5 relative to the largest entry), the kernels' own item walk
+(chain.cuh's CUDA blocks replayed in numpy) against the plain versions,
+the device Davidson around K8 against the JAX ``_dav_jit``, and the
+wrappers' device and type checks."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from block2_preview_tpu.dmrg.effective import EffectiveHamiltonian2 as RefEff
+from block2_preview_tpu.dmrg.sweep import DMRG as RefDMRG
+from block2_preview_tpu.driver.core import DMRGDriver as RefDriver
+from block2_preview_tpu.ops.blocking_jax import execute_plan_jax
+from block2_preview_tpu.ops.blocking_plan import build_plan as ref_build_plan
+from block2_preview_tpu.ops.exec_jax import FusedPlanExecutor
+
+import chip_smoke
+from block2_preview_tpu_torch import interop
+from block2_preview_tpu_torch.dmrg.effective import (
+    EffectiveHamiltonian2 as PortEff)
+from block2_preview_tpu_torch.dmrg.environment import (
+    MovingEnvironment as PortME)
+from block2_preview_tpu_torch.ops import _kernels, blocking_device
+from block2_preview_tpu_torch.ops import exec_bucket
+from block2_preview_tpu_torch.ops.blocking_plan import (build_plan,
+                                                        execute_plan_numpy)
+from block2_preview_tpu_torch.ops.exec_bucket import (BucketExecutor,
+                                                      _round_batch,
+                                                      reference_struct)
+
+from test_torch_plans import hubbard_driver
+
+CPU = torch.device("cpu")
+TOL = {np.float64: 1e-12, np.float32: 1e-5}
+
+
+def qc_driver(n_orb=8):
+    h1e, g2e = chip_smoke.seeded_qc_integrals(n_orb)
+    drv = RefDriver()
+    drv.initialize_system(n_sites=n_orb, n_elec=n_orb, spin=0)
+    return drv, drv.get_qc_mpo(h1e=h1e, g2e=g2e, ecore=0.0)
+
+
+def _state(kind):
+    """(reference MPO, reference MPS after two host sweeps, center)."""
+    drv, mpo = hubbard_driver() if kind == "hubbard" else qc_driver()
+    mps = drv.get_random_mps(60 if kind == "hubbard" else 40, seed=5)
+    RefDMRG(mpo, mps, backend="numpy", iprint=0).solve(
+        [mps.info.bond_dim], [1e-4], [1e-8], n_sweeps=2, tol=0)
+    return mpo, mps, 3
+
+
+@pytest.fixture(scope="module", params=["hubbard", "qc"])
+def site(request):
+    """Host environments of both packages around the center, and both
+    packages' two-site operators there."""
+    mpo, mps, t = _state(request.param)
+    d = RefDMRG(mpo, mps, backend="numpy", iprint=0)
+    for s in range(t):
+        d.me.update_left(s)
+    pme = PortME(interop.mpo(mpo), interop.mps(mps))
+    for s in range(mpo.n_sites - 1, t + 1, -1):
+        pme.update_right(s)
+    for s in range(t):
+        pme.update_left(s)
+    return request.param, mpo, mps, t, d.me, pme, RefEff(d.me, t), \
+        PortEff(pme, t)
+
+
+def _ref_struct(reff, dtype=np.float64):
+    cache = {}
+    rx = FusedPlanExecutor(reff, dtype=dtype, cache=cache, cache_key=1)
+    return rx, interop.bucket_struct(cache[1][1])
+
+
+def rel(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300)
+
+
+def test_struct_matches_reference(site):
+    """Every field of the reference struct, rebuilt from the port's
+    compact items; the bucket order, and a padded batch somewhere."""
+    *_, reff, peff = site
+    _, ref = _ref_struct(reff)
+    ex = BucketExecutor(peff, device=CPU)
+    got = reference_struct(ex.struct)
+    assert len(got["buckets"]) == len(ref["buckets"]) > 1
+    for b_got, b_ref in zip(got["buckets"], ref["buckets"]):
+        assert sorted(b_got) == sorted(b_ref)
+        for k in b_ref:
+            assert b_got[k].dtype == b_ref[k].dtype, k
+            assert np.array_equal(b_got[k], b_ref[k]), k
+    for k in ("perm", "seg_ids", "mask"):
+        assert got[k].dtype == ref[k].dtype, k
+        assert np.array_equal(got[k], ref[k]), k
+    n = np.diff(ex.struct["bounds"])
+    assert any(_round_batch(int(c)) > c for c in n)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_plain_matches_fused_sigma(site, dtype):
+    """K8's plain version against the JAX _fused_sigma (through
+    FusedPlanExecutor.matvec_device) on the same padded vector."""
+    *_, reff, peff = site
+    rx = FusedPlanExecutor(reff, dtype=dtype)
+    ex = BucketExecutor(peff, dtype=dtype, device=CPU)
+    assert ex.size_p == rx.size_p
+    xh = ex.pad(np.random.RandomState(3).standard_normal(peff.size))
+    ref = np.asarray(rx.matvec_device(jnp.asarray(xh)))
+    got = ex.matvec_device(torch.as_tensor(xh)).numpy()
+    assert got.dtype == dtype and got.shape == (ex.size_p,)
+    assert ref[ex.size_p] == 0 and not got[peff.size:].any()
+    assert rel(got, ref[:ex.size_p]) < TOL[dtype]
+    assert rel(ex.matvec(xh[:peff.size]),
+               peff.matvec_np(xh[:peff.size])) < TOL[dtype]
+
+
+def chain_walk(items, cols, pools, coefs, out):
+    """chain.cuh on the CPU: every CUDA block (item, 32-row strip, group
+    of 128 columns) of the prefix sums the kernel reads adds its part of
+    coef * A B C into ``out`` — the kernels' decomposition replayed.
+    ``cols(f)`` gives an item's (A, B, C, X, K1, K2, Y, ooff) views."""
+    for f, c in zip(items, coefs):
+        A, B, C, X, K1, K2, Y, ooff = cols(f, *pools)
+        nyg = -(-Y // 128)
+        blocks = exec_bucket.chain_blocks(np.int64(X), np.int64(Y))
+        for blk in range(int(blocks)):
+            x0, y0 = blk // nyg * 32, blk % nyg * 128
+            part = A[x0:x0 + 32] @ B @ C[:, y0:y0 + 128]
+            o = out[ooff:ooff + X * Y].reshape(X, Y)
+            o[x0:x0 + 32, y0:y0 + 128] += c * part
+    return out
+
+
+def test_k8_tables_reproduce_the_matvec(site):
+    """K8's items and block prefix sums cover every triple once."""
+    *_, peff = site
+    ex = BucketExecutor(peff, device=CPU)
+    d = exec_bucket.kernel_tables(ex.struct, CPU)
+    it = d["it"].numpy().astype(np.int64)
+    assert d["it"].dtype == d["cum"].dtype == torch.int32
+    nb = np.diff(d["cum"].numpy())
+    assert d["n_blocks"] == nb.sum() and (nb > 0).all()
+    assert len(it) == len(peff.triples)
+    xh = ex.pad(np.random.RandomState(4).standard_normal(peff.size))
+    lp, rp = ex.lpool.numpy(), ex.rpool.numpy()
+
+    def cols(f, xp, lp, rp):
+        loff, a, k, poff, n, roff, p, ooff = (int(v) for v in f)
+        return (lp[loff:loff + a * k].reshape(a, k),
+                xp[poff:poff + k * n].reshape(k, n),
+                rp[roff:roff + p * n].reshape(p, n).T, a, k, n, p, ooff)
+
+    got = chain_walk(it, cols, (xh, lp, rp), np.ones(len(it)),
+                     np.zeros(ex.size_p + 1))
+    ref = ex.matvec_device(torch.as_tensor(xh)).numpy()
+    assert rel(got[:ex.size_p], ref) < 1e-12
+
+
+def _plans(site, direction):
+    """The blocking step next to the center in ``direction``: the
+    reference plan on the reference environments, and the port's own plan
+    on the port's; with the step's env / bra / ket and output charges."""
+    _, mpo, mps, t, rme, pme, *_ = site
+    g = mpo.group
+    if direction == "left":
+        env, penv = rme.left_envs[t], pme.left_envs[t]
+        dq_out = mpo.bond_dqs[t + 1]
+    else:
+        t += 2
+        env, penv = rme.right_envs[t + 1], pme.right_envs[t + 1]
+        dq_out = [g.sub(mpo.bond_dqs[-1][0], dq) for dq in mpo.bond_dqs[t]]
+    args = (mpo.tensors[t], mpo.site_quanta[t], mps.tensors[t],
+            mps.tensors[t])
+    ref_plan = ref_build_plan(env, *args, dq_out, g, direction)
+    pmpo, pmps = interop.mpo(mpo), interop.mps(mps)
+    port_plan = build_plan(penv, pmpo.tensors[t], pmpo.site_quanta[t],
+                           pmps.tensors[t], pmps.tensors[t], dq_out,
+                           pmpo.group, direction)
+    return ref_plan, port_plan, env, penv, mps.tensors[t], pmps.tensors[t]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("direction", ["left", "right"])
+def test_plain_matches_execute_plan_jax(site, direction, dtype):
+    """K9's plain version on the reference's plan (carried over by
+    interop.blocking_plan) and on the port's own plan, against the JAX
+    execute_plan_jax and the port's execute_plan_numpy, block by block."""
+    ref_plan, port_plan, env, penv, T, pT = _plans(site, direction)
+    g = interop.group(site[1].group)
+    ref = execute_plan_jax(ref_plan, env, T, T, site[1].group, dtype=dtype)
+    host = execute_plan_numpy(port_plan, penv, pT, pT, g)
+    for plan, e, bt in ((interop.blocking_plan(ref_plan), env, T),
+                        (port_plan, penv, pT)):
+        moved = {"uploads": 0, "downloads": 0, "bytes_up": 0,
+                 "bytes_down": 0}
+        got = blocking_device.execute_plan_device(
+            plan, e, bt, bt, g, dtype=dtype, device="cpu", transfers=moved)
+        assert moved["uploads"] > 3 and moved["downloads"] == 1
+        assert sorted(got) == sorted(ref) == sorted(host)
+        for sym in ref:
+            assert sorted(got[sym].blocks) == sorted(ref[sym].blocks)
+            scale = max(np.abs(b).max() for b in ref[sym].blocks.values())
+            for k, b in ref[sym].blocks.items():
+                assert got[sym].blocks[k].dtype == dtype
+                assert np.abs(got[sym].blocks[k] - b).max() \
+                    <= TOL[dtype] * max(scale, 1e-300), (sym, k)
+                assert np.abs(got[sym].blocks[k]
+                              - host[sym].blocks[k]).max() \
+                    <= TOL[dtype] * max(scale, 1e-300), (sym, k)
+
+
+@pytest.mark.parametrize("direction", ["left", "right"])
+def test_k9_tables_reproduce_the_blocking(site, direction):
+    """K9's items and block prefix sums, walked as the kernel walks them
+    (MB transposed on the left, MK on the right, read by stride)."""
+    _, port_plan, _, penv, _, pT = _plans(site, direction)
+    left = direction == "left"
+    from block2_preview_tpu_torch.ops.blocking_plan import _pools
+    pools = _pools(port_plan, penv, pT, pT, np.float64)
+    d = blocking_device.kernel_tables(port_plan, CPU, torch.float64)
+    it = d["it"].numpy().astype(np.int64)
+
+    def cols(f, ep, bp, kp):
+        eoff, boff, koff, dl, dx, dk, dy, ooff = (int(v) for v in f)
+        mb = bp[boff:boff + dl * dx]
+        mk = kp[koff:koff + dk * dy]
+        return ((mb.reshape(dl, dx).T if left else mb.reshape(dx, dl)),
+                ep[eoff:eoff + dl * dk].reshape(dl, dk),
+                (mk.reshape(dk, dy) if left else mk.reshape(dy, dk).T),
+                dx, dl, dk, dy, ooff)
+
+    got = chain_walk(it, cols, pools, d["coef"].numpy(),
+                     np.zeros(port_plan.total_out + 1))
+    out = torch.zeros(port_plan.total_out + 1, dtype=torch.float64)
+    ref = blocking_device.bucket_blocking(
+        *(torch.as_tensor(p) for p in pools),
+        blocking_device.plain_tables(port_plan, CPU, torch.float64), left,
+        out).numpy()
+    assert rel(got, ref) < 1e-12
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10),
+                                       (np.float32, 1e-5)])
+def test_device_davidson_matches_dav_jit(site, dtype, tol):
+    """The port's device Davidson around K8's plain version against the
+    JAX _dav_jit at one center whose spectrum lies below zero: the port's
+    Davidson stops before growing its subspace (ROADMAP queue C), the
+    reference's appends one more vector, which gives a spurious Ritz value
+    only when the spectrum lies above zero."""
+    *_, reff, peff = site
+    x0 = peff.flatten(peff.initial_guess())
+    x0 /= np.linalg.norm(x0)
+    diag = peff.diagonal()
+    thrd = 1e-12 if dtype == np.float64 else 1e-8
+    th_ref, _, _ = FusedPlanExecutor(reff, dtype=dtype).solve_ground_state(
+        x0, diag, conv_thrd=thrd, max_iter=100)
+    th, xv, it = BucketExecutor(peff, dtype=dtype, device=CPU) \
+        .solve_ground_state(x0, diag, conv_thrd=thrd, max_iter=100)
+    assert th < 0 and th_ref < 0
+    assert abs(th - th_ref) < tol, (th, th_ref)
+    assert it > 0 and abs(np.linalg.norm(xv) - 1.0) < 1e-6
+
+
+def test_wrappers_take_the_twin_on_cpu_and_check_inputs(site):
+    """A CPU tensor runs the plain version and launches nothing; a wrong
+    shape or a complex effective Hamiltonian raises."""
+    *_, peff = site
+    _kernels.reset_counts()
+    ex = BucketExecutor(peff, device=CPU)
+    y = ex.matvec(np.ones(peff.size))
+    assert y.dtype == np.float64 and np.isfinite(y).all()
+    assert _kernels.launch_counts()["K8_bucket"] == 0
+    with pytest.raises(ValueError, match="expected"):
+        exec_bucket.bucket_sigma(torch.zeros(ex.size_p), ex.lpool, ex.rpool,
+                                 ex._dev, ex.size_p)
+    with pytest.raises(TypeError, match="torch_tiled"):
+        BucketExecutor(SimpleNamespace(dtype=np.complex128), device=CPU)
+    with pytest.raises(TypeError, match="same_kind"):
+        exec_bucket.pack_pool([np.ones((2, 2), complex)], np.float64, CPU)

@@ -33,18 +33,25 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_chip_smoke_phases_on_cpu(capsys):
-    """Phase 5 (main path against the port's host reference, launch
-    counts, host transfer counters) and phase 3 (K1-K6 vs twin rows on the
-    MPS phase 5 leaves, with bound and library columns) at K=6, D=20 on
-    the CPU."""
+    """Phase 5 (main path against the port's host reference, run in the
+    script's spawned worker; launch counts, host transfer counters) and
+    phase 3 (K1-K6 vs twin rows on the MPS phase 5 leaves, with bound and
+    library columns) at K=6, D=20 on the CPU."""
     dev = torch.device("cpu")
     n_orb, D = 6, 20
     drv, mpo, _ = chip_smoke.qc_system(n_orb, n_orb)
-    counts, ket = chip_smoke.phase_full(dev, drv, mpo, D=D, n_orb=n_orb)
+    # the host reference runs in the spawned worker, as in main()
+    with chip_smoke.host_pool(threads=1) as pool:
+        ref = pool.apply_async(chip_smoke.timed_host_reference, (
+            mpo, drv.get_random_mps(D, seed=11), chip_smoke.qc_sched(D)))
+        counts, ket, e = chip_smoke.phase_full(dev, drv, mpo, D=D,
+                                               n_orb=n_orb)
+        chip_smoke.check_full(e, ref.get(timeout=300), n_orb)
     # CPU tensors run the twins, which launch nothing
     assert counts == {"K1_matvec": 0, "K2_diag": 0, "K3_mix": 0,
                       "K4_place": 0, "K5_block": 0, "K6_noise": 0,
-                      "K7_tiled": 0}
+                      "K7_tiled": 0, "K8_bucket": 0,
+                      "K9_bucket_blocking": 0}
     assert drv._last_dmrg.mps is ket
     rows = chip_smoke.phase_kernels(dev, mpo, ket, n_orb // 2 - 1)
     assert [r["name"] for r in rows] == list(counts)[:6]
@@ -95,6 +102,47 @@ def test_chip_smoke_tiled_phases_on_cpu(capsys):
               "[6b tdvp] sweep B", "summed discarded weight",
               "[3 kernels] K7_tiled  f64", "[3 kernels] K7_tiled  c64",
               "[3 kernels] K7_tiled  c128 6b", "[3 kernels] K7 Davidson"):
+        assert k in out, k
+
+
+def test_chip_smoke_excited_phases_on_cpu(capsys):
+    """Phase 7a (roots, a projected state, an f32 root and torch_tiled
+    roots against the host backend), phase 7b (three roots on
+    torch_device with the per-sweep split and counters) and the phase-3
+    K8/K9 rows with the three-root Davidson check, at a small size on the
+    CPU."""
+    from block2_preview_tpu_torch.dmrg.effective import (
+        EffectiveHamiltonian2)
+    dev = torch.device("cpu")
+    chip_smoke.phase_excited(dev, L=4, D=16, ns=4)
+    n_orb, D = 6, 20
+    drv, mpo, _ = chip_smoke.qc_system(n_orb, n_orb)
+    counts = chip_smoke.phase_roots(dev, drv, mpo, D=D)
+    assert not any(counts.values())      # the twins launch nothing
+    ket = drv._last_dmrg.mps
+    t = n_orb // 2 - 1
+    me = chip_smoke.mid_site(mpo, ket, t)[0]
+    with chip_smoke.host_pool(threads=1) as pool:
+        host3 = pool.apply_async(chip_smoke.host_davidson3, (mpo, ket, t))
+        rows = chip_smoke.phase_bucket(dev, mpo, ket, me,
+                                       EffectiveHamiltonian2(me, t), t,
+                                       host3=host3.get(timeout=300))
+    assert [r["name"] for r in rows] == ["K8_bucket", "K9_bucket_blocking"]
+    for r in rows:
+        assert r["max_abs_err"] == 0.0      # the plain version vs itself
+        assert r["route"] == "cuda" and (ROOT / r["source"]).is_file()
+        assert r["bound_ms"] > 0 and r["library_ms"] is None
+    out = capsys.readouterr().out
+    for k in ("[7a excited] torch float64 3 roots",
+              "[7a excited] torch_device float64 3 roots",
+              "[7a excited] torch float64 projected",
+              "[7a excited] torch_device float32 1 roots",
+              "[7a excited] torch_tiled float64 2 roots",
+              "[7b roots] sweep 0", "[7b roots] sweep 1",
+              "[3 kernels] K8_bucket f64", "[3 kernels] K8_bucket f32",
+              "[3 kernels] K9_bucket_blocking f64 l",
+              "[3 kernels] K9_bucket_blocking f32 r",
+              "[3 kernels] K8 Davidson"):
         assert k in out, k
 
 

@@ -5,8 +5,8 @@ the reference's jax_resident backend and its host numpy backend
 (Hubbard-L8, D=80, 6 sweeps, noise 1e-5, f64: |dE| < 1e-8 Ha, the bar of
 test_resident_backend_end_to_end), with no environment or LW/RW download
 on the way; and a subprocess proof that the port — the resident and
-tiled ground states and time evolution — needs neither JAX nor the JAX
-package."""
+tiled ground states, the bucketed backends' roots and projected states,
+and time evolution — needs neither JAX nor the JAX package."""
 
 import os
 import re
@@ -163,6 +163,15 @@ e_t = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), device="cpu",
                backend="torch_tiled", **kw)
 assert abs(e_t - e_ref) < 1e-8, (e_t, e_ref)
 gs = drv._last_dmrg.mps
+r_ref = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), backend="numpy",
+                 n_roots=2, **kw)
+for backend in ("torch", "torch_device"):
+    r = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), device="cpu",
+                 backend=backend, n_roots=2, **kw)
+    assert abs(r - r_ref).max() < 1e-8, (backend, r, r_ref)
+    e_p = drv.dmrg(mpo, drv.get_random_mps(20, seed=5), device="cpu",
+                   backend=backend, proj_mpss=[gs], **kw)
+    assert e_p > e_ref + 1e-3, (backend, e_p, e_ref)
 for imaginary in (False, True):
     _, te = drv.td_dmrg(mpo, chip_smoke.copy_mps(gs), 0.05, 1, 20,
                         imaginary=imaginary, device="cpu")
