@@ -3,30 +3,41 @@
 Copied from block2_preview_tpu/dmrg/environment.py and cut to the port's
 paths:
 
-* host (``device=None``, backends "numpy", "torch", "torch_tiled"): every
-  bond is a host map {mpo bond symbol -> BlockMatrix}, built by the
-  plan-cached host blocking of ``ops/blocking_plan.py`` — the reference's
-  numpy path, the oracle;
+* host (``device=None``, backends "numpy", "torch", and "torch_tiled" on a
+  complex state): every bond is a host map {mpo bond symbol ->
+  BlockMatrix}, built by the plan-cached host blocking of
+  ``ops/blocking_plan.py`` — the reference's numpy path, the oracle;
 * host maps blocked on the device (``blocking_device`` set, backend
   "torch_device"; the reference's ``me.device`` flag, :132, 647-658):
   every plan of ``_contract_planned``, ``init_environments`` included,
   runs through ``ops/blocking_device.execute_plan_device`` (kernel K9);
   the bonds stay host maps between steps.  ``blk_transfers`` counts the
   uploads and downloads (and their bytes) this mode makes;
-* device: every bond is a flat slab pool (``ops/stacked.StackedMeta``
+* stacked (``device`` set; the reference's ``me.stacked``, :133-140,
+  308-512): every bond is a flat slab pool (``ops/stacked.StackedMeta``
   layout) held as a torch tensor on ``device`` in ``_stk_l``/``_stk_r``.
   ``init_environments``, ``update_left`` and ``update_right`` block on the
-  device from the source bond's pool (``ops/blockv2``, kernels K5 + K3),
-  the counterpart of the reference's resident chain (:440-554).  Only the
-  edge boundaries (bond 0 left, bond L right) are host maps, packed and
-  uploaded on first use.  A bond with no usable plan raises, naming the
-  bond: there is no host-fallback bond on the device path.
+  device from the source bond's pool with the engine ``stk_engine``
+  names: "tiled" (``ops/blockv2``, kernels K5 + K3; backends
+  "torch_resident" and "torch_tiled"), "tiled_v1"
+  (``ops/tiled_blocking``, K12; ``B2TPU_STK_ENGINE=tiled_v1``) or
+  "bucket" (``ops/stacked``, K10 + K11; backend "torch_stacked").  Only
+  the edge boundaries (bond 0 left, bond L right) are host maps, packed
+  and uploaded on first use.  A bond with no usable plan raises, naming
+  the bond: there is no host-fallback bond on the device path.
 
 Reading ``left_envs[t]``/``right_envs[t]`` of a device bond unpacks its
-pool to a host map (a download) and counts one ``host_env_materialized``;
-the device path never does that.  The reference's disk spill, device-memory
-budget with host mirrors, parallel compile warm-up and older blocking
-engines are not carried.
+pool to a host map (a download) once and counts one
+``host_env_materialized``: the host effective Hamiltonian of
+"torch_stacked" and "torch_tiled" reads its two bonds that way; the
+resident path never does.  ``blk_time`` splits the device blocking's
+wall time into host plan building ("plan") and execution ("exec", up to
+a device synchronize on a card).  Not carried from the reference: the
+disk spill, the device-memory budget with host mirrors and the host round
+trip of non-resident pools (:491-494, 556-601), the parallel compile
+warm-up (``warm_env_compiles``, :216-306), and the routing of large
+"tiled_v1" bonds to the bucket engine (``B2TPU_TILED_NCAP_MAX``,
+:376-389).
 
 Counterpart of block2's MovingEnvironment + Partition (reference
 src/dmrg/moving_environment.hpp:149, src/dmrg/partition.hpp:39) and of
@@ -36,6 +47,7 @@ src/core/tensor_functions.hpp:2842, operator_functions.hpp:175).
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -45,6 +57,9 @@ from .mpo import MPO
 from .mps import MPS
 
 EnvMap = Dict[int, BlockMatrix]   # mpo bond symbol -> operator on bond basis
+
+# blocking engines of stacked (device) environments
+STK_ENGINES = ("tiled", "tiled_v1", "bucket")
 
 
 class _StkMarker:
@@ -73,12 +88,17 @@ class _EnvList(list):
 
 class MovingEnvironment:
     def __init__(self, mpo: MPO, ket: MPS, bra: Optional[MPS] = None,
-                 device=None, dtype=np.float64, blocking_device=None):
+                 device=None, dtype=np.float64, blocking_device=None,
+                 stk_engine: str = "tiled"):
         """``device`` None keeps host maps (backend="numpy"); a torch
         device keeps every bond but the boundaries as a pool there, in
-        ``dtype`` (float64 or float32).  ``blocking_device`` (with
+        ``dtype`` (float64 or float32), blocked by ``stk_engine``
+        ("tiled", "tiled_v1" or "bucket").  ``blocking_device`` (with
         ``device`` None) keeps host maps but runs their blocking plans on
         that torch device."""
+        if stk_engine not in STK_ENGINES:
+            raise ValueError(f"unknown stacked engine '{stk_engine}' "
+                             f"({' | '.join(STK_ENGINES)})")
         self.mpo = mpo
         self.ket = ket
         self.bra = bra if bra is not None else ket
@@ -86,6 +106,11 @@ class MovingEnvironment:
         self.device = device
         self.dtype = np.dtype(dtype)
         self.blocking_device = blocking_device
+        self.stk_engine = stk_engine
+        # device blocking wall time: host plan building / execution
+        self.blk_time = {"plan": 0.0, "exec": 0.0}
+        # largest compact res pool (elements) of a bucket-engine plan
+        self.max_res_pool = 0
         self.blk_transfers = {"uploads": 0, "downloads": 0, "bytes_up": 0,
                               "bytes_down": 0}
         L = mpo.n_sites
@@ -172,13 +197,14 @@ class MovingEnvironment:
 
     def free_pool(self, side: str, bond: int) -> None:
         """Drop a consumed bond's device pool that the sweep no longer
-        needs (an edge boundary is re-packed from its host map on the next
+        needs, with the host map it may have been unpacked to (an edge
+        boundary keeps its host map and is re-packed from it on the next
         use)."""
         store = self._stk_l if side == "l" else self._stk_r
         if store.pop(bond, None) is None:
             return
         envs = self.left_envs if side == "l" else self.right_envs
-        if list.__getitem__(envs, bond) is _STK:
+        if bond != (0 if side == "l" else self.mpo.n_sites):
             list.__setitem__(envs, bond, None)
 
     def _materialize(self, side: str, t: int) -> EnvMap:
@@ -187,13 +213,14 @@ class MovingEnvironment:
         return meta.unpack(pool.cpu().numpy(), self.g, None)
 
     def _stk_plan_for(self, t: int, direction: str, meta_in):
-        """The device blocking plan of one bond, cached by structure
-        signature.  On a signature hit the plan's captured site-tensor
-        values are refreshed: sweeps that have converged in shape would
-        otherwise contract stale rotation matrices and settle ~1e-6 off
-        (reference :329-340)."""
+        """The device blocking plan of one bond for ``stk_engine``, cached
+        by structure signature.  On a signature hit the plan's captured
+        site-tensor values are refreshed: sweeps that have converged in
+        shape would otherwise contract stale rotation matrices and settle
+        ~1e-6 off (reference :329-340)."""
         from ..ops.blockv2 import build_blocking_v2
-        from ..ops.stacked import refresh_plan_sites
+        from ..ops.stacked import build_stacked_plan, refresh_plan_sites
+        from ..ops.tiled_blocking import build_tiled_blocking_plan
         left = direction == "left"
         src_bond = t if left else t + 1
         key = (t, direction)
@@ -209,34 +236,56 @@ class MovingEnvironment:
             plan = cached[1]
             refresh_plan_sites(plan, self.bra.tensors[t],
                                self.ket.tensors[t], self.mpo.site_quanta[t])
-        else:
-            plan = build_blocking_v2(
-                meta_in, self.mpo.tensors[t], self.mpo.site_quanta[t],
+            return plan
+        args = (meta_in, self.mpo.tensors[t], self.mpo.site_quanta[t],
                 self.bra.tensors[t], self.ket.tensors[t], self.g,
                 direction, self.mpo.bond_dqs[src_bond],
-                self.mpo.bond_dqs[t + 1 if left else t], gemm_mix=True)
-            if plan is None:
-                raise RuntimeError(
-                    f"no device blocking plan for bond {t} {direction} "
-                    "(no contributions)")
-            self._stk_plans[key] = (sig, plan)
+                self.mpo.bond_dqs[t + 1 if left else t])
+        if self.stk_engine == "tiled":
+            plan = build_blocking_v2(*args, gemm_mix=True)
+        elif self.stk_engine == "tiled_v1":
+            plan = build_tiled_blocking_plan(*args)
+        else:
+            plan = build_stacked_plan(*args)
+        if plan is None:
+            raise RuntimeError(
+                f"no device blocking plan for bond {t} {direction} "
+                "(no contributions)")
+        self._stk_plans[key] = (sig, plan)
         return plan
 
     def _stk_contract(self, t: int, direction: str) -> None:
         """One blocking step on the device: source bond pool -> plan ->
-        kernels K5 (+ K3 for v3 plans) -> destination bond pool."""
-        from ..ops.blockv2 import (BlockingV3Plan, execute_blocking_v2,
+        the engine's kernels (K5 + K3, K12, or K10 + K11) -> destination
+        bond pool."""
+        from ..ops.blockv2 import (BlockingV2Plan, BlockingV3Plan,
+                                   execute_blocking_v2,
                                    execute_blocking_v3)
+        from ..ops.stacked import execute_stacked
+        from ..ops.tiled_blocking import (TiledBlockingPlan,
+                                          execute_tiled_blocking)
         left = direction == "left"
         side = "l" if left else "r"
         src_bond = t if left else t + 1
+        t0 = time.time()
         meta_in, pool_in = self.device_pool(side, src_bond)
         plan = self._stk_plan_for(t, direction, meta_in)
+        t1 = time.time()
         if isinstance(plan, BlockingV3Plan):
             self.max_rot_pool = max(self.max_rot_pool, plan.rot_total)
             pool_out = execute_blocking_v3(plan, pool_in)
-        else:
+        elif isinstance(plan, BlockingV2Plan):
             pool_out = execute_blocking_v2(plan, pool_in)
+        elif isinstance(plan, TiledBlockingPlan):
+            pool_out = execute_tiled_blocking(plan, pool_in)
+        else:
+            self.max_res_pool = max(self.max_res_pool, plan.res_total)
+            pool_out = execute_stacked(plan, pool_in)
+        if pool_out.is_cuda:
+            import torch
+            torch.cuda.synchronize(pool_out.device)
+        self.blk_time["plan"] += t1 - t0
+        self.blk_time["exec"] += time.time() - t1
         dst = t + 1 if left else t
         if left:
             self._stk_l[dst] = (plan.meta_out, pool_out)

@@ -8,7 +8,7 @@ averages the density matrix over the roots with ``weights`` (equal by
 default); ``proj_mpss`` projects previously converged MPSs out of every
 local solve, or with ``proj_weights`` adds the penalty w_i |phi_i><phi_i|
 (``dmrg/projection.py``; the reference's sweep.py:382-457, 595-708).
-One class, five paths:
+One class, six paths:
 
 * ``backend="numpy"``: the reference's host path unchanged — host
   environment maps, host LW/RW assembly, the host Davidson and the host
@@ -36,12 +36,27 @@ One class, five paths:
   host shortcut (``eff.size < 4096``, sweep.py:655-659) is not copied, so
   K8's launches equal the matvecs (in float32 the Ritz guard below adds
   one per root and site).  Real types only.
+* ``backend="torch_stacked"`` on ``device``: the reference's jax_stacked
+  (sweep.py:465-467, 696-705) — stacked environment pools on the device,
+  blocked by the bucket engine (``ops/stacked.py``, kernels K10 + K11),
+  unpacked to host maps for the host LW/RW assembly (counted in
+  ``host_env_materialized``), and the local solve as ``backend="torch"``
+  does it: the host Davidson (roots, projection) around K8.  Real types
+  only.
 * ``backend="torch_tiled"`` on ``device``: the reference's jax_tiled
-  (sweep.py:660-684) — host environments, host LW/RW and host noise; one
-  root without projection solves with the device Davidson around the
-  tiled matvec (``TiledExecutor.solve_ground_state``, kernel K7), more
-  roots or a projection with the host Davidson around
-  ``TiledExecutor.matvec`` — at every site (no small-site host shortcut).
+  (sweep.py:465-471, 660-684) — for a real MPO and state, stacked
+  environment pools on the device blocked by ``B2TPU_STK_ENGINE``
+  ("tiled" by default: K5 + K3; "tiled_v1": K12; "bucket": K10 + K11) and
+  unpacked for the host LW/RW; for a complex one (decided when the solver
+  is built, as the reference's pools fall back there, environment.py:
+  448-456) host environment maps.  Host noise; one root without
+  projection solves with the device Davidson around the tiled matvec
+  (``TiledExecutor.solve_ground_state``, kernel K7), more roots or a
+  projection with the host Davidson around ``TiledExecutor.matvec`` — at
+  every site (no small-site host shortcut).
+
+``torch_resident`` honours ``B2TPU_STK_ENGINE`` the same way (the
+reference's jax_resident, sweep.py:468-471).
 
 Guards carried from the reference (sweep.py:752-790): in float32 a Ritz
 pair whose residual ``||Hx - th x||`` exceeds 1.0 Ha is rejected, as is a
@@ -292,8 +307,17 @@ class _DeviceEigenRejected(Exception):
     the host solver."""
 
 
-_BACKENDS = ("torch_resident", "torch", "torch_device", "torch_tiled",
-             "numpy")
+_BACKENDS = ("torch_resident", "torch", "torch_device", "torch_stacked",
+             "torch_tiled", "numpy")
+
+
+def _is_real(mpo: MPO, mps: MPS, dtype) -> bool:
+    """True when the run's dtype, the MPO's entries and the state's blocks
+    are all real."""
+    return np.dtype(dtype).kind == "f" and not any(
+        np.iscomplexobj(w) for ent in mpo.tensors for w in ent.values()) \
+        and not any(np.iscomplexobj(b) for T in mps.tensors
+                    for b in T.blocks.values())
 
 
 class DMRG:
@@ -335,7 +359,8 @@ class DMRG:
                              "'torch_device' for n_roots > 1 or proj_mpss")
         self.host_redo_count = 0
         # one dict per sweep: lowest energy, per-root energies, wall s,
-        # teff/teig/tdm/tblk, matvecs, kernel launches, blocking transfers
+        # teff/teig/tdm/tblk, matvecs, kernel launches, blocking transfers,
+        # device blocking's plan / exec split, environment unpacks
         self.sweep_log: List[Dict] = []
         if backend == "numpy":
             self.device = None
@@ -344,14 +369,22 @@ class DMRG:
             from ..runtime import resolve_device, torch_dtype
             torch_dtype(dtype)
             self.device = resolve_device(device)
-            if backend == "torch_resident":
-                self._res_caches: Dict = {}
+            engine = "bucket" if backend == "torch_stacked" else \
+                os.environ.get("B2TPU_STK_ENGINE", "tiled")
+            real = _is_real(mpo, mps, dtype)
+            if backend == "torch_stacked" and not real:
+                raise TypeError("backend='torch_stacked' takes real types "
+                                "only; backend='torch_tiled' keeps complex "
+                                "environments on the host")
+            # struct caches keyed (kind, site), as the reference's
+            # _res_caches / _tiled_cache / _exec_cache
+            self._res_caches: Dict = {}
+            self._exec_cache: Dict = {}
+            if backend in ("torch_resident", "torch_stacked") or \
+                    (backend == "torch_tiled" and real):
                 self.me = MovingEnvironment(mpo, mps, device=self.device,
-                                            dtype=dtype)
+                                            dtype=dtype, stk_engine=engine)
             else:
-                # struct caches keyed (kind, site), as the reference's
-                # _tiled_cache / _exec_cache
-                self._exec_cache: Dict = {}
                 self.me = MovingEnvironment(
                     mpo, mps, blocking_device=(
                         self.device if backend == "torch_device" else None))
@@ -485,10 +518,11 @@ class DMRG:
         return eff, t1, w, v, nmv, None
 
     def _eigen_executor(self, t: int, dav_thrd: float):
-        """Bucketed (K8) or tiled (K7) path of one site: host LW/RW, the
-        executor's matvec on the device inside the host Davidson, or the
-        device Davidson around it for one float32 root without projection
-        (torch_device) and for one root without projection (torch_tiled)."""
+        """Bucketed (K8: torch, torch_device, torch_stacked) or tiled (K7:
+        torch_tiled) path of one site: host LW/RW, the executor's matvec on
+        the device inside the host Davidson, or the device Davidson around
+        it for one float32 root without projection (torch_device) and for
+        one root without projection (torch_tiled)."""
         eff = EffectiveHamiltonian2(self.me, t)
         x0 = self._initial_guesses(eff, t)
         diag = eff.diagonal()
@@ -591,6 +625,8 @@ class DMRG:
         before = (tm.teff, tm.teig, tm.tdm, tm.tblk)
         launches = _kernels.launch_counts()
         moved = dict(self.me.blk_transfers)
+        blk = dict(self.me.blk_time)
+        mat = self.me.host_env_materialized
         t0 = time.time()
         for t in (range(L - 1) if forward else range(L - 2, -1, -1)):
             tsite = time.time()
@@ -614,7 +650,10 @@ class DMRG:
                 (tm.teff, tm.teig, tm.tdm, tm.tblk), before)},
             launches={k: n - launches[k]
                       for k, n in _kernels.launch_counts().items()},
-            **{k: n - moved[k] for k, n in self.me.blk_transfers.items()}))
+            **{k: n - moved[k] for k, n in self.me.blk_transfers.items()},
+            blk_plan=self.me.blk_time["plan"] - blk["plan"],
+            blk_exec=self.me.blk_time["exec"] - blk["exec"],
+            materialized=self.me.host_env_materialized - mat))
         return res
 
     def solve(self, bond_dims: List[int], noises: List[float],

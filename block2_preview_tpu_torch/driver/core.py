@@ -123,7 +123,7 @@ class DMRGDriver:
         pyblock2/driver/core.py:4437).  Returns the energy (a float) with
         one root, else every root's energy (an array).  On ``device``
         ("cuda" by default; it raises where there is no CUDA, with no
-        fallback), one backend of four:
+        fallback), one backend of five:
 
         * "torch_resident": every two-site step on the device (K1-K6); one
           root, no projection;
@@ -132,10 +132,16 @@ class DMRGDriver:
         * "torch_device": as "torch", and every environment blocking on
           the device (kernel K9); one float32 root solves entirely on the
           device;
-        * "torch_tiled": host environments and LW/RW, the matvec on the
-          tiled engine (kernel K7); it alone carries complex states.
+        * "torch_stacked": environment pools on the device, blocked by the
+          bucket engine (kernels K10 + K11), host LW/RW, the matvec on K8;
+        * "torch_tiled": host LW/RW, the matvec on the tiled engine
+          (kernel K7); real environments as device pools (K5 + K3), complex
+          ones as host maps — it alone carries complex states.
 
-        backend="numpy" is the host reference.  The solver is kept as
+        ``torch_resident`` and ``torch_tiled`` block their pools with the
+        engine that ``B2TPU_STK_ENGINE`` names: "tiled" (default, K5 + K3),
+        "tiled_v1" (K12) or "bucket" (K10 + K11).  backend="numpy" is the
+        host reference.  The solver is kept as
         ``self._last_dmrg`` (energies, timings, sweep_log,
         host_redo_count and the host transfer counters)."""
         solver = DMRG(mpo, ket, device=device, backend=backend,

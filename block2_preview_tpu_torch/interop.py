@@ -21,7 +21,8 @@ from .dmrg.mpo import MPO
 from .dmrg.mps import MPS, MPSInfo
 from .ops.blocking_plan import BlockingPlan
 from .ops.mixv4 import MixPlanV4
-from .ops.stacked import StackedMeta
+from .ops.stacked import StackedMeta, StackedPlan, stacked_plan as _stacked
+from .ops.tiled_blocking import TiledBlockingPlan
 from .ops.tilev2 import MatvecV2
 from .runtime import torch_dtype
 
@@ -114,6 +115,48 @@ def blocking_plan(ref_plan) -> BlockingPlan:
     p = BlockingPlan()
     for k in BlockingPlan.__slots__:
         setattr(p, k, getattr(ref_plan, k))
+    return p
+
+
+def stacked_plan(ref_plan) -> StackedPlan:
+    """Port StackedPlan from a reference StackedPlan: its buckets' items
+    and mix chunks with the padding taken out (padded items have
+    dl = dk = dx = dy = 0 and close their chunk; padded mix rows have
+    tgt = (0, 0, 0)), in the reference's bucket order; a row's ``src`` =
+    c S + j becomes (item, symbol)."""
+    cols = ("eoff", "boff", "koff", "dl", "dx", "dk", "dy")
+    items, rc, rj, coef, tgt = [], [], [], [], []
+    base = 0
+    for bk in ref_plan.buckets:
+        f = np.stack([np.asarray(bk[k], np.int64) for k in cols], axis=1)
+        live = f[f[:, 3] > 0]
+        for src, cf, tg in bk["mix"]:
+            src = np.asarray(src, np.int64)
+            tg = np.asarray(tg, np.int64).reshape(-1, 3)
+            keep = tg.any(axis=1)
+            rc.append(base + src[keep] // bk["S"])
+            rj.append(src[keep] % bk["S"])
+            coef.append(np.asarray(cf)[keep])
+            tgt.append(tg[keep])
+        items.append(live)
+        base += len(live)
+    return _stacked(np.concatenate(items), np.concatenate(rc),
+                    np.concatenate(rj), np.concatenate(coef),
+                    np.concatenate(tgt), stacked_meta(ref_plan.meta_out),
+                    ref_plan.direction == "left", ref_plan.bra_sizes,
+                    ref_plan.ket_sizes)
+
+
+def tiled_blocking_plan(ref_plan) -> TiledBlockingPlan:
+    """Port TiledBlockingPlan with the fields of a reference
+    TiledBlockingPlan (no ``flops``; its device cache is not carried)."""
+    p = TiledBlockingPlan()
+    for k in ("T", "nt1", "ntp", "ncap", "left", "s1", "s2", "s3", "coef",
+              "bra_pool", "ket_pool", "_src"):
+        setattr(p, k, getattr(ref_plan, k))
+    p.meta_out = stacked_meta(ref_plan.meta_out)
+    p.flops = None
+    p._dev = {}
     return p
 
 

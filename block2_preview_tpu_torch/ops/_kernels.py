@@ -75,6 +75,15 @@ KERNELS: Dict[str, KernelInfo] = {
     "K9_bucket_blocking": KernelInfo(
         "cuda", "block2_preview_tpu_torch/csrc/bucket_blocking.cu",
         "block2_preview_tpu/ops/blocking_jax.py:87 _blk_exec"),
+    "K10_slab": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/slab.cu",
+        "block2_preview_tpu/ops/stacked.py:163 _slab_exec"),
+    "K11_stk_mix": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/stk_mix.cu",
+        "block2_preview_tpu/ops/stacked.py:205 _mix_scatter"),
+    "K12_tiled_blocking": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/tiled_blocking.cu",
+        "block2_preview_tpu/ops/tiled_blocking.py:64 _tiled_blocking_exec"),
 }
 
 _P = ctypes.c_void_p
@@ -94,6 +103,10 @@ _SIGS = {
     "b2t_tiled": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "b2t_bucket": (_P, _P, _P, _P, _P, _I, _L, _P, _P),
     "b2t_bucket_blk": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
+    "b2t_slab": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
+    "b2t_stk_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
+    "b2t_tblk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _P, _P, _P, _P),
 }
 # entry-point suffix per value type; the complex instances exist only for
 # the entries listed in _COMPLEX
@@ -192,8 +205,8 @@ def call(entry: str, dtype, *args) -> None:
     """Call C entry ``entry`` (``_f64``/``_f32``/``_c128``/``_c64`` picked
     from ``dtype``, a torch dtype) with ``args`` followed by the current
     CUDA stream; raise on a CUDA error.  Tensor arguments are validated
-    (contiguous CUDA tensors of ``dtype`` or int32, the only types the
-    kernels take) and passed as device pointers."""
+    (contiguous CUDA tensors of ``dtype``, int32 or int64, the only types
+    the kernels take) and passed as device pointers."""
     import torch
     cargs = []
     for a in args:
@@ -202,9 +215,9 @@ def call(entry: str, dtype, *args) -> None:
                 raise ValueError("kernel inputs must be contiguous CUDA "
                                  f"tensors (got {a.device}, contiguous="
                                  f"{a.is_contiguous()})")
-            if a.dtype not in (dtype, torch.int32):
+            if a.dtype not in (dtype, torch.int32, torch.int64):
                 raise TypeError(f"kernel input of dtype {a.dtype} "
-                                f"(expected {dtype} or int32)")
+                                f"(expected {dtype}, int32 or int64)")
             a = a.data_ptr()
         cargs.append(a)
     sfx = _SUFFIX[str(dtype).rsplit(".", 1)[-1]]

@@ -55,21 +55,24 @@ def plan_items(plan: BlockingPlan) -> np.ndarray:
                     axis=1).astype(np.int64)
 
 
-def plain_tables(plan: BlockingPlan, device, tdt) -> Dict:
+def class_tables(it: np.ndarray, coef, device, tdt) -> Dict:
     """The tables :func:`bucket_blocking_plain` reads, on ``device``: the
-    items (int64), their coefficients, and the item indices of each
-    power-of-two shape class (Lp, Xp, Kp, Yp)."""
-    it = plan_items(plan)
+    items ``it`` [C, 8] (int64), their coefficients, and the item indices
+    of each power-of-two shape class (Lp, Xp, Kp, Yp)."""
     cls = np.stack([_pow2(it[:, c]) for c in (_DL, _DX, _DK, _DY)], axis=1)
     keys, inv = np.unique(cls, axis=0, return_inverse=True)
     inv = inv.ravel()
     return {"items": torch.as_tensor(it, device=device),
-            "coef": torch.as_tensor(plan.native["coefs"], dtype=tdt,
-                                    device=device),
+            "coef": torch.as_tensor(coef, dtype=tdt, device=device),
             "classes": [(tuple(int(v) for v in key),
                          torch.as_tensor(np.flatnonzero(inv == i),
                                          device=device))
                         for i, key in enumerate(keys)]}
+
+
+def plain_tables(plan: BlockingPlan, device, tdt) -> Dict:
+    """:func:`class_tables` of the plan's contributions."""
+    return class_tables(plan_items(plan), plan.native["coefs"], device, tdt)
 
 
 def kernel_tables(plan: BlockingPlan, device, tdt) -> Dict:

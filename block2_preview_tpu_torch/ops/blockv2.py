@@ -43,7 +43,7 @@ import torch
 from . import _kernels
 from .csr import w_triplets
 from .mixv4 import emit_gemm_items, mix_exec
-from .stacked import StackedMeta, _cap_class, _pow2
+from .stacked import StackedMeta, _cap_class, _pow2, site_pools
 from .tiled import pick_tile
 from .tilev2 import _locate, gather_tiles
 from ..core.symmetry import QN
@@ -148,25 +148,6 @@ def blk_tables(plan: BlockingV2Plan, device, dtype) -> Dict:
     return d
 
 
-def blk_pools(plan: BlockingV2Plan, device, dtype):
-    """(bra pool, ket pool) of the site-value matrices on the device,
-    cached on the plan until ``refresh_plan_sites`` replaces the values."""
-    key = ("pools", str(device), dtype)
-    p = plan._dev.get(key)
-    if p is None:
-        def pack(mats, offs):
-            if any(np.iscomplexobj(m) for m in mats):
-                raise TypeError("complex site tensors are not on this slice")
-            pool = np.zeros(int(offs[-1]) + 1, dtype=np.float64)
-            for m, o in zip(mats, offs[:-1]):
-                pool[o:o + m.size] = m.ravel()
-            return torch.as_tensor(pool, dtype=dtype, device=device)
-
-        p = (pack(*plan.bra_pool), pack(*plan.ket_pool))
-        plan._dev[key] = p
-    return p
-
-
 def blk_twin(epool, bpool, kpool, d: Dict, T: int, left: bool, out):
     """Plain PyTorch version of K5 (same signature as :func:`blk_exec`):
     the reference's three stages, in chunks of whole items."""
@@ -261,7 +242,7 @@ def execute_blocking_v2(plan: BlockingV2Plan, epool):
     step from the source bond's pool ``epool``, on its device and in its
     dtype (kernel K5)."""
     dev, dt = epool.device, epool.dtype
-    bpool, kpool = blk_pools(plan, dev, dt)
+    bpool, kpool = site_pools(plan, dev, dt)
     out = torch.zeros(plan.ncap, dtype=dt, device=dev)
     return blk_exec(epool, bpool, kpool, blk_tables(plan, dev, dt), plan.T,
                     plan.left, out)

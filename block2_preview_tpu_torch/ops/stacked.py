@@ -1,15 +1,38 @@
-"""Symbol-stacked environment layout (host side, numpy).
+"""Symbol-stacked environments: the slab layout and the "bucket" blocking
+engine — kernels K10 (slab product) and K11 (symbol mix scatter).
 
-Copied from block2_preview_tpu/ops/stacked.py:44-160, 234-288, 547-554
-without the JAX kernels of that file: ``_pow2``, ``_cap_class``,
-``StackedMeta`` and ``meta_from_env`` must give byte-identical layouts to
-the reference, so every port kernel reads the same flat pools as its JAX
-counterpart; ``refresh_plan_sites`` keeps cached blocking plans current.
+Host side, copied from block2_preview_tpu/ops/stacked.py: ``_pow2``,
+``_cap_class``, ``StackedMeta`` and ``meta_from_env`` (:44-160, 547-554)
+give byte-identical layouts to the reference, so every port kernel reads
+the same flat pools as its JAX counterpart; ``refresh_plan_sites``
+(:248-286) keeps cached blocking plans current; ``build_stacked_plan``
+(:289-473) gives the reference's sector items and mix rows, in its order
+once its shape buckets are taken out.
 
 The environment of one bond lives in ONE flat pool, slab-contiguous: the
 slab for (group g, sector qb) holds the S_g symbols of the group as
 contiguous (db x dk) row-major blocks.  Pools shipped to the device carry
 one extra zero slot at the end (the sentinel that masked reads use).
+
+One blocking step of the bucket engine, per sector item c (a group g, an
+MPO site pair (pb, pk) and an input sector) and symbol j of the group:
+
+    res[c, j] = mb^T E[c, j] mk     (left;  right: mb E[c, j] mk^T)
+
+then, per mix row m (an entry (i, o) of the MPO site tensor):
+
+    out[tgt_m + x*dy + y] += coef_m * res[src_m][x, y]
+
+Device side: K10 (``csrc/slab.cu``, replaces ``_slab_exec`` :163) forms
+every referenced (c, j) product at true dims into a compact ``res`` pool;
+K11 (``csrc/stk_mix.cu``, replaces ``_mix_scatter`` :205) adds every mix
+row into the output pool.  ``execute_stacked`` is one launch of each for
+the whole plan.  Not carried: the pow2 shape buckets (``q8``,
+``_pow2(S)``), the 2^24-element launch chunks, the pow2-padded mix chunks
+and ``warm_stacked`` (they bound XLA's compiles), and the ``_cap_class``
+padding of the site pools.  The output pool keeps the reference's layout
+(``meta_out``, ``out_cap = _cap_class(meta_out.total + 1)``, zero
+sentinel): K1/K2 and ``meta_out.unpack`` read it.
 """
 
 from __future__ import annotations
@@ -17,9 +40,12 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.blocks import BlockMatrix
 from ..core.symmetry import QN
+from . import _kernels
+from .csr import w_nonzero
 
 
 def _pow2(n: int) -> int:
@@ -178,8 +204,10 @@ def site_value_mats(T, quanta):
 
 def refresh_plan_sites(plan, bra_T, ket_T, quanta):
     """Refresh the site-tensor VALUES captured inside a cached blocking
-    plan (BlockingV2Plan / BlockingV3Plan) and drop its uploaded
-    bra/ket pools, so the next execution uploads the new values.
+    plan (StackedPlan, TiledBlockingPlan, BlockingV2Plan, BlockingV3Plan:
+    each keeps them as ``bra_pool``/``ket_pool`` and caches their device
+    pools in ``_dev`` under a key starting with "pools") and drop its
+    uploaded bra/ket pools, so the next execution uploads the new values.
 
     The plan caches key on structure only (block keys/shapes); the value
     matrices are captured at build time.  Once an MPS converges in
@@ -202,3 +230,385 @@ def refresh_plan_sites(plan, bra_T, ket_T, quanta):
         del inner._dev[key]
     plan._src = (bra_T, ket_T)
     return plan
+
+
+def site_pools(plan, device, dtype):
+    """(bra pool, ket pool) of a blocking plan's site-value matrices on the
+    device (raveled one after another, plus one zero), cached on the plan
+    until ``refresh_plan_sites`` replaces the values."""
+    key = ("pools", str(device), dtype)
+    p = plan._dev.get(key)
+    if p is None:
+        def pack(mats, offs):
+            if any(np.iscomplexobj(m) for m in mats):
+                raise TypeError("complex site tensors are not on this slice")
+            pool = np.zeros(int(offs[-1]) + 1, dtype=np.float64)
+            for m, o in zip(mats, offs[:-1]):
+                pool[o:o + m.size] = m.ravel()
+            return torch.as_tensor(pool, dtype=dtype, device=device)
+
+        p = (pack(*plan.bra_pool), pack(*plan.ket_pool))
+        plan._dev[key] = p
+    return p
+
+
+# ---------------------------------------------------------------------------
+# the bucket engine: plan
+# ---------------------------------------------------------------------------
+
+# item columns (the first seven of K9's contribution rows)
+_EOFF, _BOFF, _KOFF, _DL, _DX, _DK, _DY = range(7)
+# mix-row elements per chunk of the K11 twin (bounds its temporaries)
+_MIX_CHUNK = 1 << 24
+
+
+class StackedPlan:
+    """One blocking step of the bucket engine.
+
+    ``items`` [C, 7] int64, one row per sector item in the reference's item
+    order (its shape buckets taken out): eoff (the item's slab, symbol 0),
+    boff, koff, dl, dx, dk, dy — left: mb (dl x dx), E (dl x dk), mk
+    (dk x dy); right: mb (dx x dl), mk (dy x dk).  Mix rows, in the
+    reference's order: ``row_c``/``row_j`` [M] (the item and symbol of the
+    product a row reads), ``coef`` [M], ``tgt`` [M, 3] (output offset, dx,
+    dy).  ``work`` [n, 2]: the (c, j) products the rows read, sorted;
+    ``wsrc`` [M]: each row's work; ``roff`` [n + 1]: the works' offsets in
+    the compact ``res`` pool of ``res_total`` elements.  ``bra_pool`` /
+    ``ket_pool``: (site value matrices, offsets), refreshed by
+    ``refresh_plan_sites``; ``_dev`` caches device tables and pools."""
+
+    __slots__ = ("items", "row_c", "row_j", "coef", "tgt", "work", "wsrc",
+                 "roff", "res_total", "meta_out", "out_cap", "left",
+                 "bra_pool", "ket_pool", "flops", "_dev", "_src")
+
+
+def stacked_plan(items, row_c, row_j, coef, tgt, meta_out, left, bra_pool,
+                 ket_pool, src=None) -> StackedPlan:
+    """A StackedPlan from its items and mix rows; derives the works (the
+    distinct (item, symbol) products the rows read) and their ``res``
+    layout."""
+    p = StackedPlan()
+    p.items = np.asarray(items, np.int64).reshape(-1, 7)
+    p.row_c = np.asarray(row_c, np.int64)
+    p.row_j = np.asarray(row_j, np.int64)
+    p.coef = np.asarray(coef)
+    p.tgt = np.asarray(tgt, np.int64).reshape(-1, 3)
+    span = int(p.row_j.max()) + 1 if len(p.row_j) else 1
+    keys, p.wsrc = np.unique(p.row_c * span + p.row_j, return_inverse=True)
+    p.wsrc = p.wsrc.ravel().astype(np.int64)
+    p.work = np.stack([keys // span, keys % span], axis=1).astype(np.int64)
+    f = p.items[p.work[:, 0]]
+    p.roff = np.concatenate([[0], np.cumsum(f[:, _DX] * f[:, _DY])]
+                            ).astype(np.int64)
+    p.res_total = int(p.roff[-1])
+    p.flops = float(2 * (f[:, _DL] * f[:, _DK] * f[:, _DY]
+                         + f[:, _DX] * f[:, _DL] * f[:, _DY]).sum())
+    p.meta_out = meta_out
+    p.out_cap = _cap_class(meta_out.total + 1)
+    p.left = bool(left)
+    p.bra_pool = bra_pool
+    p.ket_pool = ket_pool
+    p._dev = {}
+    p._src = src
+    return p
+
+
+def build_stacked_plan(meta_in: StackedMeta, entries, quanta, bra_T, ket_T,
+                       group, direction: str, bond_dqs_in, bond_dqs_out
+                       ) -> Optional[StackedPlan]:
+    """Blocking-step plan on stacked environments (copied from the
+    reference's build_stacked_plan, without its shape buckets).
+
+    direction 'left':  in-symbols join entry inputs, out = entry outputs,
+        E'[o][(qrb,qrk)] += w[pb,pk] mb^T E[i][(qlb,qlk)] mk
+    direction 'right': in = entry outputs (right env), out = entry inputs.
+    For 'right', bond_dqs_* must already be complemented (target - dq).
+    """
+    left = direction == "left"
+
+    # site tensor registries keyed (bond sector, phys state)
+    bra_tab: Dict[Tuple[QN, int], Tuple[int, Tuple[int, int], QN]] = {}
+    ket_tab: Dict[Tuple[QN, int], Tuple[int, Tuple[int, int], QN]] = {}
+    bra_mats: List[np.ndarray] = []
+    ket_mats: List[np.ndarray] = []
+
+    def reg(T, tab, mats):
+        for (ql, qp, qr), b in sorted(T.blocks.items()):
+            for p, q in enumerate(quanta):
+                if q != qp:
+                    continue
+                m = b.reshape(b.shape[0], b.shape[2])
+                if left:
+                    tab[(ql, p)] = (len(mats), m.shape, qr)
+                else:
+                    tab[(qr, p)] = (len(mats), m.shape, ql)
+                mats.append(m)
+
+    reg(bra_T, bra_tab, bra_mats)
+    reg(ket_T, ket_tab, ket_mats)
+    if not bra_mats or not ket_mats:
+        return None
+    bshape = np.asarray([m.shape for m in bra_mats], dtype=np.int64)
+    kshape = np.asarray([m.shape for m in ket_mats], dtype=np.int64)
+    boffs = np.concatenate([[0], np.cumsum(bshape[:, 0] * bshape[:, 1])])
+    koffs = np.concatenate([[0], np.cumsum(kshape[:, 0] * kshape[:, 1])])
+
+    # entries grouped by (in-group, pb, pk) with (in-pos, out-sym, coef)
+    ent_by: Dict[Tuple[int, int, int], List[Tuple[int, int, float]]] = {}
+    for (i, o), w in sorted(entries.items()):
+        jsym = i if left else o
+        osym = o if left else i
+        gp = meta_in.sym_pos.get(jsym)
+        if gp is None:
+            continue
+        g, j = gp
+        for pb, pk in zip(*w_nonzero(w)):
+            ent_by.setdefault((g, int(pb), int(pk)), []).append(
+                (j, osym, float(w[pb, pk].real) if not np.iscomplexobj(w)
+                 else w[pb, pk]))
+    keys = sorted(ent_by)
+    ents = [e for key in keys for e in ent_by[key]]
+    klen = np.asarray([len(ent_by[key]) for key in keys], np.int64)
+    kstart = np.concatenate([[0], np.cumsum(klen)[:-1]]).astype(np.int64)
+    ent_j = np.asarray([e[0] for e in ents], np.int64)
+    ent_os = np.asarray([e[1] for e in ents], np.int64)
+    ent_cf = np.asarray([e[2] for e in ents])
+
+    # sector items, in the reference's order: (key, eoff, boff, koff, dl,
+    # dx, dk, dy, qrb)
+    items = []
+    for ik, (g, pb, pk) in enumerate(keys):
+        dq_g, syms = meta_in.groups[g]
+        for qlb, (eoff, db, dkk) in meta_in.sectors[g].items():
+            qlk = group.sub(qlb, dq_g)
+            vb = bra_tab.get((qlb, pb))
+            vk = ket_tab.get((qlk, pk))
+            if vb is None or vk is None:
+                continue
+            mb_id, (s1, s2), qrb = vb
+            mk_id, (t1, t2), qrk = vk
+            if left:
+                dl, dx = s1, s2
+                dkk2, dy = t1, t2
+            else:
+                dx, dl = s1, s2
+                dy, dkk2 = t1, t2
+            assert dl == db and dkk2 == dkk
+            items.append((ik, eoff, boffs[mb_id], koffs[mk_id], dl, dx, dkk,
+                          dy, qrb))
+    if not items:
+        return None
+    ik = np.asarray([it[0] for it in items], np.int64)
+    meta_out, row_c, pos, tgt, ok = expand_entries(
+        kstart[ik], klen[ik], [it[8] for it in items],
+        np.asarray([it[5] for it in items], np.int64),
+        np.asarray([it[7] for it in items], np.int64), ent_os, bond_dqs_out)
+    return stacked_plan([it[1:8] for it in items], row_c[ok],
+                        ent_j[pos[ok]], ent_cf[pos[ok]], tgt[ok], meta_out,
+                        left, (bra_mats, boffs), (ket_mats, koffs),
+                        src=(bra_T, ket_T))
+
+
+def expand_entries(seg_start, seg_len, item_qrb, item_dx, item_dy, ent_os,
+                   bond_dqs_out):
+    """Every (item, entry) pair of a stacked blocking plan, item-major and
+    in entry order — item i owns entries ``seg_start[i]`` onwards, for
+    ``seg_len[i]`` of them; an entry's output symbol is ``ent_os`` — and the
+    output layout they define: each (output symbol, output sector qrb)
+    with the dims (dx, dy) of its pairs, which must agree (ValueError).
+    Returns (meta_out, the pairs' items, their entry indices, their
+    targets [n, 3] (slab offset of the output block, dx, dy), and a mask of
+    the pairs whose block meta_out holds).  This is the reference builders'
+    per-entry loop over items (ops/stacked.py:365-370, 412-428;
+    ops/tiled_blocking.py:188-195, 224-240) in array form."""
+    qid: Dict[QN, int] = {}
+    q_item = np.asarray([qid.setdefault(q, len(qid)) for q in item_qrb],
+                        np.int64)
+    qn_of = list(qid)
+    nq = len(qn_of)
+    row = np.repeat(np.arange(len(seg_len), dtype=np.int64), seg_len)
+    pos = np.repeat(seg_start - np.cumsum(seg_len) + seg_len, seg_len) \
+        + np.arange(int(seg_len.sum()), dtype=np.int64)
+    osym, q = ent_os[pos], q_item[row]
+    dx, dy = item_dx[row], item_dy[row]
+    nsym = int(osym.max()) + 1 if len(osym) else 1
+    key = osym * nq + q
+    seen = np.zeros(nsym * nq, bool)
+    tdx = np.zeros(nsym * nq, np.int64)
+    tdy = np.zeros(nsym * nq, np.int64)
+    seen[key], tdx[key], tdy[key] = True, dx, dy
+    if not (np.array_equal(tdx[key], dx) and np.array_equal(tdy[key], dy)):
+        raise ValueError("an output sector meets two block shapes")
+    out_sym_sectors: Dict[int, Dict[QN, Tuple[int, int]]] = {}
+    for k in np.flatnonzero(seen).tolist():
+        out_sym_sectors.setdefault(k // nq, {})[qn_of[k % nq]] = (
+            int(tdx[k]), int(tdy[k]))
+    meta_out = StackedMeta.from_bond(bond_dqs_out, out_sym_sectors)
+    # output offsets by (out group, sector) and (group, position) by symbol
+    nsym = int(osym.max()) + 1 if len(osym) else 1
+    go_t = np.full(nsym, -1, np.int64)
+    jo_t = np.zeros(nsym, np.int64)
+    for s, (go, jo) in meta_out.sym_pos.items():
+        if s < nsym:
+            go_t[s], jo_t[s] = go, jo
+    ngo = len(meta_out.groups)
+    sec = np.zeros((ngo, nq, 3), np.int64)
+    has = np.zeros((ngo, nq), bool)
+    for go, secs in enumerate(meta_out.sectors):
+        for qb, ent in secs.items():
+            if qb in qid:
+                sec[go, qid[qb]] = ent
+                has[go, qid[qb]] = True
+    go = go_t[osym]
+    ok = go >= 0
+    ok[ok] = has[go[ok], q[ok]]
+    s3 = sec[np.maximum(go, 0), q]
+    tgt = np.stack([s3[:, 0] + jo_t[osym] * s3[:, 1] * s3[:, 2], s3[:, 1],
+                    s3[:, 2]], axis=1)
+    return meta_out, row, pos, tgt, ok
+
+
+# ---------------------------------------------------------------------------
+# kernels K10 (slab product), K11 (mix scatter) and their plain twins
+# ---------------------------------------------------------------------------
+
+def _check_real(plan: StackedPlan) -> None:
+    if np.iscomplexobj(plan.coef):
+        raise TypeError("complex blocking plans are not on this slice; "
+                        "backend='torch_tiled' keeps complex environments "
+                        "on the host")
+
+
+def slab_kernel_tables(plan: StackedPlan, device) -> Dict:
+    """K10's tables on ``device``, cached on the plan: the items ``it``
+    [C, 7] int32, the works ``wk`` [n, 3] int32 (item, symbol, res
+    offset) and ``cum`` [n + 1], the prefix sums of each work's CUDA
+    blocks (csrc/chain.cuh)."""
+    from .exec_bucket import _int32, chain_blocks
+    key = ("k10", str(device))
+    d = plan._dev.get(key)
+    if d is None:
+        f = plan.items[plan.work[:, 0]]
+        last = f[:, _EOFF] + (plan.work[:, 1] + 1) * f[:, _DL] * f[:, _DK]
+        _int32(last, "a K10 env offset")
+        cum = np.concatenate([[0], np.cumsum(chain_blocks(f[:, _DX],
+                                                          f[:, _DY]))])
+        wk = np.stack([plan.work[:, 0], plan.work[:, 1], plan.roff[:-1]], 1)
+        d = {"it": torch.as_tensor(_int32(plan.items, "a K10 pool offset"),
+                                   device=device),
+             "wk": torch.as_tensor(_int32(wk, "a K10 res offset"),
+                                   device=device),
+             "cum": torch.as_tensor(_int32(cum, "K10's block count"),
+                                    device=device),
+             "n_works": len(wk), "n_blocks": int(cum[-1])}
+        plan._dev[key] = d
+    return d
+
+
+def slab_plain_tables(plan: StackedPlan, device, tdt) -> Dict:
+    """The K10 twin's tables on ``device``: every work as one of K9's
+    contribution rows (eoff + j dl dk, boff, koff, dl, dx, dk, dy, res
+    offset) with coefficient 1, grouped in power-of-two shape classes."""
+    from .blocking_device import class_tables
+    f = plan.items[plan.work[:, 0]].copy()
+    f[:, _EOFF] += plan.work[:, 1] * f[:, _DL] * f[:, _DK]
+    rows = np.concatenate([f, plan.roff[:-1, None]], axis=1)
+    return class_tables(rows, np.ones(len(rows)), device, tdt)
+
+
+def slab_plain(ep, bp, kp, d: Dict, left: bool, res):
+    """Plain PyTorch version of K10 (the reference's ``_slab_exec`` per
+    shape class: padded gathers, one einsum, the true elements added into
+    ``res`` [res_total + 1], whose last slot is cleared).  Returns res."""
+    from .blocking_device import bucket_blocking_plain
+    return bucket_blocking_plain(ep, bp, kp, d, left, res)
+
+
+def slab_exec(ep, bp, kp, d: Dict, left: bool, res):
+    """Slab product (kernel K10): every work's product at true dims into
+    the zero-initialised compact pool ``res`` [res_total + 1], from the
+    flat env/bra/ket pools; ``d`` from :func:`slab_kernel_tables` (CPU
+    tensors run :func:`slab_plain` on :func:`slab_plain_tables`).
+    Returns res."""
+    if any(t.dim() != 1 for t in (ep, bp, kp, res)):
+        raise ValueError("slab_exec takes flat pools and a flat res")
+    if ep.device.type == "cpu":
+        return slab_plain(ep, bp, kp, d, left, res)
+    if not ep.is_cuda:
+        raise ValueError(f"unsupported device {ep.device}")
+    _kernels.launch("K10_slab", "b2t_slab", ep.dtype, ep, bp, kp, d["it"],
+                    d["wk"], d["cum"], d["n_works"], d["n_blocks"],
+                    int(left), res)
+    return res
+
+
+def mix_tables(plan: StackedPlan, device, tdt) -> Dict:
+    """K11's tables (its twin's too) on ``device``, cached on the plan:
+    ``rows`` [M, 3] int32 (res offset, output offset, elements dx dy),
+    ``coef`` [M], ``ecum`` [M + 1] int64, the prefix sums of the rows'
+    elements (``ecum_h`` on the host)."""
+    from .exec_bucket import _int32
+    key = ("k11", str(device), tdt)
+    d = plan._dev.get(key)
+    if d is None:
+        n = plan.tgt[:, 1] * plan.tgt[:, 2]
+        rows = np.stack([plan.roff[plan.wsrc], plan.tgt[:, 0], n], axis=1)
+        ecum = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+        d = {"rows": torch.as_tensor(_int32(rows, "a K11 offset"),
+                                     device=device),
+             "coef": torch.as_tensor(plan.coef, dtype=tdt, device=device),
+             "ecum": torch.as_tensor(ecum, device=device), "ecum_h": ecum,
+             "n_rows": len(rows), "n_elems": int(ecum[-1])}
+        plan._dev[key] = d
+    return d
+
+
+def stk_mix_plain(res, d: Dict, out):
+    """Plain PyTorch version of K11 (the reference's ``_mix_scatter``):
+    every row's dx dy elements, scaled, added into ``out`` by
+    ``index_add_``, in chunks of rows.  Returns out."""
+    rows, coef, ecum = d["rows"].long(), d["coef"], d["ecum_h"]
+    m0 = 0
+    while m0 < d["n_rows"]:
+        m1 = int(np.searchsorted(ecum, ecum[m0] + _MIX_CHUNK, "right")) - 1
+        m1 = min(max(m1, m0 + 1), d["n_rows"])
+        r = rows[m0:m1]
+        ri = torch.repeat_interleave(torch.arange(m1 - m0, device=r.device),
+                                     r[:, 2])
+        e = torch.arange(len(ri), device=r.device) - \
+            torch.as_tensor(ecum[m0:m1] - ecum[m0], device=r.device)[ri]
+        out.index_add_(0, r[ri, 1] + e, res[r[ri, 0] + e] * coef[m0:m1][ri])
+        m0 = m1
+    return out
+
+
+def stk_mix(res, d: Dict, out):
+    """Symbol mix scatter (kernel K11): ``out[tgt + e] += coef res[src +
+    e]`` for every row and element, into the zero-initialised output pool
+    ``out``; ``d`` from :func:`mix_tables`.  CPU tensors run
+    :func:`stk_mix_plain`.  Returns out."""
+    if res.dim() != 1 or out.dim() != 1:
+        raise ValueError("stk_mix takes a flat res and a flat output")
+    if res.device.type == "cpu":
+        return stk_mix_plain(res, d, out)
+    if not res.is_cuda:
+        raise ValueError(f"unsupported device {res.device}")
+    _kernels.launch("K11_stk_mix", "b2t_stk_mix", res.dtype, res, d["rows"],
+                    d["ecum"], d["coef"], d["n_rows"], d["n_elems"], out)
+    return out
+
+
+def execute_stacked(plan: StackedPlan, epool):
+    """Output pool [out_cap] (zero above ``meta_out.total``) of one
+    blocking step from the source bond's pool ``epool``, on its device and
+    in its dtype: one launch of K10 into the ``res`` pool, one of K11 into
+    the output."""
+    _check_real(plan)
+    dev, dt = epool.device, epool.dtype
+    bp, kp = site_pools(plan, dev, dt)
+    d10 = slab_plain_tables(plan, dev, dt) if dev.type == "cpu" \
+        else slab_kernel_tables(plan, dev)
+    res = torch.zeros(plan.res_total + 1, dtype=dt, device=dev)
+    slab_exec(epool, bp, kp, d10, plan.left, res)
+    out = torch.zeros(plan.out_cap, dtype=dt, device=dev)
+    return stk_mix(res, mix_tables(plan, dev, dt), out)

@@ -5,7 +5,7 @@ port's own host reference (backend="numpy", held equal to the JAX
 package's host path by the CPU tests):
 
   1. device    card name and power limit (nvidia-smi), torch / CUDA
-  2. build     nvcc builds kernels K1-K9 from block2_preview_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K12 from block2_preview_tpu_torch/csrc
                (one nvcc per source, all at once)
   4. parity    Hubbard-L8, D=80, 6 sweeps with noise, f64: |dE| < 1e-8 Ha
   5. full      seeded K=16 quantum-chemistry Hamiltonian (16 electrons,
@@ -41,6 +41,23 @@ package's host path by the CPU tests):
                the peak device memory; fails unless K8 and K9 launched,
                K8's launches equal the matvecs, the energies are finite
                and ascending and no site was redone on the host
+  8a. stacked  Hubbard-L8, D=80, 6 sweeps with noise, Davidson |r|^2 <
+               1e-14, against phase 7a's host energies: torch_stacked
+               (stacked pools, bucket engine K10 + K11, host Davidson
+               around K8) with one and three roots, torch_resident and
+               torch_tiled under B2TPU_STK_ENGINE=tiled_v1 (K12); every
+               root to 1e-8 Ha; fails unless K10 and K11 launched on each
+               torch_stacked run, K12 and no K5 on each tiled_v1 run
+  8b. stacked  phase 5's start and schedule on torch_stacked, one root:
+               per sweep the wall split, Tblk's host plan building and
+               device time, K10 / K11 / K8 launches, matvecs (K8 must equal
+               them), environment unpacks; the largest res pool and the
+               peak device memory; within 1e-6 Ha of phase 5's host
+               reference
+  8c. tiled_v1 phase 5's start and schedule on torch_resident under
+               tiled_v1: within 1e-8 Ha of phase 5's port energy (the same
+               Davidson) and 1e-6 Ha of its host reference; fails unless
+               K12 launched and K5 did not
   3. kernels   each kernel against its plain PyTorch twin on the card, at
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
@@ -51,11 +68,13 @@ package's host path by the CPU tests):
                tiled Davidson (K7) against the host Davidson; K8 in f64
                and f32, K9 on the site's left and right blocking plans in
                f64 and f32, and a three-root host Davidson around K8
-               against the host Davidson on the host matvec; then again
+               against the host Davidson on the host matvec; K10, K11
+               (library: one index_add_) and K12 on the site's left and
+               right bucket-engine and v1 plans, f64 and f32; then again
                at the mid-chain site of a Hubbard-L16 MPS of bond
                dimension 1000, whose plans pick K1's and K7's T=128 tiles
-               (K5's blocking plans are built with T=128 there; K8 meets
-               its widest buckets there).  Each
+               (K5's and K12's blocking plans are built with T=128 there;
+               K8 meets its widest buckets there).  Each
                row carries the kernel's time, its twin's, one PyTorch
                call's where one computes the same function, and the bound
                (the least time the card could take: the live bytes the
@@ -69,14 +88,16 @@ Davidson run in two spawned worker processes beside the device phases
 (their numerical libraries held to 3 threads each); the script
 terminates them before it exits.  The last line is {"ok": true,
 "device": {...}}; the line before it is the per-kernel JSON summary:
-K1-K6, K8 and K9 from their f64 rows at
-the K=16 site, K7 from its complex128 row on phase 6b's state, with the
-launches of phases 5 (K1-K6), 6b (K7) and 7b (K8, K9).
+K1-K6 and K8-K12 from their f64 rows at the K=16 site, K7 from its
+complex128 row on phase 6b's state, with the launches of phases 5
+(K1-K6), 6b (K7), 7b (K8, K9), 8b (K10, K11) and 8c (K12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -247,7 +268,8 @@ def phase_build():
         fail("no ptxas register report in the build log")
     for name, regs, spill in usage:
         if name.startswith(("mv_kernel", "blk_kernel", "noise_",
-                            "tiled_kernel", "bucket_")) or \
+                            "tiled_kernel", "bucket_", "slab_", "stk_mix",
+                            "tblk_")) or \
                 not spill.startswith("0 bytes stack"):
             print(f"    ptxas {name}: {regs} registers; {spill}", flush=True)
 
@@ -306,7 +328,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
     ``site`` is mid_site(mpo, mps, t) when the caller has built it."""
     import torch
     from block2_preview_tpu_torch.ops import blockv2, mixv4, resident, tilev2
-    from block2_preview_tpu_torch.ops.stacked import env_pool
+    from block2_preview_tpu_torch.ops.stacked import env_pool, site_pools
     me, eff = site or mid_site(mpo, mps, t)
     tk = eff.target
     g = mpo.group
@@ -460,7 +482,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
         for (direction, mix), (plan, pool, e_total) in blk.items():
             rp = plan.rot if mix else plan
             ep = torch.as_tensor(pool, dtype=tdt, device=device)
-            bp, kp = blockv2.blk_pools(rp, device, tdt)
+            bp, kp = site_pools(rp, device, tdt)
             d5 = blockv2.blk_tables(rp, device, tdt)
             # env, bra and ket values in, the live output out (the ROT
             # pool for v3); live item rows with cumu and efs, and the
@@ -826,10 +848,156 @@ def phase_bucket(device, mpo, mps, me, eff, t, summary=True, kinds="all",
     return summary_rows(rows)
 
 
+def _stacked_plans(mpo, mps, me, t, T=None):
+    """The two blocking steps next to center t (left t -> t+1 from bond t,
+    right t+1 -> t+1 from bond t+2) as bucket-engine plans (K10 + K11) and
+    v1 tiled plans (K12; tile ``T`` when given), with their source pools
+    and the live size of each."""
+    from block2_preview_tpu_torch.ops.stacked import (build_stacked_plan,
+                                                      env_pool)
+    from block2_preview_tpu_torch.ops.tiled_blocking import (
+        build_tiled_blocking_plan)
+    g = mpo.group
+    out = {}
+    for direction, bond, st in (("left", t, t), ("right", t + 2, t + 1)):
+        env = me.left_envs[bond] if direction == "left" \
+            else me.right_envs[bond]
+        meta, pool = env_pool(env, mpo.bond_dqs[bond], np.float64)
+        args = (meta, mpo.tensors[st], mpo.site_quanta[st], mps.tensors[st],
+                mps.tensors[st], g, direction, mpo.bond_dqs[bond],
+                mpo.bond_dqs[t + 1])
+        out[direction] = (build_stacked_plan(*args),
+                          build_tiled_blocking_plan(*args, T=T), pool,
+                          meta.total)
+    return out
+
+
+def _mix_library_call(plan, d, device):
+    """K11's function as one PyTorch call, out.index_add_(0, dst,
+    res[src] * coef), on element index lists built from the plan's rows
+    (the yardstick only; the port never calls it)."""
+    import torch
+    rows = d["rows"].long().cpu().numpy()
+    n = rows[:, 2]
+    ri = np.repeat(np.arange(len(rows)), n)
+    e = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    src = torch.as_tensor(rows[ri, 0] + e, device=device)
+    dst = torch.as_tensor(rows[ri, 1] + e, device=device)
+    cf = d["coef"][torch.as_tensor(ri, device=device)]
+
+    def call(res):
+        out = torch.zeros(plan.out_cap, dtype=res.dtype, device=device)
+        return out.index_add_(0, dst, res[src] * cf)
+    return call
+
+
+def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
+                          bucket=True):
+    """K10 and K11 (the bucket engine; unless ``bucket`` is False) and K12
+    (v1 tiled blocking) against their twins on the left and right blocking
+    plans next to center t of the host environments ``me``, f64 and f32;
+    ``T`` forces K12's tile.  Returns the summary rows of the f64 cases
+    (none unless ``summary``)."""
+    import torch
+    from block2_preview_tpu_torch.ops import stacked, tiled_blocking
+    rows = {}
+    plans = _stacked_plans(mpo, mps, me, t, T=T)
+    for dtype in (np.float64, np.float32):
+        acc = rows if summary and dtype == np.float64 else None
+        tol = ATOMIC_TOL[dtype]
+        tdt = torch.float64 if dtype == np.float64 else torch.float32
+        for direction, (sp, tp, pool, e_total) in plans.items():
+            side = direction[0]
+            ep = torch.as_tensor(pool, dtype=tdt, device=device)
+            bp, kp = stacked.site_pools(sp, device, tdt)
+            esz = ep.element_size()
+            if bucket:
+                dk = (stacked.slab_kernel_tables(sp, device)
+                      if device.type == "cuda" else
+                      stacked.slab_plain_tables(sp, device, tdt))
+                dp = stacked.slab_plain_tables(sp, device, tdt)
+
+                def k10(fn, d, sp=sp, ep=ep, bp=bp, kp=kp):
+                    return fn(ep, bp, kp, d, sp.left, torch.zeros(
+                        sp.res_total + 1, dtype=tdt, device=device))
+
+                r_k = k10(stacked.slab_exec, dk)[:sp.res_total]
+                r_t = k10(stacked.slab_plain, dp)[:sp.res_total]
+                # env, bra and ket values in, res out; items, works, cum
+                nw = len(sp.work)
+                _check(acc, "K10_slab", dtype, side, r_k, r_t, tol,
+                       time_ms(lambda: k10(stacked.slab_exec, dk), device),
+                       time_ms(lambda: k10(stacked.slab_plain, dp), device,
+                               reps=1),
+                       None, live_bytes(esz, e_total + 1 + bp.numel()
+                                        + kp.numel() + sp.res_total,
+                                        7 * len(sp.items) + 4 * nw + 1),
+                       sp.flops,
+                       f"items {len(sp.items)} works {nw} blocks "
+                       f"{dk.get('n_blocks', 0)} res {sp.res_total} "
+                       f"({sp.res_total * esz / 2 ** 20:.1f} MiB) GFLOP "
+                       f"{sp.flops / 1e9:.3f}")
+                d11 = stacked.mix_tables(sp, device, tdt)
+                res = torch.cat([r_t, r_t.new_zeros(1)])
+
+                def k11(fn, sp=sp, d11=d11, res=res):
+                    return fn(res, d11, torch.zeros(sp.out_cap, dtype=tdt,
+                                                    device=device))
+
+                lib = _mix_library_call(sp, d11, device)
+                m_t = k11(stacked.stk_mix_plain)
+                rel, _ = rel_err(lib(res), m_t)
+                if not rel <= tol:
+                    fail(f"K11 {side}: the index_add_ yardstick disagrees "
+                         f"({rel:.3e})")
+                n_rows = d11["n_rows"]
+                _check(acc, "K11_stk_mix", dtype, side,
+                       k11(stacked.stk_mix), m_t, tol,
+                       time_ms(lambda: k11(stacked.stk_mix), device),
+                       time_ms(lambda: k11(stacked.stk_mix_plain), device),
+                       time_ms(lambda: lib(res), device),
+                       # res read, the live output written, coefs; rows
+                       # (3 int32) and ecum (int64)
+                       live_bytes(esz, sp.res_total + sp.meta_out.total
+                                  + n_rows, 3 * n_rows + 2 * (n_rows + 1)),
+                       2.0 * d11["n_elems"],
+                       f"rows {n_rows} elements {d11['n_elems']} out "
+                       f"{sp.meta_out.total}")
+            d12 = tiled_blocking.tblk_tables(tp, device, tdt)
+            tb, tk = stacked.site_pools(tp, device, tdt)
+
+            def k12(fn, tp=tp, d12=d12, ep=ep, tb=tb, tk=tk):
+                return fn(ep, tb, tk, d12, tp.T, tp.left, torch.zeros(
+                    tp.ncap, dtype=tdt, device=device))
+
+            o_k = k12(tiled_blocking.tblk_exec)
+            gs = d12["groups"]
+            n1, n2, n3 = (sum(x[i] for x in gs) for i in (1, 3, 5))
+            _check(acc, "K12_tiled_blocking", dtype, side, o_k,
+                   k12(tiled_blocking.tblk_plain), tol,
+                   time_ms(lambda: k12(tiled_blocking.tblk_exec),
+                           device),
+                   time_ms(lambda: k12(tiled_blocking.tblk_plain),
+                           device, reps=1), None,
+                   # env, bra, ket in; the live output out; the live
+                   # task columns and their coefficients
+                   live_bytes(esz, e_total + 1 + tb.numel() + tk.numel()
+                              + tp.meta_out.total + n3,
+                              9 * n1 + 6 * n2 + 5 * n3),
+                   tp.flops,
+                   f"T {tp.T} groups {len(gs)} tasks {n1}/{n2}/{n3} "
+                   f"tmp {d12['ntmp']} prod {d12['nprod']} tiles "
+                   f"out {tp.meta_out.total} GFLOP {tp.flops / 1e9:.3f}")
+            if float(o_k[tp.meta_out.total:].abs().max()) != 0.0:
+                fail(f"K12 {side}: nonzero sentinel slots")
+    return summary_rows(rows)
+
+
 def phase_excited(device, L=8, D=80, ns=6):
     """Phase 7a: state-averaged roots, a projected excited state and an
     f32 root on the bucketed backends, and two roots on torch_tiled,
-    against the host backend at a small size."""
+    against the host backend at a small size.  Returns the host energies
+    {n_roots or "proj": array} (seed 7 but for "proj")."""
     from block2_preview_tpu_torch.core.fcidump import FCIDUMP
     from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
     from block2_preview_tpu_torch.ops import _kernels
@@ -882,6 +1050,177 @@ def phase_excited(device, L=8, D=80, ns=6):
         if device.type == "cuda" and not all(counts[k] > 0 for k in must):
             fail(f"7a {backend}: a kernel of the path was never launched "
                  f"({counts})")
+    return ref
+
+
+@contextlib.contextmanager
+def stk_engine(name):
+    """B2TPU_STK_ENGINE set to ``name`` (left unset for None) inside the
+    block, restored after it."""
+    old = os.environ.pop("B2TPU_STK_ENGINE", None)
+    if name is not None:
+        os.environ["B2TPU_STK_ENGINE"] = name
+    try:
+        yield
+    finally:
+        os.environ.pop("B2TPU_STK_ENGINE", None)
+        if old is not None:
+            os.environ["B2TPU_STK_ENGINE"] = old
+
+
+def phase_stacked_parity(device, L=8, D=80, ns=6, ref=None):
+    """Phase 8a: the stacked environments' blocking engines against the
+    host backend at a small size — torch_stacked (bucket engine, K10 +
+    K11) with one and three roots, and torch_resident and torch_tiled
+    under B2TPU_STK_ENGINE=tiled_v1 (K12, no K5).  ``ref``: phase 7a's host
+    energies of the same schedule and seed, computed when None."""
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    from block2_preview_tpu_torch.ops import _kernels
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
+    drv.initialize_system(n_sites=L, n_elec=L, spin=0)
+    mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
+    sched = dict(bond_dims=[D] * ns, noises=[1e-5] * ns + [0],
+                 thrds=[1e-14], n_sweeps=ns, tol=0, iprint=0)
+    if ref is None:
+        ref = {n: np.atleast_1d(drv.dmrg(mpo, drv.get_random_mps(D, seed=7),
+                                         backend="numpy", n_roots=n,
+                                         **sched)) for n in (1, 3)}
+    bucket = ("K10_slab", "K11_stk_mix", "K8_bucket")
+    runs = [("torch_stacked", None, 1, bucket, ()),
+            ("torch_stacked", None, 3, bucket, ()),
+            ("torch_resident", "tiled_v1", 1, ("K12_tiled_blocking",),
+             ("K5_block",)),
+            ("torch_tiled", "tiled_v1", 1, ("K12_tiled_blocking",
+                                            "K7_tiled"), ("K5_block",))]
+    for backend, engine, n, must, never in runs:
+        _kernels.reset_counts()
+        t0 = time.time()
+        with stk_engine(engine):
+            e = np.atleast_1d(drv.dmrg(mpo, drv.get_random_mps(D, seed=7),
+                                       device=device, backend=backend,
+                                       n_roots=n, **sched))
+        counts = _kernels.launch_counts()
+        de = np.abs(e - ref[n]).max()
+        print(f"[8a stacked] {backend} {engine or 'bucket'} {n} roots: "
+              f"{' '.join(f'{x:.12f}' for x in e)} ({time.time() - t0:.1f} "
+              f"s) max dE {de:.2e}  launches "
+              f"{ {k: counts[k] for k in must + never} }  "
+              f"host_env_materialized "
+              f"{drv._last_dmrg.host_env_materialized}", flush=True)
+        if not de < HUB_TOL:
+            fail(f"8a {backend} {engine}: max |dE| {de:.3e} >= {HUB_TOL}")
+        if device.type == "cuda" and not (
+                all(counts[k] > 0 for k in must)
+                and not any(counts[k] for k in never)):
+            fail(f"8a {backend} {engine}: launches {counts}")
+
+
+def _sweep_lines(tag, log, kernels):
+    for i, r in enumerate(log):
+        print(f"[{tag}] sweep {i} wall {r['wall']:.1f} s  Teff "
+              f"{r['teff']:.1f} Teig {r['teig']:.1f} Tdm {r['tdm']:.1f} Tblk "
+              f"{r['tblk']:.1f} (plan {r['blk_plan']:.1f}, exec "
+              f"{r['blk_exec']:.1f})  E {r['energy']:.10f}  "
+              + " ".join(f"{k.split('_')[0]} {r['launches'][k]}"
+                         for k in kernels)
+              + f"  matvecs {r['matvecs']}  materialized "
+              f"{r['materialized']}", flush=True)
+
+
+def phase_stacked_full(device, drv, mpo, D=250):
+    """Phase 8b: phase 5's start and schedule on torch_stacked (bucket
+    engine, K10 + K11; host LW/RW; the host Davidson around K8), one root.
+    Returns (launch counts, energy)."""
+    import torch
+    from block2_preview_tpu_torch.ops import _kernels
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t0 = time.time()
+    e = drv.dmrg(mpo, drv.get_random_mps(D, seed=11), device=device,
+                 backend="torch_stacked", **qc_sched(D))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _kernels.launch_counts()
+    solver = drv._last_dmrg
+    log = solver.sweep_log
+    _sweep_lines("8b stacked", log, ("K10_slab", "K11_stk_mix", "K8_bucket"))
+    me = solver.me
+    matvecs = sum(r["matvecs"] for r in log)
+    mem = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+           else float("nan"))
+    esz = np.dtype(np.float64).itemsize
+    print(f"[8b stacked] torch_stacked {wall:.1f} s (environment init "
+          f"{wall - sum(r['wall'] for r in log):.1f} s; blocking plan "
+          f"{me.blk_time['plan']:.1f} s, exec {me.blk_time['exec']:.1f} s in "
+          f"all)  E {e:.10f}  K10 {counts['K10_slab']} K11 "
+          f"{counts['K11_stk_mix']} K8 {counts['K8_bucket']} matvecs "
+          f"{matvecs}  largest res pool {me.max_res_pool} elements "
+          f"({me.max_res_pool * esz / 2 ** 20:.1f} MiB)  "
+          f"host_env_materialized {solver.host_env_materialized}  "
+          f"max_memory_allocated {mem:.2f} GiB", flush=True)
+    if cuda and not (counts["K10_slab"] > 0 and counts["K11_stk_mix"] > 0):
+        fail(f"phase 8b never launched K10 or K11 ({counts})")
+    if cuda and counts["K8_bucket"] != matvecs:
+        fail(f"phase 8b: K8 launches {counts['K8_bucket']} != matvecs "
+             f"{matvecs}")
+    if not np.isfinite([e] + [r["energy"] for r in log]).all():
+        fail("phase 8b: an energy is not finite")
+    return counts, e
+
+
+def phase_resident_v1(device, drv, mpo, D=250):
+    """Phase 8c: phase 5's start and schedule on torch_resident with
+    B2TPU_STK_ENGINE=tiled_v1 (blocking on K12, not K5).  Returns (launch
+    counts, energy)."""
+    import torch
+    from block2_preview_tpu_torch.ops import _kernels
+    cuda = device.type == "cuda"
+    _kernels.reset_counts()
+    t0 = time.time()
+    with stk_engine("tiled_v1"):
+        e = drv.dmrg(mpo, drv.get_random_mps(D, seed=11), device=device,
+                     **qc_sched(D))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _kernels.launch_counts()
+    solver = drv._last_dmrg
+    _sweep_lines("8c tiled_v1", solver.sweep_log,
+                 ("K12_tiled_blocking", "K1_matvec"))
+    print(f"[8c tiled_v1] torch_resident tiled_v1 {wall:.1f} s  E {e:.10f}  "
+          f"K12 {counts['K12_tiled_blocking']} K5 {counts['K5_block']}  "
+          f"host_env_materialized {solver.host_env_materialized}  "
+          f"host_ops_downloads {solver.host_ops_downloads}", flush=True)
+    if cuda and not (counts["K12_tiled_blocking"] > 0
+                     and counts["K5_block"] == 0):
+        fail(f"phase 8c: K12 must launch and K5 must not ({counts})")
+    for what in ("host_redo_count", "host_env_materialized",
+                 "host_ops_downloads"):
+        if getattr(solver, what) != 0:
+            fail(f"phase 8c: {what} {getattr(solver, what)}")
+    return counts, e
+
+
+def check_stacked(e8b, e8c, e5, ref):
+    """Phases 8b and 8c against phase 5's host reference ``ref`` =
+    (energy, seconds) to QC_TOL, and 8c against phase 5's port energy
+    ``e5`` to HUB_TOL (the same Davidson; only the blocking engine
+    differs)."""
+    e_ref = ref[0]
+    print(f"[8b stacked] E {e8b:.10f}  host {e_ref:.10f}  dE "
+          f"{e8b - e_ref:.2e}  (phase 5 port {e5:.10f})", flush=True)
+    print(f"[8c tiled_v1] E {e8c:.10f}  phase 5 {e5:.10f} dE "
+          f"{e8c - e5:.2e}  host dE {e8c - e_ref:.2e}", flush=True)
+    if not abs(e8b - e_ref) < QC_TOL:
+        fail(f"8b |dE| {abs(e8b - e_ref):.3e} >= {QC_TOL}")
+    if not (abs(e8c - e5) < HUB_TOL and abs(e8c - e_ref) < QC_TOL):
+        fail(f"8c: |dE| to phase 5 {abs(e8c - e5):.3e}, to the host "
+             f"{abs(e8c - e_ref):.3e}")
 
 
 def phase_roots(device, drv, mpo, D=250, n_sweeps=2):
@@ -991,12 +1330,14 @@ def phase_tiled_parity(device, L=8, D=80, ns=6, e_ref=None):
     if e_ref is None:
         e_ref = _host_reference(mpo, drv.get_random_mps(D, seed=7), sched)
     de = e_port - e_ref
+    counts = _kernels.launch_counts()
     print(f"[6a tiled] Hubbard-L{L} D={D} x{ns} torch_tiled {e_port:.12f} "
-          f"({t1 - t0:.1f} s, K7 launches "
-          f"{_kernels.launch_counts()['K7_tiled']}) host {e_ref:.12f} "
-          f"dE {de:.2e}", flush=True)
+          f"({t1 - t0:.1f} s, K7 launches {counts['K7_tiled']}, K5 "
+          f"{counts['K5_block']}) host {e_ref:.12f} dE {de:.2e}", flush=True)
     if not abs(de) < HUB_TOL:
         fail(f"torch_tiled parity |dE| {abs(de):.3e} >= {HUB_TOL}")
+    if device.type == "cuda" and counts["K5_block"] == 0:
+        fail("6a: torch_tiled never blocked its environments on K5")
     for imaginary, dt in ((False, 0.05), (True, 0.1)):
         kind = "imaginary" if imaginary else "real"
         t0 = time.time()
@@ -1185,19 +1526,27 @@ def main():
             mpo, drv.get_random_mps(D, seed=11), qc_sched(D)))
         e_hub = phase_hubbard(device)
         counts, ket, e5 = phase_full(device, drv, mpo, D=D, n_orb=n_orb)
-        for k in ("K7_tiled", "K8_bucket", "K9_bucket_blocking"):
-            counts.pop(k)           # the paths of phases 6b and 7b
+        later = ("K7_tiled", "K8_bucket", "K9_bucket_blocking", "K10_slab",
+                 "K11_stk_mix", "K12_tiled_blocking")
+        for k in later:
+            counts.pop(k)           # the paths of phases 6b, 7b, 8b, 8c
         if not all(c > 0 for c in counts.values()):
             fail(f"a kernel of the path was never launched: {counts}")
         ket5 = copy_mps(ket)
         ref3 = pool.apply_async(host_davidson3, (mpo, ket5, t))
         phase_tiled_parity(device, e_ref=e_hub)
         counts["K7_tiled"] = phase_tdvp(device, drv, mpo, ket, D=D)
-        phase_excited(device)
+        phase_stacked_parity(device, ref=phase_excited(device))
         roots = phase_roots(device, drv, mpo, D=D)
-        for k in ("K8_bucket", "K9_bucket_blocking"):
-            counts[k] = roots[k]
-        check_full(e5, ref5.get(), n_orb)
+        c8b, e8b = phase_stacked_full(device, drv, mpo, D=D)
+        c8c, e8c = phase_resident_v1(device, drv, mpo, D=D)
+        for k, c in (("K8_bucket", roots), ("K9_bucket_blocking", roots),
+                     ("K10_slab", c8b), ("K11_stk_mix", c8b),
+                     ("K12_tiled_blocking", c8c)):
+            counts[k] = c[k]
+        r5 = ref5.get()
+        check_full(e5, r5, n_orb)
+        check_stacked(e8b, e8c, e5, r5)
         site = mid_site(mpo, ket5, t)
         rows = phase_kernels(device, mpo, ket5, t, site=site)
         eff = EffectiveHamiltonian2(site[0], t)
@@ -1205,6 +1554,7 @@ def main():
                             complex_me=mid_site(mpo, ket, t)[0], eff=eff)
         rows += phase_bucket(device, mpo, ket5, site[0], eff, t,
                              host3=ref3.get())
+        rows += phase_stacked_kernels(device, mpo, ket5, site[0], t)
     t0 = time.time()
     wide = wide_system()
     print(f"[3 kernels] Hubbard-L16 D=1000 site 7 (T=128 tiles; MPS built "
@@ -1215,6 +1565,8 @@ def main():
     phase_tiled(device, site[0], 7, T=128, davidson=False, eff=eff)
     phase_bucket(device, wide[0], wide[1], site[0], eff, 7, summary=False,
                  kinds="K8")
+    phase_stacked_kernels(device, *wide, site[0], 7, T=128, summary=False,
+                          bucket=False)
     if "jax" in sys.modules or "block2_preview_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     for r in rows:

@@ -51,7 +51,8 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert counts == {"K1_matvec": 0, "K2_diag": 0, "K3_mix": 0,
                       "K4_place": 0, "K5_block": 0, "K6_noise": 0,
                       "K7_tiled": 0, "K8_bucket": 0,
-                      "K9_bucket_blocking": 0}
+                      "K9_bucket_blocking": 0, "K10_slab": 0,
+                      "K11_stk_mix": 0, "K12_tiled_blocking": 0}
     assert drv._last_dmrg.mps is ket
     rows = chip_smoke.phase_kernels(dev, mpo, ket, n_orb // 2 - 1)
     assert [r["name"] for r in rows] == list(counts)[:6]
@@ -143,6 +144,50 @@ def test_chip_smoke_excited_phases_on_cpu(capsys):
               "[3 kernels] K9_bucket_blocking f64 l",
               "[3 kernels] K9_bucket_blocking f32 r",
               "[3 kernels] K8 Davidson"):
+        assert k in out, k
+
+
+def test_chip_smoke_stacked_phases_on_cpu(capsys):
+    """Phase 8a (torch_stacked with one and three roots, torch_resident and
+    torch_tiled under tiled_v1, against the host backend), phases 8b and
+    8c (the stacked backend and the tiled_v1 resident run at K=6, D=20,
+    against phase 5's port energy and host reference) and the phase-3
+    K10/K11/K12 rows, on the CPU."""
+    dev = torch.device("cpu")
+    chip_smoke.phase_stacked_parity(dev, L=4, D=16, ns=4)
+    n_orb, D = 6, 20
+    drv, mpo, _ = chip_smoke.qc_system(n_orb, n_orb)
+    c8b, e8b = chip_smoke.phase_stacked_full(dev, drv, mpo, D=D)
+    c8c, e8c = chip_smoke.phase_resident_v1(dev, drv, mpo, D=D)
+    assert not any(c8b.values()) and not any(c8c.values())
+    _, ket, e5 = chip_smoke.phase_full(dev, drv, mpo, D=D, n_orb=n_orb)
+    ref = chip_smoke.timed_host_reference(
+        mpo, drv.get_random_mps(D, seed=11), chip_smoke.qc_sched(D))
+    chip_smoke.check_stacked(e8b, e8c, e5, ref)
+    with pytest.raises(SystemExit):
+        chip_smoke.check_stacked(e8b, e8c + 1e-6, e5, ref)
+    t = n_orb // 2 - 1
+    me = chip_smoke.mid_site(mpo, ket, t)[0]
+    rows = chip_smoke.phase_stacked_kernels(dev, mpo, ket, me, t)
+    assert [r["name"] for r in rows] == ["K10_slab", "K11_stk_mix",
+                                         "K12_tiled_blocking"]
+    for r in rows:
+        assert r["max_abs_err"] == 0.0      # the plain version vs itself
+        assert r["route"] == "cuda" and (ROOT / r["source"]).is_file()
+        assert r["bound_ms"] > 0
+    assert [r["library_ms"] is None for r in rows] == [True, False, True]
+    assert chip_smoke.phase_stacked_kernels(dev, mpo, ket, me, t, T=32,
+                                            summary=False,
+                                            bucket=False) == []
+    out = capsys.readouterr().out
+    for k in ("[8a stacked] torch_stacked bucket 1 roots",
+              "[8a stacked] torch_stacked bucket 3 roots",
+              "[8a stacked] torch_resident tiled_v1 1 roots",
+              "[8a stacked] torch_tiled tiled_v1 1 roots",
+              "[8b stacked] sweep 1", "largest res pool",
+              "[8c tiled_v1] sweep 1", "[8c tiled_v1] E",
+              "[3 kernels] K10_slab  f64 l", "[3 kernels] K11_stk_mix f32 r",
+              "[3 kernels] K12_tiled_blocking f64 r", "(T 32 groups"):
         assert k in out, k
 
 

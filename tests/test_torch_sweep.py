@@ -5,8 +5,9 @@ the reference's jax_resident backend and its host numpy backend
 (Hubbard-L8, D=80, 6 sweeps, noise 1e-5, f64: |dE| < 1e-8 Ha, the bar of
 test_resident_backend_end_to_end), with no environment or LW/RW download
 on the way; and a subprocess proof that the port — the resident and
-tiled ground states, the bucketed backends' roots and projected states,
-and time evolution — needs neither JAX nor the JAX package."""
+tiled ground states, the stacked backend and the tiled_v1 blocking
+engine, the bucketed backends' roots and projected states, and time
+evolution — needs neither JAX nor the JAX package."""
 
 import os
 import re
@@ -162,6 +163,16 @@ assert abs(e - e_ref) < 1e-10, (e, e_ref)
 e_t = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), device="cpu",
                backend="torch_tiled", **kw)
 assert abs(e_t - e_ref) < 1e-8, (e_t, e_ref)
+import os
+for backend, engine in (("torch_stacked", None),
+                        ("torch_resident", "tiled_v1"),
+                        ("torch_tiled", "tiled_v1")):
+    if engine:
+        os.environ["B2TPU_STK_ENGINE"] = engine
+    e_s = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), device="cpu",
+                   backend=backend, **kw)
+    os.environ.pop("B2TPU_STK_ENGINE", None)
+    assert abs(e_s - e_ref) < 1e-8, (backend, e_s, e_ref)
 gs = drv._last_dmrg.mps
 r_ref = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), backend="numpy",
                  n_roots=2, **kw)
