@@ -127,8 +127,10 @@ class MovingEnvironment:
         # assembled LW/RW pools downloaded (ResidentSite.host_ops); 0 on
         # the device path
         self.host_ops_downloads = 0
-        # largest ROT pool (elements) of a v3 blocking plan this run
+        # largest ROT pool (elements) of a v3 blocking plan this run, and
+        # the v3 blocking executions (each launches K3 once)
         self.max_rot_pool = 0
+        self.v3_blockings = 0
         # boundaries; the final MPO bond symbol may carry a nonzero charge
         # (site MPOs like c/c+ change particle number: bra target differs)
         vac = self.g.zero
@@ -273,6 +275,7 @@ class MovingEnvironment:
         t1 = time.time()
         if isinstance(plan, BlockingV3Plan):
             self.max_rot_pool = max(self.max_rot_pool, plan.rot_total)
+            self.v3_blockings += 1
             pool_out = execute_blocking_v3(plan, pool_in)
         elif isinstance(plan, BlockingV2Plan):
             pool_out = execute_blocking_v2(plan, pool_in)

@@ -56,7 +56,11 @@ One class, six paths:
   every site (no small-site host shortcut).
 
 ``torch_resident`` honours ``B2TPU_STK_ENGINE`` the same way (the
-reference's jax_resident, sweep.py:468-471).
+reference's jax_resident, sweep.py:468-471), and ``B2TPU_MIX`` as
+jax_resident does: its LW/RW mix runs on mix v4 (default, K3 + K4; v3
+where a plan has no v4 form), v3 (``B2TPU_MIX=3``, K13 + K14) or v2
+(``B2TPU_MIX=2``, K15).  ``sweep_log``'s ``mix_plan`` is the host time
+spent building mix plans, a part of Teff.
 
 Guards carried from the reference (sweep.py:752-790): in float32 a Ritz
 pair whose residual ``||Hx - th x||`` exceeds 1.0 Ha is rejected, as is a
@@ -392,6 +396,8 @@ class DMRG:
         self.energies: List[np.ndarray] = []
         self.discarded_weights: List[float] = []
         self.timings = SweepTimings()
+        # host time building resident mix plans (part of Teff)
+        self.mix_plan_time = 0.0
         # per-root center wavefunction tensors; None means "use the MPS
         # center tensor" (cold start)
         self._center_tensors: Optional[List[MPSTensor]] = None
@@ -495,6 +501,7 @@ class DMRG:
         eff = EffectiveHamiltonian2(self.me, t, assemble=False)
         rs = ResidentSite(self.me, eff, self.device, dtype=self.dtype,
                           caches=self._res_caches)
+        self.mix_plan_time += rs.t_plan
         x0 = self._initial_guesses(eff, t)
         t1 = time.time()
         th, xv, nmv = rs.solve_ground_state(
@@ -627,6 +634,7 @@ class DMRG:
         moved = dict(self.me.blk_transfers)
         blk = dict(self.me.blk_time)
         mat = self.me.host_env_materialized
+        mix_plan = self.mix_plan_time
         t0 = time.time()
         for t in (range(L - 1) if forward else range(L - 2, -1, -1)):
             tsite = time.time()
@@ -653,6 +661,7 @@ class DMRG:
             **{k: n - moved[k] for k, n in self.me.blk_transfers.items()},
             blk_plan=self.me.blk_time["plan"] - blk["plan"],
             blk_exec=self.me.blk_time["exec"] - blk["exec"],
+            mix_plan=self.mix_plan_time - mix_plan,
             materialized=self.me.host_env_materialized - mat))
         return res
 

@@ -140,7 +140,10 @@ class DMRGDriver:
 
         ``torch_resident`` and ``torch_tiled`` block their pools with the
         engine that ``B2TPU_STK_ENGINE`` names: "tiled" (default, K5 + K3),
-        "tiled_v1" (K12) or "bucket" (K10 + K11).  backend="numpy" is the
+        "tiled_v1" (K12) or "bucket" (K10 + K11).  ``torch_resident``
+        honours ``B2TPU_MIX`` as the reference's jax_resident does: 4
+        (default) mixes LW/RW on mix v4 (K3 + K4), 3 on mix v3 (K13 +
+        K14), 2 on the v2 scatter mix (K15).  backend="numpy" is the
         host reference.  The solver is kept as
         ``self._last_dmrg`` (energies, timings, sweep_log,
         host_redo_count and the host transfer counters)."""

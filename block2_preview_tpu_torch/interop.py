@@ -20,7 +20,9 @@ from .core.symmetry import SymmetryGroup
 from .dmrg.mpo import MPO
 from .dmrg.mps import MPS, MPSInfo
 from .ops.blocking_plan import BlockingPlan
+from .ops.mixv3 import MixPlanV3
 from .ops.mixv4 import MixPlanV4
+from .ops.resident import MixPlan, SlabMatvec
 from .ops.stacked import StackedMeta, StackedPlan, stacked_plan as _stacked
 from .ops.tiled_blocking import TiledBlockingPlan
 from .ops.tilev2 import MatvecV2
@@ -77,6 +79,36 @@ def mix_plan_v4(ref_plan) -> MixPlanV4:
         setattr(p, k, getattr(ref_plan, k))
     p.meta_out = stacked_meta(ref_plan.meta_out)
     return p
+
+
+def mix_plan_v3(ref_plan) -> MixPlanV3:
+    """Port MixPlanV3 from a reference MixPlanV3 (host fields only; its
+    device-struct token is not carried)."""
+    p = MixPlanV3()
+    for k in MixPlanV3.__slots__:
+        setattr(p, k, getattr(ref_plan, k))
+    p.meta_out = stacked_meta(ref_plan.meta_out)
+    return p
+
+
+def mix_plan_v2(ref_plan) -> MixPlan:
+    """Port v2 MixPlan from a reference MixPlan."""
+    p = MixPlan()
+    for k in MixPlan.__slots__:
+        setattr(p, k, getattr(ref_plan, k))
+    p.meta_out = stacked_meta(ref_plan.meta_out)
+    return p
+
+
+def slab_matvec(ref_ex, dtype=np.float64) -> SlabMatvec:
+    """Port SlabMatvec around a reference SlabMatvec's host struct."""
+    ex = SlabMatvec.__new__(SlabMatvec)
+    ex.dtype = np.dtype(dtype)
+    ex.space, ex.bra_space = ref_ex.space, ref_ex.bra_space
+    ex.size = ref_ex.size
+    ex.struct = dict(ref_ex.struct)
+    ex._dev = {}
+    return ex
 
 
 def matvec_v2(ref_ex, dtype=np.float64) -> MatvecV2:

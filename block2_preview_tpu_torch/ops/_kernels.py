@@ -84,6 +84,19 @@ KERNELS: Dict[str, KernelInfo] = {
     "K12_tiled_blocking": KernelInfo(
         "cuda", "block2_preview_tpu_torch/csrc/tiled_blocking.cu",
         "block2_preview_tpu/ops/tiled_blocking.py:64 _tiled_blocking_exec"),
+    "K13_env_gemm": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/env_gemm.cu",
+        "block2_preview_tpu/ops/mixv3.py:62 _env_gemm (+ :88 "
+        "_env_gemm_chunk)"),
+    "K14_place_v3": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/place_v3.cu",
+        "block2_preview_tpu/ops/mixv3.py:143 _place (+ :109 _place_chunk)"),
+    "K15_mix_v2": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/mix_v2.cu",
+        "block2_preview_tpu/ops/resident.py:71 _mix_exec"),
+    "K16_slab_matvec": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/slab_matvec.cu",
+        "block2_preview_tpu/ops/resident.py:288 _slab_matvec_impl"),
 }
 
 _P = ctypes.c_void_p
@@ -107,6 +120,11 @@ _SIGS = {
     "b2t_stk_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
     "b2t_tblk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P),
+    "b2t_env_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "b2t_place_v3": (_P,) * 15 + (_I, _I, _I, _I, _I, _L, _P, _P),
+    "b2t_mix_v2": (_P, _P, _P, _L, _I, _I, _P, _P),
+    "b2t_slab_mv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _I, _P, _P, _P),
 }
 # entry-point suffix per value type; the complex instances exist only for
 # the entries listed in _COMPLEX

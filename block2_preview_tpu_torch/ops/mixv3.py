@@ -1,17 +1,34 @@
-"""LW/RW assembly plan (mix v3 plan builder, host side, numpy).
+"""LW/RW assembly, mix v3 — kernels K13 (env GEMM) and K14 (place).
 
-Copied from block2_preview_tpu/ops/mixv3.py:48-56, 185-582: the plan
-only.  v3 execution (``_env_gemm``/``_place``) is not on this slice; the
-port executes the plan through the v4 form (``ops/mixv4.py``, kernels K3
-and K4).
+Host side, copied from block2_preview_tpu/ops/mixv3.py:48-56, 185-582:
+the plan (``build_mix_plan_v3``), whose tables the v4 form
+(``ops/mixv4.py``) also reads.  Within one env delta-quantum group g the
+mix is a linear map over the symbol axis: for every output row
+w = (osym, pb, pk) and env sector s,
 
-Within one env delta-quantum group g the mix is a linear map over the
-symbol axis: for every output row w = (osym, pb, pk) and env sector s,
     OUT_g[w, s-block] = sum_j W_g[w, j] * ENV_g[j, s-block]
+
 with W_g[w, j] = entries[(sym_j, osym)][pb, pk] (the reference's
 symbol-mixing loop, src/core/operator_tensor.hpp:209
 DelayedOperatorTensor).  After the j-reduction every slab element is
 written by exactly one window, so the slab is a permutation of OUT.
+
+Device side, :func:`execute_mix_v3` (reference :585-709) runs
+
+  K13 (``csrc/env_gemm.cu``, replaces ``_env_gemm`` :62 and
+      ``_env_gemm_chunk`` :88) once per GEMM group: OUT_g = W_g @ ENV_g,
+      ENV_g gathered from the env pool inside the kernel;
+  K14 (``csrc/place_v3.cu``, replaces ``_place`` :143 and
+      ``_place_chunk`` :109) once: slab[i] = OUT[window source of i];
+
+with OUT laid out as the reference's (each group's [nw_p, dg_p] block in
+plan order, padded to ``_cap_class(out_total + 1)``), which ``winsrc``
+indexes.  Each kernel takes a window (c0, n) of its output — the
+reference's chunked jits — and the full call is the window (0, all).  The
+reference's device-struct cache, ``B2TPU_SYNC_MIX``, ``B2TPU_MIX_STATS``
+and the ``B2TPU_MIX_CHUNK_ELEMS`` chunking are not carried.  On CPU
+tensors the wrappers run the plain PyTorch twins; on CUDA tensors they
+launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -19,10 +36,19 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from . import _kernels
 from .csr import w_nonzero as _w_nonzero
-
 from .stacked import StackedMeta, _cap_class, _pow2
+
+# slab elements per chunk of K14's plain version (bounds its temporaries)
+_TWIN_PLACE_ELEMS = 1 << 22
+
+# the place tables, in the order K14 takes them
+PLACE_TABLES = ("sb_starts", "sb_blksz", "sb_dlk", "sb_rowoff", "sb_coloff",
+                "sb_celloff", "sb_ncc", "sb_cells", "rowcell", "rowin",
+                "colcell", "colin", "winsrc", "windk")
 
 
 def _cls(n: int, keep_bits: int = 2) -> int:
@@ -421,3 +447,171 @@ def build_mix_plan_v3(meta_env: StackedMeta, entries, quanta,
     plan.dims_hint = dims_hint
     plan.n_launch = len(gemm_specs)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# device tables
+# ---------------------------------------------------------------------------
+
+def v3_tables(plan: MixPlanV3, device, dtype) -> Dict:
+    """Device tables of a v3 plan for K13/K14 (and their twins).  Per GEMM
+    group (``gemms``): the COO triplets padded as the reference uploads
+    them (``wr``, ``wc``, ``wv`` to ``_pow2(nnz + 1)``, zero-valued pads),
+    ``rowptr`` [nw_p + 1] over the live triplets (the plan sorts them by
+    row), ``eoff``/``dbdk`` [nsec_p] and ``secoff`` [nsec_p + 1] padded by
+    repeats, the group's OUT offset and sizes; then the place tables."""
+    if plan.iscpx or dtype.is_complex:
+        raise TypeError("mix v3 takes real plans and types only (the "
+                        "reference's execute_mix_v3 drops imaginary parts)")
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                               device=device)
+
+    gemms = []
+    for spec in plan.gemms:
+        nnz, nsec = len(spec["wv"]), spec["nsec"]
+        nnz_p, nsec_p = _pow2(nnz + 1), _pow2(nsec + 1)
+        wr = np.zeros(nnz_p, np.int64)
+        wr[:nnz] = spec["wr"]
+        wc = np.zeros(nnz_p, np.int64)
+        wc[:nnz] = spec["wc"]
+        wv = np.zeros(nnz_p, np.float64)
+        wv[:nnz] = spec["wv"]
+        eoff = np.zeros(nsec_p, np.int64)
+        eoff[:nsec] = spec["eoff"]
+        dbdk = np.ones(nsec_p, np.int64)
+        dbdk[:nsec] = spec["dbdk"]
+        secoff = np.full(nsec_p + 1, spec["secoff"][-1], np.int64)
+        secoff[:nsec + 1] = spec["secoff"]
+        rowptr = np.searchsorted(wr[:nnz], np.arange(spec["nw_p"] + 1))
+        gemms.append({"wr": i32(wr), "wc": i32(wc), "rowptr": i32(rowptr),
+                      "wv": torch.as_tensor(wv, dtype=dtype, device=device),
+                      "eoff": i32(eoff), "dbdk": i32(dbdk),
+                      "secoff": i32(secoff), "goff": spec["goff"],
+                      "nw_p": spec["nw_p"], "ns": spec["ns"],
+                      "ns_p": spec["ns_p"], "dg_p": spec["dg_p"],
+                      "nnz": nnz})
+    d = {k: i32(plan.tables[k]) for k in PLACE_TABLES}
+    d["gemms"] = gemms
+    return d
+
+
+# ---------------------------------------------------------------------------
+# kernel K13 (env GEMM) and its plain twin
+# ---------------------------------------------------------------------------
+
+def env_gemm_twin(epool, dg: Dict, c0: int, n: int, out):
+    """Plain PyTorch version of K13 (same signature as
+    :func:`env_gemm_exec`): out [nw_p, n] = W @ ENV[:, c0:c0+n] with W
+    densified from the COO triplets (duplicates add) and ENV[j, d] =
+    epool[eoff[s] + j*dbdk[s] + d - secoff[s]], s the sector of column d,
+    zero for d >= secoff[-1] (the reference's _env_gemm_chunk)."""
+    nw_p, ns_p = dg["nw_p"], dg["ns_p"]
+    W = torch.zeros(nw_p * ns_p, dtype=epool.dtype, device=epool.device)
+    W.index_add_(0, dg["wr"].long() * ns_p + dg["wc"].long(), dg["wv"])
+    secoff = dg["secoff"].long()
+    d = c0 + torch.arange(n, device=epool.device)
+    s = (torch.searchsorted(secoff, d, right=True) - 1).clamp(
+        0, dg["eoff"].shape[0] - 1)
+    j = torch.arange(ns_p, device=epool.device)[:, None]
+    ok = (d < secoff[-1]) & (j < dg["ns"])   # rows j >= ns meet zero W
+    src = dg["eoff"].long()[s] + j * dg["dbdk"].long()[s] + d - secoff[s]
+    env = torch.where(ok, epool[torch.where(ok, src, 0)], 0)
+    out.copy_(W.reshape(nw_p, ns_p) @ env)
+    return out
+
+
+def env_gemm_exec(epool, dg: Dict, c0: int, n: int, out):
+    """Env GEMM (kernel K13) of one group over columns [c0, c0 + n) into
+    ``out`` [nw_p, n] (every element written); ``dg`` is one entry of
+    :func:`v3_tables`' ``gemms``."""
+    if epool.device.type == "cpu":
+        return env_gemm_twin(epool, dg, c0, n, out)
+    if not epool.is_cuda:
+        raise ValueError(f"unsupported device {epool.device}")
+    _kernels.launch("K13_env_gemm", "b2t_env_gemm", epool.dtype, epool,
+                    dg["rowptr"], dg["wc"], dg["wv"], dg["eoff"],
+                    dg["dbdk"], dg["secoff"], dg["eoff"].shape[0],
+                    dg["nw_p"], c0, n, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel K14 (place) and its plain twin
+# ---------------------------------------------------------------------------
+
+def place_v3_src(d: Dict, c0: int, n: int):
+    """(src, ok) for slab elements [c0, c0 + n): the OUT index of each
+    element's window and whether one covers it — the reference's _place
+    index arithmetic (searchsorted over the superblock starts, then the
+    row/column cell tables and the window bases)."""
+    t = {k: d[k].long() for k in PLACE_TABLES}
+    i = c0 + torch.arange(n, device=d["winsrc"].device)
+    nsb = t["sb_starts"].shape[0]
+    sb = (torch.searchsorted(t["sb_starts"], i, right=True) - 1).clamp(
+        0, nsb - 1)
+    off = i - t["sb_starts"][sb]
+    bs = t["sb_blksz"][sb].clamp(min=1)
+    jo = off // bs
+    rem = off - jo * bs
+    dlk = t["sb_dlk"][sb].clamp(min=1)
+    rr = rem // dlk
+    cc = rem - rr * dlk
+    live = i < t["sb_starts"][(sb + 1).clamp(max=nsb - 1)]
+    rpos = (t["sb_rowoff"][sb] + rr).clamp(0, t["rowcell"].shape[0] - 1)
+    cpos = (t["sb_coloff"][sb] + cc).clamp(0, t["colcell"].shape[0] - 1)
+    cr, ri = t["rowcell"][rpos], t["rowin"][rpos]
+    cl, ci = t["colcell"][cpos], t["colin"][cpos]
+    wpos = (t["sb_celloff"][sb] + jo * t["sb_cells"][sb]
+            + cr * t["sb_ncc"][sb] + cl).clamp(0, t["winsrc"].shape[0] - 1)
+    ws = t["winsrc"][wpos]
+    ok = (ws >= 0) & (cr >= 0) & (cl >= 0) & live
+    return ws + ri * t["windk"][wpos] + ci, ok
+
+
+def place_v3_twin(outflat, d: Dict, c0: int, n: int, out):
+    """Plain PyTorch version of K14 (same signature as
+    :func:`place_v3_exec`): out[i - c0] = outflat[src(i)] where a window
+    covers slab element i, else 0."""
+    for k in range(0, n, _TWIN_PLACE_ELEMS):
+        m = min(_TWIN_PLACE_ELEMS, n - k)
+        src, ok = place_v3_src(d, c0 + k, m)
+        out[k:k + m] = torch.where(ok, outflat[torch.where(ok, src, 0)], 0)
+    return out
+
+
+def place_v3_exec(outflat, d: Dict, c0: int, n: int, out):
+    """Place (kernel K14) of slab elements [c0, c0 + n) into ``out`` [n]
+    (every element written, zeros included); ``d`` from
+    :func:`v3_tables`."""
+    if outflat.device.type == "cpu":
+        return place_v3_twin(outflat, d, c0, n, out)
+    if not outflat.is_cuda:
+        raise ValueError(f"unsupported device {outflat.device}")
+    _kernels.launch("K14_place_v3", "b2t_place_v3", outflat.dtype, outflat,
+                    *(d[k] for k in PLACE_TABLES), d["sb_starts"].shape[0],
+                    d["rowcell"].shape[0], d["colcell"].shape[0],
+                    d["winsrc"].shape[0], c0, n, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# execution
+# ---------------------------------------------------------------------------
+
+def execute_mix_v3(plan: MixPlanV3, epool):
+    """LW/RW slab pool [ncap_out + 1] (zero sentinel last) from the env
+    slab pool ``epool`` on its device and in its dtype — what the
+    reference's execute_mix_v3 returns: K13 per GEMM group into OUT, then
+    K14 once."""
+    d = v3_tables(plan, epool.device, epool.dtype)
+    outflat = torch.zeros(_cap_class(plan.out_total + 1), dtype=epool.dtype,
+                          device=epool.device)
+    for dg in d["gemms"]:
+        nw_p, dg_p = dg["nw_p"], dg["dg_p"]
+        env_gemm_exec(epool, dg, 0, dg_p, outflat[
+            dg["goff"]:dg["goff"] + nw_p * dg_p].view(nw_p, dg_p))
+    n = plan.ncap_out + 1
+    return place_v3_exec(outflat, d, 0, n, torch.empty(
+        n, dtype=epool.dtype, device=epool.device))

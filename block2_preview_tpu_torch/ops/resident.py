@@ -1,39 +1,606 @@
 """Device-resident two-site effective-Hamiltonian step (torch) — kernels
-K2 (diagonal) and K6 (noise density matrix).
+K2 (diagonal), K6 (noise density matrix), K15 (mix v2) and K16 (slab
+matvec).
 
-Port of block2_preview_tpu/ops/resident.py:594-711, 853-1133, 1159-1472
+Port of block2_preview_tpu/ops/resident.py:56-592, 853-1133, 1136-1472
 for the SZ ground-state path.  Per center site t:
 
   env slab pools on the device (MovingEnvironment.device_pool)
-  --execute_mix_v4 (K3 + K4)--> LW/RW slab pools (device)
+  --the mix engine B2TPU_MIX names--> LW/RW slab pools (device)
   --execute_diag (K2)--> diagonal     --davidson around K1--> psi (host)
   --noise_rho (K6, noise > 0)--> {qb: rho_noise [D, D]} (host)
 
+The mix engine follows the reference's ``_mix_ver`` (:1151-1156): 4 (the
+default) runs mix v4 (``ops/mixv4.py``, K3 + K4) and, for a plan that
+``plan_v4`` cannot take, mix v3; 3 runs mix v3 (``ops/mixv3.py``, K13 +
+K14); anything else runs the v2 scatter mix of this module
+(:func:`build_mix_plan` + :func:`execute_mix`, K15).  All three give the
+same LW/RW pools.
+
 Only the center wavefunction, the initial guess, the small noise density
-matrix and scalars cross between host and device.  ``build_diag_struct``
-and ``NoisePlan`` are copied from the reference so their tables equal it.
-``host_ops`` (a download of assembled LW/RW, for tests) is not on the
-sweep's path; each call counts one ``host_ops_downloads``.
+matrix and scalars cross between host and device.  ``MixPlan``,
+``build_mix_plan``, ``SlabMatvec._build``, ``build_diag_struct`` and
+``NoisePlan`` are copied from the reference so their tables equal it
+(``build_mix_plan``'s per-contribution loops as array code).
+``SlabMatvec`` (the v1 resident sigma matvec, K16) is run by no sweep, as
+in the reference.  ``host_ops`` (a download of assembled LW/RW, for
+tests) is not on the sweep's path; each call counts one
+``host_ops_downloads``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from . import _kernels
 from .blocking import _plan_args_sig
+from .csr import w_nonzero as _w_nonzero
 from .device_davidson import davidson
-from .mixv3 import build_mix_plan_v3
-from .mixv4 import execute_mix_v4, plan_v4
-from .stacked import StackedMeta, _pow2
+from .mixv3 import MixPlanV3, _build_tab, build_mix_plan_v3, execute_mix_v3
+from .mixv4 import MixPlanV4, execute_mix_v4, plan_v4
+from .stacked import StackedMeta, _cap_class, _pow2
+from .tiled import _TILE_CFG, pick_tile
 from .tilev2 import MatvecV2, _locate, gather_tiles, mv_exec
 from ..runtime import torch_dtype
 
 # diag tile tasks per chunk of the plain version
 _TWIN_CHUNK = 4096
+
+
+# ---------------------------------------------------------------------------
+# mix v2: plan (host) and kernel K15 with its plain twin
+# ---------------------------------------------------------------------------
+
+# the reference's scan depth per launch and tasks per scan step; they shape
+# the plan's [n_launch, _MIX_SCAN, 7, _MIX_B] table (its TPU watchdog
+# bound), which the port keeps as it is and runs in one launch
+_MIX_SCAN = 8
+_MIX_B = 4096
+
+# mix tasks per chunk of the plain version (bounds its temporaries)
+_TWIN_MIX_TASKS = 16384
+
+
+class MixPlan:
+    __slots__ = ("meta_out", "T", "ncap_out", "s", "coef", "n_launch",
+                 "dims_hint")
+
+
+def build_mix_plan(meta_env: StackedMeta, entries, quanta,
+                   fused, bond_is_first: bool, join_on_input: bool,
+                   group, out_bond_dqs, comp_target=None,
+                   active=None, fused_ket=None, comp_target_ket=None,
+                   active_ket=None, T: Optional[int] = None
+                   ) -> Optional[MixPlan]:
+    """Plan the LW (join_on_input) or RW assembly from a stacked env pool
+    as T x T scatter tile tasks (the reference's v2 builder,
+    block2_preview_tpu/ops/resident.py:102-266; its per-contribution
+    Python loops are array code here, the tables unchanged).  Row j of
+    ``s`` holds ebase, estr, ermax, ecmax, obase, orstr, ocstr per task,
+    sorted by obase; ``coef`` the task's MPO coefficient (complex for
+    complex MPO entries)."""
+    g = group
+    fused_k = fused if fused_ket is None else fused_ket
+    ct_k = comp_target if comp_target_ket is None else comp_target_ket
+    act_k = active if active_ket is None else active_ket
+    tab_b = _build_tab(fused, quanta, comp_target, active, bond_is_first, g)
+    tab_k = _build_tab(fused_k, quanta, ct_k, act_k, bond_is_first, g)
+
+    # entries keyed by joined symbol, in the reference's order
+    ent_by: Dict[int, list] = {}
+    iscpx = False
+    for (i, o), w in sorted(entries.items()):
+        jsym = i if join_on_input else o
+        osym = o if join_on_input else i
+        if np.iscomplexobj(w):
+            iscpx = True
+        for pb, pk in zip(*_w_nonzero(w)):
+            ent_by.setdefault(jsym, []).append(
+                (osym, int(pb), int(pk), w[pb, pk]))
+    if not ent_by:
+        return None
+    cdt = np.complex128 if iscpx else np.float64
+    ents = {}
+    for s, lst in ent_by.items():
+        n = len(lst)
+        ents[s] = tuple(np.fromiter((e[i] for e in lst), dt, n)
+                        for i, dt in enumerate((np.int64, np.int64,
+                                                np.int64, cdt)))
+
+    # fused sectors as integer codes; tab lookups per (bond sector, phys)
+    nphys = len(quanta)
+    fq_b_of, fq_k_of = list(fused.maps), list(fused_k.maps)
+    fq_b = {q: i for i, q in enumerate(fq_b_of)}
+    fq_k = {q: i for i, q in enumerate(fq_k_of)}
+
+    def lookup(tab, codes, q):
+        """[4, nphys]: valid, fused code, offset, stride of (q, p)."""
+        out = np.zeros((4, nphys), np.int64)
+        for p in range(nphys):
+            v = tab.get((q, p))
+            if v is not None:
+                out[:, p] = (1, codes[v[0]], v[1], v[2])
+        return out
+
+    # contributions in the reference's order: group, symbol, env sector,
+    # entry
+    names = ("ebase", "db", "dk", "osym", "qb", "ob", "sb", "qk", "ok",
+             "sk", "cf")
+    cols = {k: [] for k in names}
+    for gi, (dq_g, syms) in enumerate(meta_env.groups):
+        sec = list(meta_env.sectors[gi].items())
+        if not sec:
+            continue
+        eoff, db, dk = (np.fromiter((v[i] for _, v in sec), np.int64,
+                                    len(sec)) for i in range(3))
+        lb = np.stack([lookup(tab_b, fq_b, q) for q, _ in sec], axis=1)
+        lk = np.stack([lookup(tab_k, fq_k, g.sub(q, dq_g)) for q, _ in sec],
+                      axis=1)
+        for j, s in enumerate(syms):
+            e = ents.get(int(s))
+            if e is None:
+                continue
+            osym, pb, pk, cf = e
+            si, ei = np.nonzero((lb[0][:, pb] > 0) & (lk[0][:, pk] > 0))
+            if len(si) == 0:
+                continue
+            pbe, pke = pb[ei], pk[ei]
+            for k, v in zip(names, (
+                    eoff[si] + j * db[si] * dk[si], db[si], dk[si], osym[ei],
+                    lb[1][si, pbe], lb[2][si, pbe], lb[3][si, pbe],
+                    lk[1][si, pke], lk[2][si, pke], lk[3][si, pke], cf[ei])):
+                cols[k].append(v)
+    if not cols["ebase"]:
+        return None
+    c = {k: np.concatenate(v) for k, v in cols.items()}
+    nc = len(c["ebase"])
+
+    # output sectors (osym, qLb) -> (DLb, DLk), from the first
+    # contribution of each
+    okey = c["osym"] * len(fq_b_of) + c["qb"]
+    _, first, inv = np.unique(okey, return_index=True, return_inverse=True)
+    out_sym_sectors: Dict[int, Dict] = {}
+    for f in first:
+        qLb, qLk = fq_b_of[c["qb"][f]], fq_k_of[c["qk"][f]]
+        out_sym_sectors.setdefault(int(c["osym"][f]), {})[qLb] = (
+            fused.info[qLb], fused_k.info[qLk])
+    meta_out = StackedMeta.from_bond(out_bond_dqs, out_sym_sectors)
+    dims = np.stack([c["db"], c["dk"]], axis=1).ravel().tolist()
+    if T is None:
+        T = pick_tile(np.asarray(dims))
+
+    # output slab base: ooff + jo*DLb*DLk + ob*DLk + ok (row stride DLk)
+    u_base = np.empty(len(first), np.int64)
+    u_dlk = np.empty(len(first), np.int64)
+    for u, f in enumerate(first):
+        go, jo = meta_out.sym_pos[int(c["osym"][f])]
+        ooff, DLb, DLk = meta_out.sectors[go][fq_b_of[c["qb"][f]]]
+        u_base[u] = ooff + jo * DLb * DLk
+        u_dlk[u] = DLk
+    inv = inv.reshape(-1)
+    dlk_a = u_dlk[inv]
+    obase_a = u_base[inv] + c["ob"] * dlk_a + c["ok"]
+    ebase_a, db_a, dk_a = c["ebase"], c["db"], c["dk"]
+
+    # tile expansion: (ri, ci) grid over (db, dk)
+    nr = -(-db_a // T)
+    ncc = -(-dk_a // T)
+    per = nr * ncc
+    tot = int(per.sum())
+    it = np.repeat(np.arange(nc), per)
+    cum = np.concatenate([[0], np.cumsum(per)[:-1]])
+    o = np.arange(tot) - np.repeat(cum, per)
+    ncc_i = ncc[it]
+    ri = o // ncc_i
+    ci = o % ncc_i
+    t_eb = ebase_a[it] + ri * T * dk_a[it] + ci * T
+    t_es = dk_a[it]
+    t_rm = db_a[it] - ri * T
+    t_cm = dk_a[it] - ci * T
+    t_ors = c["sb"][it] * dlk_a[it]
+    t_ocs = c["sk"][it]
+    t_ob = obase_a[it] + ri * T * t_ors + ci * T * t_ocs
+
+    # sort by output base for scatter locality
+    order = np.argsort(t_ob, kind="stable")
+    B = _MIX_B
+    n_launch = -(-max(tot, 1) // (B * _MIX_SCAN))
+    cap = n_launch * B * _MIX_SCAN
+    s_arr = np.zeros((7, cap), dtype=np.int32)
+    s_arr[4, :] = -1
+    cf_arr = np.zeros(cap, dtype=cdt)
+    for row, a in enumerate((t_eb, t_es, t_rm, t_cm, t_ob, t_ors, t_ocs)):
+        s_arr[row, :tot] = a[order]
+    cf_arr[:tot] = c["cf"][it][order]
+
+    plan = MixPlan()
+    plan.meta_out = meta_out
+    plan.T = T
+    plan.ncap_out = _cap_class(meta_out.total + 1)
+    plan.s = s_arr.reshape(7, n_launch, _MIX_SCAN, B).transpose(1, 2, 0, 3)
+    plan.coef = cf_arr.reshape(n_launch, _MIX_SCAN, B)
+    plan.n_launch = n_launch
+    plan.dims_hint = dims
+    return plan
+
+
+def mix_tables(plan: MixPlan, device, dtype) -> Dict:
+    """Device tables of a v2 plan for K15 (and its twin): ``s``
+    [n_launch * _MIX_SCAN, 7, _MIX_B] int32 and ``coef`` [n_tasks] in
+    ``dtype`` — the plan's layout with the per-launch split dropped."""
+    if np.iscomplexobj(plan.coef) or dtype.is_complex:
+        raise TypeError("mix v2 takes real plans and types only (the "
+                        "reference's execute_mix drops imaginary parts)")
+    s = np.ascontiguousarray(plan.s.reshape(-1, 7, _MIX_B), dtype=np.int32)
+    return {"s": torch.as_tensor(s, device=device),
+            "coef": torch.as_tensor(plan.coef.reshape(-1), dtype=dtype,
+                                    device=device),
+            "n_tasks": s.shape[0] * _MIX_B, "T": plan.T}
+
+
+def mix_v2_twin(out, epool, d: Dict):
+    """Plain PyTorch version of K15 (same signature as
+    :func:`mix_v2_exec`): out[obase + r*orstr + c*ocstr] += coef *
+    epool[ebase + r*estr + c] for r < ermax, c < ecmax of every task with
+    obase >= 0 (the reference's _mix_exec).  Masked lanes add nothing, so
+    the sentinel slot stays as it was."""
+    T = d["T"]
+    s = d["s"].long().transpose(0, 1).reshape(7, -1)
+    r = torch.arange(T, device=out.device)[None, :, None]
+    c = torch.arange(T, device=out.device)[None, None, :]
+    live = torch.nonzero(s[4] >= 0).squeeze(1)
+    for k in range(0, len(live), _TWIN_MIX_TASKS):
+        ids = live[k:k + _TWIN_MIX_TASKS]
+        t = s[:, ids]
+        vals = gather_tiles(epool, t[0], t[1], t[2], t[3], T) \
+            * d["coef"][ids][:, None, None]
+        t = t[:, :, None, None]
+        ok = (r < t[2]) & (c < t[3])
+        out.index_add_(0, (t[4] + r * t[5] + c * t[6])[ok], vals[ok])
+    return out
+
+
+def mix_v2_exec(out, epool, d: Dict):
+    """Mix v2 (kernel K15): adds every task of the plan into the slab pool
+    ``out`` (zero-initialised by the caller) in place; ``d`` from
+    :func:`mix_tables`."""
+    if epool.device.type == "cpu":
+        return mix_v2_twin(out, epool, d)
+    if not epool.is_cuda:
+        raise ValueError(f"unsupported device {epool.device}")
+    _kernels.launch("K15_mix_v2", "b2t_mix_v2", epool.dtype, epool, d["s"],
+                    d["coef"], d["n_tasks"], _MIX_B, d["T"], out)
+    return out
+
+
+def execute_mix(plan: MixPlan, epool):
+    """LW/RW slab pool [ncap_out + 1] (zero sentinel last) from the env
+    slab pool ``epool`` on its device and in its dtype, by a v2 plan —
+    what the reference's execute_mix returns — in one K15 launch over all
+    tasks."""
+    d = mix_tables(plan, epool.device, epool.dtype)
+    out = torch.zeros(plan.ncap_out + 1, dtype=epool.dtype,
+                      device=epool.device)
+    return mix_v2_exec(out, epool, d)
+
+
+# ---------------------------------------------------------------------------
+# v1 slab matvec (SlabMatvec): struct (host) and kernel K16 with its twin
+# sigma[ok] += LW[m][lk] @ psi[pk] @ RW[m][rk]^T, L/R tiles gathered from
+# the row-major slab pools
+# ---------------------------------------------------------------------------
+
+# stage tasks per chunk of the plain version (bounds its temporaries)
+_TWIN_SLAB_TASKS = 8192
+
+
+def slab_mv_twin(xp, lpool, rpool, d: Dict, T: int, nt1: int, nt2: int):
+    """Plain PyTorch version of K16 (same signature as
+    :func:`slab_mv_exec`): stage 1 sums L @ psi tiles into tmp tile
+    ``toff[g] + s1``, stage 2 sums tmp @ R^T into sigma tile ``s2``; the
+    sigma tiles are flattened through ``sig_idx``."""
+    l4, r4, toff = d["l4"].long(), d["r4"].long(), d["toff"].long()
+    pa, s1, ta, s2 = (d[k].long() for k in ("pa", "s1", "ta", "s2"))
+    B = pa.shape[1]
+    pp = xp[d["psi_idx"].long()].reshape(-1, T, T)
+    tmp = torch.zeros((d["ntmp"] + 1, T, T), dtype=xp.dtype,
+                      device=xp.device)
+    sig = torch.zeros((nt2 + 1, T, T), dtype=xp.dtype, device=xp.device)
+    for stage, (seg, nseg, t4, pool) in enumerate(((s1, nt1, l4, lpool),
+                                                   (s2, nt2, r4, rpool))):
+        live = torch.nonzero((seg < nseg).reshape(-1)).squeeze(1)
+        for k in range(0, len(live), _TWIN_SLAB_TASKS):
+            ids = live[k:k + _TWIN_SLAB_TASKS]
+            g, b = ids // B, ids % B
+            W = gather_tiles(pool, t4[g, 0, b], t4[g, 1, b], t4[g, 2, b],
+                             t4[g, 3, b], T)
+            if stage == 0:
+                tmp.index_add_(0, toff[g] + s1[g, b],
+                               torch.bmm(W, pp[pa[g, b]]))
+            else:
+                sig.index_add_(0, s2[g, b], torch.bmm(
+                    tmp[toff[g] + ta[g, b]], W.transpose(1, 2)))
+    return sig.reshape(-1)[d["sig_idx"].long()]
+
+
+def slab_mv_exec(xp, lpool, rpool, d: Dict, T: int, nt1: int, nt2: int):
+    """Slab sigma matvec (kernel K16): flat sigma [sizb_p] from the padded
+    flat psi ``xp`` [size_p + 1] (zero last slot) and the LW/RW slab
+    pools; ``d`` from :meth:`SlabMatvec.to_device`."""
+    if xp.device.type == "cpu":
+        return slab_mv_twin(xp, lpool, rpool, d, T, nt1, nt2)
+    if not xp.is_cuda:
+        raise ValueError(f"unsupported device {xp.device}")
+    dt, dev = xp.dtype, xp.device
+    G, B = d["pa"].shape
+    tmp = torch.zeros((d["ntmp"] + 1) * T * T, dtype=dt, device=dev)
+    sig = torch.zeros((nt2 + 1) * T * T, dtype=dt, device=dev)
+    _kernels.launch("K16_slab_matvec", "b2t_slab_mv", dt, xp, lpool, rpool,
+                    d["psi_idx"], d["l4"], d["pa"], d["s1"], d["ta"],
+                    d["r4"], d["s2"], d["toff"], G, B, T, nt1, nt2, tmp,
+                    sig)
+    out = torch.empty(d["sig_idx"].shape[0], dtype=dt, device=dev)
+    _kernels.call("b2t_gather", dt, sig, d["sig_idx"], out.shape[0], out)
+    return out
+
+
+class SlabMatvec:
+    """Sigma-vector executor reading LW/RW directly from slab pools (the
+    StackedMeta layout every mix engine produces): the reference's v1
+    resident matvec (block2_preview_tpu/ops/resident.py:347-592).
+
+    ``_build`` is copied, so the struct (``T``, ``nt1``, ``nt2``,
+    ``size_p``, ``sizb_p``, ``psi_idx``, ``sig_idx``, ``l4``, ``pa``,
+    ``s1``, ``ta``, ``r4``, ``s2``) equals the reference's; it depends
+    only on (meta_lw, meta_rw, psi space) and is cached across calls via
+    cache/cache_key.  :meth:`matvec_device` runs K16.  No sweep runs it,
+    as in the reference."""
+
+    def __init__(self, space, meta_lw: StackedMeta, meta_rw: StackedMeta,
+                 group, target_b, target_k, dtype=np.float64,
+                 T: Optional[int] = None, cache: dict = None,
+                 cache_key=None, bra_space=None):
+        self.dtype = np.dtype(dtype)
+        self.space = space
+        self.bra_space = bra_space if bra_space is not None else space
+        self.size = space.size
+        sig = None
+        struct = None
+        if cache is not None and cache_key is not None:
+            sig = hash((meta_lw.signature(), meta_rw.signature(),
+                        tuple(space.keys),
+                        tuple(sorted(space.shapes.items())),
+                        tuple(self.bra_space.keys), T))
+            ent = cache.get(cache_key)
+            if ent is not None and ent[0] == sig:
+                struct = ent[1]
+        if struct is None:
+            struct = self._build(space, self.bra_space, meta_lw, meta_rw,
+                                 group, target_b, target_k, T)
+            if cache is not None and cache_key is not None:
+                cache[cache_key] = (sig, struct)
+        self.struct = struct
+        self._dev = {}
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _build(space, bra_space, meta_lw, meta_rw, g, tb, tk, T):
+        # map center symbol -> (lw slab position, rw slab position, dq)
+        lw_dq = {}
+        for gi, (dq, syms) in enumerate(meta_lw.groups):
+            for s in syms:
+                lw_dq[int(s)] = dq
+        # triples: for m, psi key (qLk, qRk): qLb = qLk + dq_m; out key
+        # (qLb, tb - qLb); need lw sector qLb and rw sector qRb.
+        dims = []
+        for k in space.keys:
+            dims += list(space.shapes[k])
+        for k in bra_space.keys:
+            dims += list(bra_space.shapes[k])
+        trip = []   # (lbase, lstr, DLb, DLk, rbase, rstr, DRb, DRk, pk, ok)
+        bkeys = set(bra_space.keys)
+        for m, (gl, jl) in meta_lw.sym_pos.items():
+            gr_jr = meta_rw.sym_pos.get(m)
+            if gr_jr is None:
+                continue
+            gr, jr = gr_jr
+            dq = lw_dq[m]
+            sec_l = meta_lw.sectors[gl]
+            sec_r = meta_rw.sectors[gr]
+            for (qLk, qRk) in space.keys:
+                qLb = g.add(qLk, dq)
+                qRb = g.sub(tb, qLb)
+                if (qLb, qRb) not in bkeys:
+                    continue
+                el = sec_l.get(qLb)
+                er = sec_r.get(qRb)
+                if el is None or er is None:
+                    continue
+                loff, DLb, DLk = el
+                roff, DRb, DRk = er
+                if DLk != space.shapes[(qLk, qRk)][0] or \
+                        DRk != space.shapes[(qLk, qRk)][1]:
+                    continue
+                trip.append((loff + jl * DLb * DLk, DLk, DLb,
+                             roff + jr * DRb * DRk, DRk, DRb,
+                             (qLk, qRk), (qLb, qRb)))
+        if T is None:
+            T = pick_tile(np.asarray(dims if dims else [16]))
+        B, nt1 = _TILE_CFG[T]
+
+        # tiled layout of flat psi (ket space) and sigma (bra space)
+        def vec_layout(sp):
+            vb = {}
+            nv = 0
+            for k in sp.keys:
+                r, c = sp.shapes[k]
+                nr, ncc = -(-r // T), -(-c // T)
+                vb[k] = (nv, nr, ncc)
+                nv += nr * ncc
+            return vb, nv
+
+        vbk, nvk = vec_layout(space)
+        vbb, nvb = vec_layout(bra_space)
+        nt2 = _pow2(nvb + 1)
+        size_p = _pow2(space.size + 1)
+        sizb_p = _pow2(bra_space.size + 1)
+
+        psi_idx = np.full((_pow2(nvk + 1), T, T), size_p, dtype=np.int32)
+        for k in space.keys:
+            off = space.offsets[k]
+            r, c = space.shapes[k]
+            base, nr, ncc = vbk[k]
+            fr, fc = np.divmod(np.arange(r * c), c)
+            tidx = ((base + (fr // T) * ncc + (fc // T)) * (T * T)
+                    + (fr % T) * T + (fc % T))
+            psi_idx.reshape(-1)[tidx] = off + np.arange(r * c)
+        sig_idx = np.full(sizb_p, (nt2 + 1) * T * T - 1, dtype=np.int32)
+        for k in bra_space.keys:
+            off = bra_space.offsets[k]
+            r, c = bra_space.shapes[k]
+            base, nr, ncc = vbb[k]
+            fr, fc = np.divmod(np.arange(r * c), c)
+            tidx = ((base + (fr // T) * ncc + (fc // T)) * (T * T)
+                    + (fr % T) * T + (fc % T))
+            sig_idx[off + np.arange(r * c)] = tidx
+
+        ntr = len(trip)
+        if ntr == 0:
+            raise ValueError("no matvec triples")
+        lbase_a = np.fromiter((x[0] for x in trip), np.int64, ntr)
+        DLk_a = np.fromiter((x[1] for x in trip), np.int64, ntr)
+        DLb_a = np.fromiter((x[2] for x in trip), np.int64, ntr)
+        rbase_a = np.fromiter((x[3] for x in trip), np.int64, ntr)
+        DRk_a = np.fromiter((x[4] for x in trip), np.int64, ntr)
+        DRb_a = np.fromiter((x[5] for x in trip), np.int64, ntr)
+        pb_a = np.fromiter((vbk[x[6]][0] for x in trip), np.int64, ntr)
+        ob_a = np.fromiter((vbb[x[7]][0] for x in trip), np.int64, ntr)
+        # tile grids: a over DLb, k over DLk, p over DRb, n over DRk
+        na_a = -(-DLb_a // T)
+        nk_a = -(-DLk_a // T)
+        np_a = -(-DRb_a // T)
+        nn_a = -(-DRk_a // T)
+        itmp = na_a * nn_a
+        is1 = itmp * nk_a
+        is2 = itmp * np_a
+        if (itmp.max() > nt1 or is1.max() > B or is2.max() > B):
+            raise ValueError(f"block too large for tile cfg T={T}")
+        grp = np.empty(ntr, dtype=np.int64)
+        tb_a = np.empty(ntr, dtype=np.int64)
+        o1_a = np.empty(ntr, dtype=np.int64)
+        o2_a = np.empty(ntr, dtype=np.int64)
+        gidx = t_used = u1 = u2 = 0
+        for i in range(ntr):
+            if (t_used + itmp[i] > nt1 or u1 + is1[i] > B
+                    or u2 + is2[i] > B):
+                gidx += 1
+                t_used = u1 = u2 = 0
+            grp[i] = gidx
+            tb_a[i] = t_used
+            o1_a[i] = u1
+            o2_a[i] = u2
+            t_used += itmp[i]
+            u1 += is1[i]
+            u2 += is2[i]
+        ng = gidx + 1
+        G = _pow2(ng)
+        l4 = np.zeros((G, 4, B), dtype=np.int32)
+        l4[:, 0, :] = -1
+        pa = np.full((G, B), _pow2(nvk + 1), dtype=np.int32)
+        s1 = np.full((G, B), nt1, dtype=np.int32)
+        ta = np.full((G, B), nt1, dtype=np.int32)
+        r4 = np.zeros((G, 4, B), dtype=np.int32)
+        r4[:, 0, :] = -1
+        s2 = np.full((G, B), nt2, dtype=np.int32)
+        # stage 1 tasks (ai, ni, ki)
+        tot1 = int(is1.sum())
+        item1 = np.repeat(np.arange(ntr), is1)
+        cum1 = np.concatenate([[0], np.cumsum(is1)[:-1]])
+        o = np.arange(tot1) - np.repeat(cum1, is1)
+        nk1 = nk_a[item1]
+        nn1 = nn_a[item1]
+        ai = o // (nn1 * nk1)
+        ni = (o // nk1) % nn1
+        ki = o % nk1
+        pos = np.repeat(o1_a, is1) + o
+        gi = grp[item1]
+        l4[gi, 0, pos] = lbase_a[item1] + ai * T * DLk_a[item1] + ki * T
+        l4[gi, 1, pos] = DLk_a[item1]
+        l4[gi, 2, pos] = DLb_a[item1] - ai * T
+        l4[gi, 3, pos] = DLk_a[item1] - ki * T
+        pa[gi, pos] = pb_a[item1] + ki * nn1 + ni
+        s1[gi, pos] = np.repeat(tb_a, is1) + ai * nn1 + ni
+        # stage 2 tasks (ai, ni, pi), sorted per group by target tile
+        tot2 = int(is2.sum())
+        item2 = np.repeat(np.arange(ntr), is2)
+        cum2 = np.concatenate([[0], np.cumsum(is2)[:-1]])
+        o = np.arange(tot2) - np.repeat(cum2, is2)
+        nn2 = nn_a[item2]
+        npp = np_a[item2]
+        ai = o // (nn2 * npp)
+        ni = (o // npp) % nn2
+        pi = o % npp
+        v_s2 = ob_a[item2] + ai * npp + pi
+        v_ta = np.repeat(tb_a, is2) + ai * nn2 + ni
+        v_rb = rbase_a[item2] + pi * T * DRk_a[item2] + ni * T
+        gi2 = grp[item2]
+        order = np.lexsort((v_rb, v_ta, v_s2, gi2))
+        gsz = np.bincount(gi2, minlength=ng)
+        gstart = np.concatenate([[0], np.cumsum(gsz)[:-1]])
+        pos2 = np.arange(tot2) - np.repeat(gstart, gsz)
+        go = gi2[order]
+        s2[go, pos2] = v_s2[order]
+        ta[go, pos2] = v_ta[order]
+        r4[go, 0, pos2] = v_rb[order]
+        r4[go, 1, pos2] = DRk_a[item2][order]
+        r4[go, 2, pos2] = (DRb_a[item2] - pi * T)[order]
+        r4[go, 3, pos2] = (DRk_a[item2] - ni * T)[order]
+
+        return {"T": T, "nt1": nt1, "nt2": nt2, "size_p": size_p,
+                "sizb_p": sizb_p,
+                "psi_idx": psi_idx, "sig_idx": sig_idx,
+                "l4": l4, "pa": pa, "s1": s1, "ta": ta, "r4": r4,
+                "s2": s2}
+
+    # ------------------------------------------------------------------
+    def to_device(self, device) -> Dict:
+        """Device tables for K16 (and its twin), cached per device.
+        Derived here: ``toff`` [G + 1], each group's first tile in ONE tmp
+        scratch pool of ``ntmp`` tiles (the reference restarts its tmp
+        pool per group)."""
+        key = str(device)
+        d = self._dev.get(key)
+        if d is None:
+            s = self.struct
+            s1 = np.where(s["s1"] < s["nt1"], s["s1"].astype(np.int64), -1)
+            toff = np.concatenate([[0], np.cumsum(s1.max(axis=1) + 1)])
+            d = {k: torch.as_tensor(np.ascontiguousarray(s[k]),
+                                    device=device)
+                 for k in ("psi_idx", "sig_idx", "l4", "pa", "s1", "ta",
+                           "r4", "s2")}
+            d["toff"] = torch.as_tensor(toff.astype(np.int32), device=device)
+            d["ntmp"] = int(toff[-1])
+            self._dev[key] = d
+        return d
+
+    def pad(self, x: np.ndarray) -> np.ndarray:
+        xp = np.zeros(self.struct["size_p"] + 1, dtype=self.dtype)
+        xp[:self.size] = x
+        return xp
+
+    def matvec_device(self, xp, lpool, rpool):
+        """Flat sigma [sizb_p] on the pools' device (kernel K16)."""
+        s = self.struct
+        return slab_mv_exec(xp, lpool, rpool, self.to_device(xp.device),
+                            s["T"], s["nt1"], s["nt2"])
+
+    def free(self):
+        self._dev = {}
 
 
 def build_diag_struct(space, meta_lw: StackedMeta, meta_rw: StackedMeta,
@@ -449,39 +1016,55 @@ def noise_exec(xp, wpool, d: Dict, T: int):
 # per-site orchestration
 # ---------------------------------------------------------------------------
 
+def _mix_ver() -> int:
+    """Active mix engine (B2TPU_MIX), with the reference's mapping
+    (resident.py:1151-1156): 4 and above mix v4 (the default), 3 mix v3,
+    anything else the v2 scatter mix."""
+    return int(os.environ.get("B2TPU_MIX", "4"))
+
+
 def _mix_sig(meta_env, entries, fused, fused_ket, active, active_ket,
-             comp_target, comp_target_ket, out_bond_dqs):
-    """Validation signature for a cached mix plan: env pool layout + every
+             comp_target, comp_target_ket, out_bond_dqs, ver):
+    """Validation signature for a cached mix plan: env pool layout, every
     non-env input (MPO entry content, fused bases, active sets, targets,
-    output bond charges)."""
+    output bond charges) and the mix engine ``ver`` (:func:`_mix_ver`), so
+    a plan of one engine never serves another."""
     return hash((meta_env.signature(),
                  _plan_args_sig(entries, fused, fused_ket, active,
                                 active_ket, comp_target, comp_target_ket),
-                 tuple(out_bond_dqs)))
+                 tuple(out_bond_dqs), ver))
 
 
-def build_mix_plan(*args, **kw):
-    """v3 plan content in the v4 execution form; None when the site has
-    no effective operators.  A plan the v4 form cannot take raises: the
-    reference runs such plans through mix v3, which is not on this
-    slice."""
+def build_mix_plan_v4(*args, **kw):
+    """Mix plan of engine 4: the v3 plan in the v4 execution form, or the
+    v3 plan itself where ``plan_v4`` cannot take it (no GEMM items or no
+    place windows; the reference's fallback, resident.py:1229-1238); None
+    when the site has no effective operators."""
     p3 = build_mix_plan_v3(*args, **kw)
-    if p3 is None:
-        return None
     p4 = plan_v4(p3)
-    if p4 is None:
-        raise RuntimeError("mix plan has no v4 form (v3 execution is not "
-                           "ported)")
-    return p4
+    return p4 if p4 is not None else p3
+
+
+def execute_mix_plan(plan, epool):
+    """LW/RW slab pool [ncap_out + 1] from a plan of any engine: v4 (K3 +
+    K4), v3 (K13 + K14) or v2 (K15)."""
+    if isinstance(plan, MixPlanV4):
+        return execute_mix_v4(plan, epool)
+    if isinstance(plan, MixPlanV3):
+        return execute_mix_v3(plan, epool)
+    return execute_mix(plan, epool)
 
 
 class ResidentSite:
     """Device-resident two-site effective-Hamiltonian step.
 
-    Host-side structures (mix plans, matvec structs, diag structs) are
-    cached across sweeps in ``caches`` (sub-dicts 'mix', 'v2', 'diag'),
-    keyed by site and validated against content signatures.  An empty
-    mix plan raises RuntimeError; nothing falls back to the host.
+    The LW/RW mix runs on the engine ``B2TPU_MIX`` names (see the module
+    docstring).  Host-side structures (mix plans, matvec structs, diag
+    structs) are cached across sweeps in ``caches`` (sub-dicts 'mix',
+    'v2', 'diag'), keyed by site and validated against content
+    signatures, the engine included.  ``t_plan`` is the host time spent
+    building this site's mix plans (0 on a cache hit).  An empty mix plan
+    raises RuntimeError; nothing falls back to the host.
 
     Reference analog: MovingEnvironment::eff_ham
     (src/dmrg/moving_environment.hpp:2063) + EffectiveHamiltonian::eigs
@@ -514,24 +1097,32 @@ class ResidentSite:
         meta_l, pool_l = me.device_pool("l", t)
         meta_r, pool_r = me.device_pool("r", t + 2)
 
+        self.t_plan = 0.0
+
         def plan(key, build, sig):
             ent = caches["mix"].get(key)
             if ent is not None and ent[0] == sig:
                 return ent[1]
+            t0 = time.time()
             p = build()
+            self.t_plan += time.time() - t0
             caches["mix"][key] = (sig, p)
             return p
 
+        ver = _mix_ver()
+        bmp = (build_mix_plan_v4 if ver >= 4 else
+               build_mix_plan_v3 if ver >= 3 else build_mix_plan)
+
         sig_l = _mix_sig(meta_l, mpo.tensors[t], flb, flk, active_lb,
-                         active_lk, None, None, mpo.bond_dqs[t + 1])
-        pl = plan((t, "lw"), lambda: build_mix_plan(
+                         active_lk, None, None, mpo.bond_dqs[t + 1], ver)
+        pl = plan((t, "lw"), lambda: bmp(
             meta_l, mpo.tensors[t], mpo.site_quanta[t], flb,
             bond_is_first=True, join_on_input=True, group=g,
             out_bond_dqs=mpo.bond_dqs[t + 1], active=active_lb,
             fused_ket=flk, active_ket=active_lk), sig_l)
         sig_r = _mix_sig(meta_r, mpo.tensors[t + 1], frb, frk, active_rb,
-                         active_rk, tb, tk, mpo.bond_dqs[t + 1])
-        pr = plan((t, "rw"), lambda: build_mix_plan(
+                         active_rk, tb, tk, mpo.bond_dqs[t + 1], ver)
+        pr = plan((t, "rw"), lambda: bmp(
             meta_r, mpo.tensors[t + 1], mpo.site_quanta[t + 1], frb,
             bond_is_first=False, join_on_input=False, group=g,
             out_bond_dqs=mpo.bond_dqs[t + 1], comp_target=tb,
@@ -543,8 +1134,8 @@ class ResidentSite:
         self.pl, self.pr = pl, pr
         # env pools are consumed here; the mix returns new LW/RW pools
         # (zero sentinel last) on the device
-        self.lw_pool = execute_mix_v4(pl, pool_l)
-        self.rw_pool = execute_mix_v4(pr, pool_r)
+        self.lw_pool = execute_mix_plan(pl, pool_l)
+        self.rw_pool = execute_mix_plan(pr, pool_r)
         self.ex = MatvecV2(eff.ket_space, pl.meta_out, pr.meta_out, g,
                            tb, dtype=self.dtype, cache=caches["v2"],
                            cache_key=(type(eff).__name__, t),

@@ -5,7 +5,7 @@ port's own host reference (backend="numpy", held equal to the JAX
 package's host path by the CPU tests):
 
   1. device    card name and power limit (nvidia-smi), torch / CUDA
-  2. build     nvcc builds kernels K1-K12 from block2_preview_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K16 from block2_preview_tpu_torch/csrc
                (one nvcc per source, all at once)
   4. parity    Hubbard-L8, D=80, 6 sweeps with noise, f64: |dE| < 1e-8 Ha
   5. full      seeded K=16 quantum-chemistry Hamiltonian (16 electrons,
@@ -58,6 +58,20 @@ package's host path by the CPU tests):
                tiled_v1: within 1e-8 Ha of phase 5's port energy (the same
                Davidson) and 1e-6 Ha of its host reference; fails unless
                K12 launched and K5 did not
+  9a. mix      Hubbard-L8 with phase 4's schedule and start on
+               torch_resident under B2TPU_MIX=3 (mix v3: K13 + K14) and
+               =2 (mix v2: K15), each against phase 4's host energy to
+               1e-8 Ha; fails unless the engine's kernels launched, no
+               other mix kernel did (K4 never), and K3's launches equal the
+               environment's v3 blockings (K3 only blocks, it never mixes)
+  9b. mix v3   phase 5's start and schedule under B2TPU_MIX=3: per sweep
+               the wall split with the mix-plan build time inside Teff and
+               the K13 / K14 launches; the launch rules of 9a, every host
+               counter 0; within 1e-8 Ha of phase 5's port energy and
+               1e-6 Ha of its host reference
+  9c. mix v2   the same start under B2TPU_MIX=2, one sweep (D=250, noise
+               1e-4): the split, the v2 plan-build time and the K15
+               launches; within 1e-8 Ha of phase 5's sweep-0 energy
   3. kernels   each kernel against its plain PyTorch twin on the card, at
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
@@ -74,7 +88,12 @@ package's host path by the CPU tests):
                at the mid-chain site of a Hubbard-L16 MPS of bond
                dimension 1000, whose plans pick K1's and K7's T=128 tiles
                (K5's and K12's blocking plans are built with T=128 there;
-               K8 meets its widest buckets there).  Each
+               K8 meets its widest buckets there); K13 (every GEMM group
+               of the K=16 site's LW and RW v3 plans, and one window at
+               c0 > 0), K14 (library: one torch.take), K15 on the same
+               sides' v2 plans (library: one index_add_) and K16 (the v1
+               slab matvec on the site's LW/RW pools, also held against
+               K1 to 1e-12 relative), f64 and f32.  Each
                row carries the kernel's time, its twin's, one PyTorch
                call's where one computes the same function, and the bound
                (the least time the card could take: the live bytes the
@@ -90,7 +109,10 @@ terminates them before it exits.  The last line is {"ok": true,
 "device": {...}}; the line before it is the per-kernel JSON summary:
 K1-K6 and K8-K12 from their f64 rows at the K=16 site, K7 from its
 complex128 row on phase 6b's state, with the launches of phases 5
-(K1-K6), 6b (K7), 7b (K8, K9), 8b (K10, K11) and 8c (K12).
+(K1-K6), 6b (K7), 7b (K8, K9), 8b (K10, K11), 8c (K12), 9b (K13, K14)
+and 9c (K15).  No path runs the v1 slab matvec (K16), as in the JAX
+package: its launches are those counted in the runs of phases 5, 7b, 8b,
+8c, 9b and 9c, each from a reset, and the script fails unless they are 0.
 """
 
 from __future__ import annotations
@@ -225,6 +247,22 @@ def phase_device():
           flush=True)
 
 
+def _kernel_source_name(mangled: str):
+    """(kernel name, the mangled text after it) of a mangled entry name:
+    the source name ending in _kernel or _stageN that its template
+    arguments follow, found through its Itanium length prefix (so the
+    digits of a hashed anonymous namespace or of the name itself, as in
+    place_v3_kernel, do not mislead it); None when there is none."""
+    for m in re.finditer(r"(?:_kernel|_stage\d)(?=I)", mangled):
+        e = m.end()
+        for n in range(len(m.group()) + 1, e):
+            ident = mangled[e - n:e]
+            if mangled[:e - n].endswith(str(n)) and \
+                    re.fullmatch(r"[a-z][a-z0-9_]*", ident):
+                return ident, mangled[e:]
+    return None
+
+
 def ptxas_usage(log: str):
     """(kernel<type,T>, registers, spill line) per entry function of a
     ptxas -v log."""
@@ -232,18 +270,18 @@ def ptxas_usage(log: str):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
+            name = m.group(1)
+            src = _kernel_source_name(name)
             # value type: d / f, or cplx<d / f> of the same anonymous
             # namespace (mangled NS_4cplxI.EE)
-            k = re.search(r"([a-z][a-z_]*_kernel)I(?:NS_4cplxI([df])EE|([df]))"
-                          r"(?:Li(\d+)E)?", m.group(1))
+            k = src and re.match(r"I(?:NS_4cplxI([df])EE|([df]))"
+                                 r"(?:Li(\d+)E)?", src[1])
             if k:
-                real = "double" if (k.group(2) or k.group(3)) == "d" \
+                real = "double" if (k.group(1) or k.group(2)) == "d" \
                     else "float"
-                vt = f"complex<{real}>" if k.group(2) else real
-                name = (f"{k.group(1)}<{vt}"
-                        f"{',' + k.group(4) if k.group(4) else ''}>")
-            else:
-                name = m.group(1)
+                vt = f"complex<{real}>" if k.group(1) else real
+                name = (f"{src[0]}<{vt}"
+                        f"{',' + k.group(3) if k.group(3) else ''}>")
             spill = ""
         elif "spill stores" in ln:
             spill = ln.strip()
@@ -269,7 +307,7 @@ def phase_build():
     for name, regs, spill in usage:
         if name.startswith(("mv_kernel", "blk_kernel", "noise_",
                             "tiled_kernel", "bucket_", "slab_", "stk_mix",
-                            "tblk_")) or \
+                            "tblk_", "env_gemm", "place_v3", "mix_v2")) or \
                 not spill.startswith("0 bytes stack"):
             print(f"    ptxas {name}: {regs} registers; {spill}", flush=True)
 
@@ -321,6 +359,36 @@ def _index_add_call(plan, tdt, device):
     return call
 
 
+def site_mix_inputs(mpo, me, eff, t):
+    """Per side ("lw", "rw") of center t of the host environments ``me``:
+    (env meta, host env pool (f64), the mix-plan builders' positional
+    arguments, their keyword arguments) — the inputs ResidentSite gives
+    the mix."""
+    from block2_preview_tpu_torch.ops.stacked import env_pool
+    tk = eff.target
+    kw = {"lw": dict(bond_is_first=True, join_on_input=True,
+                     active={q for (q, _) in eff.bra_space.keys},
+                     fused_ket=eff.ket_space.fl,
+                     active_ket={q for (q, _) in eff.ket_space.keys}),
+          "rw": dict(bond_is_first=False, join_on_input=False,
+                     comp_target=tk, comp_target_ket=tk,
+                     active={q for (_, q) in eff.bra_space.keys},
+                     fused_ket=eff.ket_space.fr,
+                     active_ket={q for (_, q) in eff.ket_space.keys})}
+    envs = {"lw": (me.left_envs[t], mpo.bond_dqs[t], mpo.tensors[t],
+                   mpo.site_quanta[t], eff.bra_space.fl),
+            "rw": (me.right_envs[t + 2], mpo.bond_dqs[t + 2],
+                   mpo.tensors[t + 1], mpo.site_quanta[t + 1],
+                   eff.bra_space.fr)}
+    out = {}
+    for side, (env, dqs, ent, quanta, fused) in envs.items():
+        meta, pool = env_pool(env, dqs, np.float64)
+        out[side] = (meta, pool, (meta, ent, quanta, fused),
+                     dict(group=mpo.group, out_bond_dqs=mpo.bond_dqs[t + 1],
+                          **kw[side]))
+    return out
+
+
 def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
     """K1-K6 against their twins at site t; returns the summary rows.
     With ``tile`` set, the matvec plan must pick that K1 tile size;
@@ -332,28 +400,11 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
     me, eff = site or mid_site(mpo, mps, t)
     tk = eff.target
     g = mpo.group
-    flb, frb = eff.bra_space.fl, eff.bra_space.fr
-    flk, frk = eff.ket_space.fl, eff.ket_space.fr
-    kw = {"lw": dict(bond_is_first=True, join_on_input=True,
-                     active={q for (q, _) in eff.bra_space.keys},
-                     fused_ket=flk,
-                     active_ket={q for (q, _) in eff.ket_space.keys}),
-          "rw": dict(bond_is_first=False, join_on_input=False,
-                     comp_target=tk, comp_target_ket=tk,
-                     active={q for (_, q) in eff.bra_space.keys},
-                     fused_ket=frk,
-                     active_ket={q for (_, q) in eff.ket_space.keys})}
-    envs = {"lw": (me.left_envs[t], mpo.bond_dqs[t], mpo.tensors[t],
-                   mpo.site_quanta[t], flb),
-            "rw": (me.right_envs[t + 2], mpo.bond_dqs[t + 2],
-                   mpo.tensors[t + 1], mpo.site_quanta[t + 1], frb)}
     plans, host_pools, metas = {}, {}, {}
-    for side, (env, dqs, ent, quanta, fused) in envs.items():
-        meta, host_pools[side] = env_pool(env, dqs, np.float64)
-        metas[side] = meta
-        plans[side] = resident.build_mix_plan(
-            meta, ent, quanta, fused, group=g,
-            out_bond_dqs=mpo.bond_dqs[t + 1], **kw[side])
+    for side, (meta, pool, args, kws) in site_mix_inputs(mpo, me, eff,
+                                                         t).items():
+        metas[side], host_pools[side] = meta, pool
+        plans[side] = resident.build_mix_plan_v4(*args, **kws)
     pl, pr = plans["lw"], plans["rw"]
     ex = tilev2.MatvecV2(eff.ket_space, pl.meta_out, pr.meta_out, g, tk,
                          dtype=np.float64, bra_space=eff.bra_space)
@@ -1054,18 +1105,18 @@ def phase_excited(device, L=8, D=80, ns=6):
 
 
 @contextlib.contextmanager
-def stk_engine(name):
-    """B2TPU_STK_ENGINE set to ``name`` (left unset for None) inside the
-    block, restored after it."""
-    old = os.environ.pop("B2TPU_STK_ENGINE", None)
-    if name is not None:
-        os.environ["B2TPU_STK_ENGINE"] = name
+def env_var(name, value):
+    """Environment variable ``name`` set to ``value`` (left unset for None)
+    inside the block, restored after it."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("B2TPU_STK_ENGINE", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["B2TPU_STK_ENGINE"] = old
+            os.environ[name] = old
 
 
 def phase_stacked_parity(device, L=8, D=80, ns=6, ref=None):
@@ -1097,7 +1148,7 @@ def phase_stacked_parity(device, L=8, D=80, ns=6, ref=None):
     for backend, engine, n, must, never in runs:
         _kernels.reset_counts()
         t0 = time.time()
-        with stk_engine(engine):
+        with env_var("B2TPU_STK_ENGINE", engine):
             e = np.atleast_1d(drv.dmrg(mpo, drv.get_random_mps(D, seed=7),
                                        device=device, backend=backend,
                                        n_roots=n, **sched))
@@ -1182,7 +1233,7 @@ def phase_resident_v1(device, drv, mpo, D=250):
     cuda = device.type == "cuda"
     _kernels.reset_counts()
     t0 = time.time()
-    with stk_engine("tiled_v1"):
+    with env_var("B2TPU_STK_ENGINE", "tiled_v1"):
         e = drv.dmrg(mpo, drv.get_random_mps(D, seed=11), device=device,
                      **qc_sched(D))
     if cuda:
@@ -1221,6 +1272,379 @@ def check_stacked(e8b, e8c, e5, ref):
     if not (abs(e8c - e5) < HUB_TOL and abs(e8c - e_ref) < QC_TOL):
         fail(f"8c: |dE| to phase 5 {abs(e8c - e5):.3e}, to the host "
              f"{abs(e8c - e_ref):.3e}")
+
+
+def mix_launch_rules(tag, ver, counts, me, cuda):
+    """The launch rules of a run under B2TPU_MIX=ver (3 or 2): the
+    engine's kernels launched (K13 + K14, or K15), no other mix kernel,
+    and K3 only inside v3 environment blocking (one launch per
+    BlockingV3Plan execution the environment counts)."""
+    must = ("K13_env_gemm", "K14_place_v3") if ver == "3" else \
+        ("K15_mix_v2",)
+    never = tuple(k for k in ("K4_place", "K13_env_gemm", "K14_place_v3",
+                              "K15_mix_v2") if k not in must)
+    if not cuda:
+        return
+    if not (all(counts[k] > 0 for k in must)
+            and not any(counts[k] for k in never)):
+        fail(f"{tag}: launches {counts}")
+    if counts["K3_mix"] != me.v3_blockings:
+        fail(f"{tag}: K3 launched {counts['K3_mix']} times, the environment "
+             f"ran {me.v3_blockings} v3 blockings (K3 ran in the mix)")
+
+
+def k16_launches(by_phase):
+    """K16's launches summed over the runs ``by_phase`` (phase -> launch
+    counts of that run, each counted from a reset).  No path runs the v1
+    slab matvec, as in the JAX package, so this fails unless every count
+    is 0."""
+    k16 = {tag: c["K16_slab_matvec"] for tag, c in by_phase.items()}
+    print(f"[9 mix] K16 launches by phase {k16}", flush=True)
+    if any(k16.values()):
+        fail(f"K16 was launched on a sweep path: {k16}")
+    return sum(k16.values())
+
+
+def phase_mix_parity(device, L=8, D=80, ns=6, e_ref=None):
+    """Phase 9a: torch_resident under B2TPU_MIX=3 (mix v3, K13 + K14) and
+    =2 (mix v2, K15) with phase 4's schedule and start, each against the
+    host energy ``e_ref`` (phase 4's; computed when None) to 1e-8 Ha, with
+    the launch rules of :func:`mix_launch_rules`."""
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    from block2_preview_tpu_torch.ops import _kernels
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
+    drv.initialize_system(n_sites=L, n_elec=L, spin=0)
+    mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
+    sched = dict(bond_dims=[D] * ns, noises=[1e-5] * ns + [0],
+                 thrds=[1e-10], n_sweeps=ns, tol=0, iprint=0)
+    if e_ref is None:
+        e_ref = _host_reference(mpo, drv.get_random_mps(D, seed=7), sched)
+    for ver in ("3", "2"):
+        _kernels.reset_counts()
+        t0 = time.time()
+        with env_var("B2TPU_MIX", ver):
+            e = drv.dmrg(mpo, drv.get_random_mps(D, seed=7), device=device,
+                         **sched)
+        counts = _kernels.launch_counts()
+        me = drv._last_dmrg.me
+        de = e - e_ref
+        print(f"[9a mix] Hubbard-L{L} D={D} x{ns} B2TPU_MIX={ver} {e:.12f} "
+              f"({time.time() - t0:.1f} s) host {e_ref:.12f} dE {de:.2e}  "
+              f"launches K3 {counts['K3_mix']} (v3 blockings "
+              f"{me.v3_blockings}) K4 {counts['K4_place']} K13 "
+              f"{counts['K13_env_gemm']} K14 {counts['K14_place_v3']} K15 "
+              f"{counts['K15_mix_v2']}", flush=True)
+        if not abs(de) < HUB_TOL:
+            fail(f"9a B2TPU_MIX={ver}: |dE| {abs(de):.3e} >= {HUB_TOL}")
+        mix_launch_rules(f"9a B2TPU_MIX={ver}", ver, counts, me,
+                         device.type == "cuda")
+
+
+def phase_mix_full(device, drv, mpo, ver, sched, tag, D=250):
+    """Phases 9b / 9c: phase 5's start on torch_resident under
+    B2TPU_MIX=ver with the schedule ``sched``: the per-sweep split (with
+    the mix-plan build time inside Teff) and the mix kernels' launches;
+    fails unless the launch rules hold and every host counter is 0.
+    Returns (launch counts, energy, sweep-0 energy)."""
+    import torch
+    from block2_preview_tpu_torch.ops import _kernels
+    cuda = device.type == "cuda"
+    _kernels.reset_counts()
+    t0 = time.time()
+    with env_var("B2TPU_MIX", ver):
+        e = drv.dmrg(mpo, drv.get_random_mps(D, seed=11), device=device,
+                     **sched)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _kernels.launch_counts()
+    solver = drv._last_dmrg
+    kernels = (("K13_env_gemm", "K14_place_v3") if ver == "3" else
+               ("K15_mix_v2",)) + ("K3_mix", "K1_matvec")
+    for i, r in enumerate(solver.sweep_log):
+        print(f"[{tag}] sweep {i} wall {r['wall']:.1f} s  Teff "
+              f"{r['teff']:.1f} (mix plans {r['mix_plan']:.1f}) Teig "
+              f"{r['teig']:.1f} Tdm {r['tdm']:.1f} Tblk {r['tblk']:.1f}  E "
+              f"{r['energy']:.10f}  "
+              + " ".join(f"{k.split('_')[0]} {r['launches'][k]}"
+                         for k in kernels), flush=True)
+    print(f"[{tag}] torch_resident B2TPU_MIX={ver} {wall:.1f} s  E "
+          f"{e:.10f}  launches "
+          + " ".join(f"{k.split('_')[0]} {counts[k]}" for k in kernels)
+          + f" K4 {counts['K4_place']}  v3 blockings "
+          f"{solver.me.v3_blockings}  host_redo_count "
+          f"{solver.host_redo_count}  host_env_materialized "
+          f"{solver.host_env_materialized}  host_ops_downloads "
+          f"{solver.host_ops_downloads}", flush=True)
+    mix_launch_rules(tag, ver, counts, solver.me, cuda)
+    for what in ("host_redo_count", "host_env_materialized",
+                 "host_ops_downloads"):
+        if getattr(solver, what) != 0:
+            fail(f"{tag}: {what} {getattr(solver, what)}")
+    e0 = solver.sweep_log[0]["energy"]
+    if not np.isfinite([e, e0]).all():
+        fail(f"{tag}: an energy is not finite")
+    return counts, e, e0
+
+
+def check_mix(e9b, e9c0, e5, e5_0, ref):
+    """9b against phase 5's port energy ``e5`` (1e-8 Ha: the same
+    Davidson, only the mix engine differs) and its host reference ``ref``
+    = (energy, seconds) (1e-6 Ha); 9c's one sweep against phase 5's
+    sweep-0 energy ``e5_0`` (1e-8 Ha)."""
+    e_ref = ref[0]
+    print(f"[9b mix v3] E {e9b:.10f}  phase 5 {e5:.10f} dE {e9b - e5:.2e}  "
+          f"host dE {e9b - e_ref:.2e}", flush=True)
+    print(f"[9c mix v2] sweep 0 E {e9c0:.10f}  phase 5 sweep 0 {e5_0:.10f} "
+          f"dE {e9c0 - e5_0:.2e}", flush=True)
+    if not (abs(e9b - e5) < HUB_TOL and abs(e9b - e_ref) < QC_TOL):
+        fail(f"9b: |dE| to phase 5 {abs(e9b - e5):.3e}, to the host "
+             f"{abs(e9b - e_ref):.3e}")
+    if not abs(e9c0 - e5_0) < HUB_TOL:
+        fail(f"9c: |dE| to phase 5's sweep 0 {abs(e9c0 - e5_0):.3e}")
+
+
+# elements of K15's library yardstick (int32 dst and src, the coefficient
+# and the product per element: 24 bytes each) it may hold on the card
+_K15_LIBRARY_ELEMS = 1 << 29
+
+
+def _k15_library_call(d, epool, n_out):
+    """K15's function as one PyTorch call, out.index_add_(0, dst,
+    epool[src] * cf), on element index lists expanded from the plan's
+    tasks on the device (the yardstick only; the port never calls it);
+    None where the lists would not fit."""
+    import torch
+    T = d["T"]
+    s = d["s"].transpose(0, 1).reshape(7, -1)
+    live = s[4] >= 0
+    s = s[:, live].long()
+    cf = d["coef"][live]
+    per = s[2].clamp(0, T) * s[3].clamp(0, T)
+    n = int(per.sum())
+    if n > _K15_LIBRARY_ELEMS:
+        return None, n
+    dst = torch.empty(n, dtype=torch.int32, device=epool.device)
+    src = torch.empty(n, dtype=torch.int32, device=epool.device)
+    cfe = torch.empty(n, dtype=epool.dtype, device=epool.device)
+    r = torch.arange(T, device=epool.device)[None, :, None]
+    c = torch.arange(T, device=epool.device)[None, None, :]
+    k = 0
+    for a in range(0, s.shape[1], 8192):
+        t = s[:, a:a + 8192, None, None]
+        ok = (r < t[2]) & (c < t[3])
+        m = int(ok.sum())
+        dst[k:k + m] = (t[4] + r * t[5] + c * t[6])[ok].int()
+        src[k:k + m] = (t[0] + r * t[1] + c)[ok].int()
+        cfe[k:k + m] = cf[a:a + 8192, None, None].expand(ok.shape)[ok]
+        k += m
+
+    def call(ep):
+        out = torch.zeros(n_out, dtype=ep.dtype, device=ep.device)
+        return out.index_add_(0, dst, torch.index_select(ep, 0, src) * cfe)
+    return call, n
+
+
+def _place_index(d3, n, zero_slot):
+    """K14's source index of slab elements [0, n), ``zero_slot`` (a zero
+    of OUT's padding) where no window covers one: what one torch.take
+    needs to compute K14's function (the yardstick only)."""
+    import torch
+    from block2_preview_tpu_torch.ops import mixv3
+    parts = []
+    for k in range(0, n, mixv3._TWIN_PLACE_ELEMS):
+        src, ok = mixv3.place_v3_src(d3, k, min(mixv3._TWIN_PLACE_ELEMS,
+                                                n - k))
+        parts.append(torch.where(ok, src, zero_slot))
+    return torch.cat(parts)
+
+
+def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
+    """K13 and K14 (mix v3 of the site's LW and RW plans, K13 summed over
+    every GEMM group, and one K13 window at c0 > 0), K15 (mix v2 of the
+    same sides; library: one index_add_) and K16 (the slab matvec on the
+    site's LW/RW pools, also held against K1 on them) against their twins
+    at center t of the host environments ``me``, f64 and f32.  Returns the
+    summary rows of the f64 cases (none unless ``summary``)."""
+    import torch
+    from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+    from block2_preview_tpu_torch.ops import mixv3, resident, tilev2
+    eff = EffectiveHamiltonian2(me, t, assemble=False)
+    tk, g = eff.target, mpo.group
+    p3s, p2s, host_pools, metas = {}, {}, {}, {}
+    for side, (meta, pool, args, kws) in site_mix_inputs(mpo, me, eff,
+                                                         t).items():
+        metas[side], host_pools[side] = meta, pool
+        t0 = time.time()
+        p3s[side] = mixv3.build_mix_plan_v3(*args, **kws)
+        t1 = time.time()
+        p2s[side] = resident.build_mix_plan(*args, **kws)
+        p3, p2 = p3s[side], p2s[side]
+        print(f"[3 kernels] mix plans site {t} {side}: v3 {len(p3.gemms)} "
+              f"GEMMs, nnz {sum(len(x['wv']) for x in p3.gemms)}, OUT "
+              f"{p3.out_total} ({t1 - t0:.1f} s); v2 T {p2.T}, tasks "
+              f"{int((p2.s[:, :, 4] >= 0).sum())}, launches of the "
+              f"reference {p2.n_launch} ({time.time() - t1:.1f} s); ncap "
+              f"{p3.ncap_out} (live {p3.meta_out.total})", flush=True)
+    pl, pr = p3s["lw"], p3s["rw"]
+    ex1 = tilev2.MatvecV2(eff.ket_space, pl.meta_out, pr.meta_out, g, tk,
+                          dtype=np.float64, bra_space=eff.bra_space)
+    ex16 = resident.SlabMatvec(eff.ket_space, pl.meta_out, pr.meta_out, g,
+                               tk, tk, dtype=np.float64,
+                               bra_space=eff.bra_space)
+    s1, s16 = ex1.struct, ex16.struct
+    x = np.random.default_rng(5).standard_normal(eff.size)
+    rows = {}
+    for dtype in (np.float64, np.float32):
+        acc = rows if summary and dtype == np.float64 else None
+        tol = F64_TOL if dtype == np.float64 else F32_TOL
+        atol = ATOMIC_TOL[dtype]
+        tdt = torch.float64 if dtype == np.float64 else torch.float32
+        pools = {}
+        for side in ("lw", "rw"):
+            p3, p2 = p3s[side], p2s[side]
+            ep = torch.as_tensor(host_pools[side], dtype=tdt, device=device)
+            esz = ep.element_size()
+            d3 = mixv3.v3_tables(p3, device, tdt)
+            otp = mixv3._cap_class(p3.out_total + 1)
+
+            def k13(fn, d3=d3, ep=ep, otp=otp):
+                out = torch.zeros(otp, dtype=tdt, device=device)
+                for dg in d3["gemms"]:
+                    nw_p, dg_p = dg["nw_p"], dg["dg_p"]
+                    fn(ep, dg, 0, dg_p, out[dg["goff"]:dg["goff"]
+                                            + nw_p * dg_p].view(nw_p, dg_p))
+                return out
+
+            # per group: the env rows it reads, its triplets and CSR, the
+            # live OUT it writes; 2 FLOPs per non-zero and live column
+            ncols = [int(x_["secoff"][-1]) for x_ in p3.gemms]
+            nnz = [len(x_["wv"]) for x_ in p3.gemms]
+            k13_bytes = live_bytes(
+                esz, sum(x_["ns"] * c_ + n_ + x_["nw"] * c_ for x_, c_, n_
+                         in zip(p3.gemms, ncols, nnz)),
+                sum(n_ + x_["nw"] + 1 + 3 * x_["nsec"] + 1 for x_, n_
+                    in zip(p3.gemms, nnz)))
+            k13_flops = 2.0 * sum(n_ * c_ for n_, c_ in zip(nnz, ncols))
+            o_t = k13(mixv3.env_gemm_twin)
+            _check(acc, "K13_env_gemm", dtype, side, k13(mixv3.env_gemm_exec),
+                   o_t, tol, time_ms(lambda: k13(mixv3.env_gemm_exec),
+                                     device),
+                   time_ms(lambda: k13(mixv3.env_gemm_twin), device), None,
+                   k13_bytes, k13_flops,
+                   f"groups {len(p3.gemms)} nnz {sum(nnz)} OUT "
+                   f"{p3.out_total} GFLOP {k13_flops / 1e9:.3f}")
+            # one window at c0 > 0 of the widest group
+            dg = max(d3["gemms"], key=lambda x_: x_["dg_p"])
+            c0, n = dg["dg_p"] // 3 + 1, min(1000, dg["dg_p"] // 2)
+
+            def k13w(fn, dg=dg, ep=ep, c0=c0, n=n):
+                return fn(ep, dg, c0, n, torch.empty(
+                    dg["nw_p"], n, dtype=tdt, device=device))
+
+            _check(None, "K13_env_gemm", dtype, f"{side} window",
+                   k13w(mixv3.env_gemm_exec), k13w(mixv3.env_gemm_twin), tol,
+                   time_ms(lambda: k13w(mixv3.env_gemm_exec), device),
+                   time_ms(lambda: k13w(mixv3.env_gemm_twin), device), None,
+                   live_bytes(esz, dg["nw_p"] * n), 0.0,
+                   f"c0 {c0} n {n} of {dg['dg_p']} columns")
+            n14 = p3.ncap_out + 1
+
+            def k14(fn, d3=d3, o=o_t, n14=n14):
+                return fn(o, d3, 0, n14, torch.empty(n14, dtype=tdt,
+                                                     device=device))
+
+            idx = _place_index(d3, n14, p3.out_total)
+            s_t = k14(mixv3.place_v3_twin)
+            if not torch.equal(torch.take(o_t, idx), s_t):
+                fail(f"K14 {side}: the torch.take yardstick disagrees")
+            tabs = p3.tables
+            n_tab = sum(len(tabs[k]) for k in ("rowcell", "rowin", "colcell",
+                                               "colin", "winsrc", "windk"))
+            _check(acc, "K14_place_v3", dtype, side, k14(mixv3.place_v3_exec),
+                   s_t, tol, time_ms(lambda: k14(mixv3.place_v3_exec),
+                                     device),
+                   time_ms(lambda: k14(mixv3.place_v3_twin), device),
+                   time_ms(lambda: torch.take(o_t, idx), device),
+                   # the live slab written, as many OUT values read; tables
+                   live_bytes(esz, 2 * p3.meta_out.total,
+                              8 * len(tabs["sb_starts"]) + n_tab), 0.0,
+                   f"slab {n14} live {p3.meta_out.total} windows "
+                   f"{len(p3.winflat['src'])}")
+            del idx
+            pools[side] = s_t
+            d2 = resident.mix_tables(p2, device, tdt)
+
+            def k15(fn, d2=d2, ep=ep, p2=p2):
+                return fn(torch.zeros(p2.ncap_out + 1, dtype=tdt,
+                                      device=device), ep, d2)
+
+            m_t = k15(resident.mix_v2_twin)
+            rel, _ = rel_err(m_t, s_t)
+            if not rel <= atol:
+                fail(f"K15 {side}: the v2 pool differs from the v3 pool "
+                     f"({rel:.3e})")
+            lib, n_el = _k15_library_call(d2, ep, p2.ncap_out + 1)
+            lib_ms = None
+            if lib is not None:
+                rel, _ = rel_err(lib(ep), m_t)
+                if not rel <= atol:
+                    fail(f"K15 {side}: the index_add_ yardstick disagrees "
+                         f"({rel:.3e})")
+                lib_ms = time_ms(lambda: lib(ep), device)
+            del lib
+            n_tasks = int((p2.s[:, :, 4] >= 0).sum())
+            _check(acc, "K15_mix_v2", dtype, side, k15(resident.mix_v2_exec),
+                   m_t, atol, time_ms(lambda: k15(resident.mix_v2_exec),
+                                      device),
+                   time_ms(lambda: k15(resident.mix_v2_twin), device,
+                           reps=1), lib_ms,
+                   # the env pool read, each task's coefficient, the live
+                   # slab written; the live task rows; 2 FLOPs per element
+                   live_bytes(esz, metas[side].total + 1 + n_tasks
+                              + p2.meta_out.total, 7 * n_tasks),
+                   2.0 * n_el,
+                   f"T {p2.T} tasks {n_tasks} elements {n_el}"
+                   + ("" if lib_ms is not None else
+                      " (no library call: its index lists do not fit)"))
+        xp = torch.as_tensor(ex16.pad(x), dtype=tdt, device=device)
+        d16 = ex16.to_device(device)
+        d1 = ex1.to_device(device)
+
+        def k16(fn):
+            return fn(xp, pools["lw"], pools["rw"], d16, s16["T"],
+                      s16["nt1"], s16["nt2"])
+
+        y16 = k16(resident.slab_mv_exec)
+        y1 = tilev2.mv_exec(xp, pools["lw"], pools["rw"], d1, s1["T"],
+                            s1["nt2"])
+        n = eff.size
+        rel, _ = rel_err(y16[:n], y1[:n])
+        print(f"[3 kernels] K16 vs K1 {np.dtype(dtype).name}: rel {rel:.2e}",
+              flush=True)
+        if not rel <= atol:
+            fail(f"K16 {np.dtype(dtype).name}: its sigma differs from K1's "
+                 f"({rel:.3e})")
+        live1 = int((s16["s1"] < s16["nt1"]).sum())
+        live2 = int((s16["s2"] < s16["nt2"]).sum())
+        _check(acc, "K16_slab_matvec", dtype, "", y16,
+               k16(resident.slab_mv_twin), atol,
+               time_ms(lambda: k16(resident.slab_mv_exec), device),
+               time_ms(lambda: k16(resident.slab_mv_twin), device), None,
+               # psi, LW, RW in, sigma out (K1's count); the psi_idx of the
+               # live psi tiles, sig_idx, the live stage rows
+               live_bytes(xp.element_size(),
+                          n + pl.meta_out.total + pr.meta_out.total
+                          + eff.bra_space.size,
+                          n_tiles(eff.ket_space, s16["T"]) * s16["T"] ** 2
+                          + eff.bra_space.size + 6 * live1 + 6 * live2),
+               float(s1["flops"]),
+               f"T {s16['T']} groups {s16['pa'].shape[0]} stage-1 tasks "
+               f"{live1} stage-2 {live2} tmp tiles {d16['ntmp']} size {n}")
+        ex16.free()
+    return summary_rows(rows)
 
 
 def phase_roots(device, drv, mpo, D=250, n_sweeps=2):
@@ -1414,7 +1838,7 @@ def phase_tdvp(device, drv, mpo, ket, D=250, dt=0.02):
 
 def phase_full(device, drv, mpo, D=250, n_orb=16):
     """Main path at full width; returns the kernel launch counts of the
-    run and the MPS it leaves.
+    run, the MPS it leaves, its energy and its sweep-0 energy.
 
     Two sweeps from a random MPS are far from converged, so the energy
     after them depends to first order on each site's eigenvector, and
@@ -1452,7 +1876,7 @@ def phase_full(device, drv, mpo, D=250, n_orb=16):
                  "host_ops_downloads"):
         if getattr(solver, what) != 0:
             fail(f"{what} {getattr(solver, what)}")
-    return counts, ket, e_port
+    return counts, ket, e_port, solver.sweep_log[0]["energy"]
 
 
 def check_full(e_port, ref, n_orb=16):
@@ -1466,10 +1890,10 @@ def check_full(e_port, ref, n_orb=16):
         fail(f"QC |dE| {abs(de):.3e} >= {QC_TOL}")
 
 
-def qc_sched(D):
-    """Phase 5's schedule (see phase_full)."""
-    return dict(bond_dims=[D, D], noises=[1e-4, 0], thrds=[1e-14],
-                n_sweeps=2, tol=0, iprint=0)
+def qc_sched(D, n_sweeps=2):
+    """Phase 5's schedule (see phase_full), or its first ``n_sweeps``."""
+    return dict(bond_dims=[D] * n_sweeps, noises=[1e-4, 0][:n_sweeps],
+                thrds=[1e-14], n_sweeps=n_sweeps, tol=0, iprint=0)
 
 
 def timed_host_reference(mpo, mps, sched):
@@ -1525,11 +1949,14 @@ def main():
         ref5 = pool.apply_async(timed_host_reference, (
             mpo, drv.get_random_mps(D, seed=11), qc_sched(D)))
         e_hub = phase_hubbard(device)
-        counts, ket, e5 = phase_full(device, drv, mpo, D=D, n_orb=n_orb)
+        counts, ket, e5, e5_0 = phase_full(device, drv, mpo, D=D,
+                                           n_orb=n_orb)
         later = ("K7_tiled", "K8_bucket", "K9_bucket_blocking", "K10_slab",
-                 "K11_stk_mix", "K12_tiled_blocking")
+                 "K11_stk_mix", "K12_tiled_blocking", "K13_env_gemm",
+                 "K14_place_v3", "K15_mix_v2")
         for k in later:
-            counts.pop(k)           # the paths of phases 6b, 7b, 8b, 8c
+            counts.pop(k)   # the paths of phases 6b-9c
+        c5_k16 = {"K16_slab_matvec": counts.pop("K16_slab_matvec")}
         if not all(c > 0 for c in counts.values()):
             fail(f"a kernel of the path was never launched: {counts}")
         ket5 = copy_mps(ket)
@@ -1540,13 +1967,24 @@ def main():
         roots = phase_roots(device, drv, mpo, D=D)
         c8b, e8b = phase_stacked_full(device, drv, mpo, D=D)
         c8c, e8c = phase_resident_v1(device, drv, mpo, D=D)
+        phase_mix_parity(device, e_ref=e_hub)
+        c9b, e9b, _ = phase_mix_full(device, drv, mpo, "3", qc_sched(D),
+                                     "9b mix v3", D=D)
+        c9c, _, e9c0 = phase_mix_full(device, drv, mpo, "2",
+                                      qc_sched(D, n_sweeps=1), "9c mix v2",
+                                      D=D)
         for k, c in (("K8_bucket", roots), ("K9_bucket_blocking", roots),
                      ("K10_slab", c8b), ("K11_stk_mix", c8b),
-                     ("K12_tiled_blocking", c8c)):
+                     ("K12_tiled_blocking", c8c), ("K13_env_gemm", c9b),
+                     ("K14_place_v3", c9b), ("K15_mix_v2", c9c)):
             counts[k] = c[k]
+        counts["K16_slab_matvec"] = k16_launches(
+            {"5": c5_k16, "7b": roots, "8b": c8b, "8c": c8c, "9b": c9b,
+             "9c": c9c})
         r5 = ref5.get()
         check_full(e5, r5, n_orb)
         check_stacked(e8b, e8c, e5, r5)
+        check_mix(e9b, e9c0, e5, e5_0, r5)
         site = mid_site(mpo, ket5, t)
         rows = phase_kernels(device, mpo, ket5, t, site=site)
         eff = EffectiveHamiltonian2(site[0], t)
@@ -1555,6 +1993,7 @@ def main():
         rows += phase_bucket(device, mpo, ket5, site[0], eff, t,
                              host3=ref3.get())
         rows += phase_stacked_kernels(device, mpo, ket5, site[0], t)
+        rows += phase_mix_kernels(device, mpo, ket5, site[0], t)
     t0 = time.time()
     wide = wide_system()
     print(f"[3 kernels] Hubbard-L16 D=1000 site 7 (T=128 tiles; MPS built "

@@ -44,16 +44,19 @@ def test_chip_smoke_phases_on_cpu(capsys):
     with chip_smoke.host_pool(threads=1) as pool:
         ref = pool.apply_async(chip_smoke.timed_host_reference, (
             mpo, drv.get_random_mps(D, seed=11), chip_smoke.qc_sched(D)))
-        counts, ket, e = chip_smoke.phase_full(dev, drv, mpo, D=D,
-                                               n_orb=n_orb)
+        counts, ket, e, e0 = chip_smoke.phase_full(dev, drv, mpo, D=D,
+                                                    n_orb=n_orb)
         chip_smoke.check_full(e, ref.get(timeout=300), n_orb)
     # CPU tensors run the twins, which launch nothing
     assert counts == {"K1_matvec": 0, "K2_diag": 0, "K3_mix": 0,
                       "K4_place": 0, "K5_block": 0, "K6_noise": 0,
                       "K7_tiled": 0, "K8_bucket": 0,
                       "K9_bucket_blocking": 0, "K10_slab": 0,
-                      "K11_stk_mix": 0, "K12_tiled_blocking": 0}
+                      "K11_stk_mix": 0, "K12_tiled_blocking": 0,
+                      "K13_env_gemm": 0, "K14_place_v3": 0,
+                      "K15_mix_v2": 0, "K16_slab_matvec": 0}
     assert drv._last_dmrg.mps is ket
+    assert e0 == drv._last_dmrg.sweep_log[0]["energy"] and e <= e0 + 1e-9
     rows = chip_smoke.phase_kernels(dev, mpo, ket, n_orb // 2 - 1)
     assert [r["name"] for r in rows] == list(counts)[:6]
     for r in rows:
@@ -160,7 +163,7 @@ def test_chip_smoke_stacked_phases_on_cpu(capsys):
     c8b, e8b = chip_smoke.phase_stacked_full(dev, drv, mpo, D=D)
     c8c, e8c = chip_smoke.phase_resident_v1(dev, drv, mpo, D=D)
     assert not any(c8b.values()) and not any(c8c.values())
-    _, ket, e5 = chip_smoke.phase_full(dev, drv, mpo, D=D, n_orb=n_orb)
+    _, ket, e5, _ = chip_smoke.phase_full(dev, drv, mpo, D=D, n_orb=n_orb)
     ref = chip_smoke.timed_host_reference(
         mpo, drv.get_random_mps(D, seed=11), chip_smoke.qc_sched(D))
     chip_smoke.check_stacked(e8b, e8c, e5, ref)
@@ -191,6 +194,65 @@ def test_chip_smoke_stacked_phases_on_cpu(capsys):
         assert k in out, k
 
 
+def test_chip_smoke_mix_phases_on_cpu(capsys):
+    """Phase 9a (torch_resident under B2TPU_MIX=3 and =2 against the host
+    backend), phases 9b and 9c (the v3 and v2 engines at K=6, D=20,
+    against phase 5's port energy, sweep-0 energy and host reference) and
+    the phase-3 K13-K16 rows, on the CPU."""
+    dev = torch.device("cpu")
+    chip_smoke.phase_mix_parity(dev, L=4, D=16, ns=4)
+    n_orb, D = 6, 20
+    drv, mpo, _ = chip_smoke.qc_system(n_orb, n_orb)
+    c9b, e9b, _ = chip_smoke.phase_mix_full(
+        dev, drv, mpo, "3", chip_smoke.qc_sched(D), "9b mix v3", D=D)
+    me = drv._last_dmrg.me
+    assert me.v3_blockings > 0 and not any(c9b.values())
+    # the rule a card run holds: K3 launches = v3 blockings
+    with pytest.raises(SystemExit):
+        chip_smoke.mix_launch_rules("9b", "3", c9b, me, True)
+    c9c, _, e9c0 = chip_smoke.phase_mix_full(
+        dev, drv, mpo, "2", chip_smoke.qc_sched(D, n_sweeps=1), "9c mix v2",
+        D=D)
+    assert len(drv._last_dmrg.sweep_log) == 1
+    assert os.environ.get("B2TPU_MIX") is None    # restored
+    c5, ket, e5, e5_0 = chip_smoke.phase_full(dev, drv, mpo, D=D,
+                                              n_orb=n_orb)
+    # K16 is on no path: its count is the measured one, and any launch fails
+    by_phase = {"5": c5, "9b": c9b, "9c": c9c}
+    assert chip_smoke.k16_launches(by_phase) == 0
+    with pytest.raises(SystemExit):
+        chip_smoke.k16_launches({**by_phase, "9b": {**c9b,
+                                                    "K16_slab_matvec": 1}})
+    ref = chip_smoke.timed_host_reference(
+        mpo, drv.get_random_mps(D, seed=11), chip_smoke.qc_sched(D))
+    chip_smoke.check_mix(e9b, e9c0, e5, e5_0, ref)
+    with pytest.raises(SystemExit):
+        chip_smoke.check_mix(e9b, e9c0 + 1e-6, e5, e5_0, ref)
+    t = n_orb // 2 - 1
+    me = chip_smoke.mid_site(mpo, ket, t)[0]
+    rows = chip_smoke.phase_mix_kernels(dev, mpo, ket, me, t)
+    assert [r["name"] for r in rows] == ["K13_env_gemm", "K14_place_v3",
+                                         "K15_mix_v2", "K16_slab_matvec"]
+    for r in rows:
+        assert r["max_abs_err"] == 0.0      # the plain version vs itself
+        assert r["route"] == "cuda" and (ROOT / r["source"]).is_file()
+        assert r["bound_ms"] > 0
+    assert [r["library_ms"] is None for r in rows] == [True, False, False,
+                                                       True]
+    out = capsys.readouterr().out
+    for k in ("[9a mix] Hubbard-L4 D=16 x4 B2TPU_MIX=3",
+              "[9a mix] Hubbard-L4 D=16 x4 B2TPU_MIX=2",
+              "[9b mix v3] sweep 1", "(mix plans", "K13 0 K14 0",
+              "[9c mix v2] sweep 0", "K15 0", "[9b mix v3] E",
+              "[9c mix v2] sweep 0 E", "[9 mix] K16 launches by phase",
+              "[3 kernels] mix plans site 2 rw",
+              "[3 kernels] K13_env_gemm f64 lw", "lw window",
+              "[3 kernels] K14_place_v3 f32 rw",
+              "[3 kernels] K15_mix_v2 f64 rw", "[3 kernels] K16 vs K1",
+              "[3 kernels] K16_slab_matvec f32"):
+        assert k in out, k
+
+
 def test_wide_site_checks_its_tile():
     """Phase 3's second site runs the kernels at the tile size it names,
     and fails when the plan picks another (here a small Hubbard-L8 MPS,
@@ -212,6 +274,19 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113gather_kernelIfEEvP
 ptxas info    : Function properties for _ZN12_GLOBAL__N_113gather_kernelIfEEvPKT_PKixPS1_
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 10 registers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111slab_stage1IdLi32EEEvPKT_S3_PKiS5_S5_S5_S5_iiPS1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111slab_stage1IdLi32EEEvPKT_S3_PKiS5_S5_S5_S5_iiPS1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__eb92dd_11_blocking_cu_001cab6c10blk_kernelIfLi16EEEvPKT_S3_S3_PKiS5_S5_iPS1_' for 'sm_90a'
+    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__d85b1f52_8_tiled_cu_66d3a1d212tiled_kernelINS_4cplxIfEELi128EEEvPKT_' for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0a1b2c3d_11_mix_v2_cu_5e6f7a8b13mix_v2_kernelIdEEvPKT_PKiS3_iiPS1_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, 380 bytes cmem[0]
 """
 
 
@@ -220,4 +295,12 @@ def test_ptxas_usage_names_each_kernel_instance():
         ("mv_kernel<double,128>", 232, "0 bytes stack frame, 0 bytes spill "
          "stores, 0 bytes spill loads"),
         ("gather_kernel<float>", 10, "8 bytes stack frame, 4 bytes spill "
-         "stores, 4 bytes spill loads")]
+         "stores, 4 bytes spill loads"),
+        ("slab_stage1<double,32>", 80, "0 bytes stack frame, 0 bytes spill "
+         "stores, 0 bytes spill loads"),
+        ("blk_kernel<float,16>", 64, "8 bytes stack frame, 8 bytes spill "
+         "stores, 12 bytes spill loads"),
+        ("tiled_kernel<complex<float>,128>", 128, "8 bytes stack frame, 4 "
+         "bytes spill stores, 4 bytes spill loads"),
+        ("mix_v2_kernel<double>", 30, "0 bytes stack frame, 0 bytes spill "
+         "stores, 0 bytes spill loads")]
