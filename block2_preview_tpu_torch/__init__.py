@@ -19,10 +19,13 @@ Layer map:
   interop.py       reference objects (MPO, MPS, plans) -> port classes
   core/            symmetry, state info, block matrices, FCIDUMP, terms
   dmrg/            MPO/MPS, environments (host maps or device pools),
-                   effective-Hamiltonian spaces, the DMRG sweeps
+                   effective-Hamiltonian spaces, the DMRG sweeps, TDVP,
+                   expectation values and N-particle density matrices
   ops/             plan builders (numpy), kernel wrappers + plain twins,
                    on-device Davidson, the per-site ResidentSite
-  csrc/            CUDA C++ kernels K1-K6 (plain C interface, ctypes)
+  csrc/            CUDA C++ kernels K1-K19 (plain C interface, ctypes)
+  utils/           the chip probes (gpu_smoke) and the exact-
+                   diagonalization oracle (ed)
   native/          C++ host executor of the numpy path (g++, ctypes)
   driver/core.py   DMRGDriver.dmrg(...) entry point
 """

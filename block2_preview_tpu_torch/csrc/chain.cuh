@@ -20,6 +20,11 @@
 // twice.  An item takes ceil(X / 32) * ceil(Y / 128) CUDA blocks, `blk`
 // numbering them strip-major (the wrappers' prefix sums count them with
 // ops/exec_bucket.py chain_blocks).
+//
+// chain_block_f is the product itself, with B read through a functor
+// load_b(l, k) and each result element handed to a functor store(x, y,
+// v): K18 (plan_exec.cu) gathers B from psi through an index table and
+// scatters into sigma through another.  chain_block is its strided form.
 #pragma once
 
 #include "common.cuh"
@@ -31,13 +36,11 @@ constexpr int kCK = 16;          // contraction chunk of K1
 constexpr int kCY = 4;           // Y tiles of 32 columns per block
 constexpr int kCYW = kCT * kCY;  // Y columns per block
 
-template <typename S>
-__device__ __forceinline__ void chain_block(
-    const S* __restrict__ A, long long ars, long long acs,
-    const S* __restrict__ B, long long brs,
+template <typename S, typename LoadB, typename Store>
+__device__ __forceinline__ void chain_block_f(
+    const S* __restrict__ A, long long ars, long long acs, LoadB load_b,
     const S* __restrict__ C, long long crs, long long ccs,
-    int X, int K1, int K2, int Y, int blk, S coef, S* __restrict__ out,
-    long long ors) {
+    int X, int K1, int K2, int Y, int blk, Store store) {
   __shared__ S As[kCT][kCK + 1];
   __shared__ S Bs[kCK][kCT + 1];
   __shared__ S Ts[kCT][kCT + 1];
@@ -69,7 +72,7 @@ __device__ __forceinline__ void chain_block(
       for (int e = tid; e < kCK * kCT; e += kThreads) {
         const int r = e / kCT, c = e % kCT;
         const int l = l0 + r, k = k0 + c;
-        Bs[r][c] = (l < K1 && k < K2) ? B[l * brs + k] : S(0);
+        Bs[r][c] = (l < K1 && k < K2) ? load_b(l, k) : S(0);
       }
       __syncthreads();
 #pragma unroll
@@ -122,10 +125,27 @@ __device__ __forceinline__ void chain_block(
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         const int y = y0 + j * kCT + tx + 16 * b;
-        if (y < Y) atomicAdd(out + x * ors + y, coef * acc[j][a][b]);
+        if (y < Y) store(x, y, acc[j][a][b]);
       }
     }
   }
+}
+
+// out[x, y] += coef * (A B C)[x, y] with B strided (row stride brs) and
+// out of row stride ors, added atomically.
+template <typename S>
+__device__ __forceinline__ void chain_block(
+    const S* __restrict__ A, long long ars, long long acs,
+    const S* __restrict__ B, long long brs,
+    const S* __restrict__ C, long long crs, long long ccs,
+    int X, int K1, int K2, int Y, int blk, S coef, S* __restrict__ out,
+    long long ors) {
+  const S* b = B;
+  S* o = out;
+  chain_block_f<S>(
+      A, ars, acs, [=](int l, int k) { return b[l * brs + k]; }, C,
+      crs, ccs, X, K1, K2, Y, blk,
+      [=](int x, int y, S v) { atomicAdd(o + x * ors + y, coef * v); });
 }
 
 }  // namespace b2t

@@ -5,7 +5,10 @@ pyblock2/driver/core.py:544: initialize_system at :854, get_qc_mpo at :3282
 with FastBipartite, get_mpo at :3885, dmrg at :4437, get_random_mps at
 :7494) and cut to what SZ two-site ground and excited states need.  The other
 methods of the reference driver come back with their slices (ROADMAP);
-``td_dmrg`` (time evolution, reference :4785) is here.
+``td_dmrg`` (time evolution, reference :4785) is here, and so are the
+analysis of a solved state: ``expectation`` (:6840), ``get_npdm`` (:5504)
+with its fronts ``get_1pdm`` ... ``get_6pdm``, ``get_trans_*pdm`` and
+``get_conventional_*``, and the orbital entropies (:5091).
 
     drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
     drv.initialize_system(n_sites=8, n_elec=8, spin=0)
@@ -16,9 +19,12 @@ methods of the reference driver come back with their slices (ROADMAP);
                      backend="torch_device", n_roots=3)  # three energies
     first = drv.extract_root(0)                      # one root as an MPS
     e, te = drv.td_dmrg(mpo, ket, delta_t=0.05, n_steps=2, bond_dim=80)
+    dm1, dm2 = drv.get_1pdm(ket), drv.get_2pdm(ket)   # host engine
+    dm3 = drv.get_3pdm(ket, algo="poly")    # class closes on the card (K17)
 
-``dmrg`` and ``td_dmrg`` run on the card unless the caller asks for the
-CPU (``device="cpu"``) or for the host reference (``backend="numpy"``).
+``dmrg``, ``td_dmrg`` and the polynomial PDM engine run on the card
+unless the caller asks for the CPU (``device="cpu"``) or for the host
+reference (``backend="numpy"``; ``device=None`` for the PDM closes).
 """
 
 from __future__ import annotations
@@ -191,3 +197,123 @@ class DMRGDriver:
                            backend=backend, device=device)
         e = te.solve(n_steps, delta_t, bond_dim)
         return e, te
+
+    # -- analysis of a solved state (reference pyblock2/driver/core.py) ---
+
+    def expectation(self, bra: MPS, mpo: MPO, ket: MPS) -> float:
+        """<bra|MPO|ket> (reference pyblock2/driver/core.py:6840), by a
+        full left contraction on the host environments."""
+        from ..dmrg.expect import mpo_expectation
+        return mpo_expectation(mpo, ket, bra=bra)
+
+    def get_orbital_entropies(self, ket: MPS, ij_symm: int = 1):
+        """One- or two-orbital von Neumann entropies
+        (reference pyblock2/driver/core.py:5091, ij_symm as in get_npdm)."""
+        from ..dmrg.expect import (orbital_entropy_1site,
+                                   orbital_entropy_2site)
+        if ij_symm == 1:
+            return orbital_entropy_1site(ket)
+        s2, _ = orbital_entropy_2site(ket)
+        return s2
+
+    def get_orbital_interaction_matrix(self, ket: MPS):
+        """Mutual information I[i,j] = (S1[i] + S1[j] - S2[i,j]) / 2
+        (reference pyblock2/driver/core.py get_orbital_interaction_matrix)."""
+        from ..dmrg.expect import orbital_entropy_2site
+        _, minfo = orbital_entropy_2site(ket)
+        return minfo
+
+    def get_npdm(self, ket: MPS, pdm_type: int = 1, bra: MPS = None,
+                 algo: str = "auto", device="cuda"):
+        """1-4+PDM; pass bra for transition densities (reference
+        pyblock2/driver/core.py:5504 get_npdm / get_trans_1pdm), with the
+        reference's routing: orders 1 and 2, and order 3 with algo
+        'auto' or 'det', on the host string engine (dmrg/expect.py);
+        orders >= 3 otherwise on the determinant engine (algo 'det', or
+        'auto' on chains of at most 8 sites; dmrg/npdm.py) or the
+        polynomial pooled-sweep engine (algo 'poly', dmrg/npdm_scheme.py),
+        whose class closes run on ``device`` ("cuda" by default, kernel
+        K17; "cpu" runs its twin; None keeps them on host BLAS).  SU(2)
+        states are not carried by the port (roadmap item A6)."""
+        from ..dmrg.expect import pdm1, pdm2_spatial, pdm3_spatial
+        for m in (ket, bra):
+            if m is not None and not isinstance(m, MPS):
+                raise NotImplementedError(
+                    f"get_npdm takes the port's SZ MPS (got {type(m)}); "
+                    "spin-adapted (SU(2)) states are roadmap item A6")
+        sym = self.orb_sym if bra is None else None
+        if pdm_type == 1:
+            return pdm1(ket, orb_sym=sym, bra=bra)
+        elif pdm_type == 2:
+            return pdm2_spatial(ket, orb_sym=sym,
+                                assume_singlet=self.spin == 0 and bra is None,
+                                bra=bra)
+        elif pdm_type == 3 and algo in ("auto", "det"):
+            return pdm3_spatial(ket, bra=bra)
+        elif pdm_type >= 3:
+            if algo == "det" or (algo == "auto" and ket.n_sites <= 8):
+                from ..dmrg.npdm import npdm_spatial
+                return npdm_spatial(ket, pdm_type, bra=bra)
+            from ..dmrg.npdm_scheme import npdm_spatial_poly
+            return npdm_spatial_poly(ket, pdm_type, bra=bra,
+                                     device=device)
+        raise NotImplementedError(f"pdm order {pdm_type}")
+
+    def get_trans_1pdm(self, bra: MPS, ket: MPS):
+        """Transition 1PDM <bra|c+ c|ket>
+        (reference pyblock2/driver/core.py get_trans_1pdm)."""
+        return self.get_npdm(ket, pdm_type=1, bra=bra)
+
+    # fronts (reference core.py naming)
+
+    def get_1pdm(self, ket, *, bra=None):
+        """reference core.py get_1pdm."""
+        return self.get_npdm(ket, pdm_type=1, bra=bra)
+
+    def get_2pdm(self, ket, *, bra=None):
+        return self.get_npdm(ket, pdm_type=2, bra=bra)
+
+    def get_3pdm(self, ket, *, bra=None, algo: str = "auto", device="cuda"):
+        return self.get_npdm(ket, pdm_type=3, bra=bra, algo=algo,
+                             device=device)
+
+    def get_4pdm(self, ket, *, bra=None, algo: str = "auto", device="cuda"):
+        return self.get_npdm(ket, pdm_type=4, bra=bra, algo=algo,
+                             device=device)
+
+    def get_5pdm(self, ket, *, bra=None, device="cuda"):
+        return self.get_npdm(ket, pdm_type=5, bra=bra, algo="poly",
+                             device=device)
+
+    def get_6pdm(self, ket, *, bra=None, device="cuda"):
+        return self.get_npdm(ket, pdm_type=6, bra=bra, algo="poly",
+                             device=device)
+
+    def get_trans_2pdm(self, bra, ket):
+        """Transition 2PDM (reference core.py get_trans_2pdm)."""
+        return self.get_npdm(ket, pdm_type=2, bra=bra)
+
+    def get_trans_3pdm(self, bra, ket, algo: str = "poly", device="cuda"):
+        return self.get_npdm(ket, pdm_type=3, bra=bra, algo=algo,
+                             device=device)
+
+    def get_trans_4pdm(self, bra, ket, algo: str = "poly", device="cuda"):
+        return self.get_npdm(ket, pdm_type=4, bra=bra, algo=algo,
+                             device=device)
+
+    def get_conventional_1pdm(self, ket, **kw):
+        return self.get_1pdm(ket, **kw)
+
+    def get_conventional_2pdm(self, ket, **kw):
+        return self.get_2pdm(ket, **kw)
+
+    def get_conventional_trans_1pdm(self, bra, ket):
+        return self.get_trans_1pdm(bra, ket)
+
+    def get_conventional_trans_2pdm(self, bra, ket):
+        return self.get_trans_2pdm(bra, ket)
+
+    def get_orbital_entropies_use_npdm(self, ket, ij_symm: int = 1):
+        """reference core.py get_orbital_entropies_use_npdm — the same
+        quantities through the correlator route."""
+        return self.get_orbital_entropies(ket, ij_symm=ij_symm)

@@ -97,6 +97,17 @@ KERNELS: Dict[str, KernelInfo] = {
     "K16_slab_matvec": KernelInfo(
         "cuda", "block2_preview_tpu_torch/csrc/slab_matvec.cu",
         "block2_preview_tpu/ops/resident.py:288 _slab_matvec_impl"),
+    "K17_npdm_gemm": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/npdm_gemm.cu",
+        "block2_preview_tpu/dmrg/npdm_scheme.py:376 _mm (in :357 "
+        "_device_gemm)"),
+    "K18_plan_exec": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/plan_exec.cu",
+        "block2_preview_tpu/ops/exec_jax.py:36 _execute_impl (jit :48 "
+        "_execute; + :55 _bucket_exec, :64 _pad_one)"),
+    "K19_probe": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/probe.cu",
+        "block2_preview_tpu/utils/tpu_smoke.py:33 dot (+ :50 fill)"),
 }
 
 _P = ctypes.c_void_p
@@ -125,12 +136,22 @@ _SIGS = {
     "b2t_mix_v2": (_P, _P, _P, _L, _I, _I, _P, _P),
     "b2t_slab_mv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _I, _I, _P, _P, _P),
+    "b2t_npdm_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "b2t_plan_exec": (_P, _L, _P, _P, _P, _P, _I, _L, _L, _P, _P),
+    "b2t_probe_dot": (_P, _P, _I, _P, _P),
+    "b2t_probe_fill": (_P, _I, _P, _L, _I, _P, _P),
 }
-# entry-point suffix per value type; the complex instances exist only for
-# the entries listed in _COMPLEX
+# entry-point suffix per value type; each entry has the float64 and
+# float32 instances unless _TYPES lists its own
 _SUFFIX = {"float64": "_f64", "float32": "_f32", "complex128": "_c128",
            "complex64": "_c64"}
-_COMPLEX = {"b2t_tiled"}
+_TYPES = {"b2t_tiled": ("_f64", "_f32", "_c128", "_c64"),
+          "b2t_npdm_gemm": ("_f64", "_c128"),
+          "b2t_probe_dot": ("_f32",), "b2t_probe_fill": ("_f32",)}
+
+
+def _types(entry: str):
+    return _TYPES.get(entry, ("_f64", "_f32"))
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
@@ -208,8 +229,7 @@ def lib() -> ctypes.CDLL:
         build()
         cdll = ctypes.CDLL(str(library_path()))
         for name, args in _SIGS.items():
-            for sfx in (("_f64", "_f32", "_c128", "_c64")
-                        if name in _COMPLEX else ("_f64", "_f32")):
+            for sfx in _types(name):
                 fn = getattr(cdll, name + sfx)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
@@ -239,8 +259,9 @@ def call(entry: str, dtype, *args) -> None:
             a = a.data_ptr()
         cargs.append(a)
     sfx = _SUFFIX[str(dtype).rsplit(".", 1)[-1]]
-    if sfx.startswith("_c") and entry not in _COMPLEX:
-        raise TypeError(f"{entry} takes real types only (got {dtype})")
+    if sfx not in _types(entry):
+        raise TypeError(f"{entry} has no {dtype} instance (it takes "
+                        f"{', '.join(t[1:] for t in _types(entry))})")
     fn = getattr(lib(), entry + sfx)
     err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:

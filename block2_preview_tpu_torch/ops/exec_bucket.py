@@ -32,6 +32,14 @@ drops an imaginary part).
 ``matvec_device`` (padded device vectors), ``solve_ground_state`` (the
 port's device Davidson around K8, the reference's ``_dav_jit``), ``pad``
 and ``free``.
+
+:class:`PlanExecutor` is the reference's older padded-bucket executor
+(exec_jax.py:75-128, whose matvec is ``_execute``/``_bucket_exec``): its
+``device_buckets`` are the reference's zero-padded stacks (A, R, pidx,
+oidx), field-equal, as views of two flat device pools
+(``runtime.unpack_views``), and its matvec runs them as they are through
+kernel K18 (``csrc/plan_exec.cu``; :func:`plan_exec`), or
+:func:`plan_exec_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -356,3 +364,132 @@ class BucketExecutor:
             max_subspace=max_subspace)
         return (float(th), xv.cpu().numpy().astype(np.float64)[:self.size],
                 int(it))
+
+
+# ---------------------------------------------------------------------------
+# PlanExecutor: the padded stacks (kernel K18) and its plain twin
+# ---------------------------------------------------------------------------
+
+def plan_exec_plain(xp, buckets, sig_len: int):
+    """Plain PyTorch version of K18: the reference's ``_execute_impl``
+    bucket by bucket — ``P = xp[pidx]``, one batched einsum, a scatter-add
+    into sigma [sig_len] through ``oidx``, indices past the end dropped."""
+    sig = xp.new_zeros(sig_len)
+    for (A, R, pidx, oidx) in buckets:
+        out = torch.einsum("bak,bkn,bpn->bap", A, xp[pidx.long()], R)
+        o = oidx.reshape(-1).long()
+        keep = o < sig_len
+        sig.index_add_(0, o[keep], out.reshape(-1)[keep])
+    return sig
+
+
+def plan_exec(xp, ex: "PlanExecutor"):
+    """Sigma [size_p + 1] (slot size_p the spill of the sentinel) of the
+    padded psi ``xp`` [size_p + 1] through ``ex``'s buckets (kernel K18),
+    on the device of ``xp``; CPU tensors run :func:`plan_exec_plain`."""
+    sig_len = ex.size_p + 1
+    if xp.shape != (sig_len,):
+        raise ValueError(f"plan_exec: psi {tuple(xp.shape)} (expected "
+                         f"({sig_len},))")
+    if xp.device.type == "cpu":
+        return plan_exec_plain(xp, ex.device_buckets, sig_len)
+    if not xp.is_cuda:
+        raise ValueError(f"unsupported device {xp.device}")
+    out = xp.new_zeros(sig_len)
+    _kernels.launch("K18_plan_exec", "b2t_plan_exec", xp.dtype, xp,
+                    sig_len, ex.vals, ex.ints, ex.desc, ex.cum,
+                    len(ex.device_buckets), ex.n_blocks, sig_len, out)
+    return out
+
+
+class PlanExecutor:
+    """Compiled sigma-vector plan for one effective-Hamiltonian center step
+    on padded buckets (the reference's ``PlanExecutor``,
+    exec_jax.py:75-128).
+
+    Every triple goes to the bucket of its ``_round_dim`` shapes
+    (a, k, n, p); per bucket, sorted by key, the batch is padded by
+    ``_round_batch`` and the stacks A [B, a, k], R [B, p, n], pidx
+    [B, k, n], oidx [B, a, p] are built as the reference builds them
+    (zero blocks, sentinel index ``size_p``).  They are uploaded as one
+    value pool ``vals`` and one int32 pool ``ints``; ``device_buckets``
+    holds per bucket the four views into them.  ``desc`` [nb, 9] and
+    ``cum`` [nb + 1] (int64) are K18's bucket table: a, k, n, p, CUDA
+    blocks per item, and the offsets of A, R, pidx and oidx."""
+
+    VEC_PAD = VEC_PAD   # flat psi/sigma vectors padded to multiples of this
+
+    def __init__(self, eff, dtype=np.float64, device="cuda"):
+        from ..runtime import resolve_device, torch_dtype, unpack_views
+        if np.dtype(getattr(eff, "dtype", np.float64)).kind == "c":
+            raise TypeError("PlanExecutor is real only (got a "
+                            f"{np.dtype(eff.dtype)} effective Hamiltonian);"
+                            " backend='torch_tiled' carries complex")
+        tdt = torch_dtype(dtype)
+        self.size = eff.size
+        self.size_p = ((eff.size + self.VEC_PAD) // self.VEC_PAD) \
+            * self.VEC_PAD
+        self.dtype = np.dtype(dtype)
+        self.device = resolve_device(device)
+        buckets: Dict[Tuple[int, int, int, int], List] = {}
+        for (m, lk, pk, rk, ok) in eff.triples:
+            lb = eff.LW[m][lk]
+            rb = eff.RW[m][rk]
+            a0, k0 = lb.shape
+            p0, n0 = rb.shape
+            key = (_round_dim(a0), _round_dim(k0),
+                   _round_dim(n0), _round_dim(p0))
+            buckets.setdefault(key, []).append(
+                (lb, rb, eff.offsets[pk], eff.shapes[pk], eff.offsets[ok],
+                 eff.shapes[ok]))
+        invalid = self.size_p   # sentinel index -> padded zero / spill slot
+        vals, ints, desc = [], [], []
+        ov = oi = 0
+        for (a, k, n, p), items in sorted(buckets.items()):
+            B = _round_batch(len(items))
+            A = np.zeros((B, a, k), dtype=self.dtype)
+            R = np.zeros((B, p, n), dtype=self.dtype)
+            pidx = np.full((B, k, n), invalid, dtype=np.int32)
+            oidx = np.full((B, a, p), invalid, dtype=np.int32)
+            for b, (lb, rb, poff, pshape, ooff, oshape) in enumerate(items):
+                a0, k0 = lb.shape
+                p0, n0 = rb.shape
+                A[b, :a0, :k0] = lb
+                R[b, :p0, :n0] = rb
+                kk, nn = pshape
+                pidx[b, :kk, :nn] = (poff + np.arange(kk * nn)
+                                     ).reshape(kk, nn)
+                aa, pp = oshape
+                oidx[b, :aa, :pp] = (ooff + np.arange(aa * pp)
+                                     ).reshape(aa, pp)
+            desc.append((a, k, n, p, int(chain_blocks(a, p)), ov, ov + A.size,
+                         oi, oi + pidx.size))
+            ov += A.size + R.size
+            oi += pidx.size + oidx.size
+            vals += [A, R]
+            ints += [pidx, oidx]
+        flat_v = np.concatenate([v.ravel() for v in vals]) if vals \
+            else np.zeros(0, self.dtype)
+        flat_i = np.concatenate([v.ravel() for v in ints]) if ints \
+            else np.zeros(0, np.int32)
+        self.vals = torch.as_tensor(flat_v, dtype=tdt, device=self.device)
+        self.ints = torch.as_tensor(flat_i, device=self.device)
+        v = unpack_views(self.vals, [x.shape for x in vals])
+        i = unpack_views(self.ints, [x.shape for x in ints])
+        self.device_buckets = tuple((v[2 * b], v[2 * b + 1], i[2 * b],
+                                     i[2 * b + 1])
+                                    for b in range(len(desc)))
+        d = np.asarray(desc, dtype=np.int64).reshape(-1, 9)
+        cum = np.concatenate([[0], np.cumsum(
+            d[:, 4] * [x.shape[0] for x in vals[::2]])]).astype(np.int64)
+        self.desc = torch.as_tensor(d, device=self.device)
+        self.cum = torch.as_tensor(cum, device=self.device)
+        self.n_blocks = int(cum[-1])
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        """H x for a host vector x [size]; float64 host values, as the
+        reference's."""
+        xp = np.zeros(self.size_p + 1, dtype=self.dtype)
+        xp[:self.size] = x
+        sig = plan_exec(torch.as_tensor(xp, device=self.device), self)
+        return sig.cpu().numpy().astype(np.float64)[:self.size]

@@ -51,3 +51,20 @@ def torch_dtype(dtype, complex_ok: bool = False) -> torch.dtype:
         ok = " | complex128 | complex64" if complex_ok else ""
         raise TypeError(f"unsupported dtype {dt} (float64 | float32{ok})")
     return _TORCH_DTYPES[dt]
+
+
+def unpack_views(flat, shapes):
+    """Consecutive pieces of the flat tensor ``flat`` as views of the given
+    ``shapes`` (a tuple of tensors, in order).  Counterpart of
+    block2_preview_tpu/ops/devcache.py:144 ``_unpack``, which split one
+    upload into its arrays with a device launch; a slice and a reshape of
+    a torch tensor move no data, so nothing launches here."""
+    sizes = [int(np.prod(shape, dtype=np.int64)) for shape in shapes]
+    if sum(sizes) > flat.numel():
+        raise ValueError(f"unpack_views: shapes need {sum(sizes)} elements, "
+                         f"the flat tensor holds {flat.numel()}")
+    out, o = [], 0
+    for shape, n in zip(shapes, sizes):
+        out.append(flat[o:o + n].view(tuple(int(s) for s in shape)))
+        o += n
+    return tuple(out)

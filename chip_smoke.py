@@ -5,7 +5,7 @@ port's own host reference (backend="numpy", held equal to the JAX
 package's host path by the CPU tests):
 
   1. device    card name and power limit (nvidia-smi), torch / CUDA
-  2. build     nvcc builds kernels K1-K16 from block2_preview_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K19 from block2_preview_tpu_torch/csrc
                (one nvcc per source, all at once)
   4. parity    Hubbard-L8, D=80, 6 sweeps with noise, f64: |dE| < 1e-8 Ha
   5. full      seeded K=16 quantum-chemistry Hamiltonian (16 electrons,
@@ -34,8 +34,10 @@ package's host path by the CPU tests):
                bucketed run, K9 on each "torch_device" run, K7 on the
                tiled one
   7b. roots    the K=16 system of phase 5 on backend="torch_device", f64,
-               three roots, D=[250, 250], noise [1e-4, 0], Davidson
-               |r|^2 < 1e-10, 2 sweeps from get_random_mps(250, seed=11):
+               three roots, D=250, noise 1e-4, Davidson |r|^2 < 1e-10, one
+               sweep from get_random_mps(250, seed=11) (two until the
+               density-matrix phases came; the depth was cut to keep the
+               script inside its time):
                per sweep the wall split, every root's energy, K8 and K9
                launches, matvecs, the blocking uploads and downloads, and
                the peak device memory; fails unless K8 and K9 launched,
@@ -72,6 +74,42 @@ package's host path by the CPU tests):
   9c. mix v2   the same start under B2TPU_MIX=2, one sweep (D=250, noise
                1e-4): the split, the v2 plan-build time and the K15
                launches; within 1e-8 Ha of phase 5's sweep-0 energy
+  10a. npdm    Hubbard-L8, a port ground state (D=80, 6 sweeps, phase 4's
+               schedule) and a second state (D=30, 2 sweeps): orders 1-4
+               through DMRGDriver.get_npdm (1 and 2 on the host engine,
+               order 2 also through get_trans_2pdm(ket, ket), which takes
+               no singlet shortcut; 3 and 4 with algo="poly", closes on
+               the card at the default threshold) and pooled_gram orders
+               1-4 with device_min_flop=0 (every class close on K17),
+               each against the determinant path (npdm_spatial) and
+               order 3 also against pdm3_spatial, to 1e-10; the
+               transition 1PDM and 3PDM of the two states to 1e-10; the
+               energy from the 1PDM and 2PDM against drv.expectation to
+               1e-8 Ha; fails unless K17's launches equal the closes of
+               the threshold-0 runs
+  10b. npdm    the K=16 MPS phase 5 leaves (D=250): the 1PDM and 2PDM by
+               the pooled engine (npdm_spatial_poly's pooled_gram +
+               gram_to_spatial) at the default threshold on the card,
+               each Gram against the same Gram with host BLAS closes (in a
+               worker) to 1e-12, and the energy from them against
+               drv.expectation (in a worker) to 1e-8 Ha; then the 3PDM of
+               a 12-orbital space (seeded K=12 QC, 12 electrons, the port
+               at D=100, 2 sweeps from get_random_mps(100, seed=11)) the
+               same way against its host Gram; the wall split (host pools
+               / closes / scatter), the closes, K17's launches and the
+               peak device memory; fails unless K17 launched
+  10c. probes  utils/gpu_smoke.run_smoke("cuda"): the float32 precision
+               probe (K19's dot and the float32 matmul, inputs that TF32
+               rounds visibly), one K19 launch filling a 2^27-element
+               pool, and a float32 torch_tiled Hubbard-L8 solve (D=120, 6
+               sweeps) against exact diagonalization to 5e-4 Ha; all must
+               pass, and the precision probe must fail with TF32 switched
+               on (the negative control; the policy is restored after)
+  10d. plan    PlanExecutor (the padded-bucket matvec, K18) at the
+               Hubbard-L8 center 3 (D=60, 2 host sweeps), f64 and f32,
+               against its twin and against K8's sigma on the same center
+               (f64: 1e-12 relative); phase 3 does the same at the K=16
+               site 7
   3. kernels   each kernel against its plain PyTorch twin on the card, at
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
@@ -93,7 +131,12 @@ package's host path by the CPU tests):
                c0 > 0), K14 (library: one torch.take), K15 on the same
                sides' v2 plans (library: one index_add_) and K16 (the v1
                slab matvec on the site's LW/RW pools, also held against
-               K1 to 1e-12 relative), f64 and f32.  Each
+               K1 to 1e-12 relative), f64 and f32; K17 at the shapes of
+               the largest class closes of 10b (K=16 order 2, K=12 order
+               3; library: one torch.matmul, cuBLAS DGEMM), f64 and
+               complex128; K18 at the K=16 site 7 (also against K8), f64
+               and f32; K19's dot (2048 values; library torch.dot) and
+               fill (2^27 values).  Each
                row carries the kernel's time, its twin's, one PyTorch
                call's where one computes the same function, and the bound
                (the least time the card could take: the live bytes the
@@ -110,9 +153,11 @@ terminates them before it exits.  The last line is {"ok": true,
 K1-K6 and K8-K12 from their f64 rows at the K=16 site, K7 from its
 complex128 row on phase 6b's state, with the launches of phases 5
 (K1-K6), 6b (K7), 7b (K8, K9), 8b (K10, K11), 8c (K12), 9b (K13, K14)
-and 9c (K15).  No path runs the v1 slab matvec (K16), as in the JAX
-package: its launches are those counted in the runs of phases 5, 7b, 8b,
-8c, 9b and 9c, each from a reset, and the script fails unless they are 0.
+and 9c (K15), 10b (K17), 10d (K18) and 10c (K19).  No path runs the v1
+slab matvec (K16), as in the JAX package: its launches are those counted
+in the runs of phases 5, 7b, 8b, 8c, 9b and 9c, each from a reset, and
+the script fails unless they are 0.  The host references of phases 10a
+and 10b run in two more workers.
 """
 
 from __future__ import annotations
@@ -137,6 +182,9 @@ HUB_TOL = 1e-8      # Ha, phases 4, 6a and 7a
 F32_E_TOL = 1e-5    # Ha, phase 7a's f32 root (f32 keeps ~7 digits of -6 Ha)
 QC_TOL = 1e-6       # Ha, phase 5
 NORM_TOL = 1e-10    # phase 6a norms; phase 6b |psi| slack
+PDM_TOL = 1e-10     # phase 10a, PDM elements against the determinant path
+GRAM_TOL = 1e-12    # phase 10b, device Gram against the host Gram (max abs)
+RDM_E_TOL = 1e-8    # Ha, phases 10a/10b energy from the 1PDM and 2PDM
 HBM_BPS = 3.35e12   # H100 SXM memory rate, bytes/s
 PEAK_FLOPS = 67e12  # H100 SXM f64 tensor-core / f32 CUDA-core peak, FLOP/s
 
@@ -307,7 +355,8 @@ def phase_build():
     for name, regs, spill in usage:
         if name.startswith(("mv_kernel", "blk_kernel", "noise_",
                             "tiled_kernel", "bucket_", "slab_", "stk_mix",
-                            "tblk_", "env_gemm", "place_v3", "mix_v2")) or \
+                            "tblk_", "env_gemm", "place_v3", "mix_v2",
+                            "npdm_gemm", "plan_exec", "probe_")) or \
                 not spill.startswith("0 bytes stack"):
             print(f"    ptxas {name}: {regs} registers; {spill}", flush=True)
 
@@ -1902,11 +1951,12 @@ def timed_host_reference(mpo, mps, sched):
     return _host_reference(mpo, mps, sched), time.time() - t0
 
 
-def host_pool(threads: int = 3):
-    """Two worker processes (spawned, their numerical libraries held to
-    ``threads`` threads each) for the host references of phases 5 and 3,
-    so that they run beside the device phases instead of after them.  Use
-    it in a ``with`` block: leaving the block terminates the workers."""
+def host_pool(threads: int = 3, workers: int = 3):
+    """Worker processes (spawned, their numerical libraries held to
+    ``threads`` threads each) for the host references of phases 5, 3, 10a
+    and 10b, so that they run beside the device phases instead of after
+    them.  Use it in a ``with`` block: leaving the block terminates the
+    workers."""
     import multiprocessing as mp
     import os
     env = {k: str(threads) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
@@ -1914,13 +1964,398 @@ def host_pool(threads: int = 3):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        return mp.get_context("spawn").Pool(2)   # the workers start here
+        return mp.get_context("spawn").Pool(workers)  # they start here
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
+
+
+# ---------------------------------------------------------------------------
+# phase 10: density matrices (K17), the chip probes (K19), PlanExecutor (K18)
+# ---------------------------------------------------------------------------
+
+def rdm_energy(h1e, g2e, ecore, dm1, dm2):
+    """<H> from the spatial 1PDM and 2PDM (dm2[i, j, k, l] = sum_st
+    <c+_is c+_jt c_kt c_ls>): H = sum h_ij E_ij + 1/2 sum (ij|kl)
+    c+_is c+_kt c_lt c_js (tests/test_pdm.py's convention)."""
+    return float(ecore + np.einsum("ij,ij->", h1e, dm1)
+                 + 0.5 * np.einsum("ijkl,iklj->", g2e, dm2))
+
+
+def hubbard_npdm_states(device, L=8, D=80, ns=6):
+    """Phase 10a's states: a port ground state of Hubbard-L (phase 4's
+    schedule and start) and a second state (D=30, 2 sweeps from seed 3).
+    Returns (drv, mpo, fd, ket, bra)."""
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
+    drv.initialize_system(n_sites=L, n_elec=L, spin=0)
+    mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
+    drv.dmrg(mpo, drv.get_random_mps(D, seed=7), bond_dims=[D] * ns,
+             noises=[1e-5] * ns + [0], thrds=[1e-10], n_sweeps=ns, tol=0,
+             iprint=0, device=device)
+    ket = drv._last_dmrg.mps
+    Db = min(D, 30)
+    drv.dmrg(mpo, drv.get_random_mps(Db, seed=3), bond_dims=[Db, Db],
+             noises=[1e-4, 0], thrds=[1e-8], n_sweeps=2, tol=0, iprint=0,
+             device=device)
+    return drv, mpo, fd, ket, drv._last_dmrg.mps
+
+
+def npdm_host_refs(ket, bra):
+    """Phase 10a's host references (a worker): the determinant path
+    (npdm_spatial) orders 1-4, pdm3_spatial, and the transition 1PDM and
+    3PDM <bra|..|ket> by determinants; with the seconds spent."""
+    from block2_preview_tpu_torch.dmrg.expect import pdm3_spatial
+    from block2_preview_tpu_torch.dmrg.npdm import npdm_spatial
+    t0 = time.time()
+    out = {f"det{k}": npdm_spatial(ket, k) for k in (1, 2, 3, 4)}
+    out["tdet1"] = npdm_spatial(ket, 1, bra=bra)
+    out["tdet3"] = npdm_spatial(ket, 3, bra=bra)
+    out["pdm3"] = pdm3_spatial(ket)
+    out["secs"] = time.time() - t0
+    return out
+
+
+def host_gram(mps, order):
+    """(G, seconds) of pooled_gram with every class close on host BLAS
+    (device=None) — the host side of phase 10b (a worker)."""
+    from block2_preview_tpu_torch.dmrg.npdm_scheme import pooled_gram
+    t0 = time.time()
+    G, _ = pooled_gram(mps, order, device=None)
+    return G, time.time() - t0
+
+
+def host_expectation(mpo, mps):
+    """(<mps|H|mps>, seconds) by DMRGDriver.expectation (a worker)."""
+    from block2_preview_tpu_torch.driver.core import DMRGDriver
+    t0 = time.time()
+    return DMRGDriver().expectation(mps, mpo, mps), time.time() - t0
+
+
+def _hold(tag, got, ref, tol):
+    d = float(np.abs(np.asarray(got) - np.asarray(ref)).max())
+    print(f"[{tag}] max |d| {d:.2e}", flush=True)
+    if not d <= tol:
+        fail(f"{tag}: max |d| {d:.3e} > {tol:.0e}")
+    return d
+
+
+def phase_npdm_hubbard(device, drv, mpo, fd, ket, bra, refs):
+    """Phase 10a (see the module docstring); ``refs`` from
+    :func:`npdm_host_refs`.  Returns the K17 launches of the
+    threshold-0 runs."""
+    from block2_preview_tpu_torch.dmrg.npdm import gram_to_spatial
+    from block2_preview_tpu_torch.dmrg.npdm_scheme import pooled_gram
+    from block2_preview_tpu_torch.ops import _kernels
+    L = ket.n_sites
+    print(f"[10a npdm] Hubbard-L{L} host references (worker) "
+          f"{refs['secs']:.1f} s", flush=True)
+    t0 = time.time()
+    dm1 = drv.get_npdm(ket, 1)
+    dm2 = drv.get_npdm(ket, 2)
+    print(f"[10a npdm] get_npdm orders 1-2 (host engine) "
+          f"{time.time() - t0:.1f} s; order 2's singlet shortcut "
+          f"(2 aa + 2 ab) differs from the full 2PDM by "
+          f"{np.abs(dm2 - refs['det2']).max():.2e} (the state's spin "
+          f"contamination)", flush=True)
+    _hold("10a npdm order 1 get_npdm vs det", dm1.sum(axis=0), refs["det1"],
+          PDM_TOL)
+    _hold("10a npdm order 2 get_trans_2pdm(ket, ket) vs det",
+          drv.get_trans_2pdm(ket, ket), refs["det2"], PDM_TOL)
+    for k in (3, 4):
+        _kernels.reset_counts()
+        t0 = time.time()
+        got = drv.get_npdm(ket, k, algo="poly", device=device)
+        print(f"[10a npdm] get_npdm order {k} poly {time.time() - t0:.1f} s"
+              f" K17 {_kernels.launch_counts()['K17_npdm_gemm']}",
+              flush=True)
+        _hold(f"10a npdm order {k} get_npdm poly vs det", got,
+              refs[f"det{k}"], PDM_TOL)
+        if k == 3:
+            _hold("10a npdm order 3 get_npdm poly vs pdm3_spatial", got,
+                  refs["pdm3"], PDM_TOL)
+    k17 = 0
+    for k in (1, 2, 3, 4):
+        st = {}
+        _kernels.reset_counts()
+        G, combos = pooled_gram(ket, k, device=device, device_min_flop=0,
+                                stats=st)
+        n_dev = sum(1 for c in st["closes"] if c[5])
+        launches = _kernels.launch_counts()["K17_npdm_gemm"]
+        k17 += launches
+        print(f"[10a npdm] pooled_gram order {k} device_min_flop=0: "
+              f"{st['total']:.1f} s (pools {st['pools']:.1f} closes "
+              f"{st['close']:.1f} scatter {st['scatter']:.1f}) closes "
+              f"{len(st['closes'])} on the device {n_dev} K17 {launches}",
+              flush=True)
+        if device.type == "cuda" and launches != len(st["closes"]):
+            fail(f"10a order {k}: K17 launches {launches} != closes "
+                 f"{len(st['closes'])}")
+        _hold(f"10a npdm order {k} pooled_gram (K17) vs det",
+              gram_to_spatial(G, combos, L, k), refs[f"det{k}"], PDM_TOL)
+    _hold("10a npdm transition 1PDM get_trans_1pdm vs det",
+          drv.get_trans_1pdm(bra, ket).sum(axis=0), refs["tdet1"], PDM_TOL)
+    _hold("10a npdm transition 3PDM get_trans_3pdm (poly) vs det",
+          drv.get_trans_3pdm(bra, ket, device=device), refs["tdet3"],
+          PDM_TOL)
+    e_rdm = rdm_energy(fd.h1e, fd.g2e, fd.const_e, dm1.sum(axis=0), dm2)
+    e_mpo = drv.expectation(ket, mpo, ket)
+    de = e_rdm - e_mpo
+    print(f"[10a npdm] energy from the 1PDM and 2PDM {e_rdm:.12f}  "
+          f"expectation {e_mpo:.12f}  dE {de:.2e}", flush=True)
+    if not abs(de) < RDM_E_TOL:
+        fail(f"10a: RDM energy |dE| {abs(de):.3e} >= {RDM_E_TOL}")
+    return k17
+
+
+def _gram_run(device, tag, mps, order, ref):
+    """One device Gram of phase 10b against the host Gram ``ref`` =
+    (G, seconds); returns (the spatial PDM, stats, K17 launches)."""
+    from block2_preview_tpu_torch.dmrg.npdm import gram_to_spatial
+    from block2_preview_tpu_torch.dmrg.npdm_scheme import pooled_gram
+    from block2_preview_tpu_torch.ops import _kernels
+    st = {}
+    _kernels.reset_counts()
+    G, combos = pooled_gram(mps, order, device=device, stats=st)
+    launches = _kernels.launch_counts()["K17_npdm_gemm"]
+    dev = [c for c in st["closes"] if c[5]]
+    gf = sum(2.0 * n * X * m for (_, _, n, X, m, _) in dev) / 1e9
+    big = max(dev, key=lambda c: c[2] * c[3] * c[4], default=None)
+    G_h, secs = ref
+    print(f"[{tag}] order {order}: {st['total']:.1f} s (host pools "
+          f"{st['pools']:.1f} closes {st['close']:.1f} scatter "
+          f"{st['scatter']:.1f}) closes {len(st['closes'])}, on the device "
+          f"{len(dev)} ({gf:.2f} GFLOP; largest bond {big and big[0]} "
+          f"[{big and big[2]} x {big and big[3]}] @ [{big and big[3]} x "
+          f"{big and big[4]}]) K17 {launches}; G {G.shape[0]}^2; host Gram "
+          f"(worker) {secs:.1f} s", flush=True)
+    if device.type == "cuda" and launches != len(dev):
+        fail(f"{tag} order {order}: K17 launches {launches} != device "
+             f"closes {len(dev)}")
+    _hold(f"{tag} order {order} device Gram vs host Gram", G, G_h, GRAM_TOL)
+    return gram_to_spatial(G, combos, mps.n_sites, order), st, launches
+
+
+def _largest(st):
+    """(n, X, m) of the largest device close of a pooled_gram run."""
+    dev = [c for c in st["closes"] if c[5]]
+    return max(dev, key=lambda c: c[2] * c[3] * c[4])[2:5] if dev else None
+
+
+def phase_npdm_wide(device, mps, h1e, g2e, refs, e_ref, mps12, ref12):
+    """Phase 10b (see the module docstring): the 1PDM and 2PDM of the
+    K=16 state ``mps`` (``refs`` the host Grams of orders 1 and 2,
+    ``e_ref`` = (expectation, seconds)), then the 3PDM of the K=12 state
+    ``mps12`` against its host Gram ``ref12``.  Returns (K17 launches,
+    the (n, X, m) of the largest device close of each run that had
+    one)."""
+    import torch
+    tag = "10b npdm"
+    cuda = device.type == "cuda"
+    k17, shapes, dms = 0, [], []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for order, ref in zip((1, 2), refs):
+        dm, st, n = _gram_run(device, tag, mps, order, ref)
+        dms.append(dm)
+        k17 += n
+        shapes.append(_largest(st))
+    e_rdm = rdm_energy(h1e, g2e, 0.0, dms[0], dms[1])
+    de = e_rdm - e_ref[0]
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda \
+        else float("nan")
+    print(f"[{tag}] K={mps.n_sites} energy from the 1PDM and 2PDM "
+          f"{e_rdm:.10f}  expectation (worker, {e_ref[1]:.1f} s) "
+          f"{e_ref[0]:.10f}  dE {de:.2e}  max_memory_allocated {mem:.2f} "
+          f"GiB", flush=True)
+    if not abs(de) < RDM_E_TOL:
+        fail(f"{tag}: RDM energy |dE| {abs(de):.3e} >= {RDM_E_TOL}")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _, st, n = _gram_run(device, f"{tag} K={mps12.n_sites}", mps12, 3,
+                         ref12)
+    k17 += n
+    shapes.append(_largest(st))
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda \
+        else float("nan")
+    print(f"[{tag}] K={mps12.n_sites} 3PDM max_memory_allocated "
+          f"{mem:.2f} GiB", flush=True)
+    if cuda and k17 == 0:
+        fail(f"{tag}: K17 never launched")
+    return k17, [x for x in shapes if x is not None]
+
+
+def qc12_state(device, n_orb=12, D=100):
+    """Phase 10b's 12-orbital state: the seeded K=12 QC (12 electrons)
+    solved by the port at D=100, 2 sweeps from get_random_mps(100,
+    seed=11).  Returns the MPS."""
+    drv, mpo, _ = qc_system(n_orb, n_orb)
+    t0 = time.time()
+    e = drv.dmrg(mpo, drv.get_random_mps(D, seed=11), device=device,
+                 **dict(qc_sched(D), thrds=[1e-10]))
+    print(f"[10b npdm] K={n_orb} QC D={D} 2 sweeps E {e:.10f} "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    return drv._last_dmrg.mps
+
+
+def phase_probes(device, pool_elems=1 << 27, tiled=(8, 120, 6)):
+    """Phase 10c: gpu_smoke.run_smoke on ``device`` and the TF32 negative
+    control of its precision probe.  Returns the K19 launches of
+    run_smoke."""
+    import torch
+    from block2_preview_tpu_torch.ops import _kernels
+    from block2_preview_tpu_torch.runtime import set_precision_policy
+    from block2_preview_tpu_torch.utils import gpu_smoke
+    _kernels.reset_counts()
+    t0 = time.time()
+    res = gpu_smoke.run_smoke(device, pool_elems=pool_elems, tiled=tiled)
+    k19 = _kernels.launch_counts()["K19_probe"]
+    print(f"[10c probes] run_smoke {time.time() - t0:.1f} s: "
+          f"{json.dumps(res)}  K19 {k19}", flush=True)
+    if not res["ok"]:
+        fail(f"10c: a probe failed ({res})")
+    if device.type == "cuda" and k19 == 0:
+        fail("10c: K19 never launched")
+    # negative control: TF32 in the float32 matmul must be caught
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl = gpu_smoke.precision_probe(device)
+    finally:
+        set_precision_policy()
+    print(f"[10c probes] TF32 control (allow_tf32=True): {json.dumps(ctl)}",
+          flush=True)
+    if device.type == "cuda" and ctl["ok"]:
+        fail("10c: the precision probe passed with TF32 switched on")
+    return k19
+
+
+def plan_exec_check(device, eff, tag, rows=None):
+    """PlanExecutor (K18) at one center ``eff``: f64 and f32 against its
+    twin on the same stacks, and f64 against K8's sigma (BucketExecutor)
+    to 1e-12 relative.  With ``rows`` the f64 case feeds the JSON row."""
+    import torch
+    from block2_preview_tpu_torch.ops import exec_bucket
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal(eff.size)
+    for dtype in (np.float64, np.float32):
+        t0 = time.time()
+        ex = exec_bucket.PlanExecutor(eff, dtype=dtype, device=device)
+        t_build = time.time() - t0
+        xp = torch.as_tensor(np.concatenate([x, np.zeros(ex.size_p + 1
+                                                         - ex.size)]),
+                             dtype=ex.vals.dtype, device=device)
+
+        def k18():
+            return exec_bucket.plan_exec(xp, ex)
+
+        def twin():
+            return exec_bucket.plan_exec_plain(xp, ex.device_buckets,
+                                               ex.size_p + 1)
+
+        n_bytes, flops = sigma_bytes_flops(eff, dtype)
+        pad = sum(2.0 * A.shape[0] * A.shape[1] * R.shape[2]
+                  * (A.shape[2] + R.shape[1])
+                  for (A, R, _, _) in ex.device_buckets)
+        _check(rows if dtype == np.float64 else None, "K18_plan_exec",
+               dtype, tag, k18(), twin(), ATOMIC_TOL[dtype],
+               time_ms(k18, device), time_ms(twin, device), None, n_bytes,
+               flops, f"size {eff.size} triples {len(eff.triples)} buckets "
+               f"{len(ex.device_buckets)} blocks {ex.n_blocks} padded A+R "
+               f"{ex.vals.numel()} ints {ex.ints.numel()} GFLOP true "
+               f"{flops / 1e9:.2f} padded {pad / 1e9:.2f} build "
+               f"{t_build:.1f} s")
+        if dtype == np.float64:
+            got = ex.matvec(x)
+            bx = exec_bucket.BucketExecutor(eff, dtype=dtype, device=device)
+            ref = bx.matvec(x)
+            bx.free()
+            rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+            print(f"[10d plan] {tag}: PlanExecutor.matvec (K18) vs K8's "
+                  f"sigma rel {rel:.2e}", flush=True)
+            if not rel < 1e-12:
+                fail(f"K18 vs K8 at {tag}: rel {rel:.3e} >= 1e-12")
+        del ex
+
+
+def phase_plan_exec(device, L=8, D=60, t=3):
+    """Phase 10d: PlanExecutor at the Hubbard-L8 center t of an MPS after
+    2 host sweeps at D=60.  Returns the K18 launches of the run."""
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    from block2_preview_tpu_torch.ops import _kernels
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
+    drv.initialize_system(n_sites=L, n_elec=L, spin=0)
+    mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
+    mps = drv.get_random_mps(D, seed=1234)
+    drv.dmrg(mpo, mps, bond_dims=[D, D], noises=[1e-4, 1e-4], thrds=[1e-8],
+             n_sweeps=2, tol=0, iprint=0, backend="numpy")
+    me, _ = mid_site(mpo, drv._last_dmrg.mps, t)
+    _kernels.reset_counts()
+    plan_exec_check(device, EffectiveHamiltonian2(me, t), f"L{L}c{t}")
+    k18 = _kernels.launch_counts()["K18_plan_exec"]
+    print(f"[10d plan] Hubbard-L{L} center {t}: K18 {k18}", flush=True)
+    if device.type == "cuda" and k18 == 0:
+        fail("10d: K18 never launched")
+    return k18
+
+
+def phase_new_kernels(device, shapes, eff, t):
+    """Phase-3 rows of K17 (at the largest class closes ``shapes`` of
+    phase 10b, seeded values; f64 and complex128; library one
+    torch.matmul), K18 (PlanExecutor at center t of the K=16 MPS, f64
+    and f32, and against K8) and K19 (dot of 2048 values, library
+    torch.dot; fill of 2^27).  Returns the summary rows."""
+    import torch
+    from block2_preview_tpu_torch.ops import npdm_gemm
+    from block2_preview_tpu_torch.utils import gpu_smoke
+    rows = {}
+    rng = np.random.default_rng(17)
+    for n, X, m in shapes:
+        for dtype in (np.float64, np.complex128):
+            M = rng.standard_normal((n, X))
+            V = rng.standard_normal((X, m))
+            if dtype == np.complex128:
+                M = M + 1j * rng.standard_normal((n, X))
+                V = V + 1j * rng.standard_normal((X, m))
+            dM = torch.as_tensor(M, device=device)
+            dV = torch.as_tensor(V, device=device)
+            esz = np.dtype(dtype).itemsize
+            _check(rows if dtype == np.float64 else None, "K17_npdm_gemm",
+                   dtype, "", npdm_gemm.npdm_gemm(dM, dV),
+                   npdm_gemm.npdm_gemm_plain(dM, dV), ATOMIC_TOL[dtype],
+                   time_ms(lambda: npdm_gemm.npdm_gemm(dM, dV), device),
+                   time_ms(lambda: npdm_gemm.npdm_gemm_plain(dM, dV),
+                           device),
+                   time_ms(lambda: torch.matmul(dM, dV), device),
+                   esz * (n * X + X * m + n * m),
+                   (8 if dtype == np.complex128 else 2) * n * X * m,
+                   f"[{n} x {X}] @ [{X} x {m}]")
+            del dM, dV
+    plan_exec_check(device, eff, f"c{t}", rows)
+    a, b = (torch.as_tensor(v, device=device)
+            for v in gpu_smoke.precision_inputs())
+    _check(rows, "K19_probe", np.float32, "dot", gpu_smoke.dot(a, b)[None],
+           gpu_smoke.dot_plain(a, b)[None], F32_TOL,
+           time_ms(lambda: gpu_smoke.dot(a, b), device),
+           time_ms(lambda: gpu_smoke.dot_plain(a, b), device),
+           None, 4 * (2 * a.numel() + 1), 2 * a.numel(),
+           f"{a.numel()} values; torch.dot "
+           f"{time_ms(lambda: torch.dot(a, b), device):.4f} ms")
+    n = gpu_smoke.POOL_ELEMS if device.type == "cuda" else 1 << 20
+    x = torch.ones(1024, dtype=torch.float32, device=device)
+    _check(rows, "K19_probe", np.float32, "fill",
+           gpu_smoke.fill(x, n)[None], gpu_smoke.fill_plain(x, n)[None],
+           0.0, time_ms(lambda: gpu_smoke.fill(x, n), device),
+           time_ms(lambda: gpu_smoke.fill_plain(x, n), device), None,
+           4 * (x.numel() + n + 1), n, f"pool {n} values")
+    return summary_rows(rows)
 
 
 def main():
@@ -1949,22 +2384,29 @@ def main():
         ref5 = pool.apply_async(timed_host_reference, (
             mpo, drv.get_random_mps(D, seed=11), qc_sched(D)))
         e_hub = phase_hubbard(device)
+        hub = hubbard_npdm_states(device)
+        ref10a = pool.apply_async(npdm_host_refs, hub[3:])
         counts, ket, e5, e5_0 = phase_full(device, drv, mpo, D=D,
                                            n_orb=n_orb)
         later = ("K7_tiled", "K8_bucket", "K9_bucket_blocking", "K10_slab",
                  "K11_stk_mix", "K12_tiled_blocking", "K13_env_gemm",
-                 "K14_place_v3", "K15_mix_v2")
+                 "K14_place_v3", "K15_mix_v2", "K17_npdm_gemm",
+                 "K18_plan_exec", "K19_probe")
         for k in later:
-            counts.pop(k)   # the paths of phases 6b-9c
+            counts.pop(k)   # the paths of phases 6b-10d
         c5_k16 = {"K16_slab_matvec": counts.pop("K16_slab_matvec")}
         if not all(c > 0 for c in counts.values()):
             fail(f"a kernel of the path was never launched: {counts}")
         ket5 = copy_mps(ket)
         ref3 = pool.apply_async(host_davidson3, (mpo, ket5, t))
+        ref10b = [pool.apply_async(host_gram, (ket5, k)) for k in (1, 2)]
+        ref10e = pool.apply_async(host_expectation, (mpo, ket5))
+        ket12 = qc12_state(device)
+        ref12 = pool.apply_async(host_gram, (ket12, 3))
         phase_tiled_parity(device, e_ref=e_hub)
         counts["K7_tiled"] = phase_tdvp(device, drv, mpo, ket, D=D)
         phase_stacked_parity(device, ref=phase_excited(device))
-        roots = phase_roots(device, drv, mpo, D=D)
+        roots = phase_roots(device, drv, mpo, D=D, n_sweeps=1)
         c8b, e8b = phase_stacked_full(device, drv, mpo, D=D)
         c8c, e8c = phase_resident_v1(device, drv, mpo, D=D)
         phase_mix_parity(device, e_ref=e_hub)
@@ -1981,6 +2423,13 @@ def main():
         counts["K16_slab_matvec"] = k16_launches(
             {"5": c5_k16, "7b": roots, "8b": c8b, "8c": c8c, "9b": c9b,
              "9c": c9c})
+        phase_npdm_hubbard(device, *hub, ref10a.get())
+        h1e, g2e = seeded_qc_integrals(n_orb)
+        counts["K17_npdm_gemm"], k17_shapes = phase_npdm_wide(
+            device, ket5, h1e, g2e, [r.get() for r in ref10b],
+            ref10e.get(), ket12, ref12.get())
+        counts["K19_probe"] = phase_probes(device)
+        counts["K18_plan_exec"] = phase_plan_exec(device)
         r5 = ref5.get()
         check_full(e5, r5, n_orb)
         check_stacked(e8b, e8c, e5, r5)
@@ -1994,6 +2443,7 @@ def main():
                              host3=ref3.get())
         rows += phase_stacked_kernels(device, mpo, ket5, site[0], t)
         rows += phase_mix_kernels(device, mpo, ket5, site[0], t)
+        rows += phase_new_kernels(device, k17_shapes, eff, t)
     t0 = time.time()
     wide = wide_system()
     print(f"[3 kernels] Hubbard-L16 D=1000 site 7 (T=128 tiles; MPS built "

@@ -54,7 +54,9 @@ def test_chip_smoke_phases_on_cpu(capsys):
                       "K9_bucket_blocking": 0, "K10_slab": 0,
                       "K11_stk_mix": 0, "K12_tiled_blocking": 0,
                       "K13_env_gemm": 0, "K14_place_v3": 0,
-                      "K15_mix_v2": 0, "K16_slab_matvec": 0}
+                      "K15_mix_v2": 0, "K16_slab_matvec": 0,
+                      "K17_npdm_gemm": 0, "K18_plan_exec": 0,
+                      "K19_probe": 0}
     assert drv._last_dmrg.mps is ket
     assert e0 == drv._last_dmrg.sweep_log[0]["energy"] and e <= e0 + 1e-9
     rows = chip_smoke.phase_kernels(dev, mpo, ket, n_orb // 2 - 1)
@@ -304,3 +306,74 @@ def test_ptxas_usage_names_each_kernel_instance():
          "bytes spill stores, 4 bytes spill loads"),
         ("mix_v2_kernel<double>", 30, "0 bytes stack frame, 0 bytes spill "
          "stores, 0 bytes spill loads")]
+
+
+def test_chip_smoke_npdm_phases_on_cpu(capsys):
+    """Phases 10a (Hubbard-L4 PDMs through get_npdm and pooled_gram
+    against the determinant path, transition PDMs, the RDM energy), 10b
+    (K=6 1PDM/2PDM and a K=4 3PDM against host Grams from the script's
+    worker, the RDM energy), 10c (run_smoke and the TF32 control), 10d
+    (PlanExecutor against its twin and K8) and the phase-3 K17-K19 rows,
+    at a small size on the CPU."""
+    from block2_preview_tpu_torch.dmrg.effective import (
+        EffectiveHamiltonian2)
+    dev = torch.device("cpu")
+    hub = chip_smoke.hubbard_npdm_states(dev, L=4, D=20, ns=4)
+    chip_smoke.phase_npdm_hubbard(dev, *hub,
+                                  chip_smoke.npdm_host_refs(*hub[3:]))
+    n_orb, D = 6, 20
+    drv, mpo, _ = chip_smoke.qc_system(n_orb, n_orb)
+    drv.dmrg(mpo, drv.get_random_mps(D, seed=11), bond_dims=[D],
+             noises=[1e-4, 0], thrds=[1e-12], n_sweeps=2, tol=0, iprint=0,
+             backend="numpy")
+    ket = drv._last_dmrg.mps
+    ket12 = chip_smoke.qc12_state(dev, n_orb=4, D=10)
+    h1e, g2e = chip_smoke.seeded_qc_integrals(n_orb)
+    with chip_smoke.host_pool(threads=1, workers=2) as pool:
+        refs = [pool.apply_async(chip_smoke.host_gram, (ket, k))
+                for k in (1, 2)]
+        e_ref = pool.apply_async(chip_smoke.host_expectation, (mpo, ket))
+        ref12 = pool.apply_async(chip_smoke.host_gram, (ket12, 3))
+        k17, shapes = chip_smoke.phase_npdm_wide(
+            dev, ket, h1e, g2e, [r.get(timeout=300) for r in refs],
+            e_ref.get(timeout=300), ket12, ref12.get(timeout=300))
+    assert k17 == 0 and shapes == []     # no close reaches 2e7 FLOP here
+    assert chip_smoke.phase_probes(dev, pool_elems=1 << 16,
+                                   tiled=(4, 20, 4)) == 0
+    assert chip_smoke.phase_plan_exec(dev, L=6, D=20, t=2) == 0
+    t = n_orb // 2 - 1
+    eff = EffectiveHamiltonian2(chip_smoke.mid_site(mpo, ket, t)[0], t)
+    rows = chip_smoke.phase_new_kernels(dev, [(5, 300, 40)], eff, t)
+    assert [r["name"] for r in rows] == ["K17_npdm_gemm", "K18_plan_exec",
+                                         "K19_probe"]
+    for r in rows:
+        assert r["max_abs_err"] == 0.0      # the plain version against itself
+        assert r["route"] == "cuda" and (ROOT / r["source"]).is_file()
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes",
+                                                       "operations")
+    assert rows[0]["library_ms"] > 0
+    assert rows[1]["library_ms"] is None and rows[2]["library_ms"] is None
+    out = capsys.readouterr().out
+    for k in ("[10a npdm order 4 get_npdm poly vs det]",
+              "[10a npdm order 3 get_npdm poly vs pdm3_spatial]",
+              "[10a npdm order 4 pooled_gram (K17) vs det]",
+              "[10a npdm transition 3PDM", "[10a npdm] energy from the 1PDM",
+              "[10b npdm order 2 device Gram vs host Gram]",
+              "[10b npdm K=4 order 3 device Gram vs host Gram]",
+              "[10b npdm] K=6 energy from the 1PDM and 2PDM",
+              "[10c probes] run_smoke", "[10c probes] TF32 control",
+              "[10d plan] L6c2: PlanExecutor.matvec (K18) vs K8",
+              "[3 kernels] K17_npdm_gemm f64", "[3 kernels] K17_npdm_gemm c128",
+              "[3 kernels] K18_plan_exec f32", "[3 kernels] K19_probe f32 dot",
+              "[3 kernels] K19_probe f32 fill"):
+        assert k in out, k
+
+
+def test_npdm_phase_fails_on_a_wrong_pdm(monkeypatch):
+    """10a's hold fails the script when a PDM leaves its tolerance."""
+    dev = torch.device("cpu")
+    hub = chip_smoke.hubbard_npdm_states(dev, L=4, D=20, ns=4)
+    refs = chip_smoke.npdm_host_refs(*hub[3:])
+    refs["det3"] = refs["det3"] + 1e-8
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_npdm_hubbard(dev, *hub, refs)

@@ -26,6 +26,7 @@ from block2_preview_tpu_torch.driver.core import DMRGDriver
 from block2_preview_tpu_torch.ops import _kernels
 
 from test_torch_plans import hubbard_driver
+from test_torch_tdvp import overlap
 
 L6, D, NS = 6, 50, 4
 SCHED = dict(bond_dims=[D], noises=[1e-5, 1e-5, 0], dav_thrds=[1e-14],
@@ -139,12 +140,18 @@ def test_extract_root_and_results_match_the_reference_driver(hubbard):
         assert m.tensors is not port._last_dmrg.mps.tensors
         c = port._last_dmrg._center_pos
         assert m.tensors[c] is port._last_dmrg._center_tensors[r]
+        # the same state up to the sign of each root
+        assert abs(abs(overlap(interop.mps(m_ref), m)) - 1.0) < 1e-10
         for t, t_ref in zip(m.tensors, m_ref.tensors):
             assert sorted(t.blocks) == sorted(t_ref.blocks)
             for k, b in t.blocks.items():
-                # the same state up to the sign of each root
-                assert np.abs(np.abs(b) - np.abs(t_ref.blocks[k])).max() \
-                    < 1e-6
+                # a sector's kept dimension may differ by states of
+                # singular value ~1e-16, which one machine's rounding
+                # keeps and another's drops (the state above is the
+                # same); blocks of equal shape agree element by element
+                if b.shape == t_ref.blocks[k].shape:
+                    assert np.abs(np.abs(b) - np.abs(t_ref.blocks[k])
+                                  ).max() < 1e-6
 
 
 def test_refusals(hubbard):

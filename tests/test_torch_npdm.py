@@ -1,0 +1,251 @@
+"""Density matrices of the port (block2_preview_tpu_torch/dmrg/expect.py,
+npdm.py, npdm_scheme.py and the driver's get_npdm family) against the JAX
+package's on the same states, carried by ``interop.mps``: the string
+engine (pdm1, pdm2_spatial, pdm3_spatial, the orbital entropies), the
+determinant engine (npdm_spatial orders 1-4), and the pooled engine
+whose class closes run through kernel K17's plain twin
+(``pooled_gram(device="cpu", device_min_flop=0)``) against the
+reference's device closes (``device=True``), all to 1e-12; transition
+densities, a complex state, the driver's dispatch for each ``algo``, and
+the energy from the 1PDM and 2PDM (tests/test_pdm.py's convention).
+Hamiltonians are built in code (Hubbard-L6 and -L4, U=2, t=1)."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from block2_preview_tpu.dmrg import expect as ref_expect
+from block2_preview_tpu.dmrg import npdm as ref_npdm
+from block2_preview_tpu.dmrg import npdm_scheme as ref_scheme
+from block2_preview_tpu.dmrg.mps import MPS as RefMPS
+from block2_preview_tpu.dmrg.mps import MPSTensor as RefMPSTensor
+from block2_preview_tpu.dmrg.sweep import DMRG as RefDMRG
+
+from block2_preview_tpu_torch import interop
+from block2_preview_tpu_torch.dmrg import expect, npdm, npdm_scheme
+from block2_preview_tpu_torch.driver.core import DMRGDriver
+from block2_preview_tpu_torch.ops import npdm_gemm
+
+from test_torch_plans import hubbard_driver
+
+TOL = 1e-12
+
+
+def _solved(L, D, seed, n_sweeps=4):
+    """A reference Hubbard-L state: D, seed, sweeps as
+    tests/test_npdm_poly.py's _solved_mps; with the reference MPO."""
+    drv, mpo = hubbard_driver(L)
+    mps = drv.get_random_mps(D, seed=seed)
+    RefDMRG(mpo, mps, iprint=0).solve([D] * n_sweeps,
+                                      [1e-4] * (n_sweeps - 1) + [0], [1e-9],
+                                      n_sweeps=n_sweeps, tol=0)
+    return mpo, mps
+
+
+@pytest.fixture(scope="module")
+def l6():
+    """Hubbard-L6 ket (D=40, 4 sweeps) and bra (D=30, 2 sweeps, another
+    seed), reference MPSs."""
+    mpo, ket = _solved(6, 40, 1)
+    _, bra = _solved(6, 30, 7, n_sweeps=2)
+    return mpo, ket, bra
+
+
+@pytest.fixture(scope="module")
+def l4():
+    return _solved(4, 20, 1)
+
+
+def port_driver(L):
+    drv = DMRGDriver()
+    drv.initialize_system(n_sites=L, n_elec=L, spin=0)
+    return drv
+
+
+def test_string_engine_matches_reference(l6, l4):
+    """pdm1 (also the transition 1PDM), pdm2_spatial with and without the
+    singlet shortcut (also transition), and pdm3_spatial (L4)."""
+    _, ket, bra = l6
+    k, b = interop.mps(ket), interop.mps(bra)
+    pairs = [(expect.pdm1(k), ref_expect.pdm1(ket)),
+             (expect.pdm1(k, bra=b), ref_expect.pdm1(ket, bra=bra)),
+             (expect.pdm2_spatial(k), ref_expect.pdm2_spatial(ket)),
+             (expect.pdm2_spatial(k, assume_singlet=False),
+              ref_expect.pdm2_spatial(ket, assume_singlet=False)),
+             (expect.pdm2_spatial(k, assume_singlet=False, bra=b),
+              ref_expect.pdm2_spatial(ket, assume_singlet=False, bra=bra)),
+             (expect.pdm3_spatial(interop.mps(l4[1])),
+              ref_expect.pdm3_spatial(l4[1]))]
+    for got, ref in pairs:
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() < TOL
+
+
+def test_orbital_entropies_match_reference(l6):
+    _, ket, _ = l6
+    k = interop.mps(ket)
+    assert np.abs(expect.orbital_entropy_1site(k)
+                  - ref_expect.orbital_entropy_1site(ket)).max() < TOL
+    s2, mi = expect.orbital_entropy_2site(k)
+    s2r, mir = ref_expect.orbital_entropy_2site(ket)
+    assert np.abs(s2 - s2r).max() < TOL and np.abs(mi - mir).max() < TOL
+    drv = port_driver(6)
+    assert np.abs(drv.get_orbital_entropies(k, ij_symm=2) - s2r).max() < TOL
+    assert np.abs(drv.get_orbital_interaction_matrix(k) - mir).max() < TOL
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_determinant_engine_matches_reference(l6, order):
+    _, ket, bra = l6
+    k, b = interop.mps(ket), interop.mps(bra)
+    assert np.abs(npdm.npdm_spatial(k, order)
+                  - ref_npdm.npdm_spatial(ket, order)).max() < TOL
+    if order <= 2:
+        assert np.abs(npdm.npdm_spatial(k, order, bra=b)
+                      - ref_npdm.npdm_spatial(ket, order, bra=bra)
+                      ).max() < TOL
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_pooled_gram_matches_reference_device_closes(l6, order):
+    """Every class close through K17's twin against the reference's jit
+    closes; the host-BLAS variant (device=None) against device=False;
+    the stats split covers the whole run."""
+    _, ket, _ = l6
+    k = interop.mps(ket)
+    G_ref, c_ref = ref_scheme.pooled_gram(ket, order, device=True,
+                                          device_min_flop=0)
+    st = {}
+    G, c = npdm_scheme.pooled_gram(k, order, device="cpu",
+                                   device_min_flop=0, stats=st)
+    assert np.array_equal(c, c_ref) and G.dtype == np.float64
+    assert np.abs(G - G_ref).max() < TOL
+    assert st["closes"] and all(cl[5] for cl in st["closes"])
+    assert abs(st["pools"] + st["close"] + st["scatter"] - st["total"]) \
+        < 1e-9
+    G_h, _ = npdm_scheme.pooled_gram(k, order, device=None)
+    assert np.abs(G_h - ref_scheme.pooled_gram(ket, order)[0]).max() < TOL
+
+
+def test_transition_gram_matches_reference(l6):
+    _, ket, bra = l6
+    k, b = interop.mps(ket), interop.mps(bra)
+    G_ref, _ = ref_scheme.pooled_gram(ket, 2, bra=bra, device=True,
+                                      device_min_flop=0)
+    G, _ = npdm_scheme.pooled_gram(k, 2, bra=b, device="cpu",
+                                   device_min_flop=0)
+    assert np.abs(G - G_ref).max() < TOL
+    got = npdm_scheme.npdm_spatial_poly(k, 2, bra=b, device="cpu")
+    assert np.abs(got - npdm.npdm_spatial(k, 2, bra=b)).max() < 1e-10
+
+
+def test_complex_state_is_carried(l4):
+    """A complex state (each site's blocks times a phase) in complex128:
+    equal to the reference's device closes; a lower type raises."""
+    _, ket = l4
+    rng = np.random.RandomState(0)
+    cm = RefMPS(ket.info, [RefMPSTensor(t.group, {
+        q: v * np.exp(1j * rng.uniform(0, 2 * np.pi))
+        for q, v in t.blocks.items()}) for t in ket.tensors], ket.center)
+    G_ref, _ = ref_scheme.pooled_gram(cm, 2, dtype=np.complex128,
+                                      device=True, device_min_flop=0)
+    G, _ = npdm_scheme.pooled_gram(interop.mps(cm), 2, dtype=np.complex128,
+                                   device="cpu", device_min_flop=0)
+    assert G.dtype == np.complex128 and np.abs(G_ref.imag).max() > 1e-3
+    assert np.abs(G - G_ref).max() < TOL
+    with pytest.raises(TypeError, match="float64 or complex128"):
+        npdm_scheme.pooled_gram(interop.mps(ket), 2, dtype=np.float32,
+                                device="cpu")
+
+
+@pytest.mark.parametrize("order,algo", [(1, "auto"), (2, "auto"),
+                                        (3, "auto"), (3, "det"),
+                                        (3, "poly"), (4, "auto"),
+                                        (4, "poly"), (5, "poly")])
+def test_driver_dispatch_matches_reference(l4, order, algo):
+    """get_npdm's routing kept exactly (each order and algo on the
+    reference's engine), on the L4 state."""
+    from block2_preview_tpu.driver.core import DMRGDriver as RefDriver
+    _, ket = l4
+    ref = RefDriver()
+    ref.initialize_system(n_sites=4, n_elec=4, spin=0)
+    want = ref.get_npdm(ket, pdm_type=order, algo=algo)
+    got = port_driver(4).get_npdm(interop.mps(ket), pdm_type=order,
+                                  algo=algo, device="cpu")
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < TOL
+
+
+def test_driver_fronts_and_transitions(l6):
+    from block2_preview_tpu.driver.core import DMRGDriver as RefDriver
+    _, ket, bra = l6
+    k, b = interop.mps(ket), interop.mps(bra)
+    ref = RefDriver()
+    ref.initialize_system(n_sites=6, n_elec=6, spin=0)
+    drv = port_driver(6)
+    for got, want in (
+            (drv.get_1pdm(k), ref.get_1pdm(ket)),
+            (drv.get_2pdm(k), ref.get_2pdm(ket)),
+            (drv.get_conventional_1pdm(k), ref.get_conventional_1pdm(ket)),
+            (drv.get_trans_1pdm(b, k), ref.get_trans_1pdm(bra, ket)),
+            (drv.get_trans_2pdm(b, k), ref.get_trans_2pdm(bra, ket)),
+            (drv.get_conventional_trans_2pdm(b, k),
+             ref.get_conventional_trans_2pdm(bra, ket)),
+            (drv.get_trans_3pdm(b, k, device="cpu"),
+             ref.get_trans_3pdm(bra, ket))):
+        assert np.abs(got - want).max() < TOL
+
+
+def test_energy_from_rdms_matches_expectation(l6):
+    """E = sum h dm1 + 1/2 sum (ij|kl) dm2[i,k,l,j] (tests/test_pdm.py:63)
+    against drv.expectation and the reference's expectation."""
+    from block2_preview_tpu.core.fcidump import FCIDUMP
+    mpo, ket, _ = l6
+    fd = FCIDUMP.hubbard(6, u=2, t=1)
+    k = interop.mps(ket)
+    drv = port_driver(6)
+    dm1 = drv.get_1pdm(k).sum(axis=0)
+    dm2 = npdm_scheme.npdm_spatial_poly(k, 2, device="cpu")
+    e = fd.const_e + np.einsum("ij,ij->", fd.h1e, dm1) \
+        + 0.5 * np.einsum("ijkl,iklj->", fd.g2e, dm2)
+    e_mpo = drv.expectation(k, interop.mpo(mpo), k)
+    assert abs(e_mpo - ref_expect.mpo_expectation(mpo, ket)) < TOL
+    assert abs(e - e_mpo) < 1e-10
+
+
+def test_refusals_and_defaults(l4):
+    """SU(2) states (A6) and device meshes (A10) raise; the entry points
+    default to the card."""
+    _, ket = l4
+    k = interop.mps(ket)
+    with pytest.raises(NotImplementedError, match="A6"):
+        port_driver(4).get_npdm(object(), 3, algo="poly")
+    with pytest.raises(NotImplementedError, match="A10"):
+        npdm_scheme.pooled_gram(k, 2, device=object())
+    for fn in (npdm_scheme.pooled_gram, npdm_scheme.npdm_spatial_poly,
+               DMRGDriver.get_npdm, DMRGDriver.get_4pdm):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            npdm_scheme.pooled_gram(k, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_npdm_gemm_twin_and_split(dtype):
+    g = torch.Generator().manual_seed(3)
+    M = torch.randn(5, 70, generator=g, dtype=torch.float64).to(dtype)
+    V = torch.randn(70, 9, generator=g, dtype=torch.float64).to(dtype)
+    assert torch.equal(npdm_gemm.npdm_gemm(M, V), M @ V)
+    with pytest.raises(TypeError):
+        npdm_gemm.npdm_gemm(M.to(torch.complex64 if dtype.is_complex
+                                 else torch.float32),
+                            V.to(torch.complex64 if dtype.is_complex
+                                 else torch.float32))
+    with pytest.raises(ValueError):
+        npdm_gemm.npdm_gemm(M, V.T)
+    for n, X, m in ((8, 19545, 1542), (64, 6088, 6119), (196, 300, 20),
+                    (1, 5, 1)):
+        ks, chunk = npdm_gemm.k_split(n, X, m, 132)
+        assert chunk % 16 == 0 and ks * chunk >= X > (ks - 1) * chunk

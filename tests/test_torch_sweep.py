@@ -190,6 +190,23 @@ for imaginary in (False, True):
                         imaginary=imaginary, backend="numpy")
     assert te.host_matvec_count == 0 and te.n_matvec > 0
     assert abs(te.energies[-1] - th.energies[-1]) < 1e-8
+import numpy as np
+from block2_preview_tpu_torch.dmrg.npdm import npdm_spatial
+for k in (1, 2, 3, 4):
+    got = (drv.get_trans_2pdm(gs, gs) if k == 2 else
+           drv.get_npdm(gs, k, algo="poly", device="cpu"))
+    got = got.sum(axis=0) if k == 1 else got
+    assert np.abs(got - npdm_spatial(gs, k)).max() < 1e-10, k
+from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+from block2_preview_tpu_torch.ops.exec_bucket import (BucketExecutor,
+                                                      PlanExecutor)
+me = chip_smoke.mid_site(mpo, gs, 1)[0]
+eff = EffectiveHamiltonian2(me, 1)
+x = np.random.default_rng(1).standard_normal(eff.size)
+assert np.allclose(PlanExecutor(eff, device="cpu").matvec(x),
+                   BucketExecutor(eff, device="cpu").matvec(x), atol=1e-12)
+from block2_preview_tpu_torch.utils.gpu_smoke import run_smoke
+assert run_smoke("cpu", pool_elems=1 << 12, tiled=(4, 20, 4))["ok"]
 assert not any(k == "jax" or k.startswith(("jax.", "block2_preview_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ENERGY", e, e_ref)
