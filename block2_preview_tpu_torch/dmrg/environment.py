@@ -87,6 +87,12 @@ class _EnvList(list):
 
 
 class MovingEnvironment:
+    # operator sharding (reference environment.py:146-148): with a device
+    # mesh the v2/v3 blocking splits its task groups over the mesh axis
+    # and sums the partial pools (K21 + all_reduce); set by DMRG(mesh=...)
+    mesh = None
+    mesh_axis = "op"
+
     def __init__(self, mpo: MPO, ket: MPS, bra: Optional[MPS] = None,
                  device=None, dtype=np.float64, blocking_device=None,
                  stk_engine: str = "tiled"):
@@ -276,9 +282,11 @@ class MovingEnvironment:
         if isinstance(plan, BlockingV3Plan):
             self.max_rot_pool = max(self.max_rot_pool, plan.rot_total)
             self.v3_blockings += 1
-            pool_out = execute_blocking_v3(plan, pool_in)
+            pool_out = execute_blocking_v3(plan, pool_in, mesh=self.mesh,
+                                           axis=self.mesh_axis)
         elif isinstance(plan, BlockingV2Plan):
-            pool_out = execute_blocking_v2(plan, pool_in)
+            pool_out = execute_blocking_v2(plan, pool_in, mesh=self.mesh,
+                                           axis=self.mesh_axis)
         elif isinstance(plan, TiledBlockingPlan):
             pool_out = execute_tiled_blocking(plan, pool_in)
         else:

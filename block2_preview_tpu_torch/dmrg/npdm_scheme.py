@@ -33,8 +33,9 @@ own copy): the pools, ``_Flat``, the class grouping and
 (``_device_gemm``): the middle ``[n, X] @ [X, m]`` class GEMMs at or above
 ``device_min_flop`` run on a torch device through kernel K17
 (``ops/npdm_gemm.py``, ``csrc/npdm_gemm.cu``) — its plain twin on CPU
-tensors — where the reference ran a jit matmul at full precision; a
-device mesh (sharded closes) is not carried.
+tensors — where the reference ran a jit matmul at full precision; with a
+device mesh each rank closes its row slice on K17 and the slices are
+gathered, as the reference's sharded closes are.
 """
 
 from __future__ import annotations
@@ -151,8 +152,10 @@ def pooled_gram(mps: MPS, order: int, bra: Optional[MPS] = None,
     once and serves every left batch at that site; closes below
     ``device_min_flop`` stay on host BLAS, as in the reference.
     ``device=None`` closes everything on the host (the reference's
-    device=False).  ``dtype`` is float64, or complex128 for a complex
-    state; any other type raises.
+    device=False).  A 1-D ``DeviceMesh`` as ``device`` (every rank calls
+    with the same state) splits each device close's rows over the ranks
+    and gathers them (:func:`_device_gemm`).  ``dtype`` is float64, or
+    complex128 for a complex state; any other type raises.
 
     ``stats``, when given, is filled with the wall split: "pools" (host
     pool transfers, flattening and batching), "close" (the class closes,
@@ -390,28 +393,45 @@ def _device_gemm(device):
     kernel K17 (``ops/npdm_gemm.py``): per-(bond, class) M uploads are
     cached (each serves every left row batch at that site); V uploads per
     close; f64/complex128 pass through as stored (a lower precision would
-    break PDM parity).  The reference's sharded variant (a device mesh as
-    ``device``, the combo rows of M split over it) is not carried: a
-    non-device argument raises."""
+    break PDM parity).
+
+    ``device`` may be a 1-D ``DeviceMesh`` (the reference's mesh,
+    :357-406): then each rank closes its slice of M's combo rows on K17 on
+    its own device (the rows padded with zeros to a multiple of the mesh
+    size, reference :396-399), V is replicated, and ``all_gather`` — the
+    only collective — stacks the slices on every rank."""
     import torch
 
     from ..ops.npdm_gemm import npdm_gemm
-    from ..runtime import resolve_device
-    if not isinstance(device, (str, torch.device)):
-        raise NotImplementedError(
-            f"pooled_gram takes one torch device (got {type(device)}); "
-            "sharded PDM closes over a device mesh are roadmap item A10")
-    dev = resolve_device(device)
+    from ..runtime import rank_device
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(device, (str, torch.device, DeviceMesh)):
+        raise TypeError("pooled_gram closes on a torch device or a "
+                        f"DeviceMesh (got {type(device).__name__})")
+    mesh = device if isinstance(device, DeviceMesh) else None
+    group = rank = world = None
+    if mesh is not None:
+        from ..parallel.multihost import all_gather_rows, axis_info
+        group, rank, world = axis_info(mesh, mesh.mesh_dim_names[0])
+    dev = rank_device(mesh, None if mesh is not None else device)
     cache: Dict[tuple, tuple] = {}
 
     def close(bond, cls, M, V):
         key = (bond, cls)
         ent = cache.get(key)
         if ent is None or ent[1] != M.shape:
-            ent = (torch.as_tensor(M, device=dev), M.shape)
+            rows = M
+            if mesh is not None:
+                per = -(-M.shape[0] // world)
+                rows = np.zeros((per, M.shape[1]), M.dtype)
+                mine = M[rank * per:(rank + 1) * per]
+                rows[:mine.shape[0]] = mine
+            ent = (torch.as_tensor(rows, device=dev), M.shape)
             cache[key] = ent
-        dV = torch.as_tensor(V, device=dev)
-        return npdm_gemm(ent[0], dV).cpu().numpy()
+        out = npdm_gemm(ent[0], torch.as_tensor(V, device=dev))
+        if mesh is not None:
+            out = all_gather_rows(out, group)[:M.shape[0]]
+        return out.cpu().numpy()
 
     return close
 

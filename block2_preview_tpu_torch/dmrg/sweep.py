@@ -72,6 +72,18 @@ such redo adds one to ``host_redo_count``.
 Density-matrix decimation with perturbative noise follows the reference
 (moving_environment.hpp density_matrix / split_density_matrix;
 effective_hamiltonian.hpp:253 perturbative_noise).
+
+Operator sharding (``mesh``, a 1-D ``torch.distributed`` DeviceMesh, the
+reference's ``DMRG(mesh=...)``, sweep.py:386, 477-482; ``torch_resident``
+only): every rank runs this sweep on its own device
+(``runtime.rank_device``); the v2/v3 blocking and the sigma matvec run
+each rank's share of their task groups (K21, K20) and sum the partials
+with ``all_reduce``.  The kernels that do not shard (K2, K3/K4, K6), and
+the card's dense algebra, round differently on each rank, so the ranks
+take rank 0's basis vector for every matvec, its stop decisions and its
+eigenpair inside the Davidson (``ResidentSite.solve_ground_state``), and
+rank 0's decimated site tensors, energies and discarded weight after each
+site: they stay in lockstep and hold bitwise-equal states and energies.
 """
 
 from __future__ import annotations
@@ -333,7 +345,8 @@ class DMRG:
                  iprint: int = 1, dav_max_iter: int = 200,
                  n_roots: int = 1, weights: Optional[Sequence[float]] = None,
                  proj_mpss: Optional[Sequence[MPS]] = None,
-                 proj_weights: Optional[Sequence[float]] = None):
+                 proj_weights: Optional[Sequence[float]] = None,
+                 mesh=None, mesh_axis: str = "op"):
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend '{backend}' "
                              f"({' | '.join(_BACKENDS)})")
@@ -361,6 +374,18 @@ class DMRG:
             raise ValueError("backend='torch_resident' solves one root "
                              "without projection; use backend='torch' or "
                              "'torch_device' for n_roots > 1 or proj_mpss")
+        if mesh is not None and backend != "torch_resident":
+            raise NotImplementedError(
+                f"a device mesh shards backend='torch_resident' only (got "
+                f"'{backend}'; sharding under the stacked and tiled "
+                "backends is roadmap item A)")
+        self._group = None
+        if mesh is not None:
+            from ..parallel.multihost import axis_info
+            self._group = axis_info(mesh, mesh_axis)[0]
+        # matvecs of sites where this rank owned no unit of the sharded
+        # matvec (K20 then does not launch)
+        self.idle_matvecs = 0
         self.host_redo_count = 0
         # one dict per sweep: lowest energy, per-root energies, wall s,
         # teff/teig/tdm/tblk, matvecs, kernel launches, blocking transfers,
@@ -370,9 +395,9 @@ class DMRG:
             self.device = None
             self.me = MovingEnvironment(mpo, mps)
         else:
-            from ..runtime import resolve_device, torch_dtype
+            from ..runtime import rank_device, torch_dtype
             torch_dtype(dtype)
-            self.device = resolve_device(device)
+            self.device = rank_device(mesh, device)
             engine = "bucket" if backend == "torch_stacked" else \
                 os.environ.get("B2TPU_STK_ENGINE", "tiled")
             real = _is_real(mpo, mps, dtype)
@@ -388,6 +413,7 @@ class DMRG:
                     (backend == "torch_tiled" and real):
                 self.me = MovingEnvironment(mpo, mps, device=self.device,
                                             dtype=dtype, stk_engine=engine)
+                self.me.mesh, self.me.mesh_axis = mesh, mesh_axis
             else:
                 self.me = MovingEnvironment(
                     mpo, mps, blocking_device=(
@@ -507,6 +533,8 @@ class DMRG:
         th, xv, nmv = rs.solve_ground_state(
             x0[:, 0], conv_thrd=dav_thrd,
             max_iter=self.dav_max_iter)
+        if rs.shard_units == 0:
+            self.idle_matvecs += nmv
         try:
             self._guard(rs.matvec, th, xv, t)
         except _DeviceEigenRejected:
@@ -589,6 +617,8 @@ class DMRG:
             a_tensor, centers, dw = split_forward_update(
                 eff, psis, self.weights, noise, bond_dim,
                 rho_noise=rho_noise)
+            a_tensor, centers, dw, energies = self._rank0(
+                a_tensor, centers, dw, energies)
             t3 = time.time()
             tm.tdm += t3 - t2
             self.mps.tensors[t] = a_tensor
@@ -603,6 +633,8 @@ class DMRG:
             b_tensor, centers, dw = split_backward_update(
                 eff, psis, self.weights, noise, bond_dim,
                 rho_noise=rho_noise)
+            b_tensor, centers, dw, energies = self._rank0(
+                b_tensor, centers, dw, energies)
             t3 = time.time()
             tm.tdm += t3 - t2
             self.mps.tensors[t + 1] = b_tensor
@@ -622,15 +654,28 @@ class DMRG:
         tm.tblk += time.time() - t3
         return energies, dw, nmv
 
+    def _rank0(self, *site):
+        """Under a mesh, rank 0's decimated site tensors, energies and
+        discarded weight on every rank (the noise (K6) and the mix rounded
+        differently on each rank); without one, ``site`` as it is."""
+        if self._group is None:
+            return site
+        from ..parallel.multihost import broadcast_object
+        return broadcast_object(site, self._group, self.device)
+
     # ------------------------------------------------------------------
     def sweep(self, forward: bool, bond_dim: int, noise: float,
               dav_thrd: float) -> SweepResults:
         from ..ops import _kernels
+        from ..parallel.multihost import stats as coll
         L = self.mpo.n_sites
         res = SweepResults()
         tm = self.timings
         before = (tm.teff, tm.teig, tm.tdm, tm.tblk)
         launches = _kernels.launch_counts()
+        units = _kernels.unit_counts()
+        coll0 = dict(coll)
+        idle = self.idle_matvecs
         moved = dict(self.me.blk_transfers)
         blk = dict(self.me.blk_time)
         mat = self.me.host_env_materialized
@@ -658,6 +703,11 @@ class DMRG:
                 (tm.teff, tm.teig, tm.tdm, tm.tblk), before)},
             launches={k: n - launches[k]
                       for k, n in _kernels.launch_counts().items()},
+            units={k: n - units[k]
+                   for k, n in _kernels.unit_counts().items()},
+            all_reduce=coll["all_reduce"] - coll0["all_reduce"],
+            all_reduce_s=coll["all_reduce_s"] - coll0["all_reduce_s"],
+            idle_matvecs=self.idle_matvecs - idle,
             **{k: n - moved[k] for k, n in self.me.blk_transfers.items()},
             blk_plan=self.me.blk_time["plan"] - blk["plan"],
             blk_exec=self.me.blk_time["exec"] - blk["exec"],

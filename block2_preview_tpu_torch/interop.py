@@ -120,6 +120,7 @@ def matvec_v2(ref_ex, dtype=np.float64) -> MatvecV2:
     ex.struct = {k: v for k, v in ref_ex.struct.items()
                  if not k.startswith("_")}
     ex._dev = None
+    ex._parts = {}
     return ex
 
 

@@ -40,6 +40,7 @@ class KernelInfo:
     source: str       # path in the repository
     replaces: str     # file:line of the JAX kernel it replaces
     launches: int = 0
+    units: int = 0    # CUDA blocks of the sharded kernels' launches
 
 
 KERNELS: Dict[str, KernelInfo] = {
@@ -108,6 +109,18 @@ KERNELS: Dict[str, KernelInfo] = {
     "K19_probe": KernelInfo(
         "cuda", "block2_preview_tpu_torch/csrc/probe.cu",
         "block2_preview_tpu/utils/tpu_smoke.py:33 dot (+ :50 fill)"),
+    "K20_matvec_shard": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/matvec_shard.cu",
+        "block2_preview_tpu/ops/tilev2.py:197 _mv_exec_sharded (local "
+        "_mv_scan :101; in ops/resident.py:792 _v2_dav_sharded_chunk)"),
+    "K21_block_shard": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/blocking_shard.cu",
+        "block2_preview_tpu/ops/blockv2.py:193 _blk_exec_sharded (local "
+        "_blk_scan :60)"),
+    "K22_plan_exec_shard": KernelInfo(
+        "cuda", "block2_preview_tpu_torch/csrc/plan_exec_shard.cu",
+        "block2_preview_tpu/parallel/shard.py:30 _partial_sigma (jit :78, "
+        "ShardedPlanExecutor :41)"),
 }
 
 _P = ctypes.c_void_p
@@ -116,12 +129,15 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return int = cudaError_t)
 _SIGS = {
     "b2t_matvec": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
+    "b2t_matvec_units": (_P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P, _P),
     "b2t_gather": (_P, _P, _L, _P, _P),
     "b2t_dl_build": (_P, _P, _I, _I, _P, _P),
     "b2t_diag": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "b2t_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
     "b2t_place": (_P, _P, _P, _I, _L, _P, _P),
     "b2t_block": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P),
+    "b2t_block_units": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I,
+                        _P, _P),
     "b2t_noise_x": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_noise_rho": (_P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_tiled": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
@@ -138,6 +154,7 @@ _SIGS = {
                     _I, _I, _P, _P, _P),
     "b2t_npdm_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "b2t_plan_exec": (_P, _L, _P, _P, _P, _P, _I, _L, _L, _P, _P),
+    "b2t_plan_exec_part": (_P, _L, _P, _P, _P, _P, _P, _I, _L, _L, _P, _P),
     "b2t_probe_dot": (_P, _P, _I, _P, _P),
     "b2t_probe_fill": (_P, _I, _P, _L, _I, _P, _P),
 }
@@ -269,16 +286,24 @@ def call(entry: str, dtype, *args) -> None:
         raise RuntimeError(f"{entry}{sfx} failed: CUDA error {err} ({msg})")
 
 
-def launch(kernel: str, entry: str, dtype, *args) -> None:
-    """:func:`call` for the main launch of ``kernel``, counted once."""
+def launch(kernel: str, entry: str, dtype, *args, units: int = 0) -> None:
+    """:func:`call` for the main launch of ``kernel``, counted once;
+    ``units``, the CUDA blocks of the launch, are summed where the caller
+    gives them (the sharded kernels: one rank's share of a plan)."""
     call(entry, dtype, *args)
     KERNELS[kernel].launches += 1
+    KERNELS[kernel].units += units
 
 
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.units = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def unit_counts() -> Dict[str, int]:
+    return {name: k.units for name, k in KERNELS.items()}

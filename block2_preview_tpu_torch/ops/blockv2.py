@@ -45,7 +45,7 @@ from .csr import w_triplets
 from .mixv4 import emit_gemm_items, mix_exec
 from .stacked import StackedMeta, _cap_class, _pow2, site_pools
 from .tiled import pick_tile
-from .tilev2 import _locate, gather_tiles
+from .tilev2 import _locate, gather_tiles, group_units, shard_groups
 from ..core.symmetry import QN
 
 # per tile size: (stage task capacity B, tmp tiles, prod tiles) — the
@@ -114,6 +114,15 @@ class BlockingV3Plan:
 # kernel K5 and its plain twin
 # ---------------------------------------------------------------------------
 
+def _cumu(plan: BlockingV2Plan) -> np.ndarray:
+    """Prefix sums [n + 1] of the stage-1 units nl * ny of the live
+    items."""
+    it = plan.it.astype(np.int64)
+    live = np.diff(plan.cum1.astype(np.int64)) > 0
+    return np.concatenate([[0], np.cumsum(np.where(
+        live, it[:, 7] * it[:, 10], 0))])
+
+
 def blk_tables(plan: BlockingV2Plan, device, dtype) -> Dict:
     """Device tables of a v2 plan for K5 (and its twin), cached on the
     plan per (device, dtype).  Derived here, beside the shared layout:
@@ -123,13 +132,9 @@ def blk_tables(plan: BlockingV2Plan, device, dtype) -> Dict:
     d = plan._dev.get(key)
     if d is not None:
         return d
-    it = plan.it.astype(np.int64)
-    live = np.diff(plan.cum1.astype(np.int64)) > 0
-    cumu = np.concatenate([[0], np.cumsum(np.where(live,
-                                                   it[:, 7] * it[:, 10],
-                                                   0))])
+    cumu = _cumu(plan)
     ne = int(np.count_nonzero(np.diff(plan.cum3.astype(np.int64)) > 0))
-    efs = np.searchsorted(plan.ef[:ne, 0], np.arange(len(it) + 1),
+    efs = np.searchsorted(plan.ef[:ne, 0], np.arange(len(plan.it) + 1),
                           side="left")
     if cumu[-1] >= (1 << 31):
         raise ValueError("blocking unit count exceeds int32")
@@ -148,9 +153,12 @@ def blk_tables(plan: BlockingV2Plan, device, dtype) -> Dict:
     return d
 
 
-def blk_twin(epool, bpool, kpool, d: Dict, T: int, left: bool, out):
+def blk_twin(epool, bpool, kpool, d: Dict, T: int, left: bool, out,
+             items=None):
     """Plain PyTorch version of K5 (same signature as :func:`blk_exec`):
-    the reference's three stages, in chunks of whole items."""
+    the reference's three stages, in chunks of whole items.  With
+    ``items``, a list of item ranges (i0, i1) (one rank's task groups),
+    only those run: the plain version of K21."""
     it = d["it"].long()
     ef, coef = d["ef"].long(), d["coef"]
     cum1, cum2, cum3 = d["cum1"].long(), d["cum2"].long(), d["cum3"].long()
@@ -163,10 +171,14 @@ def blk_twin(epool, bpool, kpool, d: Dict, T: int, left: bool, out):
     n = len(c1h) - 1
     r = torch.arange(T, device=out.device)[None, :, None]
     c = torch.arange(T, device=out.device)[None, None, :]
-    i0 = 0
-    while i0 < n and c1h[i0] < c1h[-1]:
-        i1 = int(np.searchsorted(c1h, c1h[i0] + _TWIN_TASKS, "right"))
-        i1 = min(max(i1 - 1, i0 + 1), n)
+    chunks = []
+    for i0, end in ([(0, n)] if items is None else items):
+        while i0 < end and c1h[i0] < c1h[-1]:
+            i1 = int(np.searchsorted(c1h, c1h[i0] + _TWIN_TASKS, "right"))
+            i1 = min(max(i1 - 1, i0 + 1), end)
+            chunks.append((i0, i1))
+            i0 = i1
+    for i0, i1 in chunks:
         u0 = int(cumu[i0])
         tmp = torch.zeros((int(cumu[i1]) - u0, T, T), dtype=out.dtype,
                           device=out.device)
@@ -216,7 +228,6 @@ def blk_twin(epool, bpool, kpool, d: Dict, T: int, left: bool, out):
             idx = e[:, 1] + (xi * T + r) * e[:, 3] + yi * T + c
             ok = (r < e[:, 2] - xi * T) & (c < e[:, 3] - yi * T)
             out.index_add_(0, idx[ok], vals[ok])
-        i0 = i1
     return out
 
 
@@ -234,18 +245,80 @@ def blk_exec(epool, bpool, kpool, d: Dict, T: int, left: bool, out):
 
 
 # ---------------------------------------------------------------------------
+# kernel K21: one rank's share of the operator-sharded blocking
+# ---------------------------------------------------------------------------
+
+def blk_rank_part(plan: BlockingV2Plan, rank: int, world: int,
+                  device) -> Dict:
+    """Rank ``rank`` of ``world``'s share of a v2 plan, on ``device``: the
+    reference's round-robin interleave of the task groups (rank r runs the
+    groups r, r + world, ...; ends in global group order first, reference
+    blockv2.py:921-931, the same as the matvec's ``shard_groups``), as
+    ``items`` (their item ranges, the plain version's), ``units`` (their
+    stage-1 units, K21's index list, int32) and ``n_units``; cached on
+    the plan."""
+    key = ("part", rank, world, str(device))
+    part = plan._dev.get(key)
+    if part is not None:
+        return part
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    g1i, g2i, e1i, e2i, ngl = shard_groups(plan.g1, plan.g2, plan.cum1,
+                                           plan.cum2, world)
+    sl = slice(rank * ngl, (rank + 1) * ngl)
+    h = group_units(g1i[sl], e1i[sl], g2i[sl], e2i[sl], plan.cum1,
+                    plan.cum2, _cumu(plan))
+    part = {"items": h["items"], "n_units": int(h["units"].shape[0]),
+            "units": torch.as_tensor(h["units"].astype(np.int32),
+                                     device=device)}
+    plan._dev[key] = part
+    return part
+
+
+def blk_exec_part(epool, bpool, kpool, d: Dict, part: Dict, T: int,
+                  left: bool, out):
+    """This rank's partial blocking (kernel K21): adds the contributions
+    of the rank's task groups (``part`` from :func:`blk_rank_part`) into
+    ``out`` in place.  CPU tensors run :func:`blk_twin` over the same
+    items; CUDA tensors launch K21 (nothing when the rank owns no unit) or
+    raise."""
+    if epool.device.type == "cpu":
+        return blk_twin(epool, bpool, kpool, d, T, left, out,
+                        items=part["items"])
+    if not epool.is_cuda:
+        raise ValueError(f"unsupported device {epool.device}")
+    if part["n_units"] > 0:
+        _kernels.launch("K21_block_shard", "b2t_block_units", epool.dtype,
+                        epool, bpool, kpool, d["it"], d["cumu"],
+                        d["it"].shape[0], d["ef"], d["coef"], d["efs"],
+                        part["units"], part["n_units"], T, int(left), out,
+                        units=part["n_units"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # execution
 # ---------------------------------------------------------------------------
 
-def execute_blocking_v2(plan: BlockingV2Plan, epool):
+def execute_blocking_v2(plan: BlockingV2Plan, epool, mesh=None,
+                        axis: str = "op"):
     """Output pool [ncap] (zero above ``meta_out.total``) of one blocking
     step from the source bond's pool ``epool``, on its device and in its
-    dtype (kernel K5)."""
+    dtype (kernel K5).  With a ``mesh``, the task groups are split over
+    its ``axis``: this rank's share runs on K21 and the partial pools are
+    summed with ``all_reduce`` (the reference's psum, :193-216)."""
     dev, dt = epool.device, epool.dtype
     bpool, kpool = site_pools(plan, dev, dt)
     out = torch.zeros(plan.ncap, dtype=dt, device=dev)
-    return blk_exec(epool, bpool, kpool, blk_tables(plan, dev, dt), plan.T,
-                    plan.left, out)
+    d = blk_tables(plan, dev, dt)
+    if mesh is None:
+        return blk_exec(epool, bpool, kpool, d, plan.T, plan.left, out)
+    from ..parallel.multihost import all_reduce_, axis_info
+    group, rank, world = axis_info(mesh, axis)
+    blk_exec_part(epool, bpool, kpool, d, blk_rank_part(plan, rank, world,
+                                                        dev),
+                  plan.T, plan.left, out)
+    return all_reduce_(out, group)
 
 
 def mix_tables(plan: BlockingV3Plan, device, dtype) -> Dict:
@@ -269,10 +342,13 @@ def mix_tables(plan: BlockingV3Plan, device, dtype) -> Dict:
     return d
 
 
-def execute_blocking_v3(plan: BlockingV3Plan, epool):
+def execute_blocking_v3(plan: BlockingV3Plan, epool, mesh=None,
+                        axis: str = "op"):
     """K5 into the ROT pool, then the symbol-mixing GEMM (K3) into the
-    final pool [ncap] (zero above ``meta_out.total``)."""
-    rot = execute_blocking_v2(plan.rot, epool)
+    final pool [ncap] (zero above ``meta_out.total``).  With a ``mesh``
+    the rotate stage is sharded (K21 + ``all_reduce``); the mix stage is
+    not, as in the reference (:766-776)."""
+    rot = execute_blocking_v2(plan.rot, epool, mesh=mesh, axis=axis)
     d = mix_tables(plan, epool.device, epool.dtype)
     out = torch.zeros(plan.ncap, dtype=epool.dtype, device=epool.device)
     return mix_exec(rot, d["wpool"], d, out)

@@ -12,6 +12,12 @@ subspace stays on the device.  Each iteration reads three scalars
 (residual norm, overlap, norm) back in one transfer to take its branch.
 The subspace products and the M x M ``eigh`` are dense glue
 (``torch.matmul`` / ``torch.linalg.eigh``); the matvec is kernel K1.
+
+Under operator sharding (``group``: the reference's _v2_dav_sharded,
+resident.py:828) every rank runs this loop on the same data while the
+matvec sums the ranks' partials.  Each rank then issues the matvec's
+collective once per iteration, so every rank must take the same branch:
+the three scalars of the stop test are rank 0's, broadcast as one tensor.
 """
 
 from __future__ import annotations
@@ -39,12 +45,14 @@ def masked_eigh(h, mask, M: int):
 
 def davidson(matvec: Callable, diag, x0, conv_thrd: float = 1e-8,
              max_iter: int = 100, max_subspace: int = 20,
-             n_keep: int = 4) -> Tuple[float, torch.Tensor, int]:
+             n_keep: int = 4, group=None) -> Tuple[float, torch.Tensor, int]:
     """Smallest eigenpair, subspace on the device of ``x0``.
 
     matvec: padded vector [n] -> sigma [n - 1] (the pad slot stays 0)
     diag:   [n] preconditioner diagonal
     x0:     [n] initial guess (pad slot 0)
+    group:  the process group of a sharded matvec; each iteration's stop
+            test then reads rank 0's scalars
     Returns (theta, x [n], n_iter)."""
     n = x0.shape[0]
     M = max_subspace
@@ -83,7 +91,11 @@ def davidson(matvec: Callable, diag, x0, conv_thrd: float = 1e-8,
         # with it gives spurious Ritz values.  Two-pass MGS leaves ~1e-6
         # in f32, so 1e-4 is two decades of headroom on both sides.
         ov = torch.linalg.norm(Vm @ t)
-        rn2, ov_h, tn_h = torch.stack([rn2_d, ov, tn]).tolist()
+        stop = torch.stack([rn2_d, ov, tn])
+        if group is not None:
+            from ..parallel.multihost import broadcast_
+            broadcast_(stop, group)
+        rn2, ov_h, tn_h = stop.tolist()
         it += 1
         # stop BEFORE growing: the reference appends t on its last
         # iteration too, and its finalize then diagonalizes a subspace

@@ -39,7 +39,10 @@ and ``free``.
 oidx), field-equal, as views of two flat device pools
 (``runtime.unpack_views``), and its matvec runs them as they are through
 kernel K18 (``csrc/plan_exec.cu``; :func:`plan_exec`), or
-:func:`plan_exec_plain` on CPU tensors.
+:func:`plan_exec_plain` on CPU tensors.  :meth:`PlanExecutor.rank_part`
+and :func:`plan_exec_part` (kernel K22, ``csrc/plan_exec_shard.cu``) run
+one rank's batch slices of its buckets, for
+``parallel/shard.py::ShardedPlanExecutor``.
 """
 
 from __future__ import annotations
@@ -402,6 +405,33 @@ def plan_exec(xp, ex: "PlanExecutor"):
     return out
 
 
+def plan_exec_part(xp, ex: "PlanExecutor", part: Dict):
+    """This rank's partial sigma [size_p + 1] (kernel K22): ``ex``'s
+    buckets cut to the rank's contiguous batch slices (``part`` from
+    :meth:`PlanExecutor.rank_part`).  CPU tensors run
+    :func:`plan_exec_plain` on the sliced buckets; CUDA tensors launch K22
+    (nothing when the rank owns no item) or raise."""
+    sig_len = ex.size_p + 1
+    if xp.shape != (sig_len,):
+        raise ValueError(f"plan_exec_part: psi {tuple(xp.shape)} (expected "
+                         f"({sig_len},))")
+    if xp.device.type == "cpu":
+        return plan_exec_plain(xp, [
+            tuple(a[i0:i1] for a in bk)
+            for bk, (i0, i1) in zip(ex.device_buckets, part["slices"])],
+            sig_len)
+    if not xp.is_cuda:
+        raise ValueError(f"unsupported device {xp.device}")
+    out = xp.new_zeros(sig_len)
+    if part["n_blocks"] > 0:
+        _kernels.launch("K22_plan_exec_shard", "b2t_plan_exec_part",
+                        xp.dtype, xp, sig_len, ex.vals, ex.ints, ex.desc,
+                        part["cum"], part["first"], len(ex.device_buckets),
+                        part["n_blocks"], sig_len, out,
+                        units=part["n_blocks"])
+    return out
+
+
 class PlanExecutor:
     """Compiled sigma-vector plan for one effective-Hamiltonian center step
     on padded buckets (the reference's ``PlanExecutor``,
@@ -485,6 +515,32 @@ class PlanExecutor:
         self.desc = torch.as_tensor(d, device=self.device)
         self.cum = torch.as_tensor(cum, device=self.device)
         self.n_blocks = int(cum[-1])
+
+    def rank_part(self, rank: int, world: int) -> Dict:
+        """Rank ``rank`` of ``world``'s share of every bucket: the
+        reference's ``P(axis)`` split of the batch after padding it to a
+        multiple of ``world`` (parallel/shard.py:53-71), each rank taking
+        ``ceil(B / world)`` items in rank order; the padding items add
+        nothing, so a slice is cut at the batch's end.  ``slices`` (i0,
+        i1) per bucket, and K22's tables: ``first`` [nb] (each slice's
+        first item) and ``cum`` [nb + 1] (prefix sums of the slices'
+        blocks), int64 on the device, and ``n_blocks``."""
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
+        d = self.desc.cpu().numpy()
+        slices, blocks = [], []
+        for (A, _, _, _), bpi in zip(self.device_buckets, d[:, 4]):
+            B = A.shape[0]
+            per = -(-B // world)
+            i0, i1 = min(rank * per, B), min((rank + 1) * per, B)
+            slices.append((i0, i1))
+            blocks.append((i1 - i0) * int(bpi))
+        cum = np.concatenate([[0], np.cumsum(blocks)]).astype(np.int64)
+        return {"slices": slices, "n_blocks": int(cum[-1]),
+                "first": torch.as_tensor(
+                    np.asarray([a for a, _ in slices], np.int64),
+                    device=self.device),
+                "cum": torch.as_tensor(cum, device=self.device)}
 
     def matvec(self, x: np.ndarray) -> np.ndarray:
         """H x for a host vector x [size]; float64 host values, as the

@@ -45,7 +45,8 @@ from .mixv3 import MixPlanV3, _build_tab, build_mix_plan_v3, execute_mix_v3
 from .mixv4 import MixPlanV4, execute_mix_v4, plan_v4
 from .stacked import StackedMeta, _cap_class, _pow2
 from .tiled import _TILE_CFG, pick_tile
-from .tilev2 import MatvecV2, _locate, gather_tiles, mv_exec
+from .tilev2 import (MatvecV2, _locate, gather_tiles, mv_exec,
+                     mv_exec_sharded)
 from ..runtime import torch_dtype
 
 # diag tile tasks per chunk of the plain version
@@ -1076,6 +1077,12 @@ class ResidentSite:
         self.eff = eff
         self.dtype = np.dtype(dtype)
         self.device = torch.device(device)
+        # operator sharding (reference :1186-1187): with a mesh every
+        # sigma matvec runs this rank's task groups on K20 and sums the
+        # partials with all_reduce; the mix, diagonal and noise do not
+        # shard, as in the reference
+        self.mesh = getattr(me, "mesh", None)
+        self.mesh_axis = getattr(me, "mesh_axis", "op")
         torch_dtype(dtype)
         t = eff.t
         mpo, g = me.mpo, me.mpo.group
@@ -1185,30 +1192,73 @@ class ResidentSite:
             raise RuntimeError("no diagonal contributions")
         return execute_diag(ds, self.lw_pool, self.rw_pool)
 
+    def _sigma(self):
+        """The sigma matvec of this site on padded device vectors: K1, or
+        with a mesh this rank's share on K20 + all_reduce."""
+        s = self.ex.struct
+        d = self.ex.to_device(self.device)
+        if self.mesh is None:
+            return lambda v: mv_exec(v, self.lw_pool, self.rw_pool, d,
+                                     s["T"], s["nt2"])
+        from ..parallel.multihost import axis_info, broadcast_
+        group, rank, world = axis_info(self.mesh, self.mesh_axis)
+        part = self.ex.rank_part(rank, world, self.device)
+
+        def mv(v):
+            # the partials must be of one vector: v becomes rank 0's, in
+            # place (a Davidson basis row), because the subspace algebra
+            # on the card (cuBLAS, cuSOLVER) need not round alike on every
+            # rank, and partials of drifting vectors sum to no operator
+            broadcast_(v, group)
+            return mv_exec_sharded(v, self.lw_pool, self.rw_pool, d, part,
+                                   s["T"], s["nt2"], group)
+        return mv
+
+    @property
+    def shard_units(self) -> Optional[int]:
+        """This rank's K20 units per matvec (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        from ..parallel.multihost import axis_info
+        _, rank, world = axis_info(self.mesh, self.mesh_axis)
+        return self.ex.rank_part(rank, world, self.device)["n_units"]
+
     def matvec(self, x: np.ndarray) -> np.ndarray:
-        """One sigma matvec of a host vector (kernel K1), on the host."""
+        """One sigma matvec of a host vector (kernel K1, or K20 with a
+        mesh), on the host."""
         xp = torch.as_tensor(self.ex.pad(x), device=self.device)
-        y = self.ex.matvec_device(xp, self.lw_pool, self.rw_pool)
+        y = self._sigma()(xp)
         return y.cpu().numpy().astype(np.float64)[:self.size]
 
     def solve_ground_state(self, x0: np.ndarray, conv_thrd: float = 1e-8,
                            max_iter: int = 100, max_subspace: int = 20):
-        """On-device Davidson; returns (theta, x[host], n_iter)."""
+        """On-device Davidson; returns (theta, x[host], n_iter).
+
+        With a mesh it is the reference's _v2_dav_sharded (:828, chunks
+        :792): every matvec is this rank's share on K20 summed with
+        all_reduce, and the subspace work runs on every rank.  Each
+        matvec's input is rank 0's basis vector (:meth:`_sigma`), each
+        iteration's stop decision rank 0's, and so is the eigenpair
+        returned, so the ranks stay in lockstep and agree bitwise."""
         s = self.ex.struct
-        d = self.ex.to_device(self.device)
         dg = self.diagonal_device()
         # diag [sizb_p] -> [size_p + 1]; pad slots are exact zeros
         diag_p = torch.zeros(s["size_p"] + 1, dtype=dg.dtype,
                              device=self.device)
         diag_p[:dg.shape[0]] = dg
         xp0 = torch.as_tensor(self.ex.pad(x0), device=self.device)
-
-        def mv(v):
-            return mv_exec(v, self.lw_pool, self.rw_pool, d, s["T"],
-                           s["nt2"])
-
-        th, xv, it = davidson(mv, diag_p, xp0, conv_thrd=conv_thrd,
-                              max_iter=max_iter, max_subspace=max_subspace)
+        group = None
+        if self.mesh is not None:
+            from ..parallel.multihost import axis_info, broadcast_
+            group = axis_info(self.mesh, self.mesh_axis)[0]
+        th, xv, it = davidson(self._sigma(), diag_p, xp0,
+                              conv_thrd=conv_thrd, max_iter=max_iter,
+                              max_subspace=max_subspace, group=group)
+        if group is not None:
+            broadcast_(xv, group)
+            th_it = broadcast_(torch.tensor([th, it], dtype=torch.float64,
+                                            device=self.device), group)
+            th, it = float(th_it[0]), int(th_it[1])
         return th, xv.cpu().numpy().astype(np.float64)[:self.size], it
 
     def noise_rho(self, x: np.ndarray, forward: bool):

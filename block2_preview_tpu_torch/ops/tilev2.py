@@ -63,27 +63,42 @@ def gather_tiles(pool, base, stride, rmax, cmax, T):
     return torch.where(ok, vals, torch.zeros_like(vals))
 
 
-def _locate(cum, t0, t1):
-    """Tasks [t0, t1) -> (task ids, item, offset within item): the
-    reference's _locate (searchsorted right, minus one)."""
-    tau = torch.arange(t0, t1, device=cum.device)
+def _locate_ids(cum, tau):
+    """Task ids ``tau`` -> (item, offset within item): the reference's
+    _locate (searchsorted right, minus one)."""
     item = torch.searchsorted(cum, tau, right=True) - 1
     return item, tau - cum[item]
 
 
-def mv_twin(xp, lpool, rpool, d: Dict, T: int, nt2: int):
+def _locate(cum, t0, t1):
+    """Tasks [t0, t1) -> (item, offset within item)."""
+    return _locate_ids(cum, torch.arange(t0, t1, device=cum.device))
+
+
+def _task_chunks(cum, ids):
+    """(item, offset) per chunk of _TWIN_CHUNK tasks: all tasks of the
+    prefix sums ``cum``, or the task ids ``ids`` (one rank's share)."""
+    n = int(cum[-1]) if ids is None else int(ids.shape[0])
+    for s in range(0, n, _TWIN_CHUNK):
+        e = min(s + _TWIN_CHUNK, n)
+        yield (_locate(cum, s, e) if ids is None
+               else _locate_ids(cum, ids[s:e].long()))
+
+
+def mv_twin(xp, lpool, rpool, d: Dict, T: int, nt2: int, tasks=None):
     """Plain PyTorch version of K1 (same signature as :func:`mv_exec`).
 
     Stage 1 forms one tmp tile per unit (item, ai, ni) with a global unit
-    id (``cumt``); stage 2 adds tmp @ R^T into the sigma tiles."""
+    id (``cumt``); stage 2 adds tmp @ R^T into the sigma tiles.  With
+    ``tasks`` = (stage-1 task ids, stage-2 task ids) only those run: the
+    plain version of K20 over one rank's task groups."""
     it = d["it"].long()
     cum1, cum2, cumt = d["cum1"].long(), d["cum2"].long(), d["cumt"].long()
+    ids1, ids2 = tasks if tasks is not None else (None, None)
     pp = xp[d["psi_idx"].long()].reshape(-1, T, T)
     tmp = torch.zeros((int(cumt[-1]) + 1, T, T), dtype=xp.dtype,
                       device=xp.device)
-    tot1 = int(cum1[-1])
-    for s in range(0, tot1, _TWIN_CHUNK):
-        item, o = _locate(cum1, s, min(s + _TWIN_CHUNK, tot1))
+    for item, o in _task_chunks(cum1, ids1):
         f = it[item]
         nn, nk = f[:, 11], f[:, 9]
         ai = o // (nn * nk)
@@ -95,9 +110,7 @@ def mv_twin(xp, lpool, rpool, d: Dict, T: int, nt2: int):
         P = pp[f[:, 6] + ki * nn + ni]
         tmp.index_add_(0, cumt[item] + ai * nn + ni, torch.bmm(L, P))
     sig = torch.zeros((nt2 + 1, T, T), dtype=xp.dtype, device=xp.device)
-    tot2 = int(cum2[-1])
-    for s in range(0, tot2, _TWIN_CHUNK):
-        item, o = _locate(cum2, s, min(s + _TWIN_CHUNK, tot2))
+    for item, o in _task_chunks(cum2, ids2):
         f = it[item]
         nn, npp = f[:, 11], f[:, 10]
         ai = o // (npp * nn)
@@ -127,6 +140,104 @@ def mv_exec(xp, lpool, rpool, d: Dict, T: int, nt2: int):
                     d["n_units"], T, sig)
     _kernels.call("b2t_gather", dt, sig, d["sig_idx"], out.shape[0], out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel K20: one rank's share of the operator-sharded matvec
+# ---------------------------------------------------------------------------
+
+def mv_exec_part(xp, lpool, rpool, d: Dict, part: Dict, T: int, nt2: int):
+    """This rank's partial flat sigma [sizb_p] (kernel K20): K1's units of
+    the rank's task groups only (``part`` from :meth:`MatvecV2.rank_part`),
+    flattened through ``sig_idx``.  CPU tensors run :func:`mv_twin` over
+    the same groups' tasks; CUDA tensors launch K20 (nothing when the rank
+    owns no unit) or raise."""
+    if xp.device.type == "cpu":
+        return mv_twin(xp, lpool, rpool, d, T, nt2,
+                       tasks=(part["t1"], part["t2"]))
+    if not xp.is_cuda:
+        raise ValueError(f"unsupported device {xp.device}")
+    dt = xp.dtype
+    sig = torch.zeros((nt2 + 1) * T * T, dtype=dt, device=xp.device)
+    out = torch.empty(d["sig_idx"].shape[0], dtype=dt, device=xp.device)
+    if part["n_units"] > 0:
+        _kernels.launch("K20_matvec_shard", "b2t_matvec_units", dt, xp,
+                        lpool, rpool, d["psi_idx"], d["it"], d["cumt"],
+                        d["it"].shape[0], part["units"], part["n_units"],
+                        T, sig, units=part["n_units"])
+    _kernels.call("b2t_gather", dt, sig, d["sig_idx"], out.shape[0], out)
+    return out
+
+
+def mv_exec_sharded(xp, lpool, rpool, d: Dict, part: Dict, T: int,
+                    nt2: int, group):
+    """Flat sigma [sizb_p] of the operator-sharded matvec: this rank's
+    partial (:func:`mv_exec_part`, K20) summed over ``group`` with
+    ``all_reduce`` — the reference's psum of the partial tile pools
+    (tilev2.py:221), taken after the linear gather through ``sig_idx``."""
+    from ..parallel.multihost import all_reduce_
+    return all_reduce_(mv_exec_part(xp, lpool, rpool, d, part, T, nt2),
+                       group)
+
+
+def shard_groups(g1, g2, cum1, cum2, nd):
+    """Round-robin interleave + pad the group-start arrays for the
+    sharded matvec (copied from the reference, tilev2.py:232): returns
+    (g1i, g2i, e1i, e2i [nd * L] int32, ngl) with ngl = ceil(n_live / nd)
+    the per-device live trip count.  Ends are computed in global group
+    order first (group i ends where group i+1 starts), then interleaved
+    with their groups — an end taken from the next-in-slice group would
+    span nd global groups and double-count work across devices."""
+    n = len(g1)
+    e1 = np.concatenate([g1[1:], cum1[-1:]])
+    e2 = np.concatenate([g2[1:], cum2[-1:]])
+    ngl = -(-n // nd)
+    cap = ngl * nd
+
+    def ilv(a, fill):
+        out = np.full(cap, fill, dtype=np.int32)
+        out[:n] = a
+        # [ngl, nd] row-major -> transpose so device d's contiguous
+        # slice is (d, d + nd, ...)
+        return np.ascontiguousarray(out.reshape(ngl, nd).T).reshape(-1)
+
+    return (ilv(g1, cum1[-1]), ilv(g2, cum2[-1]),
+            ilv(e1, cum1[-1]), ilv(e2, cum2[-1]), ngl)
+
+
+def _spans(a, b):
+    """Concatenated ranges [a_k, b_k) as one int64 array."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    n = b - a
+    if n.sum() == 0:
+        return np.zeros(0, np.int64)
+    return np.repeat(a - np.cumsum(n) + n, n) + np.arange(n.sum())
+
+
+def group_units(g1, e1, g2, e2, cum1, cum2, cumu) -> Dict:
+    """One rank's share of a plan whose task groups are runs of whole
+    items, from its groups' stage-1 ranges [g1, e1), stage-2 ranges [g2,
+    e2) and the unit prefix sums ``cumu`` over items: ``items`` (the
+    groups' item ranges (i0, i1)), ``units`` (their stage-1 units),
+    ``t1``/``t2`` (their stage-1/2 task ids), int64.  Raises if a group's
+    ranges do not cover the same whole items in both stages (a unit adds
+    its own stage-2 products, so the rank's partial would then differ
+    from the reference's per-device one)."""
+    c1 = np.asarray(cum1, np.int64)
+    c2 = np.asarray(cum2, np.int64)
+    i0, i1 = (np.searchsorted(c1, np.asarray(g, np.int64), "left")
+              for g in (g1, e1))
+    j0, j1 = (np.searchsorted(c2, np.asarray(g, np.int64), "left")
+              for g in (g2, e2))
+    if not (np.array_equal(i0, j0) and np.array_equal(i1, j1)
+            and np.array_equal(c1[i0], g1) and np.array_equal(c1[i1], e1)
+            and np.array_equal(c2[j0], g2) and np.array_equal(c2[j1], e2)):
+        raise ValueError("a task group's stage-1 and stage-2 ranges are "
+                         "not the same whole items")
+    cu = np.asarray(cumu, np.int64)
+    return {"items": list(zip(i0.tolist(), i1.tolist())),
+            "units": _spans(cu[i0], cu[i1]),
+            "t1": _spans(g1, e1), "t2": _spans(g2, e2)}
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +278,7 @@ class MatvecV2:
                 cache[cache_key] = (sig, struct)
         self.struct = struct
         self._dev = None
+        self._parts: Dict = {}
 
     @staticmethod
     def _build(space, bra_space, meta_lw, meta_rw, g, tb_t, T):
@@ -363,16 +475,21 @@ class MatvecV2:
                                   + it[:, 2] * it[:, 4] * it[:, 5]).sum())}
 
     # ------------------------------------------------------------------
+    def _cumt(self) -> np.ndarray:
+        """Prefix sums [n_items + 1] of the stage-1 units (item, ai, ni),
+        na * nn per live item (not part of the reference struct)."""
+        s = self.struct
+        it = s["it"].astype(np.int64)
+        live = np.diff(s["cum1"].astype(np.int64)) > 0
+        return np.concatenate([[0], np.cumsum(np.where(
+            live, it[:, 8] * it[:, 11], 0))])
+
     def to_device(self, device) -> Dict:
-        """Device tables K1 and its twin read.  ``cumt`` [n_items + 1]
-        is derived here (not part of the reference struct): prefix sums
-        of the stage-1 units (item, ai, ni), na * nn per live item."""
+        """Device tables K1 and its twin read, with ``cumt`` (the unit
+        prefix sums, :meth:`_cumt`)."""
         if self._dev is None or self._dev["device"] != torch.device(device):
             s = self.struct
-            it = s["it"].astype(np.int64)
-            live = np.diff(s["cum1"].astype(np.int64)) > 0
-            units = np.where(live, it[:, 8] * it[:, 11], 0)
-            cumt = np.concatenate([[0], np.cumsum(units)])
+            cumt = self._cumt()
             if cumt[-1] >= (1 << 31):
                 raise ValueError("matvec unit count exceeds int32")
             dev = {k: torch.as_tensor(s[k], device=device)
@@ -395,3 +512,54 @@ class MatvecV2:
         s = self.struct
         return mv_exec(xp, lpool, rpool, self.to_device(xp.device),
                        s["T"], s["nt2"])
+
+    def sharded_groups(self, world: int):
+        """:func:`shard_groups` of the live groups for ``world`` ranks:
+        (g1i, g2i, e1i, e2i, ngl), rank r's groups in [r * ngl, (r + 1) *
+        ngl).  The reference also pads each slice to a power-of-two
+        capacity (:566-579) against TPU recompiles; that is not carried."""
+        s = self.struct
+        n = s["ng_live"]
+        return shard_groups(s["g1"][:n], s["g2"][:n], s["cum1"], s["cum2"],
+                            world)
+
+    def rank_part(self, rank: int, world: int, device) -> Dict:
+        """Rank ``rank`` of ``world``'s share, on ``device``: ``units`` (its
+        groups' stage-1 units, K20's index list, int32), ``n_units``, and
+        ``t1``/``t2`` (their stage-1/2 task ids, the plain version's).  The
+        host arrays are cached on the struct (it outlives the instance in
+        the sweep's plan cache)."""
+        key = (rank, world, str(device))
+        part = self._parts.get(key)
+        if part is not None:
+            return part
+        host = self.struct.setdefault("_parts", {})
+        h = host.get((rank, world))
+        if h is None:
+            if not 0 <= rank < world:
+                raise ValueError(f"rank {rank} outside a world of {world}")
+            g1i, g2i, e1i, e2i, ngl = self.sharded_groups(world)
+            sl = slice(rank * ngl, (rank + 1) * ngl)
+            s = self.struct
+            h = host[(rank, world)] = group_units(
+                g1i[sl], e1i[sl], g2i[sl], e2i[sl], s["cum1"], s["cum2"],
+                self._cumt())
+        part = {"units": torch.as_tensor(h["units"].astype(np.int32),
+                                         device=device),
+                "n_units": int(h["units"].shape[0]),
+                "t1": torch.as_tensor(h["t1"], device=device),
+                "t2": torch.as_tensor(h["t2"], device=device)}
+        self._parts[key] = part
+        return part
+
+    def matvec_device_sharded(self, xp, lpool, rpool, mesh,
+                              axis: str = "op"):
+        """Sigma matvec with the task groups split over ``mesh``'s
+        ``axis`` (this rank's share on K20) and the partial sigmas summed
+        with ``all_reduce``: exact, up to the order of the sums."""
+        from ..parallel.multihost import axis_info
+        group, rank, world = axis_info(mesh, axis)
+        s = self.struct
+        return mv_exec_sharded(xp, lpool, rpool, self.to_device(xp.device),
+                               self.rank_part(rank, world, xp.device),
+                               s["T"], s["nt2"], group)

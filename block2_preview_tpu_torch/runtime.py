@@ -10,6 +10,8 @@ break Davidson convergence.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -40,6 +42,33 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {dev}")
     set_precision_policy()
     return dev
+
+
+def local_cuda_device(rank: int) -> torch.device:
+    """cuda:(local_rank % device count) for a process of the given global
+    ``rank``; the local rank is ``LOCAL_RANK`` where a launcher sets it,
+    else the rank.  Several ranks on one card all share cuda:0."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA rank device was requested but CUDA is "
+                           "not available")
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def rank_device(mesh, device) -> torch.device:
+    """This rank's device.  Without a mesh, :func:`resolve_device`.  With a
+    ``DeviceMesh``, the type of ``device`` (the mesh's device type when
+    ``device`` is None): a CUDA rank takes :func:`local_cuda_device` of its
+    global rank and raises where CUDA is absent; a CPU rank the CPU."""
+    if mesh is None:
+        return resolve_device(device)
+    kind = torch.device(device).type if device is not None \
+        else mesh.device_type
+    dev = resolve_device(kind)
+    if dev.type == "cpu":
+        return dev
+    import torch.distributed as dist
+    return local_cuda_device(dist.get_rank())
 
 
 def torch_dtype(dtype, complex_ok: bool = False) -> torch.dtype:

@@ -5,7 +5,7 @@ port's own host reference (backend="numpy", held equal to the JAX
 package's host path by the CPU tests):
 
   1. device    card name and power limit (nvidia-smi), torch / CUDA
-  2. build     nvcc builds kernels K1-K19 from block2_preview_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K22 from block2_preview_tpu_torch/csrc
                (one nvcc per source, all at once)
   4. parity    Hubbard-L8, D=80, 6 sweeps with noise, f64: |dE| < 1e-8 Ha
   5. full      seeded K=16 quantum-chemistry Hamiltonian (16 electrons,
@@ -110,6 +110,27 @@ package's host path by the CPU tests):
                against its twin and against K8's sigma on the same center
                (f64: 1e-12 relative); phase 3 does the same at the K=16
                site 7
+  11a. shard   the operator-sharded path (torch.distributed) in this
+               process: a mesh of world size 1 under NCCL (file
+               rendezvous), phase 4's start and schedule on torch_resident
+               with the mesh, against phase 4's host energy to 1e-8 Ha;
+               fails unless K20 and K21 launched and K1 and K5 did not;
+               the group is destroyed after
+  11b. shard   two ranks on the one card under gloo (spawned, file
+               rendezvous, a group timeout and a join deadline), each
+               running phase 5's start and schedule at full width with the
+               mesh: per sweep the wall split, K20/K21 launches and units,
+               matvecs and the time in all_reduce (gloo stages it through
+               the host: a one-card number, not an NVLink one); fails
+               unless both ranks' energies and final states are bitwise
+               equal, the energy is within 1e-8 Ha of phase 5's port
+               energy, K20's launches equal the rank's matvecs at the sites
+               where it owns units, K21 launched and K1 and K5 did not;
+               then ShardedPlanExecutor at 10d's center against K18's
+               sigma to 1e-12 relative (K22 launched) and
+               pooled_gram(state, 2, device=mesh, device_min_flop=0) on
+               10a's ground state against one device's Gram to 1e-12 (K17
+               launched on each rank)
   3. kernels   each kernel against its plain PyTorch twin on the card, at
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
@@ -136,7 +157,12 @@ package's host path by the CPU tests):
                3; library: one torch.matmul, cuBLAS DGEMM), f64 and
                complex128; K18 at the K=16 site 7 (also against K8), f64
                and f32; K19's dot (2048 values; library torch.dot) and
-               fill (2^27 values).  Each
+               fill (2^27 values); the sharded kernels at the K=16 site 7,
+               each rank's share of a world of two launched here: K20
+               (the matvec), K21 (the left and right v3 rotate plans), K22
+               (PlanExecutor's buckets) and B22e (K17 on the row slices of
+               10b's largest close), each share against its twin and their
+               sum against K1 / K5 / K18 / one K17 launch.  Each
                row carries the kernel's time, its twin's, one PyTorch
                call's where one computes the same function, and the bound
                (the least time the card could take: the live bytes the
@@ -153,7 +179,8 @@ terminates them before it exits.  The last line is {"ok": true,
 K1-K6 and K8-K12 from their f64 rows at the K=16 site, K7 from its
 complex128 row on phase 6b's state, with the launches of phases 5
 (K1-K6), 6b (K7), 7b (K8, K9), 8b (K10, K11), 8c (K12), 9b (K13, K14)
-and 9c (K15), 10b (K17), 10d (K18) and 10c (K19).  No path runs the v1
+and 9c (K15), 10b (K17), 10d (K18), 10c (K19) and 11b (K20-K22, both
+ranks summed; the rows' times are the two shares' summed).  No path runs the v1
 slab matvec (K16), as in the JAX package: its launches are those counted
 in the runs of phases 5, 7b, 8b, 8c, 9b and 9c, each from a reset, and
 the script fails unless they are 0.  The host references of phases 10a
@@ -2282,13 +2309,12 @@ def plan_exec_check(device, eff, tag, rows=None):
         del ex
 
 
-def phase_plan_exec(device, L=8, D=60, t=3):
-    """Phase 10d: PlanExecutor at the Hubbard-L8 center t of an MPS after
-    2 host sweeps at D=60.  Returns the K18 launches of the run."""
+def hubbard_center(L=8, D=60, t=3):
+    """The effective Hamiltonian at the Hubbard-L center t of an MPS after
+    2 host sweeps at bond dimension D (phases 10d and 11b)."""
     from block2_preview_tpu_torch.core.fcidump import FCIDUMP
     from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
     from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
-    from block2_preview_tpu_torch.ops import _kernels
     fd = FCIDUMP.hubbard(L, u=2, t=1)
     drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
     drv.initialize_system(n_sites=L, n_elec=L, spin=0)
@@ -2297,8 +2323,16 @@ def phase_plan_exec(device, L=8, D=60, t=3):
     drv.dmrg(mpo, mps, bond_dims=[D, D], noises=[1e-4, 1e-4], thrds=[1e-8],
              n_sweeps=2, tol=0, iprint=0, backend="numpy")
     me, _ = mid_site(mpo, drv._last_dmrg.mps, t)
+    return EffectiveHamiltonian2(me, t)
+
+
+def phase_plan_exec(device, L=8, D=60, t=3):
+    """Phase 10d: PlanExecutor at the Hubbard-L8 center t of an MPS after
+    2 host sweeps at D=60.  Returns the K18 launches of the run."""
+    from block2_preview_tpu_torch.ops import _kernels
+    eff = hubbard_center(L, D, t)
     _kernels.reset_counts()
-    plan_exec_check(device, EffectiveHamiltonian2(me, t), f"L{L}c{t}")
+    plan_exec_check(device, eff, f"L{L}c{t}")
     k18 = _kernels.launch_counts()["K18_plan_exec"]
     print(f"[10d plan] Hubbard-L{L} center {t}: K18 {k18}", flush=True)
     if device.type == "cuda" and k18 == 0:
@@ -2358,6 +2392,534 @@ def phase_new_kernels(device, shapes, eff, t):
     return summary_rows(rows)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the operator-sharded engines (K20-K22) on torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARD_TOL = 1e-8    # Ha: 11a/11b against phases 4/5 (the reference's own
+                    # bar for sharded vs one device at D=250)
+RANK_TIMEOUT = 600  # s: the process groups' timeout and 11b's deadline
+
+
+def hubbard_model(L=8):
+    """(driver, MPO) of Hubbard-L, U=2, t=1, half filling."""
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
+    drv.initialize_system(n_sites=L, n_elec=L, spin=0)
+    return drv, drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
+
+
+def hub_sched(D=80, ns=6):
+    """Phase 4's schedule."""
+    return dict(bond_dims=[D] * ns, noises=[1e-5] * ns + [0],
+                thrds=[1e-10], n_sweeps=ns, tol=0, iprint=0)
+
+
+def mps_digest(mps) -> str:
+    """A hash of every block of ``mps``: equal digests are bitwise-equal
+    states."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in mps.tensors:
+        for k in sorted(t.blocks, key=repr):
+            h.update(repr(k).encode())
+            h.update(np.ascontiguousarray(t.blocks[k]).tobytes())
+    return h.hexdigest()
+
+
+def _shard_sweeps(solver):
+    """Per sweep of a sharded run: the numbers phase 11 prints."""
+    out = []
+    for r in solver.sweep_log:
+        out.append({k: r[k] for k in ("energy", "wall", "teff", "teig",
+                                      "tdm", "tblk", "matvecs",
+                                      "idle_matvecs", "all_reduce",
+                                      "all_reduce_s")})
+        for k in ("K1_matvec", "K5_block", "K20_matvec_shard",
+                  "K21_block_shard"):
+            out[-1][k] = r["launches"][k]
+        for k in ("K20_matvec_shard", "K21_block_shard"):
+            out[-1][k + "_units"] = r["units"][k]
+    return out
+
+
+def phase_shard_one(device, e_ref, L=8, D=80, ns=6):
+    """Phase 11a: a mesh of world size 1 (NCCL on the card, gloo on the
+    CPU; file rendezvous) in this process, phase 4's start and schedule on
+    torch_resident with the mesh, against phase 4's host energy
+    ``e_ref``.  The group is destroyed after.  Returns the launches."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from block2_preview_tpu_torch.ops import _kernels
+    from block2_preview_tpu_torch.parallel.multihost import (
+        init_mesh, time_collectives)
+    drv, mpo = hubbard_model(L)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_mesh(f"file://{tmp}/rendezvous", 1, 0,
+                         device_type=device.type,
+                         timeout=timedelta(seconds=RANK_TIMEOUT))
+        time_collectives()
+        try:
+            _kernels.reset_counts()
+            t0 = time.time()
+            e = drv.dmrg(mpo, drv.get_random_mps(D, seed=7), device=device,
+                         mesh=mesh, **hub_sched(D, ns))
+            secs = time.time() - t0
+            counts = _kernels.launch_counts()
+            backend = dist.get_backend()
+        finally:
+            time_collectives(False)
+            dist.destroy_process_group()
+    sw = _shard_sweeps(drv._last_dmrg)
+    print(f"[11a shard] world 1 ({backend}) Hubbard-L{L} D={D} x{ns} E "
+          f"{e:.12f} ({secs:.1f} s)  phase 4 host {e_ref:.12f} dE "
+          f"{e - e_ref:.2e}  K20 {counts['K20_matvec_shard']} K21 "
+          f"{counts['K21_block_shard']} K1 {counts['K1_matvec']} K5 "
+          f"{counts['K5_block']}  all_reduce "
+          f"{sum(r['all_reduce'] for r in sw)} in "
+          f"{sum(r['all_reduce_s'] for r in sw):.3f} s", flush=True)
+    if not abs(e - e_ref) < SHARD_TOL:
+        fail(f"11a: |dE| to phase 4 {abs(e - e_ref):.3e} >= {SHARD_TOL}")
+    if device.type == "cuda" and not (
+            counts["K20_matvec_shard"] > 0 and counts["K21_block_shard"] > 0
+            and counts["K1_matvec"] == 0 and counts["K5_block"] == 0):
+        fail(f"11a: K20 and K21 must launch, K1 and K5 must not ({counts})")
+    return counts
+
+
+def shard_rank(rank, world, init_method, cfg, queue):
+    """One rank of phase 11b (a spawned process): puts (rank, its result)
+    on ``queue``, or (rank, {"error": traceback}) if it raised."""
+    import traceback
+    try:
+        queue.put((rank, _shard_rank(rank, world, init_method, cfg)))
+    except Exception:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def _shard_rank(rank, world, init_method, cfg):
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from block2_preview_tpu_torch.dmrg.npdm_scheme import pooled_gram
+    from block2_preview_tpu_torch.ops import _kernels, exec_bucket
+    from block2_preview_tpu_torch.parallel.multihost import (
+        init_mesh, time_collectives)
+    from block2_preview_tpu_torch.parallel.shard import ShardedPlanExecutor
+    from block2_preview_tpu_torch.runtime import rank_device
+    torch.set_num_threads(cfg["threads"])
+    mesh = init_mesh(init_method, world, rank, device_type=cfg["device"],
+                     backend=cfg.get("backend", "gloo"),
+                     timeout=timedelta(seconds=cfg["timeout"]))
+    time_collectives()
+    try:
+        dev = rank_device(mesh, None)
+        if cfg["system"] == "qc":
+            drv, mpo, _ = qc_system(cfg["n_orb"], cfg["n_orb"])
+            ket = drv.get_random_mps(cfg["D"], seed=11)
+            sched = qc_sched(cfg["D"], cfg["n_sweeps"])
+        else:
+            drv, mpo = hubbard_model(cfg["L"])
+            ket = drv.get_random_mps(cfg["D"], seed=7)
+            sched = hub_sched(cfg["D"], cfg["n_sweeps"])
+        _kernels.reset_counts()
+        t0 = time.time()
+        e = drv.dmrg(mpo, ket, device=dev, mesh=mesh, **sched)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        solver = drv._last_dmrg
+        out = {"device": str(dev), "energy": e, "wall": time.time() - t0,
+               "launches": _kernels.launch_counts(),
+               "sweeps": _shard_sweeps(solver),
+               "idle_matvecs": solver.idle_matvecs,
+               "matvecs": sum(r["matvecs"] for r in solver.sweep_log),
+               "digest": mps_digest(solver.mps),
+               "host": {k: getattr(solver, k) for k in (
+                   "host_redo_count", "host_env_materialized",
+                   "host_ops_downloads")}}
+        # ShardedPlanExecutor (K22) against PlanExecutor (K18)
+        eff = hubbard_center()
+        x = np.random.default_rng(9).standard_normal(eff.size)
+        _kernels.reset_counts()
+        got = ShardedPlanExecutor(eff, mesh, dtype=np.float64).matvec(x)
+        out["k22"] = _kernels.launch_counts()["K22_plan_exec_shard"]
+        ref = exec_bucket.PlanExecutor(eff, device=dev).matvec(x)
+        out["spe_rel"] = float(np.abs(got - ref).max() / np.abs(ref).max())
+        # pooled_gram's closes row-sharded on K17 against one device
+        _kernels.reset_counts()
+        t0 = time.time()
+        G, _ = pooled_gram(cfg["gram_state"], 2, device=mesh,
+                           device_min_flop=0)
+        out["gram_s"] = time.time() - t0
+        out["k17"] = _kernels.launch_counts()["K17_npdm_gemm"]
+        G1, _ = pooled_gram(cfg["gram_state"], 2, device=dev,
+                            device_min_flop=0)
+        out["gram_d"] = float(np.abs(G - G1).max())
+    finally:
+        time_collectives(False)
+        dist.destroy_process_group()
+    return out
+
+
+def run_ranks(cfg, world=2, deadline=RANK_TIMEOUT, target=None):
+    """Spawn ``world`` ranks of ``target`` (:func:`shard_rank` by default,
+    or a top-level function of the same signature; ``cfg["backend"]``,
+    gloo by default; a file rendezvous; their numerical libraries held to
+    ``cfg["threads"]`` threads) and return their results in rank order.  A rank still alive at the
+    deadline, or after another rank died without a result, is killed;
+    a missing result fails the phase."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    env = {k: str(cfg["threads"]) for k in (
+        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
+    saved = {k: os.environ.get(k) for k in env}
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=target or shard_rank, args=(
+            r, world, f"file://{tmp}/rendezvous", cfg, q))
+            for r in range(world)]
+        os.environ.update(env)
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        t_end = time.time() + deadline
+        try:
+            while len(res) < world and time.time() < t_end:
+                try:
+                    r, out = q.get(timeout=2)
+                    res[r] = out
+                except queue_mod.Empty:
+                    if any(p.exitcode is not None and i not in res
+                           for i, p in enumerate(procs)):
+                        break
+        finally:
+            for p in procs:
+                p.join(timeout=10 if len(res) == world else 1)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+    missing = sorted(set(range(world)) - set(res))
+    if missing:
+        fail(f"11b: ranks {missing} gave no result within {deadline} s "
+             f"(exit codes {[p.exitcode for p in procs]})")
+    for r in range(world):
+        if "error" in res[r]:
+            fail(f"11b: rank {r} raised:\n{res[r]['error']}")
+    return [res[r] for r in range(world)]
+
+
+def check_shard_ranks(res, e_ref, what, cuda):
+    """Phase 11b's rules on the ranks' results ``res``: energies and final
+    states bitwise equal across ranks, the energy within SHARD_TOL of
+    ``e_ref`` (``what`` names it), no host redo or download, the
+    ShardedPlanExecutor within 1e-12 of K18 and the sharded Gram within
+    1e-12 of one device's; on the card also K20's launches equal the
+    matvecs of the sites where the rank owned units, K21, K22 and K17
+    launched, K1 and K5 did not."""
+    for i, r in enumerate(res):
+        for j, w in enumerate(r["sweeps"]):
+            print(f"[11b shard] rank {i} ({r['device']}) sweep {j} E "
+                  f"{w['energy']:.12f} wall {w['wall']:.1f} s  Teff "
+                  f"{w['teff']:.1f} Teig {w['teig']:.1f} Tdm {w['tdm']:.1f} "
+                  f"Tblk {w['tblk']:.1f}  K20 {w['K20_matvec_shard']} "
+                  f"({w['K20_matvec_shard_units']} units) K21 "
+                  f"{w['K21_block_shard']} ({w['K21_block_shard_units']} "
+                  f"units) K1 {w['K1_matvec']} K5 {w['K5_block']}  matvecs "
+                  f"{w['matvecs']} (idle {w['idle_matvecs']})  all_reduce "
+                  f"{w['all_reduce']} in {w['all_reduce_s']:.3f} s",
+                  flush=True)
+        print(f"[11b shard] rank {i}: E {r['energy']:.12f} ({r['wall']:.1f} "
+              f"s) {what} {e_ref:.12f} dE {r['energy'] - e_ref:.2e}  state "
+              f"{r['digest'][:12]}  ShardedPlanExecutor vs K18 rel "
+              f"{r['spe_rel']:.2e} (K22 {r['k22']})  sharded Gram max |d| "
+              f"{r['gram_d']:.2e} (K17 {r['k17']}, {r['gram_s']:.1f} s)",
+              flush=True)
+    e0, d0 = res[0]["energy"], res[0]["digest"]
+    if any(r["energy"] != e0 for r in res):
+        fail(f"11b: the ranks' energies differ "
+             f"({[r['energy'] for r in res]})")
+    if any(r["digest"] != d0 for r in res):
+        fail("11b: the ranks' final states differ")
+    if not abs(e0 - e_ref) < SHARD_TOL:
+        fail(f"11b: |dE| to {what} {abs(e0 - e_ref):.3e} >= {SHARD_TOL}")
+    for i, r in enumerate(res):
+        if any(r["host"].values()):
+            fail(f"11b: rank {i} host counters {r['host']}")
+        if not r["spe_rel"] < 1e-12:
+            fail(f"11b: rank {i} ShardedPlanExecutor vs K18 rel "
+                 f"{r['spe_rel']:.3e} >= 1e-12")
+        if not r["gram_d"] < 1e-12:
+            fail(f"11b: rank {i} sharded Gram max |d| {r['gram_d']:.3e} "
+                 ">= 1e-12")
+        c = r["launches"]
+        if cuda and not (
+                c["K20_matvec_shard"] == r["matvecs"] - r["idle_matvecs"]
+                and c["K21_block_shard"] > 0 and c["K1_matvec"] == 0
+                and c["K5_block"] == 0 and r["k22"] > 0 and r["k17"] > 0):
+            fail(f"11b: rank {i}: K20 must equal the matvecs with units "
+                 f"({r['matvecs']} - {r['idle_matvecs']}), K21, K22 and "
+                 f"K17 must launch, K1 and K5 must not ({c}, K22 "
+                 f"{r['k22']}, K17 {r['k17']})")
+
+
+def phase_shard_ranks(device, gram_state, e_ref, what, n_orb=16, D=250,
+                      n_sweeps=2):
+    """Phase 11b: two ranks on ``device``'s type under gloo (on one card
+    both share it), each running phase 5's start and schedule (its first
+    ``n_sweeps`` sweeps) with the mesh, then ShardedPlanExecutor at 10d's
+    center and the sharded 2-particle Gram of ``gram_state``.  Returns the
+    ranks' results."""
+    cfg = dict(device=device.type, system="qc", n_orb=n_orb, D=D,
+               n_sweeps=n_sweeps, gram_state=gram_state, threads=3,
+               timeout=RANK_TIMEOUT)
+    t0 = time.time()
+    res = run_ranks(cfg)
+    print(f"[11b shard] two gloo ranks on {res[0]['device']} / "
+          f"{res[1]['device']}: K={n_orb} D={D} x{n_sweeps} in "
+          f"{time.time() - t0:.1f} s (spawn to join)", flush=True)
+    check_shard_ranks(res, e_ref, what, device.type == "cuda")
+    return res
+
+
+def _unique_sum(keys, sizes) -> int:
+    """Sum of ``sizes`` over the first occurrence of each key (a block
+    read by several items counts once)."""
+    _, first = np.unique(np.asarray(keys), return_index=True)
+    return int(np.asarray(sizes, np.int64)[first].sum())
+
+
+def _item_index(ranges) -> np.ndarray:
+    return np.concatenate([np.arange(a, b) for a, b in ranges] or
+                          [np.zeros(0, np.int64)]).astype(np.int64)
+
+
+def _bucket_shapes(eff):
+    """True (a, k, n, p) of every PlanExecutor item, with the ids of the
+    LW block (m, lk) and the RW block (m, rk) it reads, bucket by bucket in
+    the executor's order (its _round_dim keys sorted, triples in order):
+    [n_items, 6] int64 per bucket."""
+    from block2_preview_tpu_torch.ops.exec_bucket import _round_dim
+    buckets, ids = {}, {}
+    for (m, lk, _pk, rk, _ok) in eff.triples:
+        a0, k0 = eff.LW[m][lk].shape
+        p0, n0 = eff.RW[m][rk].shape
+        key = (_round_dim(a0), _round_dim(k0), _round_dim(n0),
+               _round_dim(p0))
+        buckets.setdefault(key, []).append((
+            a0, k0, n0, p0, ids.setdefault(("L", m, lk), len(ids)),
+            ids.setdefault(("R", m, rk), len(ids))))
+    return [np.asarray(buckets[k], np.int64).reshape(-1, 6)
+            for k in sorted(buckets)]
+
+
+def phase_shard_kernels(device, mpo, mps, t, site, eff, close_shape,
+                        world=2):
+    """Phase-3 rows of the sharded kernels at site t, each rank's share of
+    a world of ``world`` launched here with explicit (rank, world): K20
+    (the site's matvec), K21 (the left and right v3 rotate plans next to
+    the center), K22 (PlanExecutor's buckets) and B22e (K17 on the row
+    slices of the largest 10b close ``close_shape``).  Each share against
+    its twin, the shares' sum against K1 / K5 / K18 / one K17 (1e-12
+    relative); the bound of each share counts its own items' live bytes
+    (a block read by several items once) and FLOPs.  f64.  Returns the
+    summary rows (the shares' times summed)."""
+    import torch
+    from block2_preview_tpu_torch.ops import (blockv2, exec_bucket,
+                                              npdm_gemm, resident, tilev2)
+    from block2_preview_tpu_torch.ops.stacked import env_pool, site_pools
+    me, peff = site
+    g = mpo.group
+    rows = {}
+    tdt = torch.float64
+    plans, pools = {}, {}
+    for side, (_meta, pool, args, kws) in site_mix_inputs(mpo, me, peff,
+                                                          t).items():
+        plans[side] = resident.build_mix_plan_v4(*args, **kws)
+        pools[side] = resident.execute_mix_plan(
+            plans[side], torch.as_tensor(pool, dtype=tdt, device=device))
+    ex = tilev2.MatvecV2(peff.ket_space, plans["lw"].meta_out,
+                         plans["rw"].meta_out, g, peff.target,
+                         dtype=np.float64, bra_space=peff.bra_space)
+    s = ex.struct
+    dv = ex.to_device(device)
+    xp = torch.as_tensor(ex.pad(np.random.default_rng(5).standard_normal(
+        peff.size)), device=device)
+    lw, rw = pools["lw"], pools["rw"]
+
+    def hold(tag, total, full):
+        rel, _ = rel_err(total, full)
+        print(f"[3 kernels] {tag}: the {world} shares summed vs one launch "
+              f"rel {rel:.2e}", flush=True)
+        if not rel <= 1e-12:
+            fail(f"{tag}: shares summed vs one launch rel {rel:.3e}")
+
+    it = s["it"].astype(np.int64)
+    total = None
+    for r in range(world):
+        part = ex.rank_part(r, world, device)
+        groups = s["_parts"][(r, world)]["items"]
+        items = _item_index(groups)
+        f = it[items]
+        flops = 2.0 * float((f[:, 2] * f[:, 1] * f[:, 4]
+                             + f[:, 2] * f[:, 4] * f[:, 5]).sum())
+        n_bytes = live_bytes(
+            8, peff.size + peff.bra_space.size
+            + _unique_sum(f[:, 0], f[:, 2] * f[:, 1])
+            + _unique_sum(f[:, 3], f[:, 5] * f[:, 4]),
+            n_tiles(peff.ket_space, s["T"]) * s["T"] ** 2
+            + peff.bra_space.size + 14 * len(items) + part["n_units"])
+
+        def k20(fn=tilev2.mv_exec_part, part=part):
+            return fn(xp, lw, rw, dv, part, s["T"], s["nt2"])
+
+        def twin(part=part):
+            return tilev2.mv_twin(xp, lw, rw, dv, s["T"], s["nt2"],
+                                  tasks=(part["t1"], part["t2"]))
+
+        y = k20()
+        _check(rows, "K20_matvec_shard", np.float64, f"r{r}", y, twin(),
+               F64_TOL, time_ms(k20, device), time_ms(twin, device), None,
+               n_bytes, flops,
+               f"rank {r} of {world}: groups {len(groups)} of "
+               f"{s['ng_live']}, items {len(items)}, units "
+               f"{part['n_units']} of {dv['n_units']}")
+        total = y if total is None else total + y
+    hold("K20_matvec_shard", total,
+         tilev2.mv_exec(xp, lw, rw, dv, s["T"], s["nt2"]))
+
+    for direction, bond, st in (("left", t, t), ("right", t + 2, t + 1)):
+        env = me.left_envs[bond] if direction == "left" \
+            else me.right_envs[bond]
+        meta, pool = env_pool(env, mpo.bond_dqs[bond], np.float64)
+        rp = blockv2.build_blocking_v2(
+            meta, mpo.tensors[st], mpo.site_quanta[st], mps.tensors[st],
+            mps.tensors[st], g, direction, mpo.bond_dqs[bond],
+            mpo.bond_dqs[t + 1], gemm_mix=True).rot
+        ep = torch.as_tensor(pool, dtype=tdt, device=device)
+        bp, kp = site_pools(rp, device, tdt)
+        d5 = blockv2.blk_tables(rp, device, tdt)
+        bi = rp.it.astype(np.int64)
+        ef = rp.ef.astype(np.int64)
+        efs = d5["efs"].cpu().numpy().astype(np.int64)
+        total = None
+        for r in range(world):
+            part = blockv2.blk_rank_part(rp, r, world, device)
+            items = _item_index(part["items"])
+            f = bi[items]
+            ents = _item_index([(efs[i], efs[i + 1]) for i in items])
+            e = ef[ents]
+            flops = 2.0 * float((f[:, 2] * f[:, 1] * f[:, 4]
+                                 + f[:, 2] * f[:, 6] * f[:, 4]).sum())
+            n_bytes = live_bytes(
+                8, _unique_sum(f[:, 0], f[:, 2] * f[:, 1])
+                + _unique_sum(f[:, 3], f[:, 1] * f[:, 4])
+                + _unique_sum(f[:, 5], f[:, 2] * f[:, 6])
+                + len(ents) + _unique_sum(e[:, 1], e[:, 2] * e[:, 3]),
+                14 * len(items) + 5 * len(ents) + part["n_units"])
+
+            def k21(fn=blockv2.blk_exec_part, part=part):
+                return fn(ep, bp, kp, d5, part, rp.T, rp.left,
+                          torch.zeros(rp.ncap, dtype=tdt, device=device))
+
+            def twin(part=part):
+                return blockv2.blk_twin(
+                    ep, bp, kp, d5, rp.T, rp.left,
+                    torch.zeros(rp.ncap, dtype=tdt, device=device),
+                    items=part["items"])
+
+            o = k21()
+            _check(rows, "K21_block_shard", np.float64,
+                   f"{direction[0]}{r}", o, twin(), F64_TOL,
+                   time_ms(k21, device), time_ms(twin, device), None,
+                   n_bytes, flops,
+                   f"rank {r} of {world}: groups {len(part['items'])} of "
+                   f"{len(rp.g1)}, items {len(items)}, units "
+                   f"{part['n_units']} of {d5['n_units']}, entries "
+                   f"{len(ents)}")
+            total = o if total is None else total + o
+        hold(f"K21_block_shard {direction}", total, blockv2.blk_exec(
+            ep, bp, kp, d5, rp.T, rp.left,
+            torch.zeros(rp.ncap, dtype=tdt, device=device)))
+
+    pe = exec_bucket.PlanExecutor(eff, dtype=np.float64, device=device)
+    x = np.random.default_rng(9).standard_normal(eff.size)
+    xq = torch.as_tensor(np.concatenate([x, np.zeros(pe.size_p + 1
+                                                     - pe.size)]),
+                         device=device)
+    shapes = _bucket_shapes(eff)
+    total = None
+    for r in range(world):
+        part = pe.rank_part(r, world)
+        sh = np.concatenate([b[i0:i1] for b, (i0, i1) in
+                             zip(shapes, part["slices"])])
+        a, k, n, p, lid, rid = sh.T
+        flops = 2.0 * float((a * k * n + a * n * p).sum())
+        # as K18's sigma_bytes_flops over this share: every LW/RW block its
+        # items read once (a block shared by several items once), psi and
+        # sigma once
+        n_bytes = live_bytes(8, 2 * eff.size + _unique_sum(lid, a * k)
+                             + _unique_sum(rid, p * n))
+
+        def k22(part=part):
+            return exec_bucket.plan_exec_part(xq, pe, part)
+
+        def twin(part=part):
+            return exec_bucket.plan_exec_plain(xq, [
+                tuple(v[i0:i1] for v in bk) for bk, (i0, i1) in
+                zip(pe.device_buckets, part["slices"])], pe.size_p + 1)
+
+        y = k22()
+        _check(rows, "K22_plan_exec_shard", np.float64, f"r{r}", y, twin(),
+               ATOMIC_TOL[np.float64], time_ms(k22, device),
+               time_ms(twin, device), None, n_bytes, flops,
+               f"rank {r} of {world}: items {len(sh)} of "
+               f"{sum(len(b) for b in shapes)}, blocks {part['n_blocks']} "
+               f"of {pe.n_blocks}")
+        total = y if total is None else total + y
+    hold("K22_plan_exec_shard", total, exec_bucket.plan_exec(xq, pe))
+    del pe
+
+    n, X, m = close_shape
+    rng = np.random.default_rng(17)
+    M = torch.as_tensor(rng.standard_normal((n, X)), device=device)
+    V = torch.as_tensor(rng.standard_normal((X, m)), device=device)
+    per = -(-n // world)
+    outs = []
+    for r in range(world):
+        Mr = torch.zeros((per, X), dtype=tdt, device=device)
+        mine = M[r * per:(r + 1) * per]
+        Mr[:mine.shape[0]] = mine
+        y = npdm_gemm.npdm_gemm(Mr, V)
+        _check(None, "K17_npdm_gemm", np.float64, f"B22e r{r}", y,
+               npdm_gemm.npdm_gemm_plain(Mr, V), ATOMIC_TOL[np.float64],
+               time_ms(lambda: npdm_gemm.npdm_gemm(Mr, V), device),
+               time_ms(lambda: npdm_gemm.npdm_gemm_plain(Mr, V), device),
+               time_ms(lambda: torch.matmul(Mr, V), device),
+               8 * (mine.shape[0] * X + X * m + per * m),
+               2 * mine.shape[0] * X * m,
+               f"rank {r} of {world}: rows {mine.shape[0]} of {n} "
+               f"(padded to {per}) of [{n} x {X}] @ [{X} x {m}]")
+        outs.append(y)
+    hold("B22e (K17 on row slices)", torch.cat(outs)[:n],
+         npdm_gemm.npdm_gemm(M, V))
+    return summary_rows(rows)
+
+
 def main():
     try:
         import torch
@@ -2391,7 +2953,8 @@ def main():
         later = ("K7_tiled", "K8_bucket", "K9_bucket_blocking", "K10_slab",
                  "K11_stk_mix", "K12_tiled_blocking", "K13_env_gemm",
                  "K14_place_v3", "K15_mix_v2", "K17_npdm_gemm",
-                 "K18_plan_exec", "K19_probe")
+                 "K18_plan_exec", "K19_probe", "K20_matvec_shard",
+                 "K21_block_shard", "K22_plan_exec_shard")
         for k in later:
             counts.pop(k)   # the paths of phases 6b-10d
         c5_k16 = {"K16_slab_matvec": counts.pop("K16_slab_matvec")}
@@ -2434,6 +2997,11 @@ def main():
         check_full(e5, r5, n_orb)
         check_stacked(e8b, e8c, e5, r5)
         check_mix(e9b, e9c0, e5, e5_0, r5)
+        phase_shard_one(device, e_hub)
+        res11 = phase_shard_ranks(device, hub[3], e5, "phase 5 port")
+        for k in ("K20_matvec_shard", "K21_block_shard"):
+            counts[k] = sum(r["launches"][k] for r in res11)
+        counts["K22_plan_exec_shard"] = sum(r["k22"] for r in res11)
         site = mid_site(mpo, ket5, t)
         rows = phase_kernels(device, mpo, ket5, t, site=site)
         eff = EffectiveHamiltonian2(site[0], t)
@@ -2444,6 +3012,8 @@ def main():
         rows += phase_stacked_kernels(device, mpo, ket5, site[0], t)
         rows += phase_mix_kernels(device, mpo, ket5, site[0], t)
         rows += phase_new_kernels(device, k17_shapes, eff, t)
+        rows += phase_shard_kernels(device, mpo, ket5, t, site, eff,
+                                    k17_shapes[0])
     t0 = time.time()
     wide = wide_system()
     print(f"[3 kernels] Hubbard-L16 D=1000 site 7 (T=128 tiles; MPS built "

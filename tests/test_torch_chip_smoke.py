@@ -56,7 +56,8 @@ def test_chip_smoke_phases_on_cpu(capsys):
                       "K13_env_gemm": 0, "K14_place_v3": 0,
                       "K15_mix_v2": 0, "K16_slab_matvec": 0,
                       "K17_npdm_gemm": 0, "K18_plan_exec": 0,
-                      "K19_probe": 0}
+                      "K19_probe": 0, "K20_matvec_shard": 0,
+                      "K21_block_shard": 0, "K22_plan_exec_shard": 0}
     assert drv._last_dmrg.mps is ket
     assert e0 == drv._last_dmrg.sweep_log[0]["energy"] and e <= e0 + 1e-9
     rows = chip_smoke.phase_kernels(dev, mpo, ket, n_orb // 2 - 1)
@@ -377,3 +378,117 @@ def test_npdm_phase_fails_on_a_wrong_pdm(monkeypatch):
     refs["det3"] = refs["det3"] + 1e-8
     with pytest.raises(SystemExit):
         chip_smoke.phase_npdm_hubbard(dev, *hub, refs)
+
+
+def test_chip_smoke_shard_phases_on_cpu(capsys):
+    """Phase 11a (a world-1 mesh in this process, gloo on the CPU, against
+    the host energy of the same schedule) and the phase-3 K20-K22 and B22e
+    rows (each rank's share of a world of two, forced into several task
+    groups) at a small size on the CPU."""
+    from block2_preview_tpu_torch.dmrg.effective import (
+        EffectiveHamiltonian2)
+    from block2_preview_tpu_torch.ops import blockv2, tilev2
+    dev = torch.device("cpu")
+    drv, mpo = chip_smoke.hubbard_model(4)
+    e_ref = chip_smoke._host_reference(mpo, drv.get_random_mps(20, seed=7),
+                                       chip_smoke.hub_sched(20, 2))
+    counts = chip_smoke.phase_shard_one(dev, e_ref, L=4, D=20, ns=2)
+    assert set(counts.values()) == {0}      # the twins launch nothing
+    n_orb, D = 6, 20
+    drv, mpo, _ = chip_smoke.qc_system(n_orb, n_orb)
+    drv.dmrg(mpo, drv.get_random_mps(D, seed=11), bond_dims=[D],
+             noises=[1e-4, 0], thrds=[1e-12], n_sweeps=2, tol=0, iprint=0,
+             backend="numpy")
+    ket = drv._last_dmrg.mps
+    t = n_orb // 2 - 1
+    site = chip_smoke.mid_site(mpo, ket, t)
+    eff = EffectiveHamiltonian2(site[0], t)
+    saved = tilev2._CFG[16], blockv2._CFG[16]
+    tilev2._CFG[16], blockv2._CFG[16] = (64, 64), (64, 64, 64)
+    try:
+        rows = chip_smoke.phase_shard_kernels(dev, mpo, ket, t, site, eff,
+                                              (7, 300, 40))
+    finally:
+        tilev2._CFG[16], blockv2._CFG[16] = saved
+    assert [r["name"] for r in rows] == ["K20_matvec_shard",
+                                         "K21_block_shard",
+                                         "K22_plan_exec_shard"]
+    for r in rows:
+        assert r["max_abs_err"] == 0.0      # the plain version against itself
+        assert r["route"] == "cuda" and (ROOT / r["source"]).is_file()
+        assert r["bound_ms"] > 0 and r["library_ms"] is None
+    out = capsys.readouterr().out
+    for k in ("[11a shard] world 1 (gloo) Hubbard-L4",
+              "[3 kernels] K20_matvec_shard f64 r1",
+              "[3 kernels] K21_block_shard f64 l1",
+              "[3 kernels] K21_block_shard f64 r0",
+              "[3 kernels] K22_plan_exec_shard f64 r1",
+              "[3 kernels] K17_npdm_gemm f64 B22e r1",
+              "B22e (K17 on row slices): the 2 shares summed"):
+        assert k in out, k
+    # both ranks own task groups under the small budgets
+    assert "rank 1 of 2: groups 0 " not in out
+
+
+def _rank_result(**kw):
+    sweep = {"energy": -1.0, "wall": 1.0, "teff": 0.1, "teig": 0.1,
+             "tdm": 0.1, "tblk": 0.1, "matvecs": 10, "idle_matvecs": 0,
+             "all_reduce": 12, "all_reduce_s": 0.01, "K1_matvec": 0,
+             "K5_block": 0, "K20_matvec_shard": 10, "K21_block_shard": 3,
+             "K20_matvec_shard_units": 100, "K21_block_shard_units": 30}
+    r = {"device": "cuda:0", "energy": -1.0, "wall": 1.0,
+         "launches": {"K1_matvec": 0, "K5_block": 0,
+                      "K20_matvec_shard": 10, "K21_block_shard": 3},
+         "sweeps": [sweep], "idle_matvecs": 0, "matvecs": 10,
+         "digest": "ab" * 20, "host": {"host_redo_count": 0},
+         "k22": 1, "spe_rel": 1e-16, "k17": 5, "gram_d": 1e-16,
+         "gram_s": 0.5}
+    r.update(kw)
+    return r
+
+
+def test_shard_phase_rules(capsys):
+    """11b's rules: it passes on agreeing ranks and fails the script when
+    the ranks' energies or states differ in any bit, the energy leaves
+    1e-8 Ha, K20 does not match the matvecs with units, K1 or K5 launched,
+    K22 or K17 did not, a host counter moved, or ShardedPlanExecutor or
+    the sharded Gram leaves 1e-12."""
+    good = [_rank_result(), _rank_result()]
+    chip_smoke.check_shard_ranks(good, -1.0 + 5e-9, "phase 5 port", True)
+    out = capsys.readouterr().out
+    assert "[11b shard] rank 1 (cuda:0) sweep 0 E" in out
+    assert "all_reduce 12 in 0.010 s" in out
+    launches = dict(good[0]["launches"])
+    bad = [
+        [_rank_result(), _rank_result(energy=-1.0 + 1e-15)],
+        [_rank_result(), _rank_result(digest="cd" * 20)],
+        [_rank_result(energy=-1.1), _rank_result(energy=-1.1)],
+        [_rank_result(), _rank_result(idle_matvecs=2)],
+        [_rank_result(), _rank_result(launches={**launches,
+                                                "K1_matvec": 1})],
+        [_rank_result(), _rank_result(launches={**launches,
+                                                "K5_block": 2})],
+        [_rank_result(), _rank_result(launches={**launches,
+                                                "K21_block_shard": 0})],
+        [_rank_result(k22=0), _rank_result()],
+        [_rank_result(), _rank_result(k17=0)],
+        [_rank_result(host={"host_redo_count": 1}), _rank_result()],
+        [_rank_result(spe_rel=2e-12), _rank_result()],
+        [_rank_result(), _rank_result(gram_d=3e-12)],
+    ]
+    for res in bad:
+        with pytest.raises(SystemExit):
+            chip_smoke.check_shard_ranks(res, -1.0, "phase 5 port", True)
+    # on the CPU the twins launch nothing: the launch rules are the card's
+    cpu = [_rank_result(launches={k: 0 for k in launches}, k22=0, k17=0)
+           for _ in range(2)]
+    chip_smoke.check_shard_ranks(cpu, -1.0, "world 1", False)
+
+
+def test_shard_ranks_fail_on_a_rank_error(capsys):
+    """Ranks that raise (here: a configuration without its system's size)
+    fail 11b with their tracebacks."""
+    cfg = dict(device="cpu", system="hubbard", threads=1, timeout=20)
+    with pytest.raises(SystemExit):
+        chip_smoke.run_ranks(cfg, deadline=60)
+    assert "KeyError: 'L'" in capsys.readouterr().out

@@ -216,13 +216,14 @@ def test_energy_from_rdms_matches_expectation(l6):
 
 
 def test_refusals_and_defaults(l4):
-    """SU(2) states (A6) and device meshes (A10) raise; the entry points
-    default to the card."""
+    """SU(2) states (A6) raise, and so does a device that is neither a
+    torch device nor a DeviceMesh (a mesh closes on row slices since A10,
+    tests/test_torch_shard.py); the entry points default to the card."""
     _, ket = l4
     k = interop.mps(ket)
     with pytest.raises(NotImplementedError, match="A6"):
         port_driver(4).get_npdm(object(), 3, algo="poly")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         npdm_scheme.pooled_gram(k, 2, device=object())
     for fn in (npdm_scheme.pooled_gram, npdm_scheme.npdm_spatial_poly,
                DMRGDriver.get_npdm, DMRGDriver.get_4pdm):

@@ -207,6 +207,19 @@ assert np.allclose(PlanExecutor(eff, device="cpu").matvec(x),
                    BucketExecutor(eff, device="cpu").matvec(x), atol=1e-12)
 from block2_preview_tpu_torch.utils.gpu_smoke import run_smoke
 assert run_smoke("cpu", pool_elems=1 << 12, tiled=(4, 20, 4))["ok"]
+import torch.distributed as dist
+from block2_preview_tpu_torch.dmrg.npdm_scheme import pooled_gram
+from block2_preview_tpu_torch.parallel.multihost import global_mesh
+from block2_preview_tpu_torch.parallel.shard import ShardedPlanExecutor
+mesh = global_mesh(device_type="cpu")
+e_m = drv.dmrg(mpo, drv.get_random_mps(20, seed=3), device="cpu",
+               mesh=mesh, **kw)
+assert abs(e_m - e_ref) < 1e-10, (e_m, e_ref)
+assert np.allclose(ShardedPlanExecutor(eff, mesh).matvec(x),
+                   BucketExecutor(eff, device="cpu").matvec(x), atol=1e-12)
+assert np.abs(pooled_gram(gs, 2, device=mesh, device_min_flop=0)[0]
+              - pooled_gram(gs, 2, device=None)[0]).max() < 1e-12
+dist.destroy_process_group()
 assert not any(k == "jax" or k.startswith(("jax.", "block2_preview_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ENERGY", e, e_ref)
@@ -229,5 +242,6 @@ def test_port_sources_have_no_jax_import():
                      r"|(from|import)\s+block2_preview_tpu(?!_torch))", re.M)
     files = list((ROOT / "block2_preview_tpu_torch").rglob("*.py"))
     assert files
-    for f in files + [ROOT / "chip_smoke.py", ROOT / "profile_port.py"]:
+    for f in files + [ROOT / "chip_smoke.py", ROOT / "profile_port.py",
+                      ROOT / "shard_cards.py"]:
         assert not pat.search(f.read_text()), f
