@@ -149,16 +149,20 @@ package's host path by the CPU tests):
                (K5's and K12's blocking plans are built with T=128 there;
                K8 meets its widest buckets there); K13 (every GEMM group
                of the K=16 site's LW and RW v3 plans, and one window at
-               c0 > 0), K14 (library: one torch.take), K15 on the same
-               sides' v2 plans (library: one index_add_) and K16 (the v1
-               slab matvec on the site's LW/RW pools, also held against
-               K1 to 1e-12 relative), f64 and f32; K17 at the shapes of
-               the largest class closes of 10b (K=16 order 2, K=12 order
-               3; library: one torch.matmul, cuBLAS DGEMM), f64 and
-               complex128; K18 at the K=16 site 7 (also against K8), f64
-               and f32; K19's dot (2048 values; library torch.dot) and
-               fill (2^27 values); the sharded kernels at the K=16 site 7,
-               each rank's share of a world of two launched here: K20
+               c0 > 0), K14 (library: one torch.take; bitwise against its
+               twin on the slab and on two windows at c0 > 0 of odd
+               length, one across the live end; tail and sentinel 0), K15
+               on the same sides' v2 plans (library: one index_add_) and
+               K16 (the v1 slab matvec on the site's LW/RW pools, also
+               held against K1 to 1e-12 relative), f64 and f32; K17 at
+               the shapes of the largest class closes of 10b (K=16 order
+               2, K=12 order 3; library: one torch.matmul, cuBLAS DGEMM), f64 and
+               complex128, each bitwise against a second launch, then at
+               63 edge shapes and on an unaligned V (phase_k17_edges); K18
+               at the K=16 site 7 (also against K8), f64 and f32; K19's
+               dot (2048 values; library torch.dot) and fill (2^27
+               values); the sharded kernels at the K=16 site 7, each
+               rank's share of a world of two launched here: K20
                (the matvec), K21 (the left and right v3 rotate plans), K22
                (PlanExecutor's buckets) and B22e (K17 on the row slices of
                10b's largest close), each share against its twin and their
@@ -214,6 +218,9 @@ GRAM_TOL = 1e-12    # phase 10b, device Gram against the host Gram (max abs)
 RDM_E_TOL = 1e-8    # Ha, phases 10a/10b energy from the 1PDM and 2PDM
 HBM_BPS = 3.35e12   # H100 SXM memory rate, bytes/s
 PEAK_FLOPS = 67e12  # H100 SXM f64 tensor-core / f32 CUDA-core peak, FLOP/s
+# launches timed for the K14 and K17 rows: at 0.1-0.2 ms a launch, the
+# host's start after the timer's first event is a few percent of five
+K17_K14_REPS = 20
 
 
 def fail(msg: str):
@@ -383,7 +390,8 @@ def phase_build():
         if name.startswith(("mv_kernel", "blk_kernel", "noise_",
                             "tiled_kernel", "bucket_", "slab_", "stk_mix",
                             "tblk_", "env_gemm", "place_v3", "mix_v2",
-                            "npdm_gemm", "plan_exec", "probe_")) or \
+                            "skinny_", "tall_", "reduce_", "plan_exec",
+                            "probe_")) or \
                 not spill.startswith("0 bytes stack"):
             print(f"    ptxas {name}: {regs} registers; {spill}", flush=True)
 
@@ -1639,13 +1647,34 @@ def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
             tabs = p3.tables
             n_tab = sum(len(tabs[k]) for k in ("rowcell", "rowin", "colcell",
                                                "colin", "winsrc", "windk"))
-            _check(acc, "K14_place_v3", dtype, side, k14(mixv3.place_v3_exec),
+            s_k = k14(mixv3.place_v3_exec)
+            total = p3.meta_out.total
+            if not torch.equal(s_k, s_t) or s_k[total:].any():
+                fail(f"K14 {side}: kernel and twin differ, or the tail "
+                     f"[{total}, {n14}) and the sentinel are not 0")
+            # windows at c0 > 0 of odd length, one across the live end
+            for c0, nw in ((total // 3 + 1, 1000001),
+                           (max(1, total - 4097), 8193)):
+                def k14w(fn, d3=d3, o=o_t, c0=c0, nw=nw):
+                    return fn(o, d3, c0, nw, torch.empty(nw, dtype=tdt,
+                                                         device=device))
+                if not torch.equal(k14w(mixv3.place_v3_exec),
+                                   k14w(mixv3.place_v3_twin)):
+                    fail(f"K14 {side}: window c0 {c0} n {nw} differs")
+            print(f"[3 kernels] K14 {side}: slab and windows bitwise equal "
+                  f"to the twin, tail [{total}, {n14}) and sentinel 0",
+                  flush=True)
+            _check(acc, "K14_place_v3", dtype, side, s_k,
                    s_t, tol, time_ms(lambda: k14(mixv3.place_v3_exec),
-                                     device),
-                   time_ms(lambda: k14(mixv3.place_v3_twin), device),
-                   time_ms(lambda: torch.take(o_t, idx), device),
-                   # the live slab written, as many OUT values read; tables
-                   live_bytes(esz, 2 * p3.meta_out.total,
+                                     device, K17_K14_REPS),
+                   time_ms(lambda: k14(mixv3.place_v3_twin), device,
+                           K17_K14_REPS),
+                   time_ms(lambda: torch.take(o_t, idx), device,
+                           K17_K14_REPS),
+                   # the whole slab written (its zero tail too: the output
+                   # is torch.empty), one OUT value read per live element;
+                   # tables
+                   live_bytes(esz, n14 + total,
                               8 * len(tabs["sb_starts"]) + n_tab), 0.0,
                    f"slab {n14} live {p3.meta_out.total} windows "
                    f"{len(p3.winflat['src'])}")
@@ -2340,12 +2369,69 @@ def phase_plan_exec(device, L=8, D=60, t=3):
     return k18
 
 
+K17_EDGE = [(n, X, m) for n in (1, 4, 8, 16, 17, 100, 200)
+            for X in (5, 257, 19545) for m in (1, 7, 1542)]
+
+
+def k17_hold(tag, dM, dV, dtype):
+    """Hold one K17 launch against its twin to ATOMIC_TOL and a second
+    launch on the same inputs bitwise (the fixed-order sum of the split);
+    returns (the first launch's result, its relative error)."""
+    import torch
+    from block2_preview_tpu_torch.ops import npdm_gemm
+    got = npdm_gemm.npdm_gemm(dM, dV)
+    again = npdm_gemm.npdm_gemm(dM, dV)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"K17 {tag}: two launches on the same inputs differ")
+    rel, _ = rel_err(got, npdm_gemm.npdm_gemm_plain(dM, dV))
+    if not rel <= ATOMIC_TOL[dtype]:
+        fail(f"K17 {tag}: rel err {rel:.3e} > {ATOMIC_TOL[dtype]:.0e}")
+    return got, rel
+
+
+def phase_k17_edges(device, shapes=K17_EDGE):
+    """K17 at the edge ``shapes`` (n across both regimes and the
+    threshold, X and m odd and even, one and many slices) and on a V that
+    is not 16-byte aligned (8-byte copies), f64 and c128, seeded on the
+    device: each against its twin and bitwise against a second launch."""
+    import torch
+    from block2_preview_tpu_torch.ops import npdm_gemm
+    gen = torch.Generator(device=device).manual_seed(17)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 132)
+    t0, worst = time.time(), 0.0
+    for dt in (torch.float64, torch.complex128):
+        dtype = np.float64 if dt == torch.float64 else np.complex128
+        for n, X, m in shapes:
+            dM = torch.randn((n, X), generator=gen, dtype=dt, device=device)
+            dV = torch.randn((X, m), generator=gen, dtype=dt, device=device)
+            p = npdm_gemm.plan(n, X, m, sms, dt.is_complex)
+            worst = max(worst, k17_hold(
+                f"{dtype.__name__} [{n} x {X}] @ [{X} x {m}] {p}", dM, dV,
+                dtype)[1])
+        flat = torch.randn(257 * 1542 + 1, generator=gen, dtype=dt,
+                           device=device)
+        dV = flat[1:].view(257, 1542)          # 8 bytes past an alignment
+        for n in (8, 100):
+            dM = torch.randn((n, 257), generator=gen, dtype=dt,
+                             device=device)
+            worst = max(worst, k17_hold(f"{dtype.__name__} unaligned V, n "
+                                        f"{n}", dM, dV, dtype)[1])
+    print(f"[3 kernels] K17 edges: {len(shapes)} shapes + 2 on an unaligned "
+          f"V, f64 and c128, max rel err {worst:.2e} (<= "
+          f"{ATOMIC_TOL[np.float64]:.0e}), two launches bitwise equal "
+          f"({time.time() - t0:.1f} s)", flush=True)
+
+
 def phase_new_kernels(device, shapes, eff, t):
     """Phase-3 rows of K17 (at the largest class closes ``shapes`` of
     phase 10b, seeded values; f64 and complex128; library one
-    torch.matmul), K18 (PlanExecutor at center t of the K=16 MPS, f64
-    and f32, and against K8) and K19 (dot of 2048 values, library
-    torch.dot; fill of 2^27).  Returns the summary rows."""
+    torch.matmul; each also bitwise against a second launch), K18
+    (PlanExecutor at center t of the K=16 MPS, f64 and f32, and against
+    K8) and K19 (dot of 2048 values, library torch.dot; fill of 2^27).
+    Returns the summary rows."""
     import torch
     from block2_preview_tpu_torch.ops import npdm_gemm
     from block2_preview_tpu_torch.utils import gpu_smoke
@@ -2362,12 +2448,15 @@ def phase_new_kernels(device, shapes, eff, t):
             dV = torch.as_tensor(V, device=device)
             esz = np.dtype(dtype).itemsize
             _check(rows if dtype == np.float64 else None, "K17_npdm_gemm",
-                   dtype, "", npdm_gemm.npdm_gemm(dM, dV),
+                   dtype, "", k17_hold(f"[{n} x {X}] @ [{X} x {m}]", dM, dV,
+                                       dtype)[0],
                    npdm_gemm.npdm_gemm_plain(dM, dV), ATOMIC_TOL[dtype],
-                   time_ms(lambda: npdm_gemm.npdm_gemm(dM, dV), device),
+                   time_ms(lambda: npdm_gemm.npdm_gemm(dM, dV), device,
+                           K17_K14_REPS),
                    time_ms(lambda: npdm_gemm.npdm_gemm_plain(dM, dV),
-                           device),
-                   time_ms(lambda: torch.matmul(dM, dV), device),
+                           device, K17_K14_REPS),
+                   time_ms(lambda: torch.matmul(dM, dV), device,
+                           K17_K14_REPS),
                    esz * (n * X + X * m + n * m),
                    (8 if dtype == np.complex128 else 2) * n * X * m,
                    f"[{n} x {X}] @ [{X} x {m}]")
@@ -3012,6 +3101,7 @@ def main():
         rows += phase_stacked_kernels(device, mpo, ket5, site[0], t)
         rows += phase_mix_kernels(device, mpo, ket5, site[0], t)
         rows += phase_new_kernels(device, k17_shapes, eff, t)
+        phase_k17_edges(device)
         rows += phase_shard_kernels(device, mpo, ket5, t, site, eff,
                                     k17_shapes[0])
     t0 = time.time()

@@ -88,12 +88,90 @@ def test_place_twin_matches_jax(system, t, side):
                               torch.empty(n, dtype=torch.float64)).numpy()
     assert np.array_equal(got, ref)        # a gather: exact
     assert got[-1] == 0.0
-    c0, m = p3.meta_out.total // 2 + 1, 1000
-    ref = np.asarray(ref_mixv3._place_chunk(jnp.asarray(outflat), *tabs,
-                                            np.int32(c0), m))
-    got = mixv3.place_v3_exec(torch.as_tensor(outflat), d, c0, m,
-                              torch.empty(m, dtype=torch.float64)).numpy()
-    assert np.array_equal(got, ref)
+    total = p3.meta_out.total
+    assert not got[total:].any()           # the tail and the sentinel
+    for c0, m in ((total // 2 + 1, 1000), (total // 3 + 1, 999),
+                  (total - 7, 1001)):      # odd n, one across the tail
+        ref = np.asarray(ref_mixv3._place_chunk(jnp.asarray(outflat), *tabs,
+                                                np.int32(c0), m))
+        got = mixv3.place_v3_exec(torch.as_tensor(outflat), d, c0, m,
+                                  torch.empty(m, dtype=torch.float64))
+        assert np.array_equal(got.numpy(), ref)
+
+
+# csrc/place_v3.cu's kPlaceTile and kPlaceSb
+PLACE_TILE, PLACE_SB = 4096, 64
+
+
+def _place_walk(tabs, c0, n, tile=PLACE_TILE, sb_max=PLACE_SB):
+    """(src, ok) of slab elements [c0, c0 + n) as K14's blocks find them:
+    per tile of ``tile`` elements, zeros at or past the live end (the last
+    superblock start); else the superblocks lo..hi of the tile's first and
+    last live element, staged when there are at most ``sb_max`` of them
+    (each thread's scan over the staged starts lands on the last start at
+    or below its element, as its elements increase), else a search per
+    element; then place_elem's arithmetic (floor division, clips, early
+    zeros)."""
+    t = {k: np.asarray(tabs[k], np.int64) for k in mixv3.PLACE_TABLES}
+    st, nsb = t["sb_starts"], len(t["sb_starts"])
+    live_end = st[-1]
+    src = np.zeros(n, np.int64)
+    ok = np.zeros(n, bool)
+
+    def find(i):                    # find_sb: last start <= i, else 0
+        return np.maximum(np.searchsorted(st, i, side="right") - 1, 0)
+
+    for e0 in range(0, n, tile):
+        i = c0 + np.arange(e0, min(n, e0 + tile))
+        if i[0] >= live_end:
+            continue                # the zero tail
+        lo = find(i[0])
+        hi = find(min(i[-1], live_end - 1))
+        if i[0] < st[0] or hi - lo + 1 > sb_max:
+            sb = find(i)
+        else:
+            sb = lo + np.searchsorted(st[lo:hi + 1], i, side="right") - 1
+            sb = np.maximum(sb, lo)
+        off = i - st[sb]
+        bs = np.maximum(t["sb_blksz"][sb], 1)
+        jo = off // bs
+        rem = off - jo * bs
+        dlk = np.maximum(t["sb_dlk"][sb], 1)
+        rr, cc = rem // dlk, rem % dlk
+        live = (i < live_end) & (i < st[np.minimum(sb + 1, nsb - 1)])
+        rpos = np.clip(t["sb_rowoff"][sb] + rr, 0, len(t["rowcell"]) - 1)
+        cpos = np.clip(t["sb_coloff"][sb] + cc, 0, len(t["colcell"]) - 1)
+        cr, cl = t["rowcell"][rpos], t["colcell"][cpos]
+        wpos = np.clip(t["sb_celloff"][sb] + jo * t["sb_cells"][sb]
+                       + cr * t["sb_ncc"][sb] + cl, 0, len(t["winsrc"]) - 1)
+        ws = t["winsrc"][wpos]
+        good = live & (cr >= 0) & (cl >= 0) & (ws >= 0)
+        sl = slice(e0, e0 + len(i))
+        ok[sl] = good
+        src[sl] = np.where(good, ws + t["rowin"][rpos] * t["windk"][wpos]
+                           + t["colin"][cpos], 0)
+    return src, ok
+
+
+@pytest.mark.parametrize("t", SITES)
+@pytest.mark.parametrize("side", ["lw", "rw"])
+@pytest.mark.parametrize("tile,sb_max", [(PLACE_TILE, PLACE_SB), (64, 2)])
+def test_place_walk_matches_place_src(system, t, side, tile, sb_max):
+    """K14's block walk (tiles, the zero tail, staged superblocks, the
+    per-element search past ``sb_max``; emulated by :func:`_place_walk`)
+    picks every slab element's OUT index and coverage exactly as
+    place_v3_src (the reference's _place arithmetic): the whole slab with
+    its tail and sentinel, a window at c0 > 0 of odd length, and one
+    across the live end."""
+    _, p3, _ = _plan(Site(*system, t), side)
+    d = mixv3.v3_tables(p3, "cpu", torch.float64)
+    total, n = p3.meta_out.total, p3.ncap_out + 1
+    for c0, m in ((0, n), (total // 3 + 1, 999), (total - 7, 1001)):
+        want_src, want_ok = (x.numpy() for x in mixv3.place_v3_src(d, c0, m))
+        src, ok = _place_walk(p3.tables, c0, m, tile, sb_max)
+        assert np.array_equal(ok, want_ok)
+        assert np.array_equal(src[ok], want_src[ok])
+        assert not ok[max(0, total - c0):].any()
 
 
 @pytest.mark.parametrize("t", SITES)

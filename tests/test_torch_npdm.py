@@ -233,6 +233,12 @@ def test_refusals_and_defaults(l4):
             npdm_scheme.pooled_gram(k, 2)
 
 
+EDGE_N = (1, 4, 8, npdm_gemm.SKINNY_ROWS, npdm_gemm.SKINNY_ROWS + 1, 100,
+          200)
+EDGE_X = (5, 257, 19545)
+EDGE_M = (1, 7, 1542)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
 def test_npdm_gemm_twin_and_split(dtype):
     g = torch.Generator().manual_seed(3)
@@ -246,7 +252,93 @@ def test_npdm_gemm_twin_and_split(dtype):
                                  else torch.float32))
     with pytest.raises(ValueError):
         npdm_gemm.npdm_gemm(M, V.T)
-    for n, X, m in ((8, 19545, 1542), (64, 6088, 6119), (196, 300, 20),
-                    (1, 5, 1)):
-        ks, chunk = npdm_gemm.k_split(n, X, m, 132)
-        assert chunk % 16 == 0 and ks * chunk >= X > (ks - 1) * chunk
+    cpx = dtype.is_complex
+    per16 = 1 if cpx else 2
+    for n in EDGE_N:
+        for X in EDGE_X:
+            for m in EDGE_M:
+                p = npdm_gemm.plan(n, X, m, 132, cpx)
+                # the regime and its tile, as csrc/npdm_gemm.cu picks them
+                if n <= npdm_gemm.SKINNY_ROWS:
+                    assert (p.regime, p.cols) == ("skinny", 128 * per16)
+                    assert n <= p.rows < 2 * n
+                else:
+                    assert (p.regime, p.cols) == ("tall", 64 * per16)
+                    assert p.rows == (32 if n <= 32 else 64
+                                      if n <= 64 or cpx else 128)
+                # the tiles cover n x m, the slices X exactly
+                rt, ct = -(-n // p.rows), -(-m // p.cols)
+                assert p.tiles == rt * ct
+                assert (rt - 1) * p.rows < n <= rt * p.rows
+                assert (ct - 1) * p.cols < m <= ct * p.cols
+                assert p.chunk % 16 == 0
+                assert p.ks * p.chunk >= X > (p.ks - 1) * p.chunk
+                assert p.ks == 1 or p.chunk >= 256
+                assert p.scratch == p.ks * n * m
+
+
+def _split_sum(M, V, p):
+    """K17's arithmetic order over X: each slice's partial, then the sum of
+    the slices in a fixed order (slice 0 first), as the second pass adds."""
+    parts = [M[:, k * p.chunk:(k + 1) * p.chunk]
+             @ V[k * p.chunk:(k + 1) * p.chunk] for k in range(p.ks)]
+    out = parts[0].clone()
+    for q in parts[1:]:
+        out += q
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_npdm_gemm_split_matches_jax_close(n, dtype):
+    """The split sum of :func:`_split_sum` over K17's slices (the kernel's
+    order of summation) and K17's twin against the reference's device
+    close (``_device_gemm``, jnp.matmul at Precision.HIGHEST) on seeded
+    values, at the edge shapes small enough for the CPU, to 1e-12 of the
+    largest element (the orders of summation differ)."""
+    close = ref_scheme._device_gemm()
+    rng = np.random.default_rng(n)
+    for X in EDGE_X:
+        for m in EDGE_M:
+            if n * X * m > 2e7:
+                continue
+            M = rng.standard_normal((n, X))
+            V = rng.standard_normal((X, m))
+            if dtype == np.complex128:
+                M = M + 1j * rng.standard_normal((n, X))
+                V = V + 1j * rng.standard_normal((X, m))
+            ref = close((0, 0), (X, m), M, V)
+            p = npdm_gemm.plan(n, X, m, 132, dtype == np.complex128)
+            tM, tV = torch.as_tensor(M), torch.as_tensor(V)
+            scale = max(np.abs(ref).max(), 1.0)
+            for got in (_split_sum(tM, tV, p), npdm_gemm.npdm_gemm(tM, tV)):
+                assert got.shape == ref.shape
+                assert np.abs(got.numpy() - ref).max() <= TOL * scale
+
+
+def test_chip_smoke_k17_edges_on_cpu(capsys, monkeypatch):
+    """chip_smoke.py's K17 edge phase at two small shapes on the CPU (the
+    twin against itself), and its two gates: a result off the twin fails,
+    and so do two launches on the same inputs that differ by one
+    rounding."""
+    import chip_smoke
+    dev = torch.device("cpu")
+    chip_smoke.phase_k17_edges(dev, shapes=[(1, 5, 1), (17, 300, 7)])
+    assert ("[3 kernels] K17 edges: 2 shapes + 2 on an unaligned V"
+            in capsys.readouterr().out)
+    real = npdm_gemm.npdm_gemm
+    monkeypatch.setattr(npdm_gemm, "npdm_gemm",
+                        lambda M, V: real(M, V) * (1 + 1e-9))
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_k17_edges(dev, shapes=[(4, 257, 7)])
+    calls = []
+
+    def drifting(M, V):
+        calls.append(1)
+        return real(M, V) * (1 + 1e-15 * (len(calls) % 2))
+
+    monkeypatch.setattr(npdm_gemm, "npdm_gemm", drifting)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_k17_edges(dev, shapes=[(4, 257, 7)])
+    assert "two launches on the same inputs differ" in \
+        capsys.readouterr().out
