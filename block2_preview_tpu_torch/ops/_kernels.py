@@ -14,6 +14,12 @@ C side reports a CUDA
 error (a refused launch never runs, and a later synchronise would not
 report it), and adds one to that kernel's launch count.  The counts are
 how a run shows that its main path went through the kernels.
+
+The launch path is the host's share of every kernel: at a few
+microseconds of device work (K19's dot) the card waits on it.  So each
+(entry, dtype) function is resolved once and cached, and the stream is the
+current device's current raw handle, read without building a
+``torch.cuda.Stream``; the checks stay ahead of both.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -57,7 +65,8 @@ KERNELS: Dict[str, KernelInfo] = {
         "block2_preview_tpu/ops/mixv4.py:136 _mix4_scan"),
     "K4_place": KernelInfo(
         "cuda", "block2_preview_tpu_torch/csrc/place.cu",
-        "block2_preview_tpu/ops/mixv4.py:65 _place4_exec_packed"),
+        "block2_preview_tpu/ops/mixv4.py:67 _place4_exec_packed (jit :65; "
+        "+ :101 _place4_exec)"),
     "K5_block": KernelInfo(
         "cuda", "block2_preview_tpu_torch/csrc/blocking.cu",
         "block2_preview_tpu/ops/blockv2.py:60 _blk_scan (jits :177 "
@@ -134,7 +143,7 @@ _SIGS = {
     "b2t_dl_build": (_P, _P, _I, _I, _P, _P),
     "b2t_diag": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "b2t_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
-    "b2t_place": (_P, _P, _P, _I, _L, _P, _P),
+    "b2t_place": (_P, _P, _P, _P, _I, _L, _P, _P),
     "b2t_block": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P),
     "b2t_block_units": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I,
                         _P, _P),
@@ -256,13 +265,35 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+_INTS = (torch.int32, torch.int64)
+# (entry, torch dtype) -> its C function, resolved once (see _bind)
+_fns: Dict[Tuple[str, torch.dtype], Callable] = {}
+
+
+def _bind(entry: str, dtype) -> Callable:
+    """The C function of ``entry`` for ``dtype`` (loading the library on
+    first use), cached for every later call."""
+    sfx = _SUFFIX.get(str(dtype).rsplit(".", 1)[-1])
+    if sfx not in _types(entry):
+        raise TypeError(f"{entry} has no {dtype} instance (it takes "
+                        f"{', '.join(t[1:] for t in _types(entry))})")
+    fn = _fns[(entry, dtype)] = getattr(lib(), entry + sfx)
+    return fn
+
+
+def current_stream_handle() -> int:
+    """The raw handle of the current device's current CUDA stream — what
+    ``torch.cuda.current_stream().cuda_stream`` gives, read through
+    PyTorch's own getter without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def call(entry: str, dtype, *args) -> None:
     """Call C entry ``entry`` (``_f64``/``_f32``/``_c128``/``_c64`` picked
     from ``dtype``, a torch dtype) with ``args`` followed by the current
     CUDA stream; raise on a CUDA error.  Tensor arguments are validated
     (contiguous CUDA tensors of ``dtype``, int32 or int64, the only types
     the kernels take) and passed as device pointers."""
-    import torch
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):
@@ -270,20 +301,16 @@ def call(entry: str, dtype, *args) -> None:
                 raise ValueError("kernel inputs must be contiguous CUDA "
                                  f"tensors (got {a.device}, contiguous="
                                  f"{a.is_contiguous()})")
-            if a.dtype not in (dtype, torch.int32, torch.int64):
+            if a.dtype != dtype and a.dtype not in _INTS:
                 raise TypeError(f"kernel input of dtype {a.dtype} "
                                 f"(expected {dtype}, int32 or int64)")
             a = a.data_ptr()
         cargs.append(a)
-    sfx = _SUFFIX[str(dtype).rsplit(".", 1)[-1]]
-    if sfx not in _types(entry):
-        raise TypeError(f"{entry} has no {dtype} instance (it takes "
-                        f"{', '.join(t[1:] for t in _types(entry))})")
-    fn = getattr(lib(), entry + sfx)
-    err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+    fn = _fns.get((entry, dtype)) or _bind(entry, dtype)
+    err = fn(*cargs, current_stream_handle())
     if err != 0:
         msg = lib().b2t_error_string(err).decode()
-        raise RuntimeError(f"{entry}{sfx} failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err} ({msg})")
 
 
 def launch(kernel: str, entry: str, dtype, *args, units: int = 0) -> None:

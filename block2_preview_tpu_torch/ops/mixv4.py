@@ -11,7 +11,8 @@ Device side, :func:`execute_mix_v4` runs
   K3 (``csrc/mix.cu``, replaces ``_mix4_scan``):
       OUT[w, d] += sum_j W[w, j] * E[j, d] per plan item, W dense;
   K4 (``csrc/place.cu``, replaces ``_place4_exec_packed``):
-      slab[dst + r*rs + c*cs] += OUT[src + r*sst + c] per window;
+      slab[dst + r*rs + c*cs] = OUT[src + r*sst + c] per window (the
+      windows are disjoint), every other slab element 0;
 
 and returns the LW/RW slab pool [ncap_out + 1] with the zero sentinel
 last.  On CPU tensors the wrappers run the plain PyTorch twins; on CUDA
@@ -305,15 +306,20 @@ def place_twin(outflat, d: Dict, res):
 
 
 def place_exec(outflat, d: Dict, res):
-    """Window place (kernel K4): adds every window of OUT into the slab
-    pool ``res`` (zero-initialised by the caller) in place."""
+    """Window place (kernel K4): writes the whole slab pool ``res`` in
+    place — every window of OUT, zeros elsewhere (its prior contents are
+    never read).  K4 assembles slab chunks from the windows that reach
+    into them (``d["wend"]``, ``d["wbeg"]``); on CPU tensors the twin adds
+    the windows into ``res`` zeroed here.  The two agree because the
+    plan's windows are disjoint."""
     if outflat.device.type == "cpu":
-        return place_twin(outflat, d, res)
+        return place_twin(outflat, d, res.zero_())
     if not outflat.is_cuda:
         raise ValueError(f"unsupported device {outflat.device}")
     dt = outflat.dtype
     _kernels.launch("K4_place", "b2t_place", dt, outflat, d["pit"],
-                    d["pcum"], d["pit"].shape[0], d["np"], res)
+                    d["wend"], d["wbeg"], d["pit"].shape[0], res.numel(),
+                    res)
     return res
 
 
@@ -322,17 +328,29 @@ def place_exec(outflat, d: Dict, res):
 # ---------------------------------------------------------------------------
 
 def plan_tables(plan: MixPlanV4, device, dtype) -> Dict:
-    """Device tables of a v4 plan for K3/K4 (and their twins)."""
+    """Device tables of a v4 plan for K3/K4 (and their twins).  K4's
+    ``wend`` (prefix maximum of each window's last slab position + 1) and
+    ``wbeg`` (suffix minimum of its first) are formed on the device from
+    ``pit``: no host work per plan; pad rows own no position."""
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                device=device)
 
     if plan.iscpx:
         raise TypeError("complex mix plans are not on this slice")
+    pit = i32(plan.pit)
+    dst, rs, cs, nb, nk = pit[:, 2:7].unbind(1)
+    live = (nb > 0) & (nk > 0)
+    ext_r, ext_c = (nb - 1) * rs, (nk - 1) * cs
+    first = dst + ext_r.clamp(max=0) + ext_c.clamp(max=0)
+    last = dst + ext_r.clamp(min=0) + ext_c.clamp(min=0)
+    wend = torch.where(live, last + 1, 0).cummax(0).values
+    wbeg = torch.where(live, first, torch.iinfo(torch.int32).max) \
+        .flip(0).cummin(0).values.flip(0)
     return {"it": i32(plan.it), "cum1": i32(plan.cum1),
-            "cum2": i32(plan.cum2), "pit": i32(plan.pit),
-            "pcum": i32(plan.pcum),
-            "n2": int(plan.cum2[-1]), "np": int(plan.pcum[-1]),
+            "cum2": i32(plan.cum2), "pit": pit, "pcum": i32(plan.pcum),
+            "wend": wend.contiguous(), "wbeg": wbeg.contiguous(),
+            "n2": int(plan.cum2[-1]),
             "wpool": torch.as_tensor(plan.wdense.real, dtype=dtype,
                                      device=device)}
 
@@ -347,6 +365,6 @@ def execute_mix_v4(plan: MixPlanV4, epool, d: Optional[Dict] = None):
     otp = _cap_class(plan.out_total + 1)
     out = torch.zeros(otp + 1, dtype=epool.dtype, device=epool.device)
     mix_exec(epool, d["wpool"], d, out)
-    res = torch.zeros(plan.ncap_out + 1, dtype=epool.dtype,
+    res = torch.empty(plan.ncap_out + 1, dtype=epool.dtype,
                       device=epool.device)
     return place_exec(out[:otp], d, res)

@@ -51,15 +51,18 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_i a[i] b[i] in float32 with float32 accumulation (kernel K19
     on CUDA tensors, :func:`dot_plain` on CPU tensors); a 0-d tensor."""
     _f32(a, b)
-    if a.shape != b.shape or a.device != b.device:
-        raise ValueError(f"dot: {tuple(a.shape)} on {a.device} and "
+    dev = a.device
+    if a.shape != b.shape or dev != b.device:
+        raise ValueError(f"dot: {tuple(a.shape)} on {dev} and "
                          f"{tuple(b.shape)} on {b.device}")
-    if a.device.type == "cpu":
+    if dev.type == "cpu":
         return dot_plain(a, b)
-    out = a.new_zeros(1)
+    # the kernel stores the sum: no fill.  At 2048 values the card waits
+    # on this wrapper (PERF.md), so it reads the device once.
+    out = torch.empty((), dtype=torch.float32, device=dev)
     _kernels.launch("K19_probe", "b2t_probe_dot", torch.float32,
                     a.contiguous(), b.contiguous(), a.numel(), out)
-    return out[0]
+    return out
 
 
 def fill_plain(x: torch.Tensor, n: int) -> torch.Tensor:

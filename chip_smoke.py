@@ -135,7 +135,9 @@ package's host path by the CPU tests):
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
                that reason; its launches are not counted): K1-K6 in f64
-               and f32, K7 in f64, f32, complex128 and complex64 (the
+               and f32 (K4 on a slab of NaNs, bitwise against its twin
+               and one index_add_; a zero fill of the slab also timed
+               alone), K7 in f64, f32, complex128 and complex64 (the
                same operators cast to complex) and in complex128 on the
                complex environments of the state phase 6b leaves, and the
                tiled Davidson (K7) against the host Davidson; K8 in f64
@@ -160,7 +162,9 @@ package's host path by the CPU tests):
                complex128, each bitwise against a second launch, then at
                63 edge shapes and on an unaligned V (phase_k17_edges); K18
                at the K=16 site 7 (also against K8), f64 and f32; K19's
-               dot (2048 values; library torch.dot) and fill (2^27
+               dot (2048 values; library torch.dot; also the host
+               microseconds a call of it, of torch.dot and of the launch
+               path, and its launch on a side stream) and fill (2^27
                values); the sharded kernels at the K=16 site 7, each
                rank's share of a world of two launched here: K20
                (the matvec), K21 (the left and right v3 rotate plans), K22
@@ -218,9 +222,12 @@ GRAM_TOL = 1e-12    # phase 10b, device Gram against the host Gram (max abs)
 RDM_E_TOL = 1e-8    # Ha, phases 10a/10b energy from the 1PDM and 2PDM
 HBM_BPS = 3.35e12   # H100 SXM memory rate, bytes/s
 PEAK_FLOPS = 67e12  # H100 SXM f64 tensor-core / f32 CUDA-core peak, FLOP/s
-# launches timed for the K14 and K17 rows: at 0.1-0.2 ms a launch, the
-# host's start after the timer's first event is a few percent of five
-K17_K14_REPS = 20
+# launches timed for the K4, K14, K17 and K19 rows: at 0.1-0.2 ms a
+# launch, the host's start after the timer's first event is a few percent
+# of five; K19's dot is host-bound, and twenty calls average the host's
+# jitter
+ROW_REPS = 20
+HOST_CALLS = 1000   # calls timed on the host clock for K19's launch cost
 
 
 def fail(msg: str):
@@ -272,6 +279,56 @@ def time_ms(fn, device, reps: int = 5) -> float:
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def host_us(fn, device, n: int = HOST_CALLS) -> float:
+    """Host microseconds a call of fn() over n back-to-back calls
+    (time.perf_counter, after one warm-up call and a synchronise): what the
+    host spends to launch a call, not what the card spends on it."""
+    import torch
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return dt * 1e6 / n
+
+
+def launch_path_us(kernels, a, b, device, n: int = HOST_CALLS) -> float:
+    """Host microseconds a call of ``kernels.call`` (a module with the
+    interface of the port's ops/_kernels.py) launching K19's dot of the
+    float32 vectors a and b into one preallocated output: the launch path
+    alone, without the wrapper around it."""
+    import torch
+    out = a.new_empty(1)
+    return host_us(lambda: kernels.call("b2t_probe_dot", torch.float32, a,
+                                        b, a.numel(), out), device, n)
+
+
+def k19_stream_check(device, a, b):
+    """The launch path launches on the caller's current stream: its raw
+    handle is torch.cuda.current_stream()'s on the default stream and
+    inside a side stream, and K19's dot launched inside the side stream
+    gives the right sum there."""
+    import torch
+    from block2_preview_tpu_torch.ops import _kernels
+    from block2_preview_tpu_torch.utils import gpu_smoke
+    want = float(gpu_smoke.dot_plain(a, b))
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    for st in (torch.cuda.current_stream(device), side):
+        with torch.cuda.stream(st):
+            if _kernels.current_stream_handle() != st.cuda_stream:
+                fail(f"the launch path's stream is not the current one "
+                     f"({st})")
+            got = gpu_smoke.dot(a, b)
+        st.synchronize()
+        if not abs(float(got) - want) <= F32_TOL * abs(want):
+            fail(f"K19 dot on {st}: {float(got)} against {want}")
 
 
 def rel_err(a, b):
@@ -389,7 +446,7 @@ def phase_build():
     for name, regs, spill in usage:
         if name.startswith(("mv_kernel", "blk_kernel", "noise_",
                             "tiled_kernel", "bucket_", "slab_", "stk_mix",
-                            "tblk_", "env_gemm", "place_v3", "mix_v2",
+                            "tblk_", "env_gemm", "place_", "mix_v2",
                             "skinny_", "tall_", "reduce_", "plan_exec",
                             "probe_")) or \
                 not spill.startswith("0 bytes stack"):
@@ -549,23 +606,41 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
                    k3_bytes, k3_flops,
                    f"items {live_items(plan.cum2)} tasks {d['n2']}")
 
-            def k4(fn, d=d, o=o_t[:otp], plan=plan):
-                return fn(o, d, torch.zeros(plan.ncap_out + 1, dtype=tdt,
-                                            device=device))
+            def slab(fill=None, plan=plan):
+                n = plan.ncap_out + 1
+                if fill is None:
+                    return torch.empty(n, dtype=tdt, device=device)
+                return torch.full((n,), fill, dtype=tdt, device=device)
 
-            s_k, s_t = k4(mixv4.place_exec), k4(mixv4.place_twin)
+            def k4(fn, d=d, o=o_t[:otp]):
+                # K4 writes the whole slab; its twin adds into zeros
+                return fn(o, d, slab() if fn is mixv4.place_exec
+                          else slab(0.0))
+
+            # from a slab of NaNs: K4 must write every element
+            s_k = mixv4.place_exec(o_t[:otp], d, slab(float("nan")))
+            s_t = k4(mixv4.place_twin)
             lib = _index_add_call(plan, tdt, device)
             s_l = lib(o_t[:otp])
-            if not torch.equal(s_l, s_t):
-                fail(f"K4 {side}: the index_add_ yardstick disagrees")
+            if not torch.equal(s_l, s_t) or not torch.equal(s_k, s_t):
+                fail(f"K4 {side}: kernel, twin and index_add_ not bitwise "
+                     f"equal")
+            n_live = int(plan.pit[:, 5].astype(np.int64)
+                         @ plan.pit[:, 6].astype(np.int64))
+            n_win = live_items(plan.pcum)
+            fill_ms = time_ms(lambda: slab(0.0), device, ROW_REPS)
+            # K4 writes the slab (ncap_out + 1) and reads each live
+            # element once, a pit row (7 of its 8 fields) and a wend and
+            # a wbeg entry a window
             _check(acc, "K4_place", dtype, side, s_k, s_t, tol,
-                   time_ms(lambda: k4(mixv4.place_exec), device),
-                   time_ms(lambda: k4(mixv4.place_twin), device),
-                   time_ms(lambda: lib(o_t[:otp]), device),
+                   time_ms(lambda: k4(mixv4.place_exec), device, ROW_REPS),
+                   time_ms(lambda: k4(mixv4.place_twin), device, ROW_REPS),
+                   time_ms(lambda: lib(o_t[:otp]), device, ROW_REPS),
                    live_bytes(o_t.element_size(),
-                              plan.out_total + plan.meta_out.total,
-                              item_ints(plan.pcum, plan.pit.shape[1])), 0.0,
-                   f"windows {live_items(plan.pcum)} tasks {d['np']}")
+                              plan.ncap_out + 1 + n_live, 9 * n_win), 0.0,
+                   f"windows {n_win} live {n_live} slab {plan.ncap_out + 1}"
+                   f"; a zero fill of it alone {fill_ms:.3f} ms; bitwise "
+                   f"from NaNs")
             pools[side] = s_t
         xp = torch.as_tensor(xh, dtype=tdt, device=device)
 
@@ -1666,11 +1741,11 @@ def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
                   flush=True)
             _check(acc, "K14_place_v3", dtype, side, s_k,
                    s_t, tol, time_ms(lambda: k14(mixv3.place_v3_exec),
-                                     device, K17_K14_REPS),
+                                     device, ROW_REPS),
                    time_ms(lambda: k14(mixv3.place_v3_twin), device,
-                           K17_K14_REPS),
+                           ROW_REPS),
                    time_ms(lambda: torch.take(o_t, idx), device,
-                           K17_K14_REPS),
+                           ROW_REPS),
                    # the whole slab written (its zero tail too: the output
                    # is torch.empty), one OUT value read per live element;
                    # tables
@@ -2433,7 +2508,7 @@ def phase_new_kernels(device, shapes, eff, t):
     K8) and K19 (dot of 2048 values, library torch.dot; fill of 2^27).
     Returns the summary rows."""
     import torch
-    from block2_preview_tpu_torch.ops import npdm_gemm
+    from block2_preview_tpu_torch.ops import _kernels, npdm_gemm
     from block2_preview_tpu_torch.utils import gpu_smoke
     rows = {}
     rng = np.random.default_rng(17)
@@ -2452,11 +2527,11 @@ def phase_new_kernels(device, shapes, eff, t):
                                        dtype)[0],
                    npdm_gemm.npdm_gemm_plain(dM, dV), ATOMIC_TOL[dtype],
                    time_ms(lambda: npdm_gemm.npdm_gemm(dM, dV), device,
-                           K17_K14_REPS),
+                           ROW_REPS),
                    time_ms(lambda: npdm_gemm.npdm_gemm_plain(dM, dV),
-                           device, K17_K14_REPS),
+                           device, ROW_REPS),
                    time_ms(lambda: torch.matmul(dM, dV), device,
-                           K17_K14_REPS),
+                           ROW_REPS),
                    esz * (n * X + X * m + n * m),
                    (8 if dtype == np.complex128 else 2) * n * X * m,
                    f"[{n} x {X}] @ [{X} x {m}]")
@@ -2464,13 +2539,24 @@ def phase_new_kernels(device, shapes, eff, t):
     plan_exec_check(device, eff, f"c{t}", rows)
     a, b = (torch.as_tensor(v, device=device)
             for v in gpu_smoke.precision_inputs())
-    _check(rows, "K19_probe", np.float32, "dot", gpu_smoke.dot(a, b)[None],
+    got = gpu_smoke.dot(a, b)
+    if got.shape != () or got.dtype != torch.float32:
+        fail(f"K19 dot: a {got.dtype} of shape {tuple(got.shape)}")
+    if device.type == "cuda":
+        k19_stream_check(device, a, b)
+        dot_us, lib_us = (host_us(lambda: f(a, b), device)
+                          for f in (gpu_smoke.dot, torch.dot))
+        call_us = launch_path_us(_kernels, a, b, device)
+        print(f"[3 kernels] K19 dot host per call ({HOST_CALLS} calls): "
+              f"gpu_smoke.dot {dot_us:.2f} us, torch.dot {lib_us:.2f} us,"
+              f" _kernels.call {call_us:.2f} us", flush=True)
+    _check(rows, "K19_probe", np.float32, "dot", got[None],
            gpu_smoke.dot_plain(a, b)[None], F32_TOL,
-           time_ms(lambda: gpu_smoke.dot(a, b), device),
-           time_ms(lambda: gpu_smoke.dot_plain(a, b), device),
+           time_ms(lambda: gpu_smoke.dot(a, b), device, ROW_REPS),
+           time_ms(lambda: gpu_smoke.dot_plain(a, b), device, ROW_REPS),
            None, 4 * (2 * a.numel() + 1), 2 * a.numel(),
            f"{a.numel()} values; torch.dot "
-           f"{time_ms(lambda: torch.dot(a, b), device):.4f} ms")
+           f"{time_ms(lambda: torch.dot(a, b), device, ROW_REPS):.4f} ms")
     n = gpu_smoke.POOL_ELEMS if device.type == "cuda" else 1 << 20
     x = torch.ones(1024, dtype=torch.float32, device=device)
     _check(rows, "K19_probe", np.float32, "fill",

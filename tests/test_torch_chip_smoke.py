@@ -309,6 +309,27 @@ def test_ptxas_usage_names_each_kernel_instance():
          "stores, 0 bytes spill loads")]
 
 
+def test_launch_path_us_times_the_call_it_names():
+    """Phase 3's host cost of the launch path: launch_path_us times
+    ``kernels.call`` launching K19's dot on the given vectors into one
+    preallocated output (any module with that interface, so a parent
+    tree's _kernels can be timed beside the port's), one warm-up call
+    first, and reports microseconds a call."""
+    calls = []
+
+    class Kernels:
+        @staticmethod
+        def call(*args):
+            calls.append(args)
+
+    a, b = torch.ones(2048), torch.ones(2048)
+    us = chip_smoke.launch_path_us(Kernels, a, b, torch.device("cpu"), n=10)
+    assert us > 0 and len(calls) == 11
+    entry, dtype, x, y, n, out = calls[-1]
+    assert (entry, dtype, n) == ("b2t_probe_dot", torch.float32, 2048)
+    assert x is a and y is b and out.numel() == 1 and out is calls[0][-1]
+
+
 def test_chip_smoke_npdm_phases_on_cpu(capsys):
     """Phases 10a (Hubbard-L4 PDMs through get_npdm and pooled_gram
     against the determinant path, transition PDMs, the RDM energy), 10b

@@ -50,6 +50,51 @@ def test_dot_twin_matches_reference_dot():
         assert abs(float(got) - want) <= 1e-6 * abs(want)
 
 
+def k19_dot_order(a: np.ndarray, b: np.ndarray, threads: int = 1024):
+    """csrc/probe.cu's dot in float32, in the kernel's order: thread t
+    accumulates a[i] b[i] for i = t, t + threads, ... (each step rounded
+    to float32 once, as fmaf rounds), each warp sums its lanes by the
+    shuffle-down tree (offsets 16, 8, 4, 2, 1), and warp 0 sums the warps'
+    partials the same way."""
+    acc = np.zeros(threads, np.float32)
+    for i0 in range(0, len(a), threads):
+        x = a[i0:i0 + threads].astype(np.float64) \
+            * b[i0:i0 + threads].astype(np.float64)
+        acc[:len(x)] = (acc[:len(x)] + x).astype(np.float32)
+
+    def warp_sum(v):
+        v = v.copy()
+        for s in (16, 8, 4, 2, 1):
+            v[:32 - s] = v[:32 - s] + v[s:]
+        return v[0]
+
+    part = np.zeros(32, np.float32)
+    part[:threads // 32] = [warp_sum(w) for w in acc.reshape(-1, 32)]
+    return warp_sum(part)
+
+
+@pytest.mark.parametrize("inputs", ["reference", "probe"])
+def test_dot_kernel_order_matches_reference_dot(inputs):
+    """K19's dot returns a 0-d float32 tensor equal to dot_plain (on the
+    CPU it is dot_plain), and the kernel's summation order (emulated)
+    lies within the same 1e-6 of tpu_smoke.py:33's einsum."""
+    rng = np.random.RandomState(0)
+    if inputs == "reference":
+        a = (1.0 + rng.standard_normal(2048) * 1e-3).astype(np.float32)
+        b = (1.0 - rng.standard_normal(2048) * 1e-3).astype(np.float32)
+    else:
+        a, b = gpu_smoke.precision_inputs()
+    want = float(jnp.einsum("i,i->", jnp.asarray(a), jnp.asarray(b),
+                            precision=jax.lax.Precision.HIGHEST))
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    got = gpu_smoke.dot(ta, tb)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert torch.equal(got, gpu_smoke.dot_plain(ta, tb))
+    order = k19_dot_order(a, b)
+    assert order.dtype == np.float32
+    assert abs(float(order) - want) <= 1e-6 * abs(want)
+
+
 @pytest.mark.parametrize("n", [1 << 12, 1 << 20])
 def test_fill_twin_matches_reference_fill(n):
     """K19's fill (plain version) against tpu_smoke.py:50's fill."""

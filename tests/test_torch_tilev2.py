@@ -126,15 +126,38 @@ def test_matvec_wrapper_refuses_other_devices():
         tv2.mv_exec(x, x, x, {}, 16, 1)
 
 
-@pytest.mark.parametrize("bad", [
-    torch.zeros(4, dtype=torch.float64),            # on the CPU
-    torch.zeros(4, 2, dtype=torch.float64).t(),     # not contiguous
+class _SeenAsCuda(torch.Tensor):
+    """A CPU tensor that reports itself on CUDA, to reach the launch
+    path's type check without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    (torch.zeros(4, dtype=torch.float64), ValueError,
+     "contiguous CUDA"),                            # on the CPU
+    (torch.zeros(4, 2, dtype=torch.float64).t(), ValueError,
+     "contiguous CUDA"),                            # not contiguous
+    (torch.zeros(4, dtype=torch.float32).as_subclass(_SeenAsCuda),
+     TypeError, "dtype torch.float32"),             # wrongly typed
 ])
-def test_kernel_call_refuses_bad_tensors(bad):
+def test_kernel_call_refuses_bad_tensors(bad, err, match):
     """Every kernel call validates its tensors before the library is
-    built or loaded: a CPU or non-contiguous tensor never reaches a
-    kernel as a pointer."""
+    built or loaded, and before the cached function table or the stream
+    is read: a CPU, non-contiguous or wrongly typed tensor never reaches
+    a kernel as a pointer."""
     from block2_preview_tpu_torch.ops import _kernels
-    with pytest.raises(ValueError, match="contiguous CUDA"):
+    with pytest.raises(err, match=match):
         _kernels.call("b2t_gather", torch.float64, bad, 4)
-    assert _kernels._lib is None
+    assert _kernels._lib is None and not _kernels._fns
+
+
+def test_kernel_call_refuses_missing_instance():
+    """An entry called in a type it has no instance of raises before the
+    library loads, and nothing enters the cached function table."""
+    from block2_preview_tpu_torch.ops import _kernels
+    with pytest.raises(TypeError, match="no torch.float64 instance"):
+        _kernels.call("b2t_probe_dot", torch.float64, 4)
+    assert _kernels._lib is None and not _kernels._fns
