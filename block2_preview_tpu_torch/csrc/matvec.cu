@@ -6,38 +6,39 @@
 //
 //   sigma[ok] += LW[m][lk] @ psi[pk] @ RW[m][rk]^T
 //
-// on T x T tiles, T in {16, 32, 64, 128}.  Item fields `it` [n, 13]:
-// lbase, DLk, DLb, rbase, DRk, DRb, pb, ob, na, nk, np, nn, tb.
+// The reference runs it on T x T tiles (T in {16, 32, 64, 128}) of tile
+// pools; the plan (`it` [n, 13], psi_idx, sig_idx) keeps that layout, and
+// T stays the plan's.  This kernel reads the LW/RW slab pools, psi and
+// sigma in their flat layouts: ops/tilev2.py k1_items turns each live
+// item into the eight fields of the chain core (LW offset, DLb, DLk, the
+// flat psi offset of the ket sector, DRk, RW offset, DRb, the flat sigma
+// offset of the bra sector), and ops/chain_mv.py cuts them into chunks of
+// entries that write one sigma piece (rows [ar RT, +RT), columns [pi T,
+// +T)).
 //
-// Design.  One CUDA block owns one stage-1 unit (item, ai, ni): it forms
-// tmp = sum_ki L[ai, ki] @ psi[ki, ni] in shared memory, then for every pi
-// adds tmp @ R[pi, ni]^T into sigma tile (ob + ai*np + pi) with float
-// atomics.  So:
-//  * tmp never touches device memory.  The reference kept bounded tmp
-//    pools per task group, with tile bases `tb` restarting at 0 in every
-//    group; this kernel has no tmp pool, so `tb` and the group tables
-//    (g1/g2/e1/e2) are not read and one launch covers all groups.
-//  * L/R tiles are read straight from the LW/RW slab pools at
-//    base + r*stride + c (64-bit), masked to the tile's valid rows and
-//    columns; no per-site tile pool is materialised (the reference's
-//    _tile_gather pools were what exhausted device memory at D=500).
-//  * psi tiles are read through psi_idx, whose padding points at the zero
-//    slot xp[size_p]; masked lanes therefore add exactly zero.
-//  * stage-2 targets are unsorted across blocks; atomicAdd (native f64 on
-//    sm_90) makes the summation order vary from run to run at the last
-//    bits, so results match the reference to rounding, not bitwise.
-// Bound on the card: the f64/f32 FMA pipes at small T, and the sigma
-// atomics where many symbols hit the same output tile.  A later PR can
-// move the tile products to tensor-core MMA (f64 DMMA) and stage the
-// stage-2 sums in shared memory.
+// Design: the chain core (csrc/chain_mv.cuh).  One CUDA block a chunk
+// multiplies only the live 8 x 8 fragments (f64 on DMMA m8n8k4, f32 on the
+// FMA pipes), stages 32-deep L/psi/R slices by cp.async in a two-slot ring,
+// keeps tmp in shared memory and the chunk's sum in registers, and adds
+// it into the flat sigma once (float atomics; order varies between runs).
+// The earlier design multiplied whole T x T tiles on the FMA pipes (83.5%
+// of its products padding at the K=16 QC site), added each unit's tile
+// with one atomic an element into a zeroed tile pool and flattened it with
+// a second launch; both the pool and that launch are gone.  The reference
+// kept bounded tmp pools per task group, with tile bases `tb` restarting
+// in every group; this kernel has no tmp pool, so `tb` and the group
+// tables are not read and one launch covers all groups.
+// Bound on the card: the bytes of the LW/RW blocks the items read (the
+// operations are within 1.5x, chain_mv.cuh).
 
-#include "matvec.cuh"
+#include "chain_mv.cuh"
 
 namespace {
 
 using b2t::kThreads;
 
-// out[i] = src[idx[i]]: flattens a tile pool through sig_idx.
+// out[i] = src[idx[i]]: flattens a tile pool through sig_idx (K6's and
+// K16's wrappers).
 template <typename S>
 __global__ void gather_kernel(const S* __restrict__ src,
                               const int* __restrict__ idx, long long n,
@@ -65,20 +66,20 @@ const char* b2t_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int b2t_matvec_f64(const double* xp, const double* lpool,
-                   const double* rpool, const int* psi_idx, const int* it,
-                   const int* cumt, int n_items, long long n_units, int T,
-                   double* sig, void* stream) {
-  return (int)matvec<double>(xp, lpool, rpool, psi_idx, it, cumt, n_items,
-                             nullptr, n_units, T, sig, stream);
+int b2t_matvec_f64(const void* xp, const void* lpool, const void* rpool,
+                   const int* items, const int* ent, const int* ck,
+                   long long n_chunks, int T, void* sig,
+                   void* stream) {
+  return (int)chain_mv<double>(xp, lpool, rpool, items, ent, ck, n_chunks, T,
+                               sig, stream);
 }
 
-int b2t_matvec_f32(const float* xp, const float* lpool, const float* rpool,
-                   const int* psi_idx, const int* it, const int* cumt,
-                   int n_items, long long n_units, int T, float* sig,
+int b2t_matvec_f32(const void* xp, const void* lpool, const void* rpool,
+                   const int* items, const int* ent, const int* ck,
+                   long long n_chunks, int T, void* sig,
                    void* stream) {
-  return (int)matvec<float>(xp, lpool, rpool, psi_idx, it, cumt, n_items,
-                            nullptr, n_units, T, sig, stream);
+  return (int)chain_mv<float>(xp, lpool, rpool, items, ent, ck, n_chunks, T,
+                              sig, stream);
 }
 
 int b2t_gather_f64(const double* src, const int* idx, long long n,

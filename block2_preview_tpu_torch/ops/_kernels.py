@@ -9,11 +9,12 @@ loaded with ``ctypes``.  Nothing is built or loaded at import: the CPU
 tests import every module on a machine without ``nvcc``.
 
 Every wrapper that launches a kernel calls :func:`launch`, which checks
-the tensors, passes their pointers and the current stream, raises if the
-C side reports a CUDA
-error (a refused launch never runs, and a later synchronise would not
-report it), and adds one to that kernel's launch count.  The counts are
-how a run shows that its main path went through the kernels.
+the tensors (type, layout, and that they lie on the current CUDA device,
+where the C entries launch), passes their pointers and the current
+stream, raises if the C side reports a CUDA error (a refused launch never
+runs, and a later synchronise would not report it), and adds one to that
+kernel's launch count.  The counts are how a run shows that its main path
+went through the kernels.
 
 The launch path is the host's share of every kernel: at a few
 microseconds of device work (K19's dot) the card waits on it.  So each
@@ -48,7 +49,8 @@ class KernelInfo:
     source: str       # path in the repository
     replaces: str     # file:line of the JAX kernel it replaces
     launches: int = 0
-    units: int = 0    # CUDA blocks of the sharded kernels' launches
+    units: int = 0    # work of the sharded kernels' launches: K20's
+                      # stage-1 units, K21's and K22's CUDA blocks
 
 
 KERNELS: Dict[str, KernelInfo] = {
@@ -137,8 +139,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return int = cudaError_t)
 _SIGS = {
-    "b2t_matvec": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
-    "b2t_matvec_units": (_P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P, _P),
+    "b2t_matvec": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
+    "b2t_matvec_units": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_gather": (_P, _P, _L, _P, _P),
     "b2t_dl_build": (_P, _P, _I, _I, _P, _P),
     "b2t_diag": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
@@ -150,7 +152,7 @@ _SIGS = {
     "b2t_noise_x": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_noise_rho": (_P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_tiled": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    "b2t_bucket": (_P, _P, _P, _P, _P, _I, _L, _P, _P),
+    "b2t_bucket": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_bucket_blk": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_slab": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_stk_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
@@ -281,11 +283,20 @@ def _bind(entry: str, dtype) -> Callable:
     return fn
 
 
-def current_stream_handle() -> int:
-    """The raw handle of the current device's current CUDA stream — what
-    ``torch.cuda.current_stream().cuda_stream`` gives, read through
-    PyTorch's own getter without building a Stream object."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+def current_device() -> int:
+    """The index of the current CUDA device, read through PyTorch's own
+    getter (what ``torch.cuda.current_device()`` returns once CUDA is
+    initialised)."""
+    return torch._C._cuda_getDevice()
+
+
+def current_stream_handle(device: Optional[int] = None) -> int:
+    """The raw handle of the current CUDA stream of ``device`` (default:
+    the current device) — what ``torch.cuda.current_stream().cuda_stream``
+    gives, read through PyTorch's own getter without building a Stream
+    object."""
+    return torch._C._cuda_getCurrentRawStream(
+        current_device() if device is None else device)
 
 
 def call(entry: str, dtype, *args) -> None:
@@ -293,8 +304,12 @@ def call(entry: str, dtype, *args) -> None:
     from ``dtype``, a torch dtype) with ``args`` followed by the current
     CUDA stream; raise on a CUDA error.  Tensor arguments are validated
     (contiguous CUDA tensors of ``dtype``, int32 or int64, the only types
-    the kernels take) and passed as device pointers."""
+    the kernels take, on the current CUDA device, where the C entries
+    launch) and passed as device pointers.  A tensor on another card is
+    refused, not moved: the caller picks the device
+    (``torch.cuda.device``)."""
     cargs = []
+    dev = None
     for a in args:
         if isinstance(a, torch.Tensor):
             if not a.is_cuda or not a.is_contiguous():
@@ -304,10 +319,16 @@ def call(entry: str, dtype, *args) -> None:
             if a.dtype != dtype and a.dtype not in _INTS:
                 raise TypeError(f"kernel input of dtype {a.dtype} "
                                 f"(expected {dtype}, int32 or int64)")
+            if dev is None:
+                dev = current_device()
+            if a.get_device() != dev:
+                raise ValueError(f"kernel input on cuda:{a.get_device()} "
+                                 f"but the current CUDA device is cuda:"
+                                 f"{dev}, where the kernels launch")
             a = a.data_ptr()
         cargs.append(a)
     fn = _fns.get((entry, dtype)) or _bind(entry, dtype)
-    err = fn(*cargs, current_stream_handle())
+    err = fn(*cargs, current_stream_handle(dev))
     if err != 0:
         msg = lib().b2t_error_string(err).decode()
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err} ({msg})")

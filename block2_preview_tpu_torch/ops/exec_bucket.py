@@ -20,13 +20,15 @@ reference's padded stacks ``A = lpool[ga]``, ``R = rpool[gr]`` are not
 formed, and no element-wise index tensor is made on the device.
 
 Device side: :func:`bucket_sigma` is the wrapper of kernel K8
-(``csrc/bucket.cu``) in float32 and float64.  On CPU tensors it runs
-:func:`bucket_sigma_plain`, the plain PyTorch version of the reference's
-``_fused_sigma_impl`` bucket by bucket; on CUDA tensors it launches K8 or
-raises.  The port takes real types only: a complex effective Hamiltonian
-raises and names ``torch_tiled``, the backend that carries complex (the
-reference casts the bucketed matvec to float64, exec_jax.py:328, which
-drops an imaginary part).
+(``csrc/bucket.cu``, the chain core shared with K1, on the items sorted
+by sigma block and cut into chunks, :func:`kernel_tables`) in float32
+and float64.  On CPU tensors it runs :func:`bucket_sigma_plain`, the
+plain PyTorch version of the reference's ``_fused_sigma_impl`` bucket by
+bucket; on CUDA tensors it launches K8 or raises.  The port takes real
+types only: a complex effective Hamiltonian raises and names
+``torch_tiled``, the backend that carries complex (the reference casts
+the bucketed matvec to float64, exec_jax.py:328, which drops an
+imaginary part).
 
 :class:`BucketExecutor` holds one center: ``matvec`` (host vectors),
 ``matvec_device`` (padded device vectors), ``solve_ground_state`` (the
@@ -53,12 +55,13 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from . import _kernels
+from . import _kernels, chain_mv
 
 VEC_PAD = 2048      # flat psi/sigma vectors padded to multiples of this
 
-# CUDA blocks per K8/K9 item: 32-row strips times groups of 128 columns
-# of its output (csrc/chain.cuh chain_block)
+# CUDA blocks per item of the kernels on csrc/chain.cuh (K9, K10, K18,
+# K22): 32-row strips times groups of 128 columns of its output
+# (chain_block)
 _STRIP, _YGROUP = 32, 128
 # elements of one padded gather of the plain versions (bounds their int64
 # index temporaries)
@@ -81,7 +84,7 @@ def _round_batch(b: int) -> int:
 
 
 def chain_blocks(rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
-    """CUDA blocks of one K8/K9 item of output (rows x cols)."""
+    """CUDA blocks of one chain.cuh item of output (rows x cols)."""
     return -(-rows // _STRIP) * -(-cols // _YGROUP)
 
 
@@ -235,7 +238,8 @@ def bucket_sigma(xp, lpool, rpool, d: Dict, size_p: int):
         raise ValueError(f"unsupported device {xp.device}")
     out = xp.new_zeros(size_p + 1)
     _kernels.launch("K8_bucket", "b2t_bucket", xp.dtype, xp, lpool, rpool,
-                    d["it"], d["cum"], d["n_items"], d["n_blocks"], out)
+                    d["items"], d["ent"], d["ck"], d["n_chunks"],
+                    chain_mv.TILE, out)
     return out[:size_p]
 
 
@@ -249,16 +253,17 @@ def plain_tables(struct: Dict, device) -> Dict:
 
 
 def kernel_tables(struct: Dict, device) -> Dict:
-    """The tables K8 reads, on ``device``: the items as int32 [N, 8] and
-    the prefix sums ``cum`` [N + 1] of their CUDA blocks."""
+    """The tables K8 reads, on ``device``: the items sorted by their sigma
+    block (``ooff``, stable) as int32 [N, 8], their chunks
+    (``ops/chain_mv.py``: ``ent``, ``ck``, ``n_chunks``, cut for the core's
+    tile) and ``seconds``, the build time of the order and the chunks."""
+    t0 = time.perf_counter()
     it = struct["items"]
-    nb = chain_blocks(it[:, _A], it[:, _P])
-    cum = np.concatenate([[0], np.cumsum(nb)])
-    return {"it": torch.as_tensor(_int32(it, "a K8 item offset"),
-                                  device=device),
-            "cum": torch.as_tensor(_int32(cum, "K8's block count"),
-                                   device=device),
-            "n_items": len(it), "n_blocks": int(cum[-1])}
+    it = it[np.argsort(it[:, _OOFF], kind="stable")]
+    tab = chain_mv.chunk_tables(it)
+    d = chain_mv.device_tables(_int32(it, "a K8 item offset"), tab, device)
+    d["seconds"] = time.perf_counter() - t0
+    return d
 
 
 # ---------------------------------------------------------------------------

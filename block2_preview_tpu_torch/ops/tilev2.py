@@ -10,21 +10,26 @@ Device side: :func:`mv_exec` is the wrapper of kernel K1
 
     sigma[ok] += LW[m][lk] @ psi[pk] @ RW[m][rk]^T
 
-on T x T tiles and flattens the sigma tile pool through ``sig_idx`` —
-what the reference's ``_mv_exec`` (tilev2.py:187) computes after
-materializing tile pools with ``_tile_gather`` (:168).  On CPU tensors
-the wrapper runs :func:`mv_twin`, the plain PyTorch version; on CUDA
-tensors it launches the kernel or raises.
+into the flat sigma that the tile pool flattened through ``sig_idx``
+gives — what the reference's ``_mv_exec`` (tilev2.py:187) computes on
+T x T tiles after materializing tile pools with ``_tile_gather`` (:168).
+The kernel reads flat pools at true shapes: :func:`k1_items` gives each
+live item's eight fields of the chain core (``ops/chain_mv.py``), whose
+chunk tables (cut for the core's own tile, 64, not the plan's T)
+:meth:`MatvecV2.to_device` builds once per plan.  On CPU
+tensors the wrapper runs :func:`mv_twin`, the plain PyTorch version on
+the tile layout; on CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from . import _kernels
+from . import _kernels, chain_mv
 from .stacked import StackedMeta, _pow2
 from .tiled import pick_tile
 
@@ -132,13 +137,12 @@ def mv_exec(xp, lpool, rpool, d: Dict, T: int, nt2: int):
         return mv_twin(xp, lpool, rpool, d, T, nt2)
     if not xp.is_cuda:
         raise ValueError(f"unsupported device {xp.device}")
-    dt = xp.dtype
-    sig = torch.zeros((nt2 + 1) * T * T, dtype=dt, device=xp.device)
-    out = torch.empty(d["sig_idx"].shape[0], dtype=dt, device=xp.device)
-    _kernels.launch("K1_matvec", "b2t_matvec", dt, xp, lpool, rpool,
-                    d["psi_idx"], d["it"], d["cumt"], d["it"].shape[0],
-                    d["n_units"], T, sig)
-    _kernels.call("b2t_gather", dt, sig, d["sig_idx"], out.shape[0], out)
+    c = d["chain"]
+    out = torch.zeros(d["sig_idx"].shape[0], dtype=xp.dtype,
+                      device=xp.device)
+    _kernels.launch("K1_matvec", "b2t_matvec", xp.dtype, xp, lpool, rpool,
+                    c["items"], c["ent"], c["ck"], c["n_chunks"],
+                    chain_mv.TILE, out)
     return out
 
 
@@ -147,25 +151,24 @@ def mv_exec(xp, lpool, rpool, d: Dict, T: int, nt2: int):
 # ---------------------------------------------------------------------------
 
 def mv_exec_part(xp, lpool, rpool, d: Dict, part: Dict, T: int, nt2: int):
-    """This rank's partial flat sigma [sizb_p] (kernel K20): K1's units of
-    the rank's task groups only (``part`` from :meth:`MatvecV2.rank_part`),
-    flattened through ``sig_idx``.  CPU tensors run :func:`mv_twin` over
-    the same groups' tasks; CUDA tensors launch K20 (nothing when the rank
+    """This rank's partial flat sigma [sizb_p] (kernel K20): the chunks of
+    the rank's task groups' items only (``part`` from
+    :meth:`MatvecV2.rank_part`).  CPU tensors run :func:`mv_twin` over the
+    same groups' tasks; CUDA tensors launch K20 (nothing when the rank
     owns no unit) or raise."""
     if xp.device.type == "cpu":
         return mv_twin(xp, lpool, rpool, d, T, nt2,
                        tasks=(part["t1"], part["t2"]))
     if not xp.is_cuda:
         raise ValueError(f"unsupported device {xp.device}")
-    dt = xp.dtype
-    sig = torch.zeros((nt2 + 1) * T * T, dtype=dt, device=xp.device)
-    out = torch.empty(d["sig_idx"].shape[0], dtype=dt, device=xp.device)
-    if part["n_units"] > 0:
-        _kernels.launch("K20_matvec_shard", "b2t_matvec_units", dt, xp,
-                        lpool, rpool, d["psi_idx"], d["it"], d["cumt"],
-                        d["it"].shape[0], part["units"], part["n_units"],
-                        T, sig, units=part["n_units"])
-    _kernels.call("b2t_gather", dt, sig, d["sig_idx"], out.shape[0], out)
+    out = torch.zeros(d["sig_idx"].shape[0], dtype=xp.dtype,
+                      device=xp.device)
+    c = part["chain"]
+    if c["n_chunks"] > 0:
+        _kernels.launch("K20_matvec_shard", "b2t_matvec_units", xp.dtype, xp,
+                        lpool, rpool, d["chain"]["items"], c["ent"], c["ck"],
+                        c["n_chunks"], chain_mv.TILE, out,
+                        units=part["n_units"])
     return out
 
 
@@ -238,6 +241,49 @@ def group_units(g1, e1, g2, e2, cum1, cum2, cumu) -> Dict:
     return {"items": list(zip(i0.tolist(), i1.tolist())),
             "units": _spans(cu[i0], cu[i1]),
             "t1": _spans(g1, e1), "t2": _spans(g2, e2)}
+
+
+def k1_items(struct: Dict) -> np.ndarray:
+    """K1's items in the chain core's fields (``ops/chain_mv.py``), one row
+    a live item of ``struct`` in plan order: LW offset, DLb, DLk, the flat
+    psi offset of the ket sector, DRk, RW offset, DRb, the flat sigma
+    offset of the bra sector (int64 [n_live, 8]).  The flat offsets are the
+    positions of the sectors' first elements: psi_idx at the ket sector's
+    first tile element, and the flat index that sig_idx sends to the bra
+    sector's first tile element."""
+    T = struct["T"]
+    TT = T * T
+    live = np.diff(struct["cum1"].astype(np.int64)) > 0
+    f = struct["it"][:len(live)][live].astype(np.int64)
+    poff = struct["psi_idx"].reshape(-1)[f[:, 6] * TT].astype(np.int64)
+    sig = struct["sig_idx"].astype(np.int64)
+    first = np.flatnonzero(sig % TT == 0)
+    tile_first = np.full(struct["nt2"] + 2, -1, np.int64)
+    tile_first[sig[first] // TT] = first
+    soff = tile_first[f[:, 7]]
+    if (soff < 0).any():
+        raise ValueError("a bra sector's first tile has no flat element")
+    return np.stack([f[:, 0], f[:, 2], f[:, 1], poff, f[:, 4], f[:, 3],
+                     f[:, 5], soff], 1)
+
+
+def k1_host(struct: Dict) -> Dict:
+    """K1's host tables of ``struct``, built once and kept on it (the
+    struct outlives its executors in the sweep's plan cache): ``items``
+    (:func:`k1_items`), ``live`` (their rows in ``it``), the chunk
+    tables of all items (``ent``, ``ck``) and the seconds the build
+    took."""
+    h = struct.get("_k1")
+    if h is None:
+        t0 = time.perf_counter()
+        items = k1_items(struct)
+        tab = chain_mv.chunk_tables(items)
+        h = struct["_k1"] = {
+            "items": items, "ent": tab["ent"], "ck": tab["ck"],
+            "live": np.flatnonzero(np.diff(struct["cum1"].astype(np.int64))
+                                   > 0),
+            "seconds": time.perf_counter() - t0}
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -485,8 +531,10 @@ class MatvecV2:
             live, it[:, 8] * it[:, 11], 0))])
 
     def to_device(self, device) -> Dict:
-        """Device tables K1 and its twin read, with ``cumt`` (the unit
-        prefix sums, :meth:`_cumt`)."""
+        """Device tables K1 and its twin read: the plan's (``psi_idx``,
+        ``sig_idx``, ``it``, ``cum1``, ``cum2``), ``cumt`` (the unit prefix
+        sums, :meth:`_cumt`) and ``chain`` (K1's items and chunk tables,
+        :func:`k1_host`)."""
         if self._dev is None or self._dev["device"] != torch.device(device):
             s = self.struct
             cumt = self._cumt()
@@ -498,6 +546,8 @@ class MatvecV2:
             dev["cumt"] = torch.as_tensor(cumt.astype(np.int32),
                                           device=device)
             dev["n_units"] = int(cumt[-1])
+            h = k1_host(s)
+            dev["chain"] = chain_mv.device_tables(h["items"], h, device)
             dev["device"] = torch.device(device)
             self._dev = dev
         return self._dev
@@ -524,11 +574,12 @@ class MatvecV2:
                             world)
 
     def rank_part(self, rank: int, world: int, device) -> Dict:
-        """Rank ``rank`` of ``world``'s share, on ``device``: ``units`` (its
-        groups' stage-1 units, K20's index list, int32), ``n_units``, and
-        ``t1``/``t2`` (their stage-1/2 task ids, the plain version's).  The
-        host arrays are cached on the struct (it outlives the instance in
-        the sweep's plan cache)."""
+        """Rank ``rank`` of ``world``'s share, on ``device``: ``n_units``
+        (its groups' stage-1 units), ``t1``/``t2`` (their stage-1/2 task
+        ids, the plain version's) and ``chain`` (K20's
+        chunk tables of the groups' items, entries pointing into
+        ``to_device``'s K1 items).  The host arrays are cached on the
+        struct (it outlives the instance in the sweep's plan cache)."""
         key = (rank, world, str(device))
         part = self._parts.get(key)
         if part is not None:
@@ -544,11 +595,25 @@ class MatvecV2:
             h = host[(rank, world)] = group_units(
                 g1i[sl], e1i[sl], g2i[sl], e2i[sl], s["cum1"], s["cum2"],
                 self._cumt())
-        part = {"units": torch.as_tensor(h["units"].astype(np.int32),
-                                         device=device),
-                "n_units": int(h["units"].shape[0]),
+        c = h.get("chain")
+        if c is None:
+            k1 = k1_host(self.struct)
+            rows = np.concatenate([np.arange(i0, i1, dtype=np.int64)
+                                   for i0, i1 in h["items"]] or
+                                  [np.zeros(0, np.int64)])
+            pos = np.searchsorted(k1["live"], rows)
+            if not np.array_equal(k1["live"][np.minimum(
+                    pos, len(k1["live"]) - 1)], rows):
+                raise ValueError("a task group holds an item without tasks")
+            c = chain_mv.chunk_tables(k1["items"][pos])
+            c["ent"][:, 0] = pos[c["ent"][:, 0]]
+            h["chain"] = c
+        part = {"n_units": int(h["units"].shape[0]),
                 "t1": torch.as_tensor(h["t1"], device=device),
-                "t2": torch.as_tensor(h["t2"], device=device)}
+                "t2": torch.as_tensor(h["t2"], device=device),
+                "chain": {"ent": torch.as_tensor(c["ent"], device=device),
+                          "ck": torch.as_tensor(c["ck"], device=device),
+                          "n_chunks": int(c["ck"].shape[0])}}
         self._parts[key] = part
         return part
 

@@ -170,9 +170,15 @@ package's host path by the CPU tests):
                (the matvec), K21 (the left and right v3 rotate plans), K22
                (PlanExecutor's buckets) and B22e (K17 on the row slices of
                10b's largest close), each share against its twin and their
-               sum against K1 / K5 / K18 / one K17 launch.  Each
-               row carries the kernel's time, its twin's, one PyTorch
-               call's where one computes the same function, and the bound
+               sum against K1 / K5 / K18 / one K17 launch.  K1, K20 and
+               K8 run on one chain core (csrc/chain_mv.cuh; atomics, so
+               they agree with their twins to rounding): K1's row prints
+               its order tables' build time and the live 8 x 8 fragments
+               of its entries and chunks, K8's the histogram of its item
+               dims (a, k, n, p).  Each row carries the kernel's time (and
+               the launches one timed call makes, with the time a
+               launch), its twin's, one PyTorch call's where one computes
+               the same function, and the bound
                (the least time the card could take: the live bytes the
                kernel must move — no pool or table padding — over
                3.35 TB/s or FLOPs over 67 TFLOP/s, whichever is larger)
@@ -260,25 +266,71 @@ def qc_system(n_orb: int, n_elec: int):
     return drv, mpo, time.time() - t0
 
 
+class DeviceMs(float):
+    """A mean time in ms (:func:`time_ms`) that also carries the kernel
+    launches one call of the timed function made (``launches``, counted
+    by the port's launch path), so a row that times a call of several
+    launches shows its time a launch."""
+    launches = 0
+
+
 def time_ms(fn, device, reps: int = 5) -> float:
     """Mean device time of fn() over reps launches (CUDA events), after
-    one warm-up call; on the CPU the host clock."""
+    one warm-up call; on the CPU the host clock.  Returns a
+    :class:`DeviceMs` carrying the kernel launches a call."""
     import torch
+    from block2_preview_tpu_torch.ops import _kernels
     fn()
+    n0 = sum(_kernels.launch_counts().values())
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
+        ms = DeviceMs((time.perf_counter() - t0) * 1e3 / reps)
+    else:
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        ms = DeviceMs(s.elapsed_time(e) / reps)
+    ms.launches = (sum(_kernels.launch_counts().values()) - n0) // reps
+    return ms
+
+
+def histogram(values, edges=(8, 16, 32, 64, 128)) -> str:
+    """Counts of integer ``values`` in the bins <= edges[0], ...,
+    > edges[-1], as text."""
+    v = np.asarray(values, np.int64)
+    lo, parts = None, []
+    for e in edges:
+        n = int(np.count_nonzero((v <= e) if lo is None else
+                                 (v > lo) & (v <= e)))
+        parts.append(f"<={e} {n}")
+        lo = e
+    parts.append(f">{edges[-1]} {int(np.count_nonzero(v > edges[-1]))}")
+    return ", ".join(parts)
+
+
+def chain_shapes(items, ck) -> str:
+    """The shapes the chain core (K1, K8, K20) meets on a plan's items and
+    chunks (ops/chain_mv.py, the core's tile): live 8 x 8 fragments of
+    stage 1 (tmp) and of stage 2 (the sigma piece) an entry, entries a
+    chunk."""
+    from block2_preview_tpu_torch.ops import chain_mv
+    e = chain_mv.entries(items)
+    ck = np.asarray(ck, np.int64)
+    rb = -(-e["lr"] // 8)
+    f1 = rb * -(-e["nc"] // 8)
+    f2 = rb * -(-e["pc"] // 8)
+    fr = (1, 2, 4, 8, 16, 32, 64)
+    n_ent = ck[:, 1] - ck[:, 0]
+    return (f"stage-1 fragments an entry: {histogram(f1, fr)}; stage-2 "
+            f"fragments an entry: {histogram(f2, fr)}; entries a chunk: "
+            f"{histogram(n_ent, (1, 2, 4, 8, 16, 32))}")
 
 
 def host_us(fn, device, n: int = HOST_CALLS) -> float:
@@ -444,7 +496,7 @@ def phase_build():
     if not usage:
         fail("no ptxas register report in the build log")
     for name, regs, spill in usage:
-        if name.startswith(("mv_kernel", "blk_kernel", "noise_",
+        if name.startswith(("chain_", "blk_kernel", "noise_",
                             "tiled_kernel", "bucket_", "slab_", "stk_mix",
                             "tblk_", "env_gemm", "place_", "mix_v2",
                             "skinny_", "tall_", "reduce_", "plan_exec",
@@ -648,20 +700,28 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
             return fn(xp, pools["lw"], pools["rw"], dv, s["T"], s["nt2"])
 
         y_k = k1(tilev2.mv_exec)
+        ch = dv["chain"]
+        n_live, n_ent = ch["items"].shape[0], ch["ent"].shape[0]
         _check(acc, "K1_matvec", dtype, "", y_k, k1(tilev2.mv_twin), tol,
                time_ms(lambda: k1(tilev2.mv_exec), device),
                time_ms(lambda: k1(tilev2.mv_twin), device), None,
-               # psi, LW, RW in; sigma out; psi_idx of the live psi tiles,
-               # sig_idx of the live sigma, the live item rows with cumt
+               # psi, LW, RW in; sigma out; the chain tables K1 reads: the
+               # live items (8 fields), the entries (2), the chunks (4)
                live_bytes(xp.element_size(),
                           eff.size + pl.meta_out.total + pr.meta_out.total
                           + eff.bra_space.size,
-                          n_tiles(eff.ket_space, s["T"]) * s["T"] ** 2
-                          + eff.bra_space.size
-                          + item_ints(s["cum1"], s["it"].shape[1])),
+                          8 * n_live + 2 * n_ent + 4 * ch["n_chunks"]),
                float(s["flops"]),
-               f"T {s['T']} items {s['it'].shape[0]} units {dv['n_units']} "
-               f"size {eff.size} GFLOP {s['flops'] / 1e9:.2f}")
+               f"T {s['T']} items {s['it'].shape[0]} live {n_live} "
+               f"entries {n_ent} chunks {ch['n_chunks']} units "
+               f"{dv['n_units']} size {eff.size} GFLOP "
+               f"{s['flops'] / 1e9:.2f}")
+        if dtype == np.float64:
+            h = tilev2.k1_host(s)
+            print(f"[3 kernels] K1 site {t} (plan T {s['T']}): order "
+                  f"tables built in {h['seconds'] * 1e3:.1f} ms; "
+                  f"{chain_shapes(h['items'], h['ck'])}",
+                  flush=True)
 
         def k2(fn):
             return fn(pools["lw"], pools["rw"], dd)
@@ -790,9 +850,12 @@ def _check(rows, name, dtype, side, got, ref, tol, ms, plain_ms, lib_ms,
            np.complex64: "c64"}[dtype]
     b_ms, b_by = bound_ms(n_bytes, flops)
     lib = "" if lib_ms is None else f"  library {lib_ms:.3f} ms"
+    n = getattr(ms, "launches", 0)
+    per = f" ({n} launch{'es' if n != 1 else ''} a call, " \
+        f"{ms / max(n, 1):.4f} ms a launch)"
     print(f"[3 kernels] {name:9s} {tag} {side:3s} rel {rel:.2e} "
-          f"abs {mabs:.2e}  kernel {ms:.3f} ms  twin {plain_ms:.3f} ms{lib}"
-          f"  bound {b_ms:.4f} ms ({b_by})  ({shape})", flush=True)
+          f"abs {mabs:.2e}  kernel {ms:.3f} ms{per}  twin {plain_ms:.3f} "
+          f"ms{lib}  bound {b_ms:.4f} ms ({b_by})  ({shape})", flush=True)
     if not rel <= tol:
         fail(f"{name} {tag} {side}: rel err {rel:.3e} > {tol:.0e}")
     if rows is not None:
@@ -1008,10 +1071,20 @@ def phase_bucket(device, mpo, mps, me, eff, t, summary=True, kinds="all",
                time_ms(lambda: k8(exec_bucket.bucket_sigma_plain, dp),
                        device), None, n_bytes, flops,
                f"size {eff.size} items {len(it)} buckets {len(st['keys'])} "
-               f"blocks {ex._dev.get('n_blocks', 0)} struct "
-               f"{ex.t_struct:.2f} s pack+upload {ex.t_pack:.2f} s "
-               f"GFLOP {flops / 1e9:.2f} (bucket-padded "
-               f"{pad_flops / 1e9:.2f})")
+               f"chunks {ex._dev.get('n_chunks', 0)} struct "
+               f"{ex.t_struct:.2f} s "
+               f"pack+upload {ex.t_pack:.2f} s tables "
+               f"{ex._dev.get('seconds', 0.0) * 1e3:.1f} ms GFLOP "
+               f"{flops / 1e9:.2f} (bucket-padded {pad_flops / 1e9:.2f})")
+        if dtype == np.float64:
+            dk = exec_bucket.kernel_tables(st, "cpu")
+            its = dk["items"].numpy()
+            print(f"[3 kernels] K8 site {t}: item dims a "
+                  f"{histogram(its[:, 1])}; k {histogram(its[:, 2])}; n "
+                  f"{histogram(its[:, 4])}; "
+                  f"p {histogram(its[:, 6])}; "
+                  f"{chain_shapes(its, dk['ck'].numpy())}",
+                  flush=True)
         ex.free()
         if kinds == "K8":
             continue
@@ -2952,12 +3025,12 @@ def phase_shard_kernels(device, mpo, mps, t, site, eff, close_shape,
         f = it[items]
         flops = 2.0 * float((f[:, 2] * f[:, 1] * f[:, 4]
                              + f[:, 2] * f[:, 4] * f[:, 5]).sum())
+        c = part["chain"]
         n_bytes = live_bytes(
             8, peff.size + peff.bra_space.size
             + _unique_sum(f[:, 0], f[:, 2] * f[:, 1])
             + _unique_sum(f[:, 3], f[:, 5] * f[:, 4]),
-            n_tiles(peff.ket_space, s["T"]) * s["T"] ** 2
-            + peff.bra_space.size + 14 * len(items) + part["n_units"])
+            8 * len(items) + 2 * c["ent"].shape[0] + 4 * c["n_chunks"])
 
         def k20(fn=tilev2.mv_exec_part, part=part):
             return fn(xp, lw, rw, dv, part, s["T"], s["nt2"])
@@ -2972,7 +3045,8 @@ def phase_shard_kernels(device, mpo, mps, t, site, eff, close_shape,
                n_bytes, flops,
                f"rank {r} of {world}: groups {len(groups)} of "
                f"{s['ng_live']}, items {len(items)}, units "
-               f"{part['n_units']} of {dv['n_units']}")
+               f"{part['n_units']} of {dv['n_units']}, chunks "
+               f"{c['n_chunks']} of {dv['chain']['n_chunks']}")
         total = y if total is None else total + y
     hold("K20_matvec_shard", total,
          tilev2.mv_exec(xp, lw, rw, dv, s["T"], s["nt2"]))

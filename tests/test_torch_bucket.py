@@ -4,10 +4,12 @@
 ``execute_plan_jax`` (blocking_jax.py), at a Hubbard-L8 and a K=8
 quantum-chemistry center built in code: the bucket struct field by field,
 the plain versions of K8 and K9 against the JAX kernels (f64 to 1e-12 and
-f32 to 1e-5 relative to the largest entry), the kernels' own item walk
-(chain.cuh's CUDA blocks replayed in numpy) against the plain versions,
-the device Davidson around K8 against the JAX ``_dav_jit``, and the
-wrappers' device and type checks."""
+f32 to 1e-5 relative to the largest entry), the kernels' own walks
+against the plain versions and the JAX kernel (K8: its items sorted by
+sigma block and cut into chunks, ops/chain_mv.py, walked chunk by chunk;
+K9: chain.cuh's CUDA blocks replayed in numpy), the device Davidson
+around K8 against the JAX ``_dav_jit``, and the wrappers' device and type
+checks."""
 
 from types import SimpleNamespace
 
@@ -30,7 +32,7 @@ from block2_preview_tpu_torch.dmrg.effective import (
 from block2_preview_tpu_torch.dmrg.environment import (
     MovingEnvironment as PortME)
 from block2_preview_tpu_torch.ops import _kernels, blocking_device
-from block2_preview_tpu_torch.ops import exec_bucket
+from block2_preview_tpu_torch.ops import chain_mv, exec_bucket
 from block2_preview_tpu_torch.ops.blocking_plan import (build_plan,
                                                         execute_plan_numpy)
 from block2_preview_tpu_torch.ops.exec_bucket import (BucketExecutor,
@@ -38,6 +40,7 @@ from block2_preview_tpu_torch.ops.exec_bucket import (BucketExecutor,
                                                       reference_struct)
 
 from test_torch_plans import hubbard_driver
+from test_torch_tilev2 import check_chunks
 
 CPU = torch.device("cpu")
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -143,28 +146,54 @@ def chain_walk(items, cols, pools, coefs, out):
 
 
 def test_k8_tables_reproduce_the_matvec(site):
-    """K8's items and block prefix sums cover every triple once."""
+    """K8's tables: the items sorted by sigma block (stable), every
+    entry of every triple in exactly one chunk, a chunk within one sigma
+    piece; walked as the kernel walks them, they give the plain matvec."""
     *_, peff = site
     ex = BucketExecutor(peff, device=CPU)
     d = exec_bucket.kernel_tables(ex.struct, CPU)
-    it = d["it"].numpy().astype(np.int64)
-    assert d["it"].dtype == d["cum"].dtype == torch.int32
-    nb = np.diff(d["cum"].numpy())
-    assert d["n_blocks"] == nb.sum() and (nb > 0).all()
-    assert len(it) == len(peff.triples)
-    xh = ex.pad(np.random.RandomState(4).standard_normal(peff.size))
-    lp, rp = ex.lpool.numpy(), ex.rpool.numpy()
-
-    def cols(f, xp, lp, rp):
-        loff, a, k, poff, n, roff, p, ooff = (int(v) for v in f)
-        return (lp[loff:loff + a * k].reshape(a, k),
-                xp[poff:poff + k * n].reshape(k, n),
-                rp[roff:roff + p * n].reshape(p, n).T, a, k, n, p, ooff)
-
-    got = chain_walk(it, cols, (xh, lp, rp), np.ones(len(it)),
-                     np.zeros(ex.size_p + 1))
-    ref = ex.matvec_device(torch.as_tensor(xh)).numpy()
+    it = d["items"].numpy().astype(np.int64)
+    assert d["items"].dtype == d["ent"].dtype == d["ck"].dtype == torch.int32
+    assert len(it) == len(peff.triples) and d["seconds"] >= 0
+    order = np.argsort(ex.struct["items"][:, 7], kind="stable")
+    assert np.array_equal(it, ex.struct["items"][order])
+    tab = {"ent": d["ent"].numpy(), "ck": d["ck"].numpy()}
+    fl = chain_mv.entries(it)["flops"]
+    check_chunks(it, tab, max(fl.sum() / chain_mv.TARGET_CHUNKS, 1.0))
+    assert d["n_chunks"] == len(tab["ck"])
+    xh = torch.as_tensor(ex.pad(np.random.RandomState(4).standard_normal(
+        peff.size)))
+    got = chain_mv.chain_plain(xh, ex.lpool, ex.rpool, d,
+                               ex.size_p + 1).numpy()
+    ref = ex.matvec_device(xh).numpy()
+    assert not got[peff.size:].any()
     assert rel(got[:ex.size_p], ref) < 1e-12
+
+
+@pytest.mark.parametrize("cap", [None, 1.0, 1e18])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_k8_chunk_walk_matches_fused_sigma(site, dtype, cap):
+    """K8's sorted items cut into chunks under the default FLOP cap, one
+    entry a chunk (cap 1) and whole sigma pieces (a cap no chunk reaches),
+    walked chunk by chunk in ``dtype``, against the JAX _fused_sigma
+    (FusedPlanExecutor.matvec_device); items span several 8-row
+    fragments."""
+    *_, reff, peff = site
+    rx = FusedPlanExecutor(reff, dtype=dtype)
+    ex = BucketExecutor(peff, dtype=dtype, device=CPU)
+    it = ex.struct["items"]
+    it = it[np.argsort(it[:, 7], kind="stable")]
+    assert (it[:, 1] > 8).any() and (it[:, 6] > 8).any()
+    tab = chain_mv.chunk_tables(it, cap=cap)
+    if cap is not None:
+        check_chunks(it, tab, cap)
+    d = chain_mv.device_tables(it, tab, CPU)
+    xh = ex.pad(np.random.RandomState(7).standard_normal(peff.size))
+    ref = np.asarray(rx.matvec_device(jnp.asarray(xh)))
+    got = chain_mv.chain_plain(torch.as_tensor(xh), ex.lpool, ex.rpool, d,
+                               ex.size_p + 1).numpy()
+    assert got.dtype == dtype
+    assert rel(got[:ex.size_p], ref[:ex.size_p]) < TOL[dtype]
 
 
 def _plans(site, direction):

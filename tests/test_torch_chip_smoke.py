@@ -330,6 +330,43 @@ def test_launch_path_us_times_the_call_it_names():
     assert x is a and y is b and out.numel() == 1 and out is calls[0][-1]
 
 
+def test_time_ms_counts_the_launches_a_call(capsys):
+    """Phase 3's rows print the launches one timed call makes and the time
+    a launch: time_ms counts the port's launch counters over the timed
+    calls (not the warm-up) and returns them with the mean time."""
+    from block2_preview_tpu_torch.ops import _kernels
+
+    def two_launches():
+        _kernels.KERNELS["K12_tiled_blocking"].launches += 2
+
+    ms = chip_smoke.time_ms(two_launches, torch.device("cpu"), reps=3)
+    _kernels.reset_counts()
+    assert ms.launches == 2 and ms >= 0
+    assert chip_smoke.time_ms(lambda: None, torch.device("cpu")).launches \
+        == 0
+    chip_smoke._check(None, "K12_tiled_blocking", np.float64, "l",
+                      torch.ones(3), torch.ones(3), 1e-12, ms, 1.0, None,
+                      8, 0.0, "shape")
+    assert "(2 launches a call, " in capsys.readouterr().out
+
+
+def test_histogram_and_chain_shapes():
+    """The bins phase 3 prints for K8's item dims and the chain core's
+    fragments: <= each edge (above the one before), then above the last;
+    chain_shapes counts an item of 72 rows and 20 psi / sigma columns as
+    two pieces (64 and 8 rows) of 24 and 3 live 8 x 8 fragments, one
+    entry a chunk."""
+    assert chip_smoke.histogram([1, 8, 9, 16, 200], (8, 16)) == \
+        "<=8 2, <=16 2, >16 1"
+    from block2_preview_tpu_torch.ops import chain_mv
+    items = np.array([[0, 72, 5, 0, 20, 0, 20, 0]])
+    tab = chain_mv.chunk_tables(items)
+    txt = chip_smoke.chain_shapes(items, tab["ck"])
+    assert txt.startswith("stage-1 fragments an entry: <=1 0, <=2 0, "
+                          "<=4 1, <=8 0, <=16 0, <=32 1, ")
+    assert "entries a chunk: <=1 2," in txt
+
+
 def test_chip_smoke_npdm_phases_on_cpu(capsys):
     """Phases 10a (Hubbard-L4 PDMs through get_npdm and pooled_gram
     against the determinant path, transition PDMs, the RDM energy), 10b

@@ -31,7 +31,7 @@ import block2_preview_tpu_torch.ops.tilev2 as tv2
 import chip_smoke
 from block2_preview_tpu_torch import interop
 from block2_preview_tpu_torch.dmrg import npdm_scheme
-from block2_preview_tpu_torch.ops import exec_bucket
+from block2_preview_tpu_torch.ops import chain_mv, exec_bucket
 from block2_preview_tpu_torch.ops.stacked import site_pools
 from block2_preview_tpu_torch.parallel import multihost
 from block2_preview_tpu_torch.parallel.shard import (ShardedPlanExecutor,
@@ -126,6 +126,54 @@ def test_matvec_rank_partials_match_reference(mv_site, world):
     sharded = np.asarray(ref_ex.matvec_device_sharded(
         xj, jnp.asarray(lw), jnp.asarray(rw), ref_mesh(world)))
     assert rel(total, sharded) < TOL
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_matvec_rank_chunks_match_reference(mv_site, world):
+    """K20's chunk tables of each rank (its groups' items only, entries
+    pointing into K1's items): every entry of the rank's items once, a
+    chunk within one sigma piece; walked as the kernel walks them, each
+    rank's partial equals the reference's per-device scan, and the ranks'
+    entries together are K1's."""
+    from test_torch_tilev2 import check_chunks
+    ref_ex, ex, lw, rw = mv_site
+    s = ref_ex.struct
+    ng = s["ng_live"]
+    g1i, g2i, e1i, e2i, ngl = ref_tv2.shard_groups(
+        s["g1"][:ng], s["g2"][:ng], s["cum1"], s["cum2"], world)
+    d = ref_ex.to_device()
+    lt, rt = ref_ex.tile_pools(jnp.asarray(lw), jnp.asarray(rw))
+    xh = ex.pad(np.random.RandomState(6).standard_normal(ex.size))
+    tl, tr = interop.slab_pool(lw, "cpu"), interop.slab_pool(rw, "cpu")
+    dv = ex.to_device("cpu")
+    items = dv["chain"]["items"].numpy().astype(np.int64)
+    all_ent = []
+    for r in range(world):
+        sl = slice(r * ngl, (r + 1) * ngl)
+        sig = ref_tv2._mv_scan(
+            jnp.asarray(xh), lt, rt, d["l_tid"], d["r_tid"], d["psi_idx"],
+            d["it"], d["cum1"], d["cum2"], jnp.asarray(g1i[sl]),
+            jnp.asarray(g2i[sl]), jnp.asarray(e1i[sl]), jnp.asarray(e2i[sl]),
+            ngl, s["nt1"], s["nt2"], s["T"], s["B"])
+        ref_r = np.asarray(sig.reshape(-1)[d["sig_idx"]])
+        c = ex.rank_part(r, world, "cpu")["chain"]
+        tab = {"ent": c["ent"].numpy(), "ck": c["ck"].numpy()}
+        mine = np.unique(tab["ent"][:, 0].astype(np.int64))
+        if len(tab["ent"]):
+            sub = {"ent": np.stack([np.searchsorted(mine, tab["ent"][:, 0]),
+                                    tab["ent"][:, 1]], 1).astype(np.int32),
+                   "ck": tab["ck"]}
+            fl = chain_mv.entries(items[mine])["flops"]
+            check_chunks(items[mine], sub,
+                         max(fl.sum() / chain_mv.TARGET_CHUNKS, 1.0))
+        got = chain_mv.chain_plain(
+            torch.as_tensor(xh), tl, tr, {"items": dv["chain"]["items"],
+                                          **c}, len(ref_r)).numpy()
+        assert np.abs(got - ref_r).max() <= TOL * max(np.abs(ref_r).max(),
+                                                      1e-300)
+        all_ent += [tuple(e) for e in tab["ent"].tolist()]
+    k1 = tv2.k1_host(ex.struct)
+    assert sorted(all_ent) == sorted(tuple(e) for e in k1["ent"].tolist())
 
 
 def test_matvec_sharded_on_a_world_of_one(mv_site, mesh1):
