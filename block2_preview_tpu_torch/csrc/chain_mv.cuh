@@ -1,5 +1,5 @@
-// The chain-matvec core of K1 (matvec.cu), K20 (matvec_shard.cu) and K8
-// (bucket.cu): for every item of a plan,
+// The chain-matvec core of K1 (matvec.cu), K20 (matvec_shard.cu), K8
+// (bucket.cu) and K7 (tiled.cu): for every item of a plan,
 //
 //   sigma[ooff] (a x p) += L[loff] (a x k) . psi[poff] (k x n) . R[roff]^T
 //
@@ -28,6 +28,16 @@
 //  * f64 runs on the tensor cores, mma.sync.aligned.m8n8k4 (DMMA) from
 //    each lane's registers; f32 runs the same fragments on the FMA pipes
 //    (the port keeps true f32: no TF32);
+//  * complex128 (K7 only) runs four real DMMAs a fragment and depth 4
+//    (re.re, -im.im, re.im, im.re; the plain product, no conjugation, as
+//    the reference's einsums), complex64 the same fragments on the FMA
+//    pipes; the complex atomic into sigma is two real atomics (sm_90 has
+//    no 128-bit float atomic).  Complex elements stay interleaved in shared
+//    memory (one 16-byte cp.async and one 16-byte load a c128 element);
+//    the psi slice's row is kT + 2 long there and tmp's kT + 4, so a
+//    quarter warp's 16-byte fragment loads fall on distinct banks.  A c128
+//    block takes 211 KB of shared memory (one block an SM), a c64 block
+//    106 KB (two, as f64);
 //  * entries that write one output piece sum in registers: one atomic an
 //    output element a chunk, where K1's earlier design made one a unit
 //    (atomic order varies between runs, so results agree with the plain
@@ -71,14 +81,32 @@ constexpr int kST = 2;        // slots of the cp.async ring
 constexpr int kMaxEnt = 64;   // entries of one chunk (chain_mv.py MAX_ENT)
 constexpr int kW = kT / 8;    // warps: one an 8-row block of the piece
 constexpr int kFPW = kT / 8;  // 8 x 8 column fragments of a warp
-// row lengths of the L and R slices and of the psi slice and Ts: with
-// kKC + 4 and kT + 4 a half warp's f64 fragment loads fall on distinct banks
+// row lengths of the L and R slices (kLDA), of the psi slice (ldp) and of
+// Ts (kLDT): with kKC + 4 and kT + 4 a half warp's f64 fragment loads fall
+// on distinct banks; a complex psi slice takes kT + 2 (see above)
 constexpr int kLDA = kKC + 4;
-constexpr int kLDP = kT + 4;
+constexpr int kLDT = kT + 4;
+template <typename S>
+__host__ __device__ constexpr int ldp() {
+  return kT + (sizeof(S) == 16 ? 2 : 4);
+}
 // a ring slot (an L and a psi slice, or an R slice) and the dynamic
 // shared memory, in elements
-constexpr int kSlot = kT * kLDA + kKC * kLDP;
-constexpr int kSmem = kST * kSlot + kT * kLDP;
+template <typename S>
+__host__ __device__ constexpr int slot_elems() {
+  return kT * kLDA + kKC * ldp<S>();
+}
+template <typename S>
+__host__ __device__ constexpr int smem_elems() {
+  return kST * slot_elems<S>() + kT * kLDT;
+}
+
+template <typename R>
+struct __align__(2 * sizeof(R)) cplx {
+  R x, y;
+  cplx() = default;
+  __device__ constexpr cplx(R a, R b = R(0)) : x(a), y(b) {}
+};
 
 struct Ent {
   int loff, k, poff, n, roff, ni, nc;
@@ -103,6 +131,20 @@ __device__ __forceinline__ void cp_elem(float* dst, const float* src,
                "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
+__device__ __forceinline__ void cp_elem(cplx<float>* dst,
+                                        const cplx<float>* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_elem(cplx<double>* dst,
+                                        const cplx<double>* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -114,10 +156,11 @@ __device__ __forceinline__ void cp_wait() {
 // d += a (8 x 4, row) * b (4 x 8, col) on the f64 tensor cores.  Lane (g,
 // t) = (lane / 4, lane % 4) holds a = A[g][t], b = B[t][g] and d = {D[g][2t],
 // D[g][2t + 1]}.
-__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a,
+                                     double b) {
   asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
       "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d[0]), "+d"(d[1])
+      : "+d"(d0), "+d"(d1)
       : "d"(a), "d"(b));
 }
 
@@ -139,7 +182,7 @@ __device__ __forceinline__ void mma_steps(double (&acc)[N][2], int r,
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       if (j >= nf) break;
-      dmma(acc[j], a, b[8 * j * bcs]);
+      dmma(acc[j][0], acc[j][1], a, b[8 * j * bcs]);
     }
   }
 }
@@ -186,6 +229,95 @@ __device__ __forceinline__ void mma_steps(float (&acc)[N][2], int r, int nf,
   }
 }
 
+// complex128: per fragment and depth 4 the four real DMMAs of the plain
+// complex product, d.re += a.re b.re - a.im b.im, d.im += a.re b.im +
+// a.im b.re, on each lane's interleaved elements (one 16-byte load each)
+template <bool KMAJ, int N>
+__device__ __forceinline__ void mma_steps(cplx<double> (&acc)[N][2], int r,
+                                          int nf, const cplx<double>* As,
+                                          int lda, const cplx<double>* Bs,
+                                          int ldb, int kc4, int g, int t) {
+  const int bks = KMAJ ? ldb : 1, bcs = KMAJ ? 1 : ldb;
+#pragma unroll
+  for (int kk = 0; kk < kKC; kk += 4) {
+    if (kk >= kc4) break;
+    const cplx<double> a = As[(r + g) * lda + kk + t];
+    const cplx<double>* b = Bs + (kk + t) * bks + g * bcs;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j >= nf) break;
+      const cplx<double> bv = b[8 * j * bcs];
+      dmma(acc[j][0].x, acc[j][1].x, a.x, bv.x);
+      dmma(acc[j][0].x, acc[j][1].x, -a.y, bv.y);
+      dmma(acc[j][0].y, acc[j][1].y, a.x, bv.y);
+      dmma(acc[j][0].y, acc[j][1].y, a.y, bv.x);
+    }
+  }
+}
+
+__device__ __forceinline__ void cmac(cplx<float>& d, cplx<float> a,
+                                     cplx<float> b) {
+  d.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, d.x));
+  d.y = fmaf(a.x, b.y, fmaf(a.y, b.x, d.y));
+}
+
+// complex64: the fragments of f32 on the FMA pipes; lane (g, t) forms
+// D[g][2t], D[g][2t + 1] from A[g][kk:kk + 4] (two 16-byte loads) and
+// B[kk:kk + 4][2t:2t + 2] (four 16-byte loads from a psi slice, or four
+// from an R slice)
+template <bool KMAJ, int N>
+__device__ __forceinline__ void mma_steps(cplx<float> (&acc)[N][2], int r,
+                                          int nf, const cplx<float>* As,
+                                          int lda, const cplx<float>* Bs,
+                                          int ldb, int kc4, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kKC; kk += 4) {
+    if (kk >= kc4) break;
+    const float4* ar = reinterpret_cast<const float4*>(As + (r + g) * lda +
+                                                       kk);
+    const float4 a01 = ar[0], a23 = ar[1];
+    const cplx<float> a[4] = {{a01.x, a01.y}, {a01.z, a01.w},
+                              {a23.x, a23.y}, {a23.z, a23.w}};
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j >= nf) break;
+      const int y = 8 * j + 2 * t;
+      if constexpr (KMAJ) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              Bs + (kk + i) * ldb + y);
+          cmac(acc[j][0], a[i], {b.x, b.y});
+          cmac(acc[j][1], a[i], {b.z, b.w});
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float4* br = reinterpret_cast<const float4*>(
+              Bs + (y + q) * ldb + kk);
+          const float4 u = br[0], v = br[1];
+          cmac(acc[j][q], a[0], {u.x, u.y});
+          cmac(acc[j][q], a[1], {u.z, u.w});
+          cmac(acc[j][q], a[2], {v.x, v.y});
+          cmac(acc[j][q], a[3], {v.z, v.w});
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void atomic_add(double* p, double v) {
+  atomicAdd(p, v);
+}
+__device__ __forceinline__ void atomic_add(float* p, float v) {
+  atomicAdd(p, v);
+}
+template <typename R>
+__device__ __forceinline__ void atomic_add(cplx<R>* p, cplx<R> v) {
+  atomicAdd(&p->x, v.x);
+  atomicAdd(&p->y, v.y);
+}
+
 template <typename S>
 __global__ void __launch_bounds__(kW * 32)
 chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
@@ -193,9 +325,10 @@ chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
              const int* __restrict__ ent, const int* __restrict__ ck,
              S* __restrict__ out) {
   constexpr int NT = kW * 32;
+  constexpr int kLDP = ldp<S>(), kSlot = slot_elems<S>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* ring = reinterpret_cast<S*>(smem_raw);   // [kST][kSlot]
-  S* Ts = ring + kST * kSlot;                 // tmp [kT][kLDP]
+  S* Ts = ring + kST * kSlot;                 // tmp [kT][kLDT]
   __shared__ Ent E[kMaxEnt];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -303,7 +436,7 @@ chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
 #pragma unroll
         for (int q = 0; q < kFPW; ++q) {
           if (rows && q < nf1) {
-            S* d = Ts + (wr + g) * kLDP + 8 * q + 2 * t;
+            S* d = Ts + (wr + g) * kLDT + 8 * q + 2 * t;
             d[0] = tacc[q][0];
             d[1] = tacc[q][1];
           }
@@ -312,7 +445,7 @@ chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
       }
     } else if (rows) {
       const int kc4 = (min(kKC, x.nc - cu.off) + 3) & ~3;
-      mma_steps<false>(acc, wr, nf2, Ts + cu.off, kLDP, buf, kLDA, kc4, g, t);
+      mma_steps<false>(acc, wr, nf2, Ts + cu.off, kLDT, buf, kLDA, kc4, g, t);
     }
     adv(cu);
   }
@@ -326,7 +459,7 @@ chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
     if (j >= nf2) break;
 #pragma unroll
     for (int q = 0; q < 2; ++q)
-      if (8 * j + 2 * t + q < pc) atomicAdd(o + 8 * j + q, acc[j][q]);
+      if (8 * j + 2 * t + q < pc) atomic_add(o + 8 * j + q, acc[j][q]);
   }
 }
 
@@ -337,7 +470,7 @@ cudaError_t chain_mv(const void* xp, const void* lp, const void* rp,
                      const int* items, const int* ent, const int* ck,
                      long long n_chunks, int T, void* out, void* stream) {
   if (T != kT) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(S) * (size_t)kSmem;
+  const size_t smem = sizeof(S) * (size_t)smem_elems<S>();
   cudaError_t e = b2t::allow_smem(chain_kernel<S>, smem);
   if (e != cudaSuccess) return e;
   if (n_chunks > 0)

@@ -151,9 +151,9 @@ _SIGS = {
                         _P, _P),
     "b2t_noise_x": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_noise_rho": (_P, _P, _P, _I, _L, _I, _P, _P),
-    "b2t_tiled": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "b2t_tiled": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_bucket": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
-    "b2t_bucket_blk": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
+    "b2t_bucket_blk": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_slab": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
     "b2t_stk_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
     "b2t_tblk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -1,15 +1,15 @@
-"""Chunk tables of the chain-matvec core shared by kernels K1, K20 and K8
-(``csrc/chain_mv.cuh``), and the plain walk of those tables.
+"""Chunk tables of the chain-matvec core shared by kernels K1, K20, K8 and
+K7 (``csrc/chain_mv.cuh``), and the plain walk of those tables.
 
-Both sigma matvecs compute, for every item (one triple of the effective
+The sigma matvecs compute, for every item (one triple of the effective
 Hamiltonian),
 
     sigma[ooff] (a x p) += L[loff] (a x k) @ psi[poff] (k x n) @ R[roff]^T
 
 with L, psi, R and sigma row-major in flat pools at the item's offsets.
 An item is eight int32 fields ``loff, a, k, poff, n, roff, p, ooff`` (K8's
-own items; K1's are derived from its MatvecV2 plan in
-:func:`block2_preview_tpu_torch.ops.tilev2.k1_items`).
+own items, which K7 reads too, in any of four types; K1's are derived from
+its MatvecV2 plan in :func:`block2_preview_tpu_torch.ops.tilev2.k1_items`).
 
 The core cuts an item into *entries* (item, ar, pi, ni): rows [ar T,
 ar T + T) of its output, columns [pi T, pi T + T) and the columns

@@ -21,19 +21,23 @@ formed, and no element-wise index tensor is made on the device.
 
 Device side: :func:`bucket_sigma` is the wrapper of kernel K8
 (``csrc/bucket.cu``, the chain core shared with K1, on the items sorted
-by sigma block and cut into chunks, :func:`kernel_tables`) in float32
-and float64.  On CPU tensors it runs :func:`bucket_sigma_plain`, the
-plain PyTorch version of the reference's ``_fused_sigma_impl`` bucket by
-bucket; on CUDA tensors it launches K8 or raises.  The port takes real
-types only: a complex effective Hamiltonian raises and names
-``torch_tiled``, the backend that carries complex (the reference casts
-the bucketed matvec to float64, exec_jax.py:328, which drops an
-imaginary part).
+by sigma block and cut into chunks, :func:`kernel_tables`, built once
+per struct by :func:`chain_tables`) in float32 and float64.  On CPU
+tensors it runs :func:`bucket_sigma_plain`, the plain PyTorch version of
+the reference's ``_fused_sigma_impl`` bucket by bucket; on CUDA tensors
+it launches K8 or raises.  :func:`chain_sigma` is that launch for either
+kernel on the core: K8, or K7 of the tiled engine (``ops/tiled.py``),
+which reads the same items, tables and flat pools in complex types too.
+The bucketed executor takes real types only: a complex effective
+Hamiltonian raises and names ``torch_tiled``, the backend that carries
+complex (the reference casts the bucketed matvec to float64,
+exec_jax.py:328, which drops an imaginary part).
 
 :class:`BucketExecutor` holds one center: ``matvec`` (host vectors),
 ``matvec_device`` (padded device vectors), ``solve_ground_state`` (the
 port's device Davidson around K8, the reference's ``_dav_jit``), ``pad``
-and ``free``.
+and ``free``; ``ops/tiled.TiledExecutor`` is the same class launching
+K7 and taking complex types.
 
 :class:`PlanExecutor` is the reference's older padded-bucket executor
 (exec_jax.py:75-128, whose matvec is ``_execute``/``_bucket_exec``): its
@@ -59,9 +63,8 @@ from . import _kernels, chain_mv
 
 VEC_PAD = 2048      # flat psi/sigma vectors padded to multiples of this
 
-# CUDA blocks per item of the kernels on csrc/chain.cuh (K9, K10, K18,
-# K22): 32-row strips times groups of 128 columns of its output
-# (chain_block)
+# CUDA blocks per item of the kernels on csrc/chain.cuh (K10, K18, K22):
+# 32-row strips times groups of 128 columns of its output (chain_block)
 _STRIP, _YGROUP = 32, 128
 # elements of one padded gather of the plain versions (bounds their int64
 # index temporaries)
@@ -170,11 +173,46 @@ def reference_struct(struct: Dict) -> Dict:
             "mask": mask}
 
 
+def operator_mats(eff) -> Tuple[Dict, Dict, List, List]:
+    """The LW and RW matrices of ``eff`` in pool order (symbol, then key,
+    sorted): (lw_ids, rw_ids, lw_mats, rw_mats), the ids mapping (m, key)
+    to a matrix's place."""
+    ids: List[Dict] = [{}, {}]
+    mats: List[List] = [[], []]
+    for i, ops in enumerate((eff.LW, eff.RW)):
+        for m, d in sorted(ops.items()):
+            for k2, mat in sorted(d.items()):
+                ids[i][(m, k2)] = len(mats[i])
+                mats[i].append(mat)
+    return ids[0], ids[1], mats[0], mats[1]
+
+
+def cached_struct(eff, lw_ids, rw_ids, lw_mats, rw_mats, cache, cache_key):
+    """:func:`build_struct` of ``eff``, looked up in ``cache`` under
+    ``cache_key`` first: a hit needs the same signature of the shapes (the
+    reference keys its bucket structs on ``(type(eff).__name__, eff.t)``,
+    sweep.py:698-702, and checks the shapes on every hit)."""
+    sig = None
+    if cache is not None and cache_key is not None:
+        sig = hash((eff.size, tuple(sorted(eff.shapes.items())),
+                    tuple(eff.triples), tuple(m.shape for m in lw_mats),
+                    tuple(m.shape for m in rw_mats)))
+        ent = cache.get(cache_key)
+        if ent is not None and ent[0] == sig:
+            return ent[1]
+    struct = build_struct(eff, lw_ids, rw_ids, [m.shape for m in lw_mats],
+                          [m.shape for m in rw_mats])
+    if sig is not None:
+        cache[cache_key] = (sig, struct)
+    return struct
+
+
 def pack_pool(mats: List[np.ndarray], dtype, device) -> torch.Tensor:
     """The matrices raveled one after another, plus one zero, as one flat
-    tensor on ``device``.  A complex matrix into a real pool raises."""
+    tensor on ``device`` (real or complex ``dtype``).  A complex matrix
+    into a real pool raises."""
     from ..runtime import torch_dtype
-    tdt = torch_dtype(dtype)
+    tdt = torch_dtype(dtype, complex_ok=True)
     flat = np.empty(sum(m.size for m in mats) + 1, dtype=dtype)
     if mats:
         np.concatenate([np.asarray(m).ravel() for m in mats], out=flat[:-1],
@@ -223,13 +261,15 @@ def bucket_sigma_plain(xp, lpool, rpool, d: Dict, size_p: int):
     return sig[:size_p]
 
 
-def bucket_sigma(xp, lpool, rpool, d: Dict, size_p: int):
-    """Sigma matvec (kernel K8): flat sigma [size_p] from the padded flat
-    psi ``xp`` [size_p + 1] and the flat LW/RW pools, on the device of
-    ``xp``: ``d`` holds :func:`kernel_tables` there.  CPU tensors run
+def chain_sigma(kernel: str, entry: str, xp, lpool, rpool, d: Dict,
+                size_p: int):
+    """Flat sigma [size_p] from the padded flat psi ``xp`` [size_p + 1]
+    and the flat LW/RW pools through the chain core's ``kernel`` (C entry
+    ``entry``: K8, or K7 for the tiled engine) on the device of ``xp``,
+    ``d`` holding :func:`kernel_tables` there; CPU tensors run
     :func:`bucket_sigma_plain` (``d`` from :func:`plain_tables`)."""
     if xp.shape != (size_p + 1,) or lpool.dim() != 1 or rpool.dim() != 1:
-        raise ValueError(f"bucket_sigma: psi {tuple(xp.shape)} (expected "
+        raise ValueError(f"{kernel}: psi {tuple(xp.shape)} (expected "
                          f"({size_p + 1},)), pools {lpool.dim()}-D / "
                          f"{rpool.dim()}-D (expected flat)")
     if xp.device.type == "cpu":
@@ -237,10 +277,14 @@ def bucket_sigma(xp, lpool, rpool, d: Dict, size_p: int):
     if not xp.is_cuda:
         raise ValueError(f"unsupported device {xp.device}")
     out = xp.new_zeros(size_p + 1)
-    _kernels.launch("K8_bucket", "b2t_bucket", xp.dtype, xp, lpool, rpool,
-                    d["items"], d["ent"], d["ck"], d["n_chunks"],
-                    chain_mv.TILE, out)
+    _kernels.launch(kernel, entry, xp.dtype, xp, lpool, rpool, d["items"],
+                    d["ent"], d["ck"], d["n_chunks"], chain_mv.TILE, out)
     return out[:size_p]
+
+
+def bucket_sigma(xp, lpool, rpool, d: Dict, size_p: int):
+    """Sigma matvec (kernel K8, real types), :func:`chain_sigma`."""
+    return chain_sigma(*BucketExecutor.KERNEL, xp, lpool, rpool, d, size_p)
 
 
 def plain_tables(struct: Dict, device) -> Dict:
@@ -252,17 +296,31 @@ def plain_tables(struct: Dict, device) -> Dict:
                         for i, key in enumerate(struct["keys"])]}
 
 
+def chain_tables(struct: Dict) -> Dict:
+    """The host tables of the chain core (K8, K7) for ``struct``, built
+    once and cached in it under ``_chain``: the items sorted by their sigma
+    block (``ooff``, stable) as int32 [N, 8] (``items``), their chunks
+    (``ops/chain_mv.py``: ``ent``, ``ck``, cut for the core's tile), the
+    true FLOPs and ``seconds``, the build time of the order and the
+    chunks."""
+    tab = struct.get("_chain")
+    if tab is None:
+        t0 = time.perf_counter()
+        it = struct["items"]
+        it = it[np.argsort(it[:, _OOFF], kind="stable")]
+        tab = chain_mv.chunk_tables(it)
+        tab["items"] = _int32(it, "a chain item offset")
+        tab["seconds"] = time.perf_counter() - t0
+        struct["_chain"] = tab
+    return tab
+
+
 def kernel_tables(struct: Dict, device) -> Dict:
-    """The tables K8 reads, on ``device``: the items sorted by their sigma
-    block (``ooff``, stable) as int32 [N, 8], their chunks
-    (``ops/chain_mv.py``: ``ent``, ``ck``, ``n_chunks``, cut for the core's
-    tile) and ``seconds``, the build time of the order and the chunks."""
-    t0 = time.perf_counter()
-    it = struct["items"]
-    it = it[np.argsort(it[:, _OOFF], kind="stable")]
-    tab = chain_mv.chunk_tables(it)
-    d = chain_mv.device_tables(_int32(it, "a K8 item offset"), tab, device)
-    d["seconds"] = time.perf_counter() - t0
+    """The tables K8 and K7 read, on ``device``: :func:`chain_tables`'s
+    items, ``ent``, ``ck`` and ``n_chunks``, and their build ``seconds``."""
+    tab = chain_tables(struct)
+    d = chain_mv.device_tables(tab["items"], tab, device)
+    d["seconds"] = tab["seconds"]
     return d
 
 
@@ -271,67 +329,51 @@ def kernel_tables(struct: Dict, device) -> Dict:
 # ---------------------------------------------------------------------------
 
 class BucketExecutor:
-    """Sigma-vector executor of one effective Hamiltonian on the bucketed
-    engine (kernel K8).
+    """Sigma-vector executor of one effective Hamiltonian on the chain
+    core: kernel K8 here, kernel K7 in the subclass
+    ``ops/tiled.TiledExecutor``, which differs only in ``KERNEL`` (launch
+    key, C entry) and ``COMPLEX`` (complex types allowed).
 
     The bucket structure depends only on the triple/shape layout and is
     cached across center steps and sweeps via ``cache``/``cache_key`` (the
     reference keys it on ``(type(eff).__name__, eff.t)``, sweep.py:698-702,
     and checks a signature of the shapes on every hit); the LW/RW pools and
-    the item tables are uploaded per executor.  ``t_struct`` and
-    ``t_pack`` hold the seconds spent on the struct and on packing and
-    uploading the pools."""
+    the item tables are uploaded per executor.  ``t_struct``, ``t_pack``
+    and ``t_tables`` hold the seconds spent on the struct (build or cache
+    lookup), on packing and uploading the pools and on deriving (once per
+    struct) and uploading the tables."""
+
+    KERNEL = ("K8_bucket", "b2t_bucket")
+    COMPLEX = False
 
     def __init__(self, eff, dtype=np.float64, cache: dict = None,
                  cache_key=None, device="cuda"):
         from ..runtime import resolve_device, torch_dtype
-        if np.dtype(getattr(eff, "dtype", np.float64)).kind == "c":
+        if not self.COMPLEX and np.dtype(
+                getattr(eff, "dtype", np.float64)).kind == "c":
             raise TypeError("the bucketed executor is real only (got a "
                             f"{np.dtype(eff.dtype)} effective Hamiltonian);"
                             " backend='torch_tiled' carries complex")
-        torch_dtype(dtype)
+        torch_dtype(dtype, complex_ok=self.COMPLEX)
         self.size = eff.size
         self.size_p = padded_size(eff.size)
         self.dtype = np.dtype(dtype)
         self.device = resolve_device(device)
         t0 = time.perf_counter()
-        lw_ids: Dict[Tuple, int] = {}
-        rw_ids: Dict[Tuple, int] = {}
-        lw_mats: List[np.ndarray] = []
-        rw_mats: List[np.ndarray] = []
-        for m, d in sorted(eff.LW.items()):
-            for k2, mat in sorted(d.items()):
-                lw_ids[(m, k2)] = len(lw_mats)
-                lw_mats.append(mat)
-        for m, d in sorted(eff.RW.items()):
-            for k2, mat in sorted(d.items()):
-                rw_ids[(m, k2)] = len(rw_mats)
-                rw_mats.append(mat)
-        struct = None
-        if cache is not None and cache_key is not None:
-            sig = hash((self.size, tuple(sorted(eff.shapes.items())),
-                        tuple(eff.triples),
-                        tuple(m.shape for m in lw_mats),
-                        tuple(m.shape for m in rw_mats)))
-            ent = cache.get(cache_key)
-            if ent is not None and ent[0] == sig:
-                struct = ent[1]
-        if struct is None:
-            struct = build_struct(eff, lw_ids, rw_ids,
-                                  [m.shape for m in lw_mats],
-                                  [m.shape for m in rw_mats])
-            if cache is not None and cache_key is not None:
-                cache[cache_key] = (sig, struct)
-        self.struct = struct
+        lw_ids, rw_ids, lw_mats, rw_mats = operator_mats(eff)
+        self.struct = cached_struct(eff, lw_ids, rw_ids, lw_mats, rw_mats,
+                                    cache, cache_key)
         t1 = time.perf_counter()
         self.lpool = pack_pool(lw_mats, self.dtype, self.device)
         self.rpool = pack_pool(rw_mats, self.dtype, self.device)
         self._sync()
         t2 = time.perf_counter()
         self._dev = (plain_tables if self.device.type == "cpu"
-                     else kernel_tables)(struct, self.device)
+                     else kernel_tables)(self.struct, self.device)
+        self._sync()
         self.t_struct = t1 - t0
         self.t_pack = t2 - t1
+        self.t_tables = time.perf_counter() - t2
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -345,13 +387,16 @@ class BucketExecutor:
     def matvec_device(self, xp: torch.Tensor) -> torch.Tensor:
         """Flat sigma [size_p] of the padded psi ``xp`` [size_p + 1] on
         this executor's device (zero past ``size``)."""
-        return bucket_sigma(xp, self.lpool, self.rpool, self._dev,
-                            self.size_p)
+        return chain_sigma(*self.KERNEL, xp, self.lpool, self.rpool,
+                           self._dev, self.size_p)
 
     def matvec(self, x: np.ndarray) -> np.ndarray:
+        """H x for a host vector x [size]; float64 (complex128) host
+        values."""
         xp = torch.as_tensor(self.pad(x), device=self.device)
-        out = self.matvec_device(xp).cpu().numpy()
-        return out[:self.size].astype(np.float64)
+        out = self.matvec_device(xp).cpu().numpy()[:self.size]
+        return out.astype(np.complex128 if self.dtype.kind == "c"
+                          else np.float64)
 
     def free(self):
         """Release the pools and tables of this executor."""
@@ -360,9 +405,13 @@ class BucketExecutor:
     def solve_ground_state(self, x0: np.ndarray, diag: np.ndarray,
                            conv_thrd: float = 1e-8, max_iter: int = 100,
                            max_subspace: int = 20):
-        """Lowest eigenpair by the port's device Davidson around K8 (one
-        solve per call).  Returns (theta, x [size] float64, n_iter)."""
+        """Lowest eigenpair by the port's device Davidson around the
+        executor's kernel (one solve per call; real float32/float64
+        only).  Returns (theta, x [size] float64, n_iter)."""
         from .device_davidson import davidson
+        if self.dtype.kind != "f":
+            raise TypeError(f"solve_ground_state is real only "
+                            f"(executor dtype {self.dtype})")
         dp = np.ones(self.size_p + 1, dtype=self.dtype)
         dp[:self.size] = diag
         th, xv, it = davidson(

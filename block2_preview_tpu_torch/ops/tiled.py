@@ -1,46 +1,53 @@
-"""Compile-once tiled sigma matvec (v1 task lists) — kernel K7.
+"""Tiled sigma matvec — kernel K7 — and the port's copy of the reference's
+tiled struct.
 
-Host side copied from block2_preview_tpu/ops/tiled.py (``_pow2``,
-``_TILE_CFG``, ``pick_tile``, ``_tile_grid`` and
-``TiledExecutor._build_struct``, :39-64 and :190-340), so the struct arrays
+The copy: ``_pow2``, ``_TILE_CFG``, ``pick_tile``, ``_tile_grid`` and
+:func:`tile_struct` (the reference's ``TiledExecutor._build_struct``,
+block2_preview_tpu/ops/tiled.py:39-64 and :190-340), so the struct arrays
 are the reference's field by field; :func:`pack_tiled` builds the
 reference's tile pools (``_pack_tiled``, :66-83) with one gather on the
-device.  Every GEMM triple
-``sigma[ok] += LW[m][lk] @ psi[pk] @ RW[m][rk].T`` of an effective
-Hamiltonian is cut into T x T tile tasks over tile-major pools:
+device, and :func:`tiled_matvec_plain` runs the reference's
+``_tiled_matvec_impl`` (:86) on them group by group.  The reference cuts
+every GEMM triple ``sigma[ok] += LW[m][lk] @ psi[pk] @ RW[m][rk].T`` of an
+effective Hamiltonian into T x T tile tasks over tile-major pools:
 
   stage 1:  tmp[s1] += lp[la] @ pp[pa]
   stage 2:  sig[s2] += tmp[ta] @ rp[ra]^T
 
 with ``pp = xp[psi_idx]`` (padding points at the zero slot ``size_p``) and
-the flat sigma read back through ``sig_idx``.  The task arrays are
-``[G, B]`` groups; sentinels (``lzero``/``rzero`` zero tiles, tile ids
-``nt1``/``nt2``) pad each group.
+the flat sigma read back through ``sig_idx``; the task arrays are
+``[G, B]`` groups, sentinels (``lzero``/``rzero`` zero tiles, tile ids
+``nt1``/``nt2``) pad each group.  The tests hold these against the JAX
+package; the port's matvec does not run them.
 
-Device side: :func:`tiled_matvec` is the wrapper of kernel K7
-(``csrc/tiled.cu``), in float32, float64, complex64 and complex128 (the
-plain product, no conjugation, as the reference's einsums).  On CPU
-tensors it runs :func:`tiled_matvec_plain`, the plain PyTorch version of
-the reference's ``_tiled_matvec_impl`` (:86); on CUDA tensors it launches
-K7 or raises.  K7 reads per-unit ranges derived beside the struct
-(:func:`unit_tables`), not the ``[G, B]`` groups.
+The port's matvec (:class:`TiledExecutor`, :func:`tiled_matvec`) runs the
+same triples at their true shapes: one item a triple (eight scalars,
+``exec_bucket.build_struct``), LW/RW as two flat pools
+(``exec_bucket.pack_pool``), psi and sigma flat.  On CUDA tensors
+:func:`tiled_matvec` launches kernel K7 (``csrc/tiled.cu``, the chain core
+of K1 and K8, ``csrc/chain_mv.cuh``) in float32, float64, complex64 and
+complex128 (the plain product, no conjugation, as the reference's
+einsums) on the items sorted by sigma block and cut into chunks
+(``exec_bucket.kernel_tables``), or raises; on CPU tensors it runs the
+plain version over the same items and pools
+(``exec_bucket.bucket_sigma_plain``).
 
 :class:`TiledExecutor` is the device contract of the time evolution
-(``dmrg/tdvp.py``) and of ``backend="torch_tiled"`` ground states: host
-environments and LW/RW, pools packed and uploaded per center, the matvec
-on the device, and ``solve_ground_state`` — the port's device Davidson
-around K7 (the reference's ``_tiled_dav``, :391).
+(``dmrg/tdvp.py``) and of ``backend="torch_tiled"`` ground states:
+``exec_bucket.BucketExecutor`` launching K7 and taking complex types —
+host environments and LW/RW, pools packed and uploaded per center, the
+matvec on the device, and ``solve_ground_state``, the port's device
+Davidson around K7 (the reference's ``_tiled_dav``, :391).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from . import _kernels
+from .exec_bucket import BucketExecutor, chain_sigma, operator_mats
 
 
 def _pow2(n: int) -> int:
@@ -125,14 +132,14 @@ def pack_tiled(mats: List[np.ndarray], T: int, dtype, device
 
 
 # ---------------------------------------------------------------------------
-# kernel K7 and its plain twin
+# the reference's tiled matvec (the copy) and kernel K7
 # ---------------------------------------------------------------------------
 
 def tiled_matvec_plain(xp, lp, rp, d: Dict, nt1: int, nt2: int, T: int):
-    """Plain PyTorch version of K7: the reference's ``_tiled_matvec_impl``
+    """Plain PyTorch version of the reference's ``_tiled_matvec_impl``
     group by group.  ``xp`` [size_p + 1] padded flat psi (zero last slot),
     ``lp``/``rp`` [cap, T, T] tile pools, ``d`` the tables of
-    :func:`plain_tables`.  Returns sigma [size_p].
+    :func:`tile_tables`.  Returns sigma [size_p].
 
     Sentinel tasks (target tile nt1 / nt2) are skipped: they multiply the
     zero tiles lzero / rzero into slots the result never reads."""
@@ -151,68 +158,7 @@ def tiled_matvec_plain(xp, lp, rp, d: Dict, nt1: int, nt2: int, T: int):
     return sig.reshape(-1)[d["sig_idx"]]
 
 
-def tiled_matvec(xp, lp, rp, d: Dict, nt1: int, nt2: int, T: int):
-    """Sigma matvec (kernel K7): flat sigma [size_p] from the padded flat
-    psi ``xp`` [size_p + 1] and the tile pools, on the device of ``xp``:
-    ``d`` holds :func:`kernel_tables` there.  CPU tensors run
-    :func:`tiled_matvec_plain` (``d`` from :func:`plain_tables`)."""
-    if xp.device.type == "cpu":
-        return tiled_matvec_plain(xp, lp, rp, d, nt1, nt2, T)
-    if not xp.is_cuda:
-        raise ValueError(f"unsupported device {xp.device}")
-    size_p = xp.shape[0] - 1
-    # K7 adds sigma straight into the flat vector through psi_idx (the
-    # inverse of sig_idx); padding lanes point at slot size_p, skipped
-    out = xp.new_zeros(size_p + 1)
-    _kernels.launch("K7_tiled", "b2t_tiled", xp.dtype, xp, lp, rp,
-                    d["psi_idx"], d["c1"], d["la1"], d["pa1"], d["c2"],
-                    d["ra2"], d["s2v"], d["n_units"], T, size_p, out)
-    return out[:size_p]
-
-
-def unit_tables(struct: Dict) -> Dict:
-    """K7's per-unit ranges, derived from the struct (cached in it under
-    ``_k7``).  A unit is one tmp tile of one group, (g, s1): its stage-1
-    tasks are one contiguous run (items are laid out in order, tasks
-    (ai, ni, ki) within an item), and its stage-2 tasks are the live tasks
-    with ta = s1 in group g (sorted here by (g, ta); the struct sorts them
-    by target).  Sentinel tasks are dropped.  ``flops`` counts 2 T^3 per
-    live task of either stage (real arithmetic; x4 for complex)."""
-    k7 = struct.get("_k7")
-    if k7 is not None:
-        return k7
-    nt1, nt2, T = struct["nt1"], struct["nt2"], struct["T"]
-    G, B = struct["la"].shape
-    grp = np.repeat(np.arange(G, dtype=np.int64), B)
-    s1 = struct["s1"].ravel()
-    live1 = s1 != nt1
-    key1 = grp[live1] * (nt1 + 1) + s1[live1]
-    starts = np.flatnonzero(np.r_[True, key1[1:] != key1[:-1]]) \
-        if len(key1) else np.zeros(0, np.int64)
-    ukey = key1[starts]
-    if np.any(np.diff(ukey) <= 0):
-        raise ValueError("stage-1 tasks of a tmp tile are not one run")
-    s2 = struct["s2"].ravel()
-    live2 = s2 != nt2
-    key2 = grp[live2] * (nt1 + 1) + struct["ta"].ravel()[live2]
-    order = np.argsort(key2, kind="stable")
-    key2 = key2[order]
-    if not np.isin(key2, ukey).all():
-        raise ValueError("a stage-2 task reads a tmp tile no unit forms")
-    c2 = np.searchsorted(key2, ukey, side="left")
-    k7 = {"c1": np.r_[starts, len(key1)].astype(np.int32),
-          "la1": struct["la"].ravel()[live1],
-          "pa1": struct["pa"].ravel()[live1],
-          "c2": np.r_[c2, len(key2)].astype(np.int32),
-          "ra2": struct["ra"].ravel()[live2][order],
-          "s2v": s2[live2][order],
-          "n_units": len(ukey),
-          "flops": 2 * T ** 3 * (int(live1.sum()) + int(live2.sum()))}
-    struct["_k7"] = k7
-    return k7
-
-
-def plain_tables(struct: Dict, device) -> Dict:
+def tile_tables(struct: Dict, device) -> Dict:
     """The struct's tables :func:`tiled_matvec_plain` reads, on
     ``device``: psi_idx, sig_idx and the [G, B] task groups."""
     d = {k: torch.as_tensor(struct[k], device=device).long()
@@ -222,284 +168,182 @@ def plain_tables(struct: Dict, device) -> Dict:
     return d
 
 
-def kernel_tables(struct: Dict, device) -> Dict:
-    """The tables K7 reads, on ``device``: psi_idx and the per-unit
-    ranges of :func:`unit_tables` (int32)."""
-    k7 = unit_tables(struct)
-    d = {k: torch.as_tensor(k7[k], device=device)
-         for k in ("c1", "la1", "pa1", "c2", "ra2", "s2v")}
-    d["psi_idx"] = torch.as_tensor(struct["psi_idx"].reshape(-1),
-                                   device=device)
-    d["n_units"] = k7["n_units"]
-    return d
+def tiled_matvec(xp, lpool, rpool, d: Dict, size_p: int):
+    """Sigma matvec (kernel K7): flat sigma [size_p] from the padded flat
+    psi ``xp`` [size_p + 1] and the flat LW/RW pools, in any of the four
+    types, on the device of ``xp``: ``d`` holds
+    ``exec_bucket.kernel_tables`` there.  CPU tensors run
+    ``exec_bucket.bucket_sigma_plain`` (``d`` from
+    ``exec_bucket.plain_tables``)."""
+    return chain_sigma(*TiledExecutor.KERNEL, xp, lpool, rpool, d, size_p)
+
+
+def tile_struct(eff, T: int = None) -> Dict:
+    """The reference's tiled struct of ``eff`` (``TiledExecutor.
+    _build_struct``, tiled.py:190-340) at tile T (default
+    :func:`pick_tile` of the block dims): tile bases of the LW/RW pools
+    (``lbases``/``rbases``, in ``exec_bucket.operator_mats`` order), the
+    flat <-> tiled maps ``psi_idx``/``sig_idx`` and the [G, B] task
+    groups."""
+    lw_ids, rw_ids, lw_mats, rw_mats = operator_mats(eff)
+    lw_shapes = [m.shape for m in lw_mats]
+    rw_shapes = [m.shape for m in rw_mats]
+    if T is None:
+        dims = []
+        for s in lw_shapes + rw_shapes:
+            dims += [s[0], s[1]]
+        for k in eff.offsets:
+            dims += list(eff.shapes[k])
+        T = pick_tile(np.asarray(dims))
+    B, nt1 = _TILE_CFG[T]
+
+    lbases = np.zeros(len(lw_shapes) + 1, dtype=np.int64)
+    for i, s in enumerate(lw_shapes):
+        nr, nc = _tile_grid(s[0], s[1], T)
+        lbases[i + 1] = lbases[i] + nr * nc
+    rbases = np.zeros(len(rw_shapes) + 1, dtype=np.int64)
+    for i, s in enumerate(rw_shapes):
+        nr, nc = _tile_grid(s[0], s[1], T)
+        rbases[i + 1] = rbases[i] + nr * nc
+
+    # tiled layout of the flat psi/sigma vector
+    vb: Dict = {}
+    nv = 0
+    for k in sorted(eff.offsets):
+        r, c = eff.shapes[k]
+        nr, nc = _tile_grid(r, c, T)
+        vb[k] = (nv, nr, nc)
+        nv += nr * nc
+    nt2 = _pow2(nv + 1)
+
+    # gather maps flat <-> tiled
+    size_p = _pow2(eff.size + 1)
+    psi_idx = np.full((nt2, T, T), size_p, dtype=np.int32)
+    sig_idx = np.zeros(size_p, dtype=np.int64)
+    for k in sorted(eff.offsets):
+        off = eff.offsets[k]
+        r, c = eff.shapes[k]
+        base, nr, nc = vb[k]
+        flat = off + np.arange(r * c, dtype=np.int64)
+        fr, fc = np.divmod(np.arange(r * c), c)
+        tidx = ((base + (fr // T) * nc + (fc // T)) * (T * T)
+                + (fr % T) * T + (fc % T))
+        sig_idx[flat] = tidx
+        psi_flat = psi_idx.reshape(-1)
+        psi_flat[tidx] = flat
+    sig_idx[eff.size:] = (nt2 + 1) * T * T - 1   # pad -> last (zero) slot
+
+    # tasks — vectorized expansion
+    lzero = int(lbases[-1])
+    rzero = int(rbases[-1])
+    ntr = len(eff.triples)
+    lid_a = np.empty(ntr, dtype=np.int64)
+    rid_a = np.empty(ntr, dtype=np.int64)
+    pb_a = np.empty(ntr, dtype=np.int64)
+    ob_a = np.empty(ntr, dtype=np.int64)
+    for i, (m, lk, pk, rk, ok) in enumerate(eff.triples):
+        lid_a[i] = lw_ids[(m, lk)]
+        rid_a[i] = rw_ids[(m, rk)]
+        pb_a[i] = vb[pk][0]
+        ob_a[i] = vb[ok][0]
+    lsh = np.asarray(lw_shapes, dtype=np.int64)[lid_a] \
+        if ntr else np.zeros((0, 2), dtype=np.int64)
+    rsh = np.asarray(rw_shapes, dtype=np.int64)[rid_a] \
+        if ntr else np.zeros((0, 2), dtype=np.int64)
+    na_a = -(-lsh[:, 0] // T)
+    nk_a = -(-lsh[:, 1] // T)
+    np_a = -(-rsh[:, 0] // T)
+    nn_a = -(-rsh[:, 1] // T)
+    itmp = na_a * nn_a
+    is1 = itmp * nk_a
+    is2 = itmp * np_a
+    if ntr and (itmp.max() > nt1 or is1.max() > B or is2.max() > B):
+        raise ValueError(f"block too large for tile cfg T={T}")
+    # greedy grouping (sequential, per item)
+    grp = np.empty(ntr, dtype=np.int64)
+    tb_a = np.empty(ntr, dtype=np.int64)       # tmp base within group
+    o1_a = np.empty(ntr, dtype=np.int64)       # stage-1 offset in group
+    o2_a = np.empty(ntr, dtype=np.int64)       # stage-2 offset in group
+    g = t_used = u1 = u2 = 0
+    for i in range(ntr):
+        if (t_used + itmp[i] > nt1 or u1 + is1[i] > B
+                or u2 + is2[i] > B):
+            g += 1
+            t_used = u1 = u2 = 0
+        grp[i] = g
+        tb_a[i] = t_used
+        o1_a[i] = u1
+        o2_a[i] = u2
+        t_used += itmp[i]
+        u1 += is1[i]
+        u2 += is2[i]
+    ng = (g + 1) if ntr else 0
+    G = _pow2(max(ng, 1))
+    la = np.full((G, B), lzero, dtype=np.int32)
+    pa = np.full((G, B), nt2, dtype=np.int32)
+    s1 = np.full((G, B), nt1, dtype=np.int32)
+    ta = np.full((G, B), nt1, dtype=np.int32)
+    ra = np.full((G, B), rzero, dtype=np.int32)
+    s2 = np.full((G, B), nt2, dtype=np.int32)
+    if ntr:
+        # stage 1: per item, tasks ordered (ai, ni, ki)
+        tot1 = int(is1.sum())
+        item1 = np.repeat(np.arange(ntr), is1)
+        cum1 = np.concatenate([[0], np.cumsum(is1)[:-1]])
+        o = np.arange(tot1) - np.repeat(cum1, is1)
+        nk1 = nk_a[item1]
+        nn1 = nn_a[item1]
+        ai = o // (nn1 * nk1)
+        ni = (o // nk1) % nn1
+        ki = o % nk1
+        pos = np.repeat(o1_a, is1) + o
+        gi = grp[item1]
+        la[gi, pos] = (lbases[lid_a] + 0)[item1] + ai * nk1 + ki
+        pa[gi, pos] = pb_a[item1] + ki * nn1 + ni
+        s1[gi, pos] = np.repeat(tb_a, is1) + ai * nn1 + ni
+        # stage 2: per item, tasks ordered (ai, ni, pi), then sorted
+        # per group by target sigma tile (segment-sum requirement)
+        tot2 = int(is2.sum())
+        item2 = np.repeat(np.arange(ntr), is2)
+        cum2 = np.concatenate([[0], np.cumsum(is2)[:-1]])
+        o = np.arange(tot2) - np.repeat(cum2, is2)
+        nn2 = nn_a[item2]
+        npp = np_a[item2]
+        ai = o // (nn2 * npp)
+        ni = (o // npp) % nn2
+        pi = o % npp
+        v_s2 = ob_a[item2] + ai * npp + pi
+        v_ta = np.repeat(tb_a, is2) + ai * nn2 + ni
+        v_ra = rbases[rid_a][item2] + pi * nn2 + ni
+        gi2 = grp[item2]
+        order = np.lexsort((v_ra, v_ta, v_s2, gi2))
+        gsz = np.bincount(gi2, minlength=ng)
+        gstart = np.concatenate([[0], np.cumsum(gsz)[:-1]])
+        pos2 = np.arange(tot2) - np.repeat(gstart, gsz)
+        s2[gi2[order], pos2] = v_s2[order]
+        ta[gi2[order], pos2] = v_ta[order]
+        ra[gi2[order], pos2] = v_ra[order]
+
+    return {
+        "T": T, "B": B, "nt1": nt1, "nt2": nt2,
+        "size_p": size_p,
+        "lbases": lbases, "rbases": rbases,
+        "psi_idx": psi_idx,
+        "sig_idx": np.minimum(sig_idx, (nt2 + 1) * T * T - 1),
+        "la": la, "pa": pa, "s1": s1, "ta": ta, "ra": ra, "s2": s2,
+    }
 
 
 # ---------------------------------------------------------------------------
 # executor
 # ---------------------------------------------------------------------------
 
-class TiledExecutor:
+class TiledExecutor(BucketExecutor):
     """Sigma-vector executor of one effective Hamiltonian on the tiled
-    engine.
+    engine: ``exec_bucket.BucketExecutor`` (items, flat pools, chain
+    tables, device Davidson) launching kernel K7, in float32, float64,
+    complex64 or complex128 — the executor of the time evolution and of
+    ``backend="torch_tiled"``."""
 
-    The task structure depends only on the triple/shape layout and is
-    cached across center steps/sweeps via ``cache``/``cache_key`` (the
-    ConnectionInfo-reuse analog, reference sparse_matrix.hpp:71); the L/R
-    numeric pools are packed and uploaded per executor, as are the struct's
-    index tables.  ``t_struct``, ``t_pack`` and ``t_tables`` hold the
-    seconds spent on the struct (build or cache lookup), on packing +
-    uploading the L/R pools and on deriving + uploading the index
-    tables."""
-
-    def __init__(self, eff, dtype=np.float32, T: int = None,
-                 cache: dict = None, cache_key=None, device="cuda"):
-        from ..runtime import resolve_device
-        self.size = eff.size
-        self.dtype = np.dtype(dtype)
-        self.device = resolve_device(device)
-        t0 = time.perf_counter()
-
-        lw_ids: Dict[Tuple, int] = {}
-        rw_ids: Dict[Tuple, int] = {}
-        lw_mats: List[np.ndarray] = []
-        rw_mats: List[np.ndarray] = []
-        for m, d in sorted(eff.LW.items()):
-            for k2, mat in sorted(d.items()):
-                lw_ids[(m, k2)] = len(lw_mats)
-                lw_mats.append(mat)
-        for m, d in sorted(eff.RW.items()):
-            for k2, mat in sorted(d.items()):
-                rw_ids[(m, k2)] = len(rw_mats)
-                rw_mats.append(mat)
-
-        struct = None
-        sig = None
-        if cache is not None and cache_key is not None:
-            sig = hash((self.size, T,
-                        tuple(sorted(eff.shapes.items())),
-                        tuple(eff.triples),
-                        tuple(m.shape for m in lw_mats),
-                        tuple(m.shape for m in rw_mats)))
-            ent = cache.get(cache_key)
-            if ent is not None and ent[0] == sig:
-                struct = ent[1]
-        if struct is None:
-            struct = self._build_struct(eff, lw_ids, rw_ids,
-                                        [m.shape for m in lw_mats],
-                                        [m.shape for m in rw_mats], T)
-            if cache is not None and cache_key is not None:
-                cache[cache_key] = (sig, struct)
-        self.struct = struct
-        T = struct["T"]
-        self.T = T
-        t1 = time.perf_counter()
-
-        self.lpool, lb = pack_tiled(lw_mats, T, dtype, self.device)
-        self.rpool, rb = pack_tiled(rw_mats, T, dtype, self.device)
-        assert np.array_equal(lb, struct["lbases"])
-        assert np.array_equal(rb, struct["rbases"])
-        self._sync()
-        t2 = time.perf_counter()
-        self._dev = (plain_tables if self.device.type == "cpu"
-                     else kernel_tables)(struct, self.device)
-        self._sync()
-        self.t_struct = t1 - t0
-        self.t_pack = t2 - t1
-        self.t_tables = time.perf_counter() - t2
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    # ------------------------------------------------------------------
-    def _build_struct(self, eff, lw_ids, rw_ids, lw_shapes, rw_shapes,
-                      T):
-        if T is None:
-            dims = []
-            for s in lw_shapes + rw_shapes:
-                dims += [s[0], s[1]]
-            for k in eff.offsets:
-                dims += list(eff.shapes[k])
-            T = pick_tile(np.asarray(dims))
-        B, nt1 = _TILE_CFG[T]
-
-        lbases = np.zeros(len(lw_shapes) + 1, dtype=np.int64)
-        for i, s in enumerate(lw_shapes):
-            nr, nc = _tile_grid(s[0], s[1], T)
-            lbases[i + 1] = lbases[i] + nr * nc
-        rbases = np.zeros(len(rw_shapes) + 1, dtype=np.int64)
-        for i, s in enumerate(rw_shapes):
-            nr, nc = _tile_grid(s[0], s[1], T)
-            rbases[i + 1] = rbases[i] + nr * nc
-
-        # tiled layout of the flat psi/sigma vector
-        vb: Dict = {}
-        nv = 0
-        for k in sorted(eff.offsets):
-            r, c = eff.shapes[k]
-            nr, nc = _tile_grid(r, c, T)
-            vb[k] = (nv, nr, nc)
-            nv += nr * nc
-        nt2 = _pow2(nv + 1)
-
-        # gather maps flat <-> tiled
-        size_p = _pow2(self.size + 1)
-        psi_idx = np.full((nt2, T, T), size_p, dtype=np.int32)
-        sig_idx = np.zeros(size_p, dtype=np.int64)
-        for k in sorted(eff.offsets):
-            off = eff.offsets[k]
-            r, c = eff.shapes[k]
-            base, nr, nc = vb[k]
-            flat = off + np.arange(r * c, dtype=np.int64)
-            fr, fc = np.divmod(np.arange(r * c), c)
-            tidx = ((base + (fr // T) * nc + (fc // T)) * (T * T)
-                    + (fr % T) * T + (fc % T))
-            sig_idx[flat] = tidx
-            psi_flat = psi_idx.reshape(-1)
-            psi_flat[tidx] = flat
-        sig_idx[self.size:] = (nt2 + 1) * T * T - 1   # pad -> last (zero) slot
-
-        # tasks — vectorized expansion
-        lzero = int(lbases[-1])
-        rzero = int(rbases[-1])
-        ntr = len(eff.triples)
-        lid_a = np.empty(ntr, dtype=np.int64)
-        rid_a = np.empty(ntr, dtype=np.int64)
-        pb_a = np.empty(ntr, dtype=np.int64)
-        ob_a = np.empty(ntr, dtype=np.int64)
-        for i, (m, lk, pk, rk, ok) in enumerate(eff.triples):
-            lid_a[i] = lw_ids[(m, lk)]
-            rid_a[i] = rw_ids[(m, rk)]
-            pb_a[i] = vb[pk][0]
-            ob_a[i] = vb[ok][0]
-        lsh = np.asarray(lw_shapes, dtype=np.int64)[lid_a] \
-            if ntr else np.zeros((0, 2), dtype=np.int64)
-        rsh = np.asarray(rw_shapes, dtype=np.int64)[rid_a] \
-            if ntr else np.zeros((0, 2), dtype=np.int64)
-        na_a = -(-lsh[:, 0] // T)
-        nk_a = -(-lsh[:, 1] // T)
-        np_a = -(-rsh[:, 0] // T)
-        nn_a = -(-rsh[:, 1] // T)
-        itmp = na_a * nn_a
-        is1 = itmp * nk_a
-        is2 = itmp * np_a
-        if ntr and (itmp.max() > nt1 or is1.max() > B or is2.max() > B):
-            raise ValueError(f"block too large for tile cfg T={T}")
-        # greedy grouping (sequential, per item)
-        grp = np.empty(ntr, dtype=np.int64)
-        tb_a = np.empty(ntr, dtype=np.int64)       # tmp base within group
-        o1_a = np.empty(ntr, dtype=np.int64)       # stage-1 offset in group
-        o2_a = np.empty(ntr, dtype=np.int64)       # stage-2 offset in group
-        g = t_used = u1 = u2 = 0
-        for i in range(ntr):
-            if (t_used + itmp[i] > nt1 or u1 + is1[i] > B
-                    or u2 + is2[i] > B):
-                g += 1
-                t_used = u1 = u2 = 0
-            grp[i] = g
-            tb_a[i] = t_used
-            o1_a[i] = u1
-            o2_a[i] = u2
-            t_used += itmp[i]
-            u1 += is1[i]
-            u2 += is2[i]
-        ng = (g + 1) if ntr else 0
-        G = _pow2(max(ng, 1))
-        la = np.full((G, B), lzero, dtype=np.int32)
-        pa = np.full((G, B), nt2, dtype=np.int32)
-        s1 = np.full((G, B), nt1, dtype=np.int32)
-        ta = np.full((G, B), nt1, dtype=np.int32)
-        ra = np.full((G, B), rzero, dtype=np.int32)
-        s2 = np.full((G, B), nt2, dtype=np.int32)
-        if ntr:
-            # stage 1: per item, tasks ordered (ai, ni, ki)
-            tot1 = int(is1.sum())
-            item1 = np.repeat(np.arange(ntr), is1)
-            cum1 = np.concatenate([[0], np.cumsum(is1)[:-1]])
-            o = np.arange(tot1) - np.repeat(cum1, is1)
-            nk1 = nk_a[item1]
-            nn1 = nn_a[item1]
-            ai = o // (nn1 * nk1)
-            ni = (o // nk1) % nn1
-            ki = o % nk1
-            pos = np.repeat(o1_a, is1) + o
-            gi = grp[item1]
-            la[gi, pos] = (lbases[lid_a] + 0)[item1] + ai * nk1 + ki
-            pa[gi, pos] = pb_a[item1] + ki * nn1 + ni
-            s1[gi, pos] = np.repeat(tb_a, is1) + ai * nn1 + ni
-            # stage 2: per item, tasks ordered (ai, ni, pi), then sorted
-            # per group by target sigma tile (segment-sum requirement)
-            tot2 = int(is2.sum())
-            item2 = np.repeat(np.arange(ntr), is2)
-            cum2 = np.concatenate([[0], np.cumsum(is2)[:-1]])
-            o = np.arange(tot2) - np.repeat(cum2, is2)
-            nn2 = nn_a[item2]
-            npp = np_a[item2]
-            ai = o // (nn2 * npp)
-            ni = (o // npp) % nn2
-            pi = o % npp
-            v_s2 = ob_a[item2] + ai * npp + pi
-            v_ta = np.repeat(tb_a, is2) + ai * nn2 + ni
-            v_ra = rbases[rid_a][item2] + pi * nn2 + ni
-            gi2 = grp[item2]
-            order = np.lexsort((v_ra, v_ta, v_s2, gi2))
-            gsz = np.bincount(gi2, minlength=ng)
-            gstart = np.concatenate([[0], np.cumsum(gsz)[:-1]])
-            pos2 = np.arange(tot2) - np.repeat(gstart, gsz)
-            s2[gi2[order], pos2] = v_s2[order]
-            ta[gi2[order], pos2] = v_ta[order]
-            ra[gi2[order], pos2] = v_ra[order]
-
-        return {
-            "T": T, "B": B, "nt1": nt1, "nt2": nt2,
-            "size_p": size_p,
-            "lbases": lbases, "rbases": rbases,
-            "psi_idx": psi_idx,
-            "sig_idx": np.minimum(sig_idx, (nt2 + 1) * T * T - 1),
-            "la": la, "pa": pa, "s1": s1, "ta": ta, "ra": ra, "s2": s2,
-        }
-
-    # ------------------------------------------------------------------
-    def pad(self, x: np.ndarray) -> np.ndarray:
-        xp = np.zeros(self.struct["size_p"] + 1, dtype=self.dtype)
-        xp[:self.size] = x
-        return xp
-
-    def matvec_device(self, xp: torch.Tensor) -> torch.Tensor:
-        """Flat sigma [size_p] of the padded psi ``xp`` [size_p + 1] on
-        this executor's device."""
-        s = self.struct
-        return tiled_matvec(xp, self.lpool, self.rpool, self._dev,
-                            s["nt1"], s["nt2"], s["T"])
-
-    def matvec(self, x: np.ndarray) -> np.ndarray:
-        xp = torch.as_tensor(self.pad(x), device=self.device)
-        out = self.matvec_device(xp).cpu().numpy()
-        host_dt = np.complex128 if self.dtype.kind == "c" else np.float64
-        return out.astype(host_dt)[:self.size]
-
-    def free(self):
-        """Release the pools and tables of this executor."""
-        self.lpool = self.rpool = self._dev = None
-
-    # ------------------------------------------------------------------
-    def solve_ground_state(self, x0: np.ndarray, diag: np.ndarray,
-                           conv_thrd: float = 1e-8, max_iter: int = 100,
-                           max_subspace: int = 20):
-        """Lowest eigenpair by the port's device Davidson around K7 (one
-        solve per call; real float32/float64 only).  Returns (theta, x
-        [size] float64, n_iter)."""
-        from .device_davidson import davidson
-        if self.dtype.kind != "f":
-            raise TypeError(f"solve_ground_state is real only "
-                            f"(executor dtype {self.dtype})")
-        dp = np.ones(self.struct["size_p"] + 1, dtype=self.dtype)
-        dp[:self.size] = diag
-        th, xv, it = davidson(
-            self.matvec_device,
-            torch.as_tensor(dp, device=self.device),
-            torch.as_tensor(self.pad(x0), device=self.device),
-            conv_thrd=conv_thrd, max_iter=max_iter,
-            max_subspace=max_subspace)
-        return (float(th), xv.cpu().numpy().astype(np.float64)[:self.size],
-                int(it))
+    KERNEL = ("K7_tiled", "b2t_tiled")
+    COMPLEX = True

@@ -147,7 +147,7 @@ package's host path by the CPU tests):
                (library: one index_add_) and K12 on the site's left and
                right bucket-engine and v1 plans, f64 and f32; then again
                at the mid-chain site of a Hubbard-L16 MPS of bond
-               dimension 1000, whose plans pick K1's and K7's T=128 tiles
+               dimension 1000, whose plans pick K1's T=128 tiles
                (K5's and K12's blocking plans are built with T=128 there;
                K8 meets its widest buckets there); K13 (every GEMM group
                of the K=16 site's LW and RW v3 plans, and one window at
@@ -170,15 +170,19 @@ package's host path by the CPU tests):
                (the matvec), K21 (the left and right v3 rotate plans), K22
                (PlanExecutor's buckets) and B22e (K17 on the row slices of
                10b's largest close), each share against its twin and their
-               sum against K1 / K5 / K18 / one K17 launch.  K1, K20 and
-               K8 run on one chain core (csrc/chain_mv.cuh; atomics, so
-               they agree with their twins to rounding): K1's row prints
-               its order tables' build time and the live 8 x 8 fragments
-               of its entries and chunks, K8's the histogram of its item
-               dims (a, k, n, p).  Each row carries the kernel's time (and
-               the launches one timed call makes, with the time a
-               launch), its twin's, one PyTorch call's where one computes
-               the same function, and the bound
+               sum against K1 / K5 / K18 / one K17 launch.  K1, K20, K8
+               and K7 run on one chain core (csrc/chain_mv.cuh; atomics,
+               so they agree with their twins to rounding): K1's row
+               prints its order tables' build time and the live 8 x 8
+               fragments of its entries and chunks, K8's the histogram of
+               its item dims (a, k, n, p), K7's its items, entries,
+               chunks and true GFLOP.  K9's rows print the plan's output
+               groups, (bra, ket) sub-groups and chunks, its GFLOP
+               contribution by contribution and grouped (E summed first),
+               and the histograms of the sub-groups' dims.  Each row
+               carries the kernel's time (and the launches one timed call
+               makes, with the time a launch), its twin's, one PyTorch
+               call's where one computes the same function, and the bound
                (the least time the card could take: the live bytes the
                kernel must move — no pool or table padding — over
                3.35 TB/s or FLOPs over 67 TFLOP/s, whichever is larger)
@@ -894,8 +898,7 @@ def sigma_bytes_flops(eff, dtype):
     return dtype.itemsize * n, flops
 
 
-def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True,
-                eff=None):
+def phase_tiled(device, me, t, complex_me=None, davidson=True, eff=None):
     """K7 against its twin at center t of the host environments ``me``
     (``eff``: its assembled two-site operator when the caller has built
     it): f64 and f32, complex128 and complex64 on the same operators cast
@@ -906,12 +909,10 @@ def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True,
     ``complex_me`` (the inputs phase 6b gives K7) when given, else f64."""
     import torch
     from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+    from block2_preview_tpu_torch.ops import exec_bucket
     from block2_preview_tpu_torch.ops.davidson import davidson as host_dav
     from block2_preview_tpu_torch.ops.tiled import (TiledExecutor,
-                                                    plain_tables,
-                                                    tiled_matvec,
-                                                    tiled_matvec_plain,
-                                                    unit_tables)
+                                                    tiled_matvec)
     t0 = time.time()
     eff = eff if eff is not None else EffectiveHamiltonian2(me, t)
     cases = [(np.float64, eff, ""), (np.float32, eff, ""),
@@ -928,38 +929,37 @@ def phase_tiled(device, me, t, complex_me=None, T=None, davidson=True,
     rows = {}
     for case in cases:
         dtype, e, side = case
-        ex = TiledExecutor(e, dtype=dtype, T=T, device=device)
-        s = ex.struct
+        ex = TiledExecutor(e, dtype=dtype, device=device)
         x = rng.standard_normal(e.size)
         if ex.dtype.kind == "c":
             x = x + 1j * rng.standard_normal(e.size)
         xp = torch.as_tensor(ex.pad(x), device=device)
-        dp = plain_tables(s, device)
+        dp = exec_bucket.plain_tables(ex.struct, device)
 
         def k7(fn, d):
-            return fn(xp, ex.lpool, ex.rpool, d, s["nt1"], s["nt2"], s["T"])
+            return fn(xp, ex.lpool, ex.rpool, d, ex.size_p)
 
         n_bytes, flops = sigma_bytes_flops(e, dtype)
-        # what K7 multiplies: whole T x T tiles, zero padding included
-        tile_gflop = (unit_tables(s)["flops"] / 1e9
-                      * (4 if ex.dtype.kind == "c" else 1))
+        tab = exec_bucket.chain_tables(ex.struct)
         _check(rows if case is summary_case else None, "K7_tiled", dtype,
                side, k7(tiled_matvec, ex._dev),
-               k7(tiled_matvec_plain, dp), ATOMIC_TOL[dtype],
+               k7(exec_bucket.bucket_sigma_plain, dp), ATOMIC_TOL[dtype],
                time_ms(lambda: k7(tiled_matvec, ex._dev), device),
-               time_ms(lambda: k7(tiled_matvec_plain, dp), device), None,
+               time_ms(lambda: k7(exec_bucket.bucket_sigma_plain, dp),
+                       device), None,
                n_bytes, flops,
-               f"T {s['T']} size {e.size} units {ex._dev.get('n_units', 0)} "
-               f"struct {ex.t_struct:.2f} s pack+upload {ex.t_pack:.2f} s "
-               f"tables {ex.t_tables:.3f} s "
-               f"GFLOP {flops / 1e9:.2f} (whole tiles {tile_gflop:.2f})")
+               f"size {e.size} items {len(tab['items'])} entries "
+               f"{len(tab['ent'])} chunks {len(tab['ck'])} struct "
+               f"{ex.t_struct:.2f} s pack+upload {ex.t_pack:.2f} s tables "
+               f"{ex.t_tables:.3f} s (built in {tab['seconds']:.3f} s) "
+               f"true GFLOP {flops / 1e9:.2f}")
         ex.free()
     if davidson:
         x0 = eff.flatten(eff.initial_guess())
         x0 /= np.linalg.norm(x0)
         diag = eff.diagonal()
         t0 = time.time()
-        ex = TiledExecutor(eff, dtype=np.float64, T=T, device=device)
+        ex = TiledExecutor(eff, dtype=np.float64, device=device)
         th, _, it = ex.solve_ground_state(x0, diag, conv_thrd=1e-12,
                                           max_iter=100)
         ex.free()
@@ -994,19 +994,42 @@ def _blocking_plans(mpo, mps, me, t):
     return out
 
 
+def plan_host_bytes(plans):
+    """Host bytes the blocking plans keep: (their native arrays, K9's
+    tables cached beside them, ops/blocking_device.py k9_tables)."""
+    nat = k9 = 0
+    for plan in plans:
+        for k, v in plan.native.items():
+            if k == "k9":
+                k9 += sum(a.nbytes for a in v.values()
+                          if isinstance(a, np.ndarray))
+            elif isinstance(v, np.ndarray):
+                nat += v.nbytes
+    return nat, k9
+
+
 def k9_bytes_flops(plan, esize):
     """Least bytes and FLOPs of one blocking plan: the env, bra and ket
-    pools in and the output out, each once, the contributions' int32
-    items and coefficients once; 2 (dl dk dy + dx dl dy) per
-    contribution."""
+    pools in and the output out, each once, and K9's tables once (an env
+    offset and a coefficient a contribution, six ints a sub-group, eight a
+    chunk; ops/blocking_device.py k9_tables); the FLOPs of the product
+    contribution by contribution, 2 (dl dk dy + dx dl dy) each, and of
+    the grouped form (E summed first over the contributions of one output,
+    bra and ket block: that count a sub-group plus 2 dl dk a
+    contribution).  Returns (bytes, the smaller FLOP count, per
+    contribution, grouped)."""
+    from block2_preview_tpu_torch.ops.blocking_device import k9_tables
     nat = plan.native
     dl, dx, dk, dy = (nat[k].astype(np.int64) for k in ("dl", "dx", "dk",
                                                          "dy"))
     n = len(dl)
+    tab = k9_tables(plan)
     values = (plan.env_sizes[1] + plan.bra_sizes[1] + plan.ket_sizes[1]
               + plan.total_out + n)
-    return (live_bytes(esize, values, 8 * n + n + 1),
-            2.0 * float((dl * dk * dy + dx * dl * dy).sum()))
+    each = 2.0 * float((dl * dk * dy + dx * dl * dy).sum())
+    grouped = float(tab["flops"])
+    return (live_bytes(esize, values, n + tab["sg"].size + tab["ck"].size),
+            min(each, grouped), each, grouped)
 
 
 def davidson3(eff, matvec):
@@ -1033,10 +1056,11 @@ def host_davidson3(mpo, mps, t):
 
 def phase_bucket(device, mpo, mps, me, eff, t, summary=True, kinds="all",
                  host3=None):
-    """K8 (f64, f32) and, unless ``kinds`` is "K8", K9 (left and right, f64
-    and f32) against their twins at center t (host environments ``me``,
-    its assembled operator ``eff``), and a three-root host Davidson around
-    K8 against the host Davidson on matvec_np (``host3``: that result of
+    """K8 (f64, f32) unless ``kinds`` is "K9", and K9 (left and right, f64
+    and f32) unless it is "K8", against their twins at center t (host
+    environments ``me``, its assembled operator ``eff``), and with
+    ``kinds`` "all" a three-root host Davidson around K8 against the host
+    Davidson on matvec_np (``host3``: that result of
     :func:`host_davidson3` when the caller has it).  Returns the summary
     rows of the f64 cases (none unless ``summary``)."""
     import torch
@@ -1047,45 +1071,49 @@ def phase_bucket(device, mpo, mps, me, eff, t, summary=True, kinds="all",
     it = None
     for dtype in (np.float64, np.float32):
         acc = rows if summary and dtype == np.float64 else None
-        ex = exec_bucket.BucketExecutor(eff, dtype=dtype, device=device)
-        st = ex.struct
-        it = st["items"]
-        xp = torch.as_tensor(ex.pad(rng.standard_normal(eff.size)),
-                             device=device)
-        dp = exec_bucket.plain_tables(st, device)
+        if kinds != "K9":
+            ex = exec_bucket.BucketExecutor(eff, dtype=dtype, device=device)
+            st = ex.struct
+            it = st["items"]
+            xp = torch.as_tensor(ex.pad(rng.standard_normal(eff.size)),
+                                 device=device)
+            dp = exec_bucket.plain_tables(st, device)
 
-        def k8(fn, d):
-            return fn(xp, ex.lpool, ex.rpool, d, ex.size_p)
+            def k8(fn, d):
+                return fn(xp, ex.lpool, ex.rpool, d, ex.size_p)
 
-        n_bytes, flops = sigma_bytes_flops(eff, dtype)
-        # the products _round_dim's buckets would multiply, padding included
-        pad_flops = sum(
-            2.0 * (hi - lo) * a * n * (k + p)
-            for (a, k, n, p), lo, hi in zip(st["keys"], st["bounds"][:-1],
-                                            st["bounds"][1:]))
-        _check(acc, "K8_bucket", dtype, "", k8(exec_bucket.bucket_sigma,
-                                               ex._dev),
-               k8(exec_bucket.bucket_sigma_plain, dp), ATOMIC_TOL[dtype],
-               time_ms(lambda: k8(exec_bucket.bucket_sigma, ex._dev),
-                       device),
-               time_ms(lambda: k8(exec_bucket.bucket_sigma_plain, dp),
-                       device), None, n_bytes, flops,
-               f"size {eff.size} items {len(it)} buckets {len(st['keys'])} "
-               f"chunks {ex._dev.get('n_chunks', 0)} struct "
-               f"{ex.t_struct:.2f} s "
-               f"pack+upload {ex.t_pack:.2f} s tables "
-               f"{ex._dev.get('seconds', 0.0) * 1e3:.1f} ms GFLOP "
-               f"{flops / 1e9:.2f} (bucket-padded {pad_flops / 1e9:.2f})")
-        if dtype == np.float64:
-            dk = exec_bucket.kernel_tables(st, "cpu")
-            its = dk["items"].numpy()
-            print(f"[3 kernels] K8 site {t}: item dims a "
-                  f"{histogram(its[:, 1])}; k {histogram(its[:, 2])}; n "
-                  f"{histogram(its[:, 4])}; "
-                  f"p {histogram(its[:, 6])}; "
-                  f"{chain_shapes(its, dk['ck'].numpy())}",
-                  flush=True)
-        ex.free()
+            n_bytes, flops = sigma_bytes_flops(eff, dtype)
+            # the products _round_dim's buckets would multiply, padding
+            # included
+            pad_flops = sum(
+                2.0 * (hi - lo) * a * n * (k + p)
+                for (a, k, n, p), lo, hi in zip(
+                    st["keys"], st["bounds"][:-1], st["bounds"][1:]))
+            _check(acc, "K8_bucket", dtype, "",
+                   k8(exec_bucket.bucket_sigma, ex._dev),
+                   k8(exec_bucket.bucket_sigma_plain, dp), ATOMIC_TOL[dtype],
+                   time_ms(lambda: k8(exec_bucket.bucket_sigma, ex._dev),
+                           device),
+                   time_ms(lambda: k8(exec_bucket.bucket_sigma_plain, dp),
+                           device), None, n_bytes, flops,
+                   f"size {eff.size} items {len(it)} buckets "
+                   f"{len(st['keys'])} chunks {ex._dev.get('n_chunks', 0)} "
+                   f"struct "
+                   f"{ex.t_struct:.2f} s "
+                   f"pack+upload {ex.t_pack:.2f} s tables "
+                   f"{ex._dev.get('seconds', 0.0) * 1e3:.1f} ms GFLOP "
+                   f"{flops / 1e9:.2f} (bucket-padded "
+                   f"{pad_flops / 1e9:.2f})")
+            if dtype == np.float64:
+                dk = exec_bucket.kernel_tables(st, "cpu")
+                its = dk["items"].numpy()
+                print(f"[3 kernels] K8 site {t}: item dims a "
+                      f"{histogram(its[:, 1])}; k {histogram(its[:, 2])}; n "
+                      f"{histogram(its[:, 4])}; "
+                      f"p {histogram(its[:, 6])}; "
+                      f"{chain_shapes(its, dk['ck'].numpy())}",
+                      flush=True)
+            ex.free()
         if kinds == "K8":
             continue
         tdt = torch.float64 if dtype == np.float64 else torch.float32
@@ -1102,7 +1130,10 @@ def phase_bucket(device, mpo, mps, me, eff, t, summary=True, kinds="all",
                 return fn(*pools, d, left, torch.zeros(
                     plan.total_out + 1, dtype=tdt, device=device))
 
-            n_bytes, flops = k9_bytes_flops(plan, pools[0].element_size())
+            n_bytes, flops, each, grouped = k9_bytes_flops(
+                plan, pools[0].element_size())
+            tab = blocking_device.k9_tables(plan)
+            held = plan_host_bytes([plan])
             _check(acc, "K9_bucket_blocking", dtype, direction[0],
                    k9(blocking_device.bucket_blocking, dk),
                    k9(blocking_device.bucket_blocking_plain, dq),
@@ -1111,10 +1142,27 @@ def phase_bucket(device, mpo, mps, me, eff, t, summary=True, kinds="all",
                            device),
                    time_ms(lambda: k9(blocking_device.bucket_blocking_plain,
                                       dq), device), None, n_bytes, flops,
-                   f"contributions {len(plan.native['dl'])} blocks "
-                   f"{dk.get('n_blocks', 0)} out {plan.total_out} GFLOP "
-                   f"{flops / 1e9:.3f}")
-    if kinds == "K8":
+                   f"contributions {len(plan.native['dl'])} groups "
+                   f"{tab['n_groups']} sub-groups {len(tab['sg'])} chunks "
+                   f"{len(tab['ck'])} (atomic "
+                   f"{int(tab['ck'][:, 7].sum())}) out {plan.total_out} "
+                   f"GFLOP {each / 1e9:.3f} contribution by contribution, "
+                   f"{grouped / 1e9:.3f} grouped; tables "
+                   f"{tab['seconds']:.3f} s, host {held[1] / 2 ** 20:.1f} "
+                   f"MiB beside the plan's {held[0] / 2 ** 20:.1f} MiB")
+            if dtype == np.float64:
+                sg = tab["sg"].astype(np.int64)
+                dx = plan.native["dx"][plan.native["grp_starts"][:-1]]
+                e = (2, 4, 8, 16, 32)
+                print(f"[3 kernels] K9 site {t} {direction}: sub-group "
+                      f"dims dl {histogram(sg[:, 4], e)}; dk "
+                      f"{histogram(sg[:, 5], e)}; output dx "
+                      f"{histogram(dx, e)}; contributions a sub-group "
+                      f"{histogram(sg[:, 1] - sg[:, 0], (1, 4, 16, 64))}; "
+                      f"sub-groups a chunk "
+                      f"{histogram(np.diff(tab['ck'][:, :2]), (1, 4, 16))}",
+                      flush=True)
+    if kinds != "all":
         return summary_rows(rows)
     # three roots: the host Davidson around K8 against the host matvec
     ex = exec_bucket.BucketExecutor(eff, dtype=np.float64, device=device)
@@ -1933,6 +1981,12 @@ def phase_roots(device, drv, mpo, D=250, n_sweeps=2):
               flush=True)
     mem = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
            else float("nan"))
+    plans = [p for _, p in getattr(solver.me, "_plan_cache", {}).values()
+             if p is not None]
+    nat, k9b = plan_host_bytes(plans)
+    print(f"[7b roots] {len(plans)} cached blocking plans hold "
+          f"{nat / 2 ** 20:.1f} MiB of native arrays and "
+          f"{k9b / 2 ** 20:.1f} MiB of K9 tables on the host", flush=True)
     k8, k9 = counts["K8_bucket"], counts["K9_bucket_blocking"]
     init_k9 = k9 - sum(r["launches"]["K9_bucket_blocking"] for r in log)
     matvecs = sum(r["matvecs"] for r in log)
@@ -3271,7 +3325,7 @@ def main():
     site = mid_site(*wide, 7)
     phase_kernels(device, *wide, 7, tile=128, blk_tile=128, site=site)
     eff = EffectiveHamiltonian2(site[0], 7)
-    phase_tiled(device, site[0], 7, T=128, davidson=False, eff=eff)
+    phase_tiled(device, site[0], 7, davidson=False, eff=eff)
     phase_bucket(device, wide[0], wide[1], site[0], eff, 7, summary=False,
                  kinds="K8")
     phase_stacked_kernels(device, *wide, site[0], 7, T=128, summary=False,

@@ -7,8 +7,9 @@ the plain versions of K8 and K9 against the JAX kernels (f64 to 1e-12 and
 f32 to 1e-5 relative to the largest entry), the kernels' own walks
 against the plain versions and the JAX kernel (K8: its items sorted by
 sigma block and cut into chunks, ops/chain_mv.py, walked chunk by chunk;
-K9: chain.cuh's CUDA blocks replayed in numpy), the device Davidson
-around K8 against the JAX ``_dav_jit``, and the wrappers' device and type
+K9: its output groups, (bra, ket) sub-groups with their env blocks summed
+first, pieces and chunks, walked in numpy), the device Davidson around
+K8 against the JAX ``_dav_jit``, and the wrappers' device and type
 checks."""
 
 from types import SimpleNamespace
@@ -128,23 +129,6 @@ def test_plain_matches_fused_sigma(site, dtype):
                peff.matvec_np(xh[:peff.size])) < TOL[dtype]
 
 
-def chain_walk(items, cols, pools, coefs, out):
-    """chain.cuh on the CPU: every CUDA block (item, 32-row strip, group
-    of 128 columns) of the prefix sums the kernel reads adds its part of
-    coef * A B C into ``out`` — the kernels' decomposition replayed.
-    ``cols(f)`` gives an item's (A, B, C, X, K1, K2, Y, ooff) views."""
-    for f, c in zip(items, coefs):
-        A, B, C, X, K1, K2, Y, ooff = cols(f, *pools)
-        nyg = -(-Y // 128)
-        blocks = exec_bucket.chain_blocks(np.int64(X), np.int64(Y))
-        for blk in range(int(blocks)):
-            x0, y0 = blk // nyg * 32, blk % nyg * 128
-            part = A[x0:x0 + 32] @ B @ C[:, y0:y0 + 128]
-            o = out[ooff:ooff + X * Y].reshape(X, Y)
-            o[x0:x0 + 32, y0:y0 + 128] += c * part
-    return out
-
-
 def test_k8_tables_reproduce_the_matvec(site):
     """K8's tables: the items sorted by sigma block (stable), every
     entry of every triple in exactly one chunk, a chunk within one sigma
@@ -249,34 +233,157 @@ def test_plain_matches_execute_plan_jax(site, direction, dtype):
                     <= TOL[dtype] * max(scale, 1e-300), (sym, k)
 
 
+def k9_walk(plan, pools, left, dtype):
+    """K9's tables walked in the kernel's order, in numpy and ``dtype``:
+    chunk by chunk (one piece of one output block), each sub-group's Ebar
+    = sum of coef E over its contributions, then MB^T Ebar MK (left) or MB
+    Ebar MK^T (right) on the piece, the piece added into a flat output
+    [total_out + 1]."""
+    tab = blocking_device.k9_tables(plan)
+    ep, bp, kp = (np.asarray(p, dtype) for p in pools)
+    cc = tab["cc"].astype(dtype)
+    ce = tab["ce"].astype(np.int64)
+    out = np.zeros(plan.total_out + 1, dtype)
+    P = blocking_device.PIECE
+    for s0, s1, ooff, dx, dy, x0, y0, _ in tab["ck"].astype(np.int64):
+        acc = np.zeros((min(P, dx - x0), min(P, dy - y0)), dtype)
+        for c0, c1, boff, koff, dl, dk in tab["sg"][s0:s1].astype(np.int64):
+            eb = np.zeros((dl, dk), dtype)
+            for c in range(c0, c1):
+                eb += cc[c] * ep[ce[c]:ce[c] + dl * dk].reshape(dl, dk)
+            mb = bp[boff:boff + dl * dx]
+            mb = mb.reshape(dl, dx) if left else mb.reshape(dx, dl).T
+            mk = kp[koff:koff + dk * dy]
+            mk = mk.reshape(dk, dy) if left else mk.reshape(dy, dk).T
+            acc += (mb.T[x0:x0 + acc.shape[0]]
+                    @ (eb @ mk[:, y0:y0 + acc.shape[1]]))
+        o = out[ooff:ooff + dx * dy].reshape(dx, dy)
+        o[x0:x0 + acc.shape[0], y0:y0 + acc.shape[1]] += acc
+    return out
+
+
+def check_k9_tables(plan):
+    """Every contribution lies in exactly one sub-group, in the plan's
+    output-group order; a sub-group's contributions share their output
+    block, bra and ket blocks (so one shape); the chunks of one piece of
+    an output block tile that block's sub-groups exactly, every piece of
+    every block is covered, and a chunk is atomic exactly where its piece
+    spans chunks.  Returns the tables."""
+    nat = plan.native
+    tab = blocking_device.k9_tables(plan)
+    n = len(nat["dl"])
+    order = blocking_device.k9_order(plan)
+    assert np.array_equal(np.sort(order), np.arange(n))
+    assert "order" not in tab
+    for k in ("ce", "sg", "ck"):
+        assert tab[k].dtype == np.int32, k
+    assert np.array_equal(tab["ce"], nat["eoff"][order])
+    assert np.array_equal(tab["cc"], nat["coefs"][order])
+    sg = tab["sg"].astype(np.int64)
+    assert sg[0, 0] == 0 and sg[-1, 1] == n
+    assert np.array_equal(sg[1:, 0], sg[:-1, 1])
+    assert (sg[:, 1] > sg[:, 0]).all()
+    grp = np.repeat(np.arange(len(nat["grp_starts"]) - 1),
+                    np.diff(nat["grp_starts"]))
+    sub = np.repeat(np.arange(len(sg)), sg[:, 1] - sg[:, 0])
+    for key, want in (("out_off", None), ("boff", 2), ("koff", 3),
+                      ("dl", 4), ("dk", 5)):
+        v = np.asarray(nat[key])[order]
+        first = v[sg[:, 0]]
+        assert np.array_equal(v, first[sub]), key
+        if want is not None:
+            assert np.array_equal(first, sg[:, want]), key
+    assert (np.diff(grp[order]) >= 0).all()
+    pieces = {}
+    for s0, s1, ooff, dx, dy, x0, y0, atom in tab["ck"].astype(np.int64):
+        pieces.setdefault((ooff, x0, y0), []).append((s0, s1, atom, dx, dy))
+    blocks = {}
+    for g in range(len(nat["grp_starts"]) - 1):
+        a, b = nat["grp_starts"][g], nat["grp_starts"][g + 1]
+        subs = np.unique(sub[np.flatnonzero((grp[order] == g))])
+        blocks[int(nat["out_off"][a])] = (subs.min(), subs.max() + 1,
+                                          int(nat["dx"][a]),
+                                          int(nat["dy"][a]))
+        assert b > a
+    P = blocking_device.PIECE
+    want = {(o, x0, y0) for o, (_, _, dx, dy) in blocks.items()
+            for x0 in range(0, dx, P) for y0 in range(0, dy, P)}
+    assert set(pieces) == want
+    for (ooff, x0, y0), chunks in pieces.items():
+        lo, hi, dx, dy = blocks[ooff]
+        spans = sorted((s0, s1) for s0, s1, *_ in chunks)
+        assert spans[0][0] == lo and spans[-1][1] == hi
+        assert all(b0 == a1 for (_, a1), (b0, _) in zip(spans, spans[1:]))
+        assert all(atom == (len(chunks) > 1) for _, _, atom, *_ in chunks)
+        assert all((cdx, cdy) == (dx, dy) for *_, cdx, cdy in chunks)
+    return tab
+
+
+def _blocks_of(plan, flat):
+    """{(sym, qb, qk): block} of a flat blocking output."""
+    return {(sym, qb, qk): flat[plan.out_offs[u]:plan.out_offs[u + 1]]
+            .reshape(d1, d2)
+            for u, (sym, qb, qk, d1, d2) in enumerate(plan.out_meta)}
+
+
 @pytest.mark.parametrize("direction", ["left", "right"])
 def test_k9_tables_reproduce_the_blocking(site, direction):
-    """K9's items and block prefix sums, walked as the kernel walks them
-    (MB transposed on the left, MK on the right, read by stride)."""
+    """K9's tables (output groups, (bra, ket) sub-groups, pieces, chunks)
+    cover every contribution once, and walked as the kernel walks them
+    they give the plain version's blocking, under the default FLOP cap
+    and cut fine (every sub-group its own chunk, 4 x 4 pieces: atomics
+    and blocks of several pieces)."""
     _, port_plan, _, penv, _, pT = _plans(site, direction)
     left = direction == "left"
     from block2_preview_tpu_torch.ops.blocking_plan import _pools
     pools = _pools(port_plan, penv, pT, pT, np.float64)
-    d = blocking_device.kernel_tables(port_plan, CPU, torch.float64)
-    it = d["it"].numpy().astype(np.int64)
-
-    def cols(f, ep, bp, kp):
-        eoff, boff, koff, dl, dx, dk, dy, ooff = (int(v) for v in f)
-        mb = bp[boff:boff + dl * dx]
-        mk = kp[koff:koff + dk * dy]
-        return ((mb.reshape(dl, dx).T if left else mb.reshape(dx, dl)),
-                ep[eoff:eoff + dl * dk].reshape(dl, dk),
-                (mk.reshape(dk, dy) if left else mk.reshape(dy, dk).T),
-                dx, dl, dk, dy, ooff)
-
-    got = chain_walk(it, cols, pools, d["coef"].numpy(),
-                     np.zeros(port_plan.total_out + 1))
     out = torch.zeros(port_plan.total_out + 1, dtype=torch.float64)
     ref = blocking_device.bucket_blocking(
         *(torch.as_tensor(p) for p in pools),
         blocking_device.plain_tables(port_plan, CPU, torch.float64), left,
         out).numpy()
-    assert rel(got, ref) < 1e-12
+    tab = check_k9_tables(port_plan)
+    assert len(tab["sg"]) < len(port_plan.native["dl"])   # sums E first
+    assert rel(k9_walk(port_plan, pools, left, np.float64), ref) < 1e-12
+    d = blocking_device.kernel_tables(port_plan, CPU, torch.float64)
+    assert d["n_chunks"] == len(tab["ck"]) and d["cc"].dtype == torch.float64
+    n_ck = []
+    for piece, target in ((blocking_device.PIECE, 1), (4, 1 << 40)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(blocking_device, "PIECE", piece)
+            mp.setattr(blocking_device, "TARGET_CHUNKS", target)
+            port_plan.native.pop("k9")
+            cut = check_k9_tables(port_plan)
+            # one chunk a piece (no atomics), or one a sub-group and piece
+            assert cut["ck"][:, 7].any() == (target > 1)
+            n_ck.append(len(cut["ck"]))
+            assert rel(k9_walk(port_plan, pools, left, np.float64),
+                       ref) < 1e-12
+    assert n_ck[0] <= len(tab["ck"]) < n_ck[1]
+    port_plan.native.pop("k9")
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("direction", ["left", "right"])
+def test_k9_walk_matches_execute_plan_jax(site, direction, dtype):
+    """K9's tables walked in the kernel's order in ``dtype`` (groups ->
+    (bra, ket) sub-groups -> Ebar -> chain) against the JAX
+    execute_plan_jax (the reference's _blk_exec) on the same step, block
+    by block: f64 to 1e-12, f32 to 1e-5 relative to the largest entry."""
+    ref_plan, port_plan, env, penv, T, pT = _plans(site, direction)
+    from block2_preview_tpu_torch.ops.blocking_plan import _pools
+    ref = execute_plan_jax(ref_plan, env, T, T, site[1].group, dtype=dtype)
+    pools = _pools(port_plan, penv, pT, pT, np.dtype(dtype))
+    got = _blocks_of(port_plan, k9_walk(port_plan, pools,
+                                        direction == "left", dtype))
+    assert len(got) == sum(len(bm.blocks) for bm in ref.values())
+    scale = max(np.abs(b).max() for bm in ref.values()
+                for b in bm.blocks.values())
+    for sym, bm in ref.items():
+        for (qb, qk), b in bm.blocks.items():
+            g = got[(sym, qb, qk)]
+            assert g.dtype == dtype
+            assert np.abs(g - b).max() <= TOL[dtype] * scale, (sym, qb, qk)
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10),

@@ -1,13 +1,15 @@
 """The port's tiled engine (block2_preview_tpu_torch/ops/tiled.py, kernel
 K7) against the JAX package's TiledExecutor on the same effective
-Hamiltonians (Hubbard-L6, built in code): the host struct field by field,
-the plain version of K7 against the JAX ``_tiled_matvec_impl`` and the
-host ``matvec_np`` in f64/f32 and, on the complex environments of a state
-after one real-time TDVP step, in c128/c64; K7's per-unit tables against
-the matvec; the struct cache; the device Davidson; and
-``backend="torch_tiled"`` DMRG against exact diagonalization and the JAX
-package's jax_tiled (the bars of tests/test_tiled.py and
-tests/test_tiled_complex.py)."""
+Hamiltonians (Hubbard-L6, built in code): the port's copy of the
+reference's tiled struct field by field and its tiled matvec against the
+JAX ``_tiled_matvec_impl`` and the host ``matvec_np``; K7's plain version
+(the items and flat pools the card reads) against ``_tiled_matvec_impl``
+in f64/f32 and, on the complex environments of a state after one
+real-time TDVP step, in c128/c64; K7's chunk tables walked in the
+kernel's order (``chain_mv.chain_plain``) against its plain version; the
+struct cache; the device Davidson; and ``backend="torch_tiled"`` DMRG
+against exact diagonalization and the JAX package's jax_tiled (the bars
+of tests/test_tiled.py and tests/test_tiled_complex.py)."""
 
 import numpy as np
 import pytest
@@ -32,10 +34,11 @@ from block2_preview_tpu_torch.dmrg.effective import (
 from block2_preview_tpu_torch.dmrg.environment import (
     MovingEnvironment as PortME)
 from block2_preview_tpu_torch.dmrg.sweep import DMRG
-from block2_preview_tpu_torch.ops import _kernels
+from block2_preview_tpu_torch.ops import _kernels, chain_mv, exec_bucket
+from block2_preview_tpu_torch.runtime import torch_dtype
 from block2_preview_tpu_torch.ops.tiled import (TiledExecutor, pack_tiled,
-                                                tiled_matvec_plain,
-                                                unit_tables)
+                                                tile_struct, tile_tables,
+                                                tiled_matvec_plain)
 
 from test_torch_plans import hubbard_driver
 
@@ -88,18 +91,29 @@ def complex_site():
     return reff, port_eff(mpo, mps, 2)
 
 
+def tile_copy(peff, dtype, T=None):
+    """The port's copy of the reference's tiled struct of ``peff`` and its
+    LW/RW tile pools on the CPU."""
+    s = tile_struct(peff, T)
+    _, _, lw, rw = exec_bucket.operator_mats(peff)
+    lpool, lb = pack_tiled(lw, s["T"], dtype, CPU)
+    rpool, rb = pack_tiled(rw, s["T"], dtype, CPU)
+    assert np.array_equal(lb, s["lbases"]) and np.array_equal(rb,
+                                                              s["rbases"])
+    return s, lpool, rpool
+
+
 @pytest.mark.parametrize("T", [16, 32])
 def test_struct_matches_reference(real_site, T):
     """The host struct and the packed LW/RW tile pools."""
     reff, peff = real_site
     rx = RefEx(reff, dtype=np.float64, T=T)
-    ex = TiledExecutor(peff, dtype=np.float64, T=T, device=CPU)
-    for mine, theirs in ((ex.lpool, rx.lpool), (ex.rpool, rx.rpool)):
+    got, lpool, rpool = tile_copy(peff, np.float64, T)
+    for mine, theirs in ((lpool, rx.lpool), (rpool, rx.rpool)):
         assert mine.dtype == torch.float64
         assert np.array_equal(mine.numpy(), np.asarray(theirs))
     ref = interop.tiled_struct(rx)
-    got = ex.struct
-    assert sorted(ref) == sorted(k for k in got if not k.startswith("_"))
+    assert sorted(ref) == sorted(got)
     for k, v in ref.items():
         if isinstance(v, np.ndarray):
             assert got[k].dtype == v.dtype, k
@@ -133,10 +147,17 @@ def test_pack_matches_reference(complex_site, dtype, T, monkeypatch):
 
 
 def _matvecs(reff, peff, dtype, x, T=None):
-    """(port plain version, JAX _tiled_matvec_impl, host matvec_np)."""
-    got = TiledExecutor(peff, dtype=dtype, T=T, device=CPU).matvec(x)
+    """(the port's copy of the tiled matvec, JAX _tiled_matvec_impl, host
+    matvec_np)."""
+    s, lpool, rpool = tile_copy(peff, dtype, T)
+    xp = np.zeros(s["size_p"] + 1, dtype=dtype)
+    xp[:peff.size] = x
+    got = tiled_matvec_plain(torch.as_tensor(xp), lpool, rpool,
+                             tile_tables(s, CPU), s["nt1"], s["nt2"],
+                             s["T"]).numpy()[:peff.size]
+    host_dt = np.complex128 if np.dtype(dtype).kind == "c" else np.float64
     jax_ = RefEx(reff, dtype=dtype, T=T).matvec(x)
-    return got, jax_, peff.matvec_np(x)
+    return got.astype(host_dt), jax_, peff.matvec_np(x)
 
 
 @pytest.mark.parametrize("T", [16, 32])
@@ -173,57 +194,70 @@ def test_plain_matches_reference_complex(complex_site, dtype, tol):
     assert np.max(np.abs(got - jax_)) / scale < tol
 
 
-def k7_walk(ex, xp):
-    """K7's algorithm on the CPU: for every unit of :func:`unit_tables`,
-    tmp = sum of its stage-1 products, then tmp @ R^T added into the flat
-    output through psi_idx (slot size_p skipped)."""
-    s, k7 = ex.struct, unit_tables(ex.struct)
-    T = s["T"]
-    pidx = torch.as_tensor(s["psi_idx"].reshape(-1, T * T)).long()
-    lp, rp = ex.lpool, ex.rpool
-    out = xp.new_zeros(s["size_p"] + 1)
-    c1, c2 = k7["c1"], k7["c2"]
-    for u in range(k7["n_units"]):
-        tmp = sum(lp[k7["la1"][k]] @ xp[pidx[k7["pa1"][k]]].reshape(T, T)
-                  for k in range(c1[u], c1[u + 1]))
-        for k in range(c2[u], c2[u + 1]):
-            o = pidx[k7["s2v"][k]]
-            live = o < s["size_p"]
-            out.index_add_(0, o[live],
-                           (tmp @ rp[k7["ra2"][k]].T).reshape(-1)[live])
-    return out[:s["size_p"]]
-
-
-@pytest.mark.parametrize("kind", ["real", "complex"])
-def test_unit_tables_reproduce_the_matvec(real_site, complex_site, kind):
-    """The per-unit ranges K7 reads cover every live task once: walking
-    them as the kernel does gives the plain version's sigma."""
-    reff, peff = real_site if kind == "real" else complex_site
-    dtype = np.float64 if kind == "real" else np.complex128
-    ex = TiledExecutor(peff, dtype=dtype, T=16, device=CPU)
-    rng = np.random.RandomState(4)
-    x = rng.standard_normal(peff.size).astype(dtype)
-    if kind == "complex":
+def _seeded(peff, dtype, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal(peff.size)
+    if np.dtype(dtype).kind == "c":
         x = x + 1j * rng.standard_normal(peff.size)
+    return x
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5),
+                                       (np.complex128, 1e-12),
+                                       (np.complex64, 1e-5)],
+                         ids=["f64", "f32", "c128", "c64"])
+def test_k7_items_match_tiled_matvec_impl(real_site, complex_site, dtype,
+                                          tol):
+    """K7's plain version on the CPU — the items, flat LW/RW pools and
+    flat psi the card reads (exec_bucket.bucket_sigma_plain) — against the
+    JAX _tiled_matvec_impl on the same site and seeded vector (the real
+    types at the real site, the complex ones on complex environments),
+    relative to the largest entry."""
+    reff, peff = real_site if np.dtype(dtype).kind == "f" else complex_site
+    x = _seeded(peff, dtype, 3)
+    ex = TiledExecutor(peff, dtype=dtype, device=CPU)
+    assert ex.lpool.dim() == ex.rpool.dim() == 1
+    assert ex.lpool.dtype == ex.rpool.dtype == torch_dtype(dtype,
+                                                           complex_ok=True)
     xp = torch.as_tensor(ex.pad(x))
-    s = ex.struct
-    ref = tiled_matvec_plain(xp, ex.lpool, ex.rpool, ex._dev, s["nt1"],
-                             s["nt2"], s["T"])
-    assert torch.allclose(k7_walk(ex, xp), ref, rtol=0, atol=1e-12)
-    k7 = unit_tables(s)
-    assert k7["c1"][-1] == int((s["s1"] != s["nt1"]).sum())
-    assert k7["c2"][-1] == int((s["s2"] != s["nt2"]).sum())
-    for k in ("c1", "la1", "pa1", "c2", "ra2", "s2v"):
-        assert k7[k].dtype == np.int32, k
+    got = ex.matvec_device(xp).numpy()
+    assert got.dtype == dtype and got.shape == (ex.size_p,)
+    assert not got[peff.size:].any()
+    ref = RefEx(reff, dtype=dtype).matvec(x)
+    scale = np.abs(ref).max()
+    assert np.abs(got[:peff.size] - ref).max() <= tol * scale
+    assert np.abs(ex.matvec(x) - ref).max() <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_k7_chunk_walk_matches_plain(real_site, complex_site, dtype):
+    """K7's tables (the items sorted by sigma block, cut into chunks of one
+    64 x 64 sigma piece), walked chunk by chunk as the kernel walks them
+    (chain_mv.chain_plain), give its plain version's sigma, real and
+    complex; the tables are built once per struct."""
+    _, peff = real_site if dtype == np.float64 else complex_site
+    ex = TiledExecutor(peff, dtype=dtype, device=CPU)
+    d = exec_bucket.kernel_tables(ex.struct, CPU)
+    assert ex.struct["_chain"]["items"] is exec_bucket.chain_tables(
+        ex.struct)["items"]
+    assert d["n_chunks"] == len(d["ck"]) > 1
+    xp = torch.as_tensor(ex.pad(_seeded(peff, dtype, 4)))
+    got = chain_mv.chain_plain(xp, ex.lpool, ex.rpool, d, ex.size_p + 1)
+    ref = ex.matvec_device(xp)
+    assert got.dtype == ref.dtype
+    assert not got[peff.size:].any()
+    assert torch.allclose(got[:ex.size_p], ref, rtol=0,
+                          atol=1e-12 * float(ref.abs().max()))
 
 
 def test_structure_cache_reuse(real_site):
     _, peff = real_site
     cache = {}
-    ex1 = TiledExecutor(peff, dtype=np.float64, T=16, cache=cache,
-                        cache_key=1, device=CPU)
-    ex2 = TiledExecutor(peff, dtype=np.float64, T=16, cache=cache,
-                        cache_key=1, device=CPU)
+    ex1 = TiledExecutor(peff, dtype=np.float64, cache=cache, cache_key=1,
+                        device=CPU)
+    ex2 = TiledExecutor(peff, dtype=np.float64, cache=cache, cache_key=1,
+                        device=CPU)
     assert ex1.struct is ex2.struct
     x = np.random.RandomState(0).standard_normal(peff.size)
     assert np.allclose(ex1.matvec(x), ex2.matvec(x))
@@ -234,7 +268,7 @@ def test_solve_ground_state_matches_host_davidson(real_site):
     x0 = peff.flatten(peff.initial_guess())
     x0 /= np.linalg.norm(x0)
     diag = peff.diagonal()
-    ex = TiledExecutor(peff, dtype=np.float64, T=16, device=CPU)
+    ex = TiledExecutor(peff, dtype=np.float64, device=CPU)
     th, xv, it = ex.solve_ground_state(x0, diag, conv_thrd=1e-12,
                                        max_iter=100)
     w, v, _ = ref_davidson(peff.matvec_np, diag, x0[:, None], n_roots=1,
