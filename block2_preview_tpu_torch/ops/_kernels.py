@@ -155,9 +155,9 @@ _SIGS = {
     "b2t_bucket": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_bucket_blk": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_slab": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
-    "b2t_stk_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
-    "b2t_tblk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _P, _P, _P, _P),
+    "b2t_stk_mix": (_P, _P, _I, _P, _P, _P, _P, _P, _P),
+    "b2t_tblk": (_P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _P, _P, _P, _P),
     "b2t_env_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "b2t_place_v3": (_P,) * 15 + (_I, _I, _I, _I, _I, _L, _P, _P),
     "b2t_mix_v2": (_P, _P, _P, _L, _I, _I, _P, _P),

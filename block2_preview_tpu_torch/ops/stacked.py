@@ -26,10 +26,14 @@ then, per mix row m (an entry (i, o) of the MPO site tensor):
 Device side: K10 (``csrc/slab.cu``, replaces ``_slab_exec`` :163) forms
 every referenced (c, j) product at true dims into a compact ``res`` pool;
 K11 (``csrc/stk_mix.cu``, replaces ``_mix_scatter`` :205) adds every mix
-row into the output pool.  ``execute_stacked`` is one launch of each for
-the whole plan.  Not carried: the pow2 shape buckets (``q8``,
-``_pow2(S)``), the 2^24-element launch chunks, the pow2-padded mix chunks
-and ``warm_stacked`` (they bound XLA's compiles), and the ``_cap_class``
+row into the output pool on the gather-by-output mix core
+(``csrc/mix_gather.cuh``, host tables :func:`gather_tables`, shared with
+K12's stage 3): the rows grouped by output block, each output element
+summed by one lane and written once, no atomics.  ``execute_stacked`` is
+one launch of each for the whole plan.  Not carried: the pow2 shape
+buckets (``q8``, ``_pow2(S)``), the 2^24-element launch chunks, the
+pow2-padded mix chunks and ``warm_stacked`` (they bound XLA's compiles),
+and the ``_cap_class``
 padding of the site pools.  The output pool keeps the reference's layout
 (``meta_out``, ``out_cap = _cap_class(meta_out.total + 1)``, zero
 sentinel): K1/K2 and ``meta_out.unpack`` read it.
@@ -258,7 +262,8 @@ def site_pools(plan, device, dtype):
 
 # item columns (the first seven of K9's contribution rows)
 _EOFF, _BOFF, _KOFF, _DL, _DX, _DK, _DY = range(7)
-# mix-row elements per chunk of the K11 twin (bounds its temporaries)
+# term elements a chunk of the mix core's plain version (bounds its
+# temporaries)
 _MIX_CHUNK = 1 << 24
 
 
@@ -469,7 +474,7 @@ def expand_entries(seg_start, seg_len, item_qrb, item_dx, item_dy, ent_os,
 
 
 # ---------------------------------------------------------------------------
-# kernels K10 (slab product), K11 (mix scatter) and their plain twins
+# kernels K10 (slab product), K11 (symbol mix) and their plain twins
 # ---------------------------------------------------------------------------
 
 def _check_real(plan: StackedPlan) -> None:
@@ -542,59 +547,154 @@ def slab_exec(ep, bp, kp, d: Dict, left: bool, res):
     return res
 
 
-def mix_tables(plan: StackedPlan, device, tdt) -> Dict:
-    """K11's tables (its twin's too) on ``device``, cached on the plan:
-    ``rows`` [M, 3] int32 (res offset, output offset, elements dx dy),
-    ``coef`` [M], ``ecum`` [M + 1] int64, the prefix sums of the rows'
-    elements (``ecum_h`` on the host)."""
+# ---------------------------------------------------------------------------
+# the gather-by-output mix core (csrc/mix_gather.cuh): K11 and K12's stage 3
+# ---------------------------------------------------------------------------
+
+# blocks of at most GATHER_SPLIT elements: one warp, its lanes split over
+# (term group, element); wider blocks: a warp each GATHER_CHUNK elements
+# (csrc/mix_gather.cuh kSplitMax, kGatherChunk)
+GATHER_SPLIT = 16
+GATHER_CHUNK = 32
+
+
+def stable_order(key: np.ndarray, n_keys: int) -> np.ndarray:
+    """The stable argsort of integer keys in [0, n_keys), by 16-bit radix
+    passes (numpy sorts 16-bit keys by counting, ~6x faster than a 64-bit
+    merge sort at a plan's ~10M rows)."""
+    key = np.asarray(key, np.int64)
+    order = np.argsort((key & 0xFFFF).astype(np.uint16), kind="stable")
+    shift = 16
+    while n_keys > 1 << shift:
+        d = ((key[order] >> shift) & 0xFFFF).astype(np.uint16)
+        order = order[np.argsort(d, kind="stable")]
+        shift += 16
+    return order
+
+
+def gather_tables(key, n_keys: int, rec, s, coef) -> Dict:
+    """Host tables of the mix core from its terms: term i adds
+    ``coef[i] src[s[i] + r sstr + c]`` into the output block ``key[i]``
+    (an integer in [0, n_keys); blocks are ordered by key) whose window
+    ``rec[i]`` = (ob, ostr, rows, cols) every term of the block must share
+    (ValueError otherwise).  Returns numpy ``blk`` [nb, 4], ``bstart``
+    [nb + 1], ``ts``, ``tc`` (the terms sorted stably by block), ``units``
+    [U, 2] (block, first element), ``keys`` [nb] (each block's key) and
+    ``work`` [nb + 1], the prefix sums of terms x elements a block."""
+    key = np.asarray(key, np.int64)
+    rec = np.asarray(rec, np.int64).reshape(-1, 4)
+    present = np.zeros(n_keys, bool)
+    present[key] = True
+    keys = np.flatnonzero(present)
+    dense = np.zeros(n_keys, np.int64)
+    dense[keys] = np.arange(len(keys))
+    bid = dense[key]
+    order = stable_order(bid, len(keys))
+    counts = np.bincount(bid, minlength=len(keys))
+    bstart = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    blk = rec[order[bstart[:-1]]]
+    if not np.array_equal(blk[bid], rec):
+        raise ValueError("the terms of one output block disagree on its "
+                         "window")
+    n_el = blk[:, 2] * blk[:, 3]
+    nu = np.where(n_el <= GATHER_SPLIT, 1, -(-n_el // GATHER_CHUNK))
+    ub = np.repeat(np.arange(len(blk), dtype=np.int64), nu)
+    ue = (np.arange(int(nu.sum()), dtype=np.int64)
+          - np.repeat(np.cumsum(nu) - nu, nu)) * GATHER_CHUNK
+    return {"blk": blk, "bstart": bstart, "ts": np.asarray(s)[order],
+            "tc": np.asarray(coef)[order], "units": np.stack([ub, ue], 1),
+            "keys": keys,
+            "work": np.concatenate([[0], np.cumsum(counts * n_el)])}
+
+
+def gather_device(h: Dict, device, tdt, what: str) -> Dict:
+    """The core's tables ``h`` (:func:`gather_tables`) on ``device``, the
+    coefficients in ``tdt``; ``bstart_h``/``work_h`` stay on the host for
+    the plain version's chunks."""
     from .exec_bucket import _int32
+    t = {k: torch.as_tensor(_int32(h[k], f"{what} {k}"), device=device)
+         for k in ("blk", "bstart", "ts", "units")}
+    t.update(tc=torch.as_tensor(h["tc"], dtype=tdt, device=device),
+             n_units=len(h["units"]), n_blocks=len(h["blk"]),
+             bstart_h=h["bstart"], work_h=h["work"])
+    return t
+
+
+def gather_plain(src, d: Dict, out, sstr: int, b0: int = 0,
+                 b1: Optional[int] = None):
+    """Plain PyTorch version of the mix core on its tables ``d``
+    (:func:`gather_device`), output blocks [b0, b1): every term's window
+    elements, scaled, added into ``out`` by ``index_add_`` in the tables'
+    term order, in chunks of blocks of about ``_MIX_CHUNK`` elements.
+    Returns out."""
+    b1 = d["n_blocks"] if b1 is None else b1
+    work, bs = d["work_h"], d["bstart_h"]
+    dev = out.device
+    while b0 < b1:
+        c1 = int(np.searchsorted(work, work[b0] + _MIX_CHUNK, "right")) - 1
+        c1 = min(max(c1, b0 + 1), b1)
+        m0, m1 = int(bs[b0]), int(bs[c1])
+        blk = d["blk"][b0:c1].long()
+        cnt = torch.as_tensor(np.diff(bs[b0:c1 + 1]), device=dev)
+        tb = torch.repeat_interleave(torch.arange(c1 - b0, device=dev), cnt)
+        rows_t = blk[tb]
+        n_el = rows_t[:, 2] * rows_t[:, 3]
+        ti = torch.repeat_interleave(torch.arange(m1 - m0, device=dev), n_el)
+        e = torch.arange(len(ti), device=dev) - (torch.cumsum(n_el, 0)
+                                                 - n_el)[ti]
+        w = rows_t[ti]
+        r, c = e // w[:, 3], e % w[:, 3]
+        s = d["ts"][m0:m1].long()[ti]
+        out.index_add_(0, w[:, 0] + r * w[:, 1] + c,
+                       src[s + r * sstr + c] * d["tc"][m0:m1][ti])
+        b0 = c1
+    return out
+
+
+def mix_tables(plan: StackedPlan, device, tdt) -> Dict:
+    """K11's tables (its plain version's too) on ``device``, cached on the
+    plan: the mix core's (:func:`gather_device`) with one output block a
+    distinct row target ``tgt[:, 0]`` — a window of one row of dx dy
+    elements, source and output contiguous — and the rows ``res`` offset
+    and coefficient as its terms.  The host tables are cached once a plan
+    (``plan._dev["k11"]``)."""
     key = ("k11", str(device), tdt)
     d = plan._dev.get(key)
     if d is None:
-        n = plan.tgt[:, 1] * plan.tgt[:, 2]
-        rows = np.stack([plan.roff[plan.wsrc], plan.tgt[:, 0], n], axis=1)
-        ecum = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
-        d = {"rows": torch.as_tensor(_int32(rows, "a K11 offset"),
-                                     device=device),
-             "coef": torch.as_tensor(plan.coef, dtype=tdt, device=device),
-             "ecum": torch.as_tensor(ecum, device=device), "ecum_h": ecum,
-             "n_rows": len(rows), "n_elems": int(ecum[-1])}
+        h = plan._dev.get("k11")
+        if h is None:
+            n = plan.tgt[:, 1] * plan.tgt[:, 2]
+            one = np.ones_like(n)
+            h = gather_tables(plan.tgt[:, 0], plan.out_cap,
+                              np.stack([plan.tgt[:, 0], n, one, n], 1),
+                              plan.roff[plan.wsrc], plan.coef)
+            plan._dev["k11"] = h
+        d = gather_device(h, device, tdt, "K11's")
         plan._dev[key] = d
     return d
 
 
 def stk_mix_plain(res, d: Dict, out):
-    """Plain PyTorch version of K11 (the reference's ``_mix_scatter``):
-    every row's dx dy elements, scaled, added into ``out`` by
-    ``index_add_``, in chunks of rows.  Returns out."""
-    rows, coef, ecum = d["rows"].long(), d["coef"], d["ecum_h"]
-    m0 = 0
-    while m0 < d["n_rows"]:
-        m1 = int(np.searchsorted(ecum, ecum[m0] + _MIX_CHUNK, "right")) - 1
-        m1 = min(max(m1, m0 + 1), d["n_rows"])
-        r = rows[m0:m1]
-        ri = torch.repeat_interleave(torch.arange(m1 - m0, device=r.device),
-                                     r[:, 2])
-        e = torch.arange(len(ri), device=r.device) - \
-            torch.as_tensor(ecum[m0:m1] - ecum[m0], device=r.device)[ri]
-        out.index_add_(0, r[ri, 1] + e, res[r[ri, 0] + e] * coef[m0:m1][ri])
-        m0 = m1
-    return out
+    """Plain PyTorch version of K11 (the reference's ``_mix_scatter``) on
+    K11's own tables: :func:`gather_plain` over every output block.
+    Returns out."""
+    return gather_plain(res, d, out, 0)
 
 
 def stk_mix(res, d: Dict, out):
-    """Symbol mix scatter (kernel K11): ``out[tgt + e] += coef res[src +
-    e]`` for every row and element, into the zero-initialised output pool
-    ``out``; ``d`` from :func:`mix_tables`.  CPU tensors run
-    :func:`stk_mix_plain`.  Returns out."""
+    """Symbol mix (kernel K11): ``out[tgt + e] += coef res[src + e]`` for
+    every row and element, into the output pool ``out``; ``d`` from
+    :func:`mix_tables`.  CPU tensors run :func:`stk_mix_plain`.  Returns
+    out."""
     if res.dim() != 1 or out.dim() != 1:
         raise ValueError("stk_mix takes a flat res and a flat output")
     if res.device.type == "cpu":
         return stk_mix_plain(res, d, out)
     if not res.is_cuda:
         raise ValueError(f"unsupported device {res.device}")
-    _kernels.launch("K11_stk_mix", "b2t_stk_mix", res.dtype, res, d["rows"],
-                    d["ecum"], d["coef"], d["n_rows"], d["n_elems"], out)
+    _kernels.launch("K11_stk_mix", "b2t_stk_mix", res.dtype, res, d["units"],
+                    d["n_units"], d["blk"], d["bstart"], d["ts"], d["tc"],
+                    out)
     return out
 
 

@@ -22,12 +22,15 @@ tmp id; ``s2`` [G, 6, B]: bbase, bstr, brmax, bcmax, tmp src, prod id;
 Padding tasks have tmp id ``nt1``, prod id ``ntp`` or obase -1.
 
 Device side: K12 (``csrc/tiled_blocking.cu``, replaces
-``_tiled_blocking_exec`` :64) reads these tables as they are, group by
-group (one C call per non-empty group, three stage kernels each, counted
-as one launch); tmp and prod scratch hold one group's tiles and are
-reused.  :func:`tblk_plain` is its plain twin (the reference's scan body
-per group), used for CPU tensors only.  ``execute_tiled_blocking``
-returns the output pool [ncap] (zero above ``meta_out.total``).
+``_tiled_blocking_exec`` :64) runs the whole plan in one C call on the
+compact tables of :func:`tblk_host` — the live tasks only, groups packed
+into waves of at most ``_WAVE_ELEMS`` scratch elements, tile ids global
+within a wave; per wave stage 1, stage 2 (one CUDA block a tile, segment
+sums, no atomics), then stage 3 on the gather-by-output mix core shared
+with K11 (``csrc/mix_gather.cuh``).  The padded [G, ., B] tables stay on
+the host.  :func:`tblk_plain` is its plain twin on the same tables, used
+for CPU tensors only.  ``execute_tiled_blocking`` returns the output pool
+[ncap] (zero above ``meta_out.total``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import _kernels
+from . import _kernels, stacked
 from .csr import w_nonzero as _w_nonzero
 from .stacked import StackedMeta, _cap_class, expand_entries, site_pools
 from .tiled import _pow2, pick_tile
@@ -47,6 +50,9 @@ from ..core.symmetry import QN
 # per tile size: (task chunk B, tmp tiles, prod tiles)
 _CFG = {16: (8192, 16384, 16384), 32: (8192, 8192, 8192),
         64: (4096, 4096, 4096), 128: (4096, 2048, 2048)}
+# K12's scratch budget: the tmp + prod tile elements of one wave of task
+# groups (256 MiB at f64)
+_WAVE_ELEMS = 1 << 25
 
 
 class TiledBlockingPlan:
@@ -325,88 +331,204 @@ def build_tiled_blocking_plan(meta_in: StackedMeta, entries, quanta,
 # kernel K12 and its plain twin
 # ---------------------------------------------------------------------------
 
+def _prefix(live):
+    """The count of live tasks in each group of a [G, B] mask; they must
+    be a prefix of the group's row (the builder fills each group from the
+    front)."""
+    n = live.sum(1)
+    if not np.array_equal(live, np.arange(live.shape[1]) < n[:, None]):
+        raise ValueError("a group's live tasks are not a prefix of its row")
+    return n
+
+
+def _compact(a, n):
+    """The first ``n[g]`` tasks of every group g of a [G, C, B] (or
+    [G, B]) stage table, concatenated over groups, and each task's
+    group."""
+    gs = np.flatnonzero(n)
+    if not len(gs):
+        return a[0, ..., :0], gs
+    return (np.concatenate([a[g, ..., :n[g]] for g in gs.tolist()], -1),
+            np.repeat(gs, n[gs]))
+
+
+def _starts(ids, n: int, what: str):
+    """Segment starts [n + 1] of tasks sorted by tile id ``ids`` in [0, n)
+    (the reference sums them with ``indices_are_sorted=True``)."""
+    if len(ids) and np.any(np.diff(ids) < 0):
+        raise ValueError(f"{what} tasks are not sorted by tile")
+    return np.concatenate([[0], np.cumsum(np.bincount(ids, minlength=n))])
+
+
+def tblk_host(plan: TiledBlockingPlan) -> Dict:
+    """K12's host tables, cached on the plan (``plan._dev["k12"]``): the
+    live tasks of every group (the ``n1``/``n2``/``n3`` prefixes of its
+    rows; the rest is padding), concatenated over groups, with the groups
+    packed in order into waves whose tmp + prod tiles take at most
+    ``_WAVE_ELEMS`` scratch elements (a group alone may take more).
+
+    ``s1`` [8, n1] (stage 1 without its id) and ``seg1`` [tmp tiles + 1],
+    its segment starts over the plan's tmp tiles numbered in group order;
+    ``s2`` [5, n2] (the tmp source now the tile's slot in its wave's
+    scratch) and ``seg2``; stage 3 as the mix core's tables
+    (``ops.stacked.gather_tables``): one block an output tile of a wave
+    (window min(ormax, T) x min(ocmax, T) at obase, stride ostr; the blocks
+    of a wave contiguous, by obase), its terms the prod slot's offset
+    (slot x T^2) and coefficient; ``waves`` [n_waves, 6] int64 (first tmp
+    tile, tmp tiles, first prod tile, prod tiles, first unit, units) and
+    ``wave_blocks`` [n_waves + 1]; ``groups`` [n, 4] (group, n1, n2, n3) of
+    the live groups and ``wave_of`` [n] their waves; ``ntmp``/``nprod``:
+    the largest wave's tiles."""
+    h = plan._dev.get("k12")
+    if h is not None:
+        return h
+    coef = np.asarray(plan.coef)
+    if np.iscomplexobj(coef):
+        raise TypeError("complex blocking plans are not on this slice")
+    T = plan.T
+    s1, s2, s3 = (np.asarray(a) for a in (plan.s1, plan.s2, plan.s3))
+    n1 = _prefix(s1[:, 8, :] < plan.nt1)
+    n2 = _prefix(s2[:, 5, :] < plan.ntp)
+    n3 = _prefix(s3[:, 1, :] >= 0)
+    c1, g1 = _compact(s1, n1)
+    c2, g2 = _compact(s2, n2)
+    c3, g3 = _compact(s3, n3)
+    # tiles a group: its last task's id + 1 (ids are sorted within a
+    # group, as _starts checks below)
+    ntmp, nprod = np.zeros(len(n1), np.int64), np.zeros(len(n1), np.int64)
+    for n, ids, tiles in ((n1, c1[8], ntmp), (n2, c2[5], nprod)):
+        tiles[n > 0] = ids[np.cumsum(n)[n > 0] - 1] + 1
+    groups = np.flatnonzero(n1 + n2 + n3 > 0)
+    # waves: consecutive live groups while their scratch fits
+    need = (ntmp + nprod) * T * T
+    wave_of = np.zeros(len(groups), np.int64)
+    w, used = 0, 0
+    for i, g in enumerate(groups.tolist()):
+        if used and used + need[g] > _WAVE_ELEMS:
+            w, used = w + 1, 0
+        wave_of[i], used = w, used + need[g]
+    n_waves = w + 1 if len(groups) else 0
+    wave = np.zeros(len(n1), np.int64)
+    wave[groups] = wave_of
+    first = groups[np.searchsorted(wave_of, np.arange(n_waves))]
+
+    def bases(n):
+        """(first tile over the plan, first slot in its wave's scratch) of
+        each group's tiles."""
+        glob = np.concatenate([[0], np.cumsum(n)[:-1]])
+        return glob, glob - glob[first][wave]
+
+    tglob, tslot = bases(ntmp)
+    pglob, pslot = bases(nprod)
+    seg1 = _starts(c1[8] + tglob[g1], int(ntmp.sum()), "stage-1")
+    seg2 = _starts(c2[5] + pglob[g2], int(nprod.sum()), "stage-2")
+    # stage 3: output tiles of a wave; obase made dense before the wave
+    present = np.zeros(plan.ncap, bool)
+    present[c3[1]] = True
+    obases = np.flatnonzero(present)
+    dense = np.zeros(plan.ncap, np.int64)
+    dense[obases] = np.arange(len(obases))
+    core = stacked.gather_tables(
+        wave[g3] * len(obases) + dense[c3[1]], n_waves * len(obases),
+        np.stack([c3[1], c3[2], np.minimum(c3[3], T),
+                  np.minimum(c3[4], T)], 1),
+        (c3[0] + pslot[g3]) * T * T, _compact(coef, n3)[0])
+    wave_blocks = np.searchsorted(core["keys"] // max(len(obases), 1),
+                                  np.arange(n_waves + 1))
+    units = np.searchsorted(core["units"][:, 0], wave_blocks)
+    waves = np.stack([tglob[first], np.bincount(wave_of, ntmp[groups],
+                                                n_waves),
+                      pglob[first], np.bincount(wave_of, nprod[groups],
+                                                n_waves),
+                      units[:-1], np.diff(units)], 1).astype(np.int64)
+    h = {"s1": c1[:8], "seg1": seg1,
+         "s2": np.concatenate([c2[:4], c2[4:5] + tslot[g2]]), "seg2": seg2,
+         "core": core, "waves": waves,
+         "wave_blocks": wave_blocks,
+         "groups": np.stack([groups, n1[groups], n2[groups], n3[groups]], 1),
+         "wave_of": wave_of,
+         "ntmp": int(waves[:, 1].max()) if n_waves else 0,
+         "nprod": int(waves[:, 3].max()) if n_waves else 0}
+    plan._dev["k12"] = h
+    return h
+
+
 def tblk_tables(plan: TiledBlockingPlan, device, dtype) -> Dict:
-    """K12's tables (its twin's too) on ``device``, cached on the plan per
-    (device, dtype): ``s1``/``s2``/``s3`` as int32 and ``coef``, and per
-    non-empty group ``groups`` [(g, n1, ntmp, n2, nprod, n3)] — the live
-    task prefix of each stage (tasks are filled from the front; the rest
-    are padding) and the tmp / prod tiles the group uses."""
-    key = (str(device), dtype)
+    """K12's tables (its plain version's too) on ``device``, cached on the
+    plan per (device, dtype): :func:`tblk_host`'s ``s1``, ``seg1``,
+    ``s2``, ``seg2`` as int32, the core's tables under ``core``
+    (``ops.stacked.gather_device``), and on the host ``waves`` (read by
+    the C call), ``wave_blocks``, ``seg1_h``/``seg2_h``, ``ntmp`` and
+    ``nprod``.  The reference's padded [G, ., B] tables never reach the
+    device."""
+    key = ("k12", str(device), dtype)
     d = plan._dev.get(key)
     if d is not None:
         return d
-    if np.iscomplexobj(plan.coef):
-        raise TypeError("complex blocking plans are not on this slice")
-    groups = []
-    for g in range(plan.s1.shape[0]):
-        t1, t2, ob = plan.s1[g, 8], plan.s2[g, 5], plan.s3[g, 1]
-        n1 = int(np.count_nonzero(t1 < plan.nt1))
-        n2 = int(np.count_nonzero(t2 < plan.ntp))
-        live3 = np.flatnonzero(ob >= 0)
-        n3 = int(live3[-1]) + 1 if len(live3) else 0
-        if n1 == n2 == n3 == 0:
-            continue
-        groups.append((g, n1, int(t1[:n1].max()) + 1 if n1 else 0, n2,
-                       int(t2[:n2].max()) + 1 if n2 else 0, n3))
-
-    def i32(a):
-        if a.size and a.max() >= 2 ** 31:
-            raise ValueError("a K12 table entry does not fit int32")
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
-                               device=device)
-
-    d = {"s1": i32(plan.s1), "s2": i32(plan.s2), "s3": i32(plan.s3),
-         "coef": torch.as_tensor(plan.coef, dtype=dtype, device=device),
-         "groups": groups,
-         "ntmp": max((g[2] for g in groups), default=0),
-         "nprod": max((g[4] for g in groups), default=0)}
+    from .exec_bucket import _int32
+    h = tblk_host(plan)
+    d = {k: torch.as_tensor(_int32(h[k], f"a K12 {k} entry"), device=device)
+         for k in ("s1", "seg1", "s2", "seg2")}
+    d.update(core=stacked.gather_device(h["core"], device, dtype, "K12's"),
+             waves=np.ascontiguousarray(h["waves"], np.int64),
+             wave_blocks=h["wave_blocks"], seg1_h=h["seg1"],
+             seg2_h=h["seg2"], ntmp=h["ntmp"], nprod=h["nprod"])
     plan._dev[key] = d
     return d
 
 
+def _tile_ids(seg, t0: int, n: int, dev):
+    """Each task's slot among tiles [t0, t0 + n) of segment starts seg."""
+    counts = torch.as_tensor(np.diff(seg[t0:t0 + n + 1]), device=dev)
+    return torch.repeat_interleave(torch.arange(n, device=dev), counts)
+
+
 def tblk_plain(ep, bp, kp, d: Dict, T: int, left: bool, out):
-    """Plain PyTorch version of K12: the reference's scan body for each
-    group — tile gathers, batched products, ``index_add_`` in place of
-    its sorted ``segment_sum``, the masked scatter-add of stage 3 — on the
-    live task prefixes.  Adds into ``out``; returns it."""
-    r = torch.arange(T, device=out.device)[None, :, None]
-    c = torch.arange(T, device=out.device)[None, None, :]
-    for g, n1, ntmp, n2, nprod, n3 in d["groups"]:
-        g1, g2 = d["s1"][g, :, :n1].long(), d["s2"][g, :, :n2].long()
-        g3, cf = d["s3"][g, :, :n3].long(), d["coef"][g, :n3]
+    """Plain PyTorch version of K12 on K12's own tables, wave by wave: the
+    reference's scan body — tile gathers, batched products, ``index_add_``
+    into the wave's tmp and prod tiles in place of its sorted
+    ``segment_sum`` — then stage 3 by the mix core's plain version
+    (``ops.stacked.gather_plain``) over the wave's output tiles.  Adds into
+    ``out``; returns it."""
+    dev = out.device
+    for w, (t0, nt, p0, npr, _u0, _nu) in enumerate(d["waves"].tolist()):
+        a, z = int(d["seg1_h"][t0]), int(d["seg1_h"][t0 + nt])
+        g1 = d["s1"][:, a:z].long()
+        ids = _tile_ids(d["seg1_h"], t0, nt, dev)
         E = gather_tiles(ep, g1[0], g1[1], g1[2], g1[3], T)
         K = gather_tiles(kp, g1[4], g1[5], g1[6], g1[7], T)
-        tmp = out.new_zeros((ntmp, T, T)).index_add_(
-            0, g1[8], torch.bmm(E, K if left else K.transpose(1, 2)))
+        tmp = out.new_zeros((nt, T, T)).index_add_(
+            0, ids, torch.bmm(E, K if left else K.transpose(1, 2)))
+        a, z = int(d["seg2_h"][p0]), int(d["seg2_h"][p0 + npr])
+        g2 = d["s2"][:, a:z].long()
+        ids = _tile_ids(d["seg2_h"], p0, npr, dev)
         Bm = gather_tiles(bp, g2[0], g2[1], g2[2], g2[3], T)
-        prod = out.new_zeros((nprod, T, T)).index_add_(
-            0, g2[5], torch.bmm(Bm.transpose(1, 2) if left else Bm,
-                                tmp[g2[4]]))
-        vals = prod[g3[0]] * cf[:, None, None]
-        idx = g3[1][:, None, None] + r * g3[2][:, None, None] + c
-        ok = (r < g3[3][:, None, None]) & (c < g3[4][:, None, None]) & \
-            (g3[1][:, None, None] >= 0)
-        out.index_add_(0, idx[ok], vals[ok])
+        prod = out.new_zeros((npr, T, T)).index_add_(
+            0, ids, torch.bmm(Bm.transpose(1, 2) if left else Bm,
+                              tmp[g2[4]]))
+        stacked.gather_plain(prod.reshape(-1), d["core"], out, T,
+                             int(d["wave_blocks"][w]),
+                             int(d["wave_blocks"][w + 1]))
     return out
 
 
 def tblk_exec(ep, bp, kp, d: Dict, T: int, left: bool, out):
-    """v1 tiled blocking (kernel K12): adds every task group of the plan
-    into the zero-initialised output pool ``out`` in place, one C call per
-    group (stage kernels 1-3, counted as one launch) on tmp/prod scratch
-    sized for the largest group.  CPU tensors run :func:`tblk_plain`."""
+    """v1 tiled blocking (kernel K12): adds the whole plan into the output
+    pool ``out`` in one C call — per wave stage 1, stage 2, then stage 3
+    on the mix core — on tmp/prod scratch sized for the largest wave.  CPU
+    tensors run :func:`tblk_plain`."""
     if ep.device.type == "cpu":
         return tblk_plain(ep, bp, kp, d, T, left, out)
     if not ep.is_cuda:
         raise ValueError(f"unsupported device {ep.device}")
     tmp = out.new_empty(max(d["ntmp"], 1) * T * T)
     prod = out.new_empty(max(d["nprod"], 1) * T * T)
-    B = d["s1"].shape[2]
-    for g, n1, ntmp, n2, nprod, n3 in d["groups"]:
-        _kernels.launch("K12_tiled_blocking", "b2t_tblk", ep.dtype, ep, bp,
-                        kp, d["s1"][g], d["s2"][g], d["s3"][g],
-                        d["coef"][g], B, n1, ntmp, n2, nprod, n3, T,
-                        int(left), tmp, prod, out)
+    c, waves = d["core"], d["waves"]
+    _kernels.launch("K12_tiled_blocking", "b2t_tblk", ep.dtype, ep, bp, kp,
+                    d["s1"], d["s1"].shape[1], d["seg1"], d["s2"],
+                    d["s2"].shape[1], d["seg2"], c["units"], c["blk"],
+                    c["bstart"], c["ts"], c["tc"], waves.ctypes.data,
+                    len(waves), T, int(left), tmp, prod, out)
     return out
 
 

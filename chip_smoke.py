@@ -145,7 +145,11 @@ package's host path by the CPU tests):
                f64 and f32, and a three-root host Davidson around K8
                against the host Davidson on the host matvec; K10, K11
                (library: one index_add_) and K12 on the site's left and
-               right bucket-engine and v1 plans, f64 and f32; then again
+               right bucket-engine and v1 plans, f64 and f32 (K11 and
+               K12, which share the gather-by-output mix core, also
+               bitwise against a second launch; their rows print the
+               core's output blocks, terms a block and work split, K12's
+               waves, scratch and device tables); then again
                at the mid-chain site of a Hubbard-L16 MPS of bond
                dimension 1000, whose plans pick K1's T=128 tiles
                (K5's and K12's blocking plans are built with T=128 there;
@@ -189,8 +193,11 @@ package's host path by the CPU tests):
 
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card and exits non-zero (printing no result) without
-one.  The host references of phase 5 and of phase 3's three-root
-Davidson run in two spawned worker processes beside the device phases
+one.  ``python3 chip_smoke.py --beside PARENT_TREE`` instead times phase
+3's K10-K12 rows at the K=16 site of this tree and of an unpacked earlier
+commit in turns (parent, this, this, parent; ``beside_parent``).  The
+host references of phase 5 and of phase 3's three-root Davidson run in
+two spawned worker processes beside the device phases
 (their numerical libraries held to 3 threads each); the script
 terminates them before it exits.  The last line is {"ok": true,
 "device": {...}}; the line before it is the per-kernel JSON summary:
@@ -501,7 +508,7 @@ def phase_build():
         fail("no ptxas register report in the build log")
     for name, regs, spill in usage:
         if name.startswith(("chain_", "blk_kernel", "noise_",
-                            "tiled_kernel", "bucket_", "slab_", "stk_mix",
+                            "tiled_kernel", "bucket_", "slab_", "mix_gather",
                             "tblk_", "env_gemm", "place_", "mix_v2",
                             "skinny_", "tall_", "reduce_", "plan_exec",
                             "probe_")) or \
@@ -1203,18 +1210,18 @@ def _stacked_plans(mpo, mps, me, t, T=None):
     return out
 
 
-def _mix_library_call(plan, d, device):
+def _mix_library_call(plan, device, tdt):
     """K11's function as one PyTorch call, out.index_add_(0, dst,
     res[src] * coef), on element index lists built from the plan's rows
     (the yardstick only; the port never calls it)."""
     import torch
-    rows = d["rows"].long().cpu().numpy()
-    n = rows[:, 2]
-    ri = np.repeat(np.arange(len(rows)), n)
+    n = plan.tgt[:, 1] * plan.tgt[:, 2]
+    ri = np.repeat(np.arange(len(n)), n)
     e = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
-    src = torch.as_tensor(rows[ri, 0] + e, device=device)
-    dst = torch.as_tensor(rows[ri, 1] + e, device=device)
-    cf = d["coef"][torch.as_tensor(ri, device=device)]
+    src = torch.as_tensor(plan.roff[plan.wsrc][ri] + e, device=device)
+    dst = torch.as_tensor(plan.tgt[ri, 0] + e, device=device)
+    cf = torch.as_tensor(plan.coef, dtype=tdt, device=device)[
+        torch.as_tensor(ri, device=device)]
 
     def call(res):
         out = torch.zeros(plan.out_cap, dtype=res.dtype, device=device)
@@ -1222,13 +1229,53 @@ def _mix_library_call(plan, d, device):
     return call
 
 
+def gather_shape(h) -> str:
+    """The mix core's work split on its host tables ``h``
+    (ops/stacked.py gather_tables): output blocks, terms a block, elements
+    a block, the thresholds and the warps (units) of each kind."""
+    from block2_preview_tpu_torch.ops import stacked
+    rows = np.diff(h["bstart"])
+    n_el = h["blk"][:, 2] * h["blk"][:, 3]
+    small = n_el <= stacked.GATHER_SPLIT
+    return (f"blocks {len(rows)} rows a block median "
+            f"{int(np.median(rows)) if len(rows) else 0} max "
+            f"{int(rows.max()) if len(rows) else 0}; elements a block "
+            f"{histogram(n_el, (1, 4, 16, 32, 256, 1024))}; split <= "
+            f"{stacked.GATHER_SPLIT} elements: {int(small.sum())} warps, "
+            f"chunks of {stacked.GATHER_CHUNK}: "
+            f"{len(h['units']) - int(small.sum())} warps")
+
+
+def table_bytes(d) -> int:
+    """Bytes of the device tensors in a table dict (one level of nesting)."""
+    import torch
+    n = 0
+    for v in d.values():
+        if isinstance(v, torch.Tensor):
+            n += v.numel() * v.element_size()
+        elif isinstance(v, dict):
+            n += table_bytes(v)
+    return n
+
+
+def _bitwise(name, side, fn):
+    """Two launches of ``fn`` on the same inputs must give bitwise equal
+    outputs (the kernel makes no atomics)."""
+    import torch
+    a, b = fn(), fn()
+    if not torch.equal(a, b):
+        fail(f"{name} {side}: two launches differ "
+             f"({float((a - b).abs().max()):.3e})")
+
+
 def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
                           bucket=True):
     """K10 and K11 (the bucket engine; unless ``bucket`` is False) and K12
     (v1 tiled blocking) against their twins on the left and right blocking
     plans next to center t of the host environments ``me``, f64 and f32;
-    ``T`` forces K12's tile.  Returns the summary rows of the f64 cases
-    (none unless ``summary``)."""
+    K11 and K12 also bitwise against a second launch.  ``T`` forces K12's
+    tile.  Returns the summary rows of the f64 cases (none unless
+    ``summary``)."""
     import torch
     from block2_preview_tpu_torch.ops import stacked, tiled_blocking
     rows = {}
@@ -1268,33 +1315,45 @@ def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
                        f"{dk.get('n_blocks', 0)} res {sp.res_total} "
                        f"({sp.res_total * esz / 2 ** 20:.1f} MiB) GFLOP "
                        f"{sp.flops / 1e9:.3f}")
+                t0 = time.perf_counter()
                 d11 = stacked.mix_tables(sp, device, tdt)
+                t_tab = time.perf_counter() - t0
+                h11 = sp._dev["k11"]
                 res = torch.cat([r_t, r_t.new_zeros(1)])
 
                 def k11(fn, sp=sp, d11=d11, res=res):
                     return fn(res, d11, torch.zeros(sp.out_cap, dtype=tdt,
                                                     device=device))
 
-                lib = _mix_library_call(sp, d11, device)
+                lib = _mix_library_call(sp, device, tdt)
                 m_t = k11(stacked.stk_mix_plain)
                 rel, _ = rel_err(lib(res), m_t)
                 if not rel <= tol:
                     fail(f"K11 {side}: the index_add_ yardstick disagrees "
                          f"({rel:.3e})")
-                n_rows = d11["n_rows"]
+                n_rows = len(h11["ts"])
+                n_blk, n_u = d11["n_blocks"], d11["n_units"]
                 _check(acc, "K11_stk_mix", dtype, side,
                        k11(stacked.stk_mix), m_t, tol,
                        time_ms(lambda: k11(stacked.stk_mix), device),
-                       time_ms(lambda: k11(stacked.stk_mix_plain), device),
+                       time_ms(lambda: k11(stacked.stk_mix_plain), device,
+                               reps=1),
                        time_ms(lambda: lib(res), device),
-                       # res read, the live output written, coefs; rows
-                       # (3 int32) and ecum (int64)
+                       # res read, the live output written, coefs; the
+                       # rows' offsets, blocks, block starts, units
                        live_bytes(esz, sp.res_total + sp.meta_out.total
-                                  + n_rows, 3 * n_rows + 2 * (n_rows + 1)),
-                       2.0 * d11["n_elems"],
-                       f"rows {n_rows} elements {d11['n_elems']} out "
-                       f"{sp.meta_out.total}")
+                                  + n_rows, n_rows + 5 * n_blk + 1
+                                  + 2 * n_u),
+                       2.0 * float(h11["work"][-1]),
+                       f"rows {n_rows} elements {int(h11['work'][-1])} out "
+                       f"{sp.meta_out.total}; {gather_shape(h11)}; tables "
+                       f"{table_bytes(d11) / 2 ** 20:.1f} MiB built in "
+                       f"{t_tab:.2f} s")
+                _bitwise("K11", side, lambda: k11(stacked.stk_mix))
+            t0 = time.perf_counter()
             d12 = tiled_blocking.tblk_tables(tp, device, tdt)
+            t_tab = time.perf_counter() - t0
+            h12 = tiled_blocking.tblk_host(tp)
             tb, tk = stacked.site_pools(tp, device, tdt)
 
             def k12(fn, tp=tp, d12=d12, ep=ep, tb=tb, tk=tk):
@@ -1302,8 +1361,12 @@ def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
                     tp.ncap, dtype=tdt, device=device))
 
             o_k = k12(tiled_blocking.tblk_exec)
-            gs = d12["groups"]
-            n1, n2, n3 = (sum(x[i] for x in gs) for i in (1, 3, 5))
+            n1, n2 = d12["s1"].shape[1], d12["s2"].shape[1]
+            c12 = h12["core"]
+            n3, n_blk = len(c12["ts"]), len(c12["blk"])
+            G, _, B = tp.s1.shape
+            old_mib = G * B * (4 * (9 + 6 + 5) + esz) / 2 ** 20
+            scratch = (d12["ntmp"] + d12["nprod"]) * tp.T ** 2 * esz
             _check(acc, "K12_tiled_blocking", dtype, side, o_k,
                    k12(tiled_blocking.tblk_plain), tol,
                    time_ms(lambda: k12(tiled_blocking.tblk_exec),
@@ -1311,16 +1374,25 @@ def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
                    time_ms(lambda: k12(tiled_blocking.tblk_plain),
                            device, reps=1), None,
                    # env, bra, ket in; the live output out; the live
-                   # task columns and their coefficients
+                   # tasks and segment starts, stage 3's coefficients and
+                   # core tables
                    live_bytes(esz, e_total + 1 + tb.numel() + tk.numel()
                               + tp.meta_out.total + n3,
-                              9 * n1 + 6 * n2 + 5 * n3),
+                              8 * n1 + 5 * n2 + len(h12["seg1"])
+                              + len(h12["seg2"]) + n3 + 5 * n_blk + 1
+                              + 2 * len(c12["units"])),
                    tp.flops,
-                   f"T {tp.T} groups {len(gs)} tasks {n1}/{n2}/{n3} "
-                   f"tmp {d12['ntmp']} prod {d12['nprod']} tiles "
-                   f"out {tp.meta_out.total} GFLOP {tp.flops / 1e9:.3f}")
+                   f"T {tp.T} groups {len(h12['groups'])} waves "
+                   f"{len(h12['waves'])} tasks {n1}/{n2}/{n3} tiles tmp "
+                   f"{len(h12['seg1']) - 1} prod {len(h12['seg2']) - 1} "
+                   f"scratch {scratch / 2 ** 20:.1f} MiB; device tables "
+                   f"{table_bytes(d12) / 2 ** 20:.1f} MiB (the [G, ., B] "
+                   f"ones {old_mib:.1f}) built in {t_tab:.2f} s; stage 3 "
+                   f"{gather_shape(c12)}; out {tp.meta_out.total} GFLOP "
+                   f"{tp.flops / 1e9:.3f}")
             if float(o_k[tp.meta_out.total:].abs().max()) != 0.0:
                 fail(f"K12 {side}: nonzero sentinel slots")
+            _bitwise("K12", side, lambda: k12(tiled_blocking.tblk_exec))
     return summary_rows(rows)
 
 
@@ -1511,6 +1583,8 @@ def phase_resident_v1(device, drv, mpo, D=250):
     import torch
     from block2_preview_tpu_torch.ops import _kernels
     cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     _kernels.reset_counts()
     t0 = time.time()
     with env_var("B2TPU_STK_ENGINE", "tiled_v1"):
@@ -1523,10 +1597,13 @@ def phase_resident_v1(device, drv, mpo, D=250):
     solver = drv._last_dmrg
     _sweep_lines("8c tiled_v1", solver.sweep_log,
                  ("K12_tiled_blocking", "K1_matvec"))
+    mem = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+           else float("nan"))
     print(f"[8c tiled_v1] torch_resident tiled_v1 {wall:.1f} s  E {e:.10f}  "
           f"K12 {counts['K12_tiled_blocking']} K5 {counts['K5_block']}  "
           f"host_env_materialized {solver.host_env_materialized}  "
-          f"host_ops_downloads {solver.host_ops_downloads}", flush=True)
+          f"host_ops_downloads {solver.host_ops_downloads}  "
+          f"max_memory_allocated {mem:.2f} GiB", flush=True)
     if cuda and not (counts["K12_tiled_blocking"] > 0
                      and counts["K5_block"] == 0):
         fail(f"phase 8c: K12 must launch and K5 must not ({counts})")
@@ -3340,5 +3417,66 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+BESIDE_RUN = """
+import pickle, sys, torch
+import chip_smoke as c
+from block2_preview_tpu_torch.runtime import resolve_device
+d = resolve_device("cuda")
+c.phase_build()
+drv, mpo, _ = c.qc_system(16, 16)
+with open(sys.argv[1], "rb") as f:
+    ket = pickle.load(f)
+c.phase_stacked_kernels(d, mpo, ket, c.mid_site(mpo, ket, 7)[0], 7,
+                        summary=False)
+"""
+
+
+def beside_parent(parent: str, turns=("parent", "change", "change",
+                                      "parent")):
+    """K10, K11 and K12 of this tree beside those of the tree at
+    ``parent`` (an unpacked earlier commit), each at phase 3's K=16 site 7
+    and in a process of its own, in the order ``turns``: the state is
+    phase 5's port run, made once here and handed to every run as a
+    pickle.  Each run builds its own tree's kernels and prints its phase-3
+    rows, prefixed by its turn."""
+    import pickle
+    import tempfile
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is false)")
+    from block2_preview_tpu_torch.runtime import resolve_device
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    if not os.path.isfile(os.path.join(parent, "chip_smoke.py")):
+        fail(f"{parent} holds no chip_smoke.py")
+    phase_device()
+    phase_build()
+    drv, mpo, _ = qc_system(16, 16)
+    _, ket, e5, _ = phase_full(resolve_device("cuda"), drv, mpo)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ket.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(copy_mps(ket), f)
+        for i, turn in enumerate(turns):
+            root = parent if turn == "parent" else here
+            t0 = time.time()
+            run = subprocess.run([sys.executable, "-c", BESIDE_RUN, path],
+                                 cwd=root, capture_output=True, text=True,
+                                 env=dict(os.environ, PYTHONPATH=root))
+            for line in run.stdout.splitlines():
+                if line.startswith(("[3 kernels]", "[2 build]", "FAIL")):
+                    print(f"[beside {i} {turn}] {line}", flush=True)
+            print(f"[beside {i} {turn}] exit {run.returncode} in "
+                  f"{time.time() - t0:.1f} s", flush=True)
+            if run.returncode != 0:
+                print(run.stderr[-4000:], flush=True)
+                fail(f"the {turn} run failed")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--beside"] and len(sys.argv) == 3:
+        beside_parent(sys.argv[2])
+    elif len(sys.argv) > 1:
+        fail("usage: python3 chip_smoke.py [--beside PARENT_TREE]")
+    else:
+        main()

@@ -32,6 +32,19 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         assert "FAIL" in proc.stdout
 
 
+def test_chip_smoke_beside_fails_without_a_card(tmp_path):
+    """The parent-beside-change mode (``--beside``), and an argument the
+    script does not take, exit non-zero with no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    for args in (["--beside", str(tmp_path)], ["--beside"], ["-x"]):
+        proc = subprocess.run([sys.executable, "chip_smoke.py", *args],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode != 0, proc.stdout
+        assert '"ok"' not in proc.stdout
+        assert "FAIL" in proc.stdout
+
+
 def test_chip_smoke_phases_on_cpu(capsys):
     """Phase 5 (main path against the port's host reference, run in the
     script's spawned worker; launch counts, host transfer counters) and

@@ -5,8 +5,11 @@ kernels K10 and K11; backend "torch_stacked") against the JAX package's
 sector items and mix rows against ``build_stacked_plan`` (the reference's
 order once its shape buckets and padding rows are taken out), the plain
 versions of K10 and K11 against ``_slab_exec`` and ``_mix_scatter`` bucket
-by bucket, ``execute_stacked`` against the JAX ``execute_stacked`` (f64 to
-1e-12 and f32 to 1e-5 relative to the largest entry) and against the host
+by bucket, K11's tables (the mix core's: rows grouped stably by output
+block) against the plan's rows and the kernel's walk of them emulated in
+numpy (``gather_emulate``: every output element written once),
+``execute_stacked`` against the JAX ``execute_stacked`` (f64 to 1e-12 and
+f32 to 1e-5 relative to the largest entry) and against the host
 blocking ``execute_plan_numpy`` over four-bond chains (1e-11, mirroring
 tests/test_stacked.py), the cached plan's site-value refresh, and
 ``DMRG(backend="torch_stacked")`` against "jax_stacked" and "numpy" (one
@@ -130,6 +133,71 @@ def test_plan_items_and_rows_equal_the_reference(chain, direction):
             port.items[port.work[:, 0], 4] * port.items[port.work[:, 0], 6]))
 
 
+def gather_emulate(src, h, sstr, out):
+    """The mix core as csrc/mix_gather.cuh runs it, in numpy, on its host
+    tables ``h``: unit by unit, a split block's lanes as term groups summed
+    by the xor tree, a wider block's chunk one lane an element.  Adds into
+    ``out``; returns it and the writes each output element received."""
+    writes = np.zeros(len(out), np.int64)
+    for b, e0 in h["units"]:
+        ob, ostr, rows, cols = h["blk"][b]
+        n_el = rows * cols
+        m = np.arange(h["bstart"][b], h["bstart"][b + 1])
+        if n_el <= stacked.GATHER_SPLIT:
+            assert e0 == 0
+            groups = 32 >> int(n_el - 1).bit_length()
+            e = np.arange(n_el)
+        else:
+            assert e0 % stacked.GATHER_CHUNK == 0 and e0 < n_el
+            groups = 1
+            e = np.arange(e0, min(e0 + stacked.GATHER_CHUNK, n_el))
+        r, c = e // cols, e % cols
+        part = np.zeros((groups, len(e)))
+        for g in range(groups):
+            mm = m[g::groups]
+            part[g] = (h["tc"][mm, None]
+                       * src[h["ts"][mm, None] + r * sstr + c]).sum(0)
+        d = groups // 2
+        while d:
+            part = part + part[np.arange(groups) ^ d]
+            d //= 2
+        idx = ob + r * ostr + c
+        out[idx] += part[0]
+        writes[idx] += 1
+    return out, writes
+
+
+def check_units(h, writes):
+    """Every element of every output block was written once, and nothing
+    else (``writes`` from :func:`gather_emulate`)."""
+    want = np.zeros_like(writes)
+    for ob, ostr, rows, cols in h["blk"]:
+        want[ob + np.arange(rows)[:, None] * ostr + np.arange(cols)] += 1
+    assert np.array_equal(writes, want) and want.max() <= 1
+
+
+def check_mix_tables(plan):
+    """K11's host tables against the plan's rows: one output block per
+    distinct row target, in offset order and disjoint; each block's rows
+    share its dx dy and are the plan's rows with that target in the plan's
+    order (so every row appears once)."""
+    stacked.mix_tables(plan, CPU, torch.float64)
+    h = plan._dev["k11"]
+    tg, n = plan.tgt[:, 0], plan.tgt[:, 1] * plan.tgt[:, 2]
+    order = np.argsort(tg, kind="stable")
+    blocks, first = np.unique(tg[order], return_index=True)
+    assert np.array_equal(h["blk"][:, 0], blocks)
+    assert np.array_equal(h["bstart"], np.append(first, len(tg)))
+    assert (h["blk"][:, 2] == 1).all()
+    assert np.array_equal(h["blk"][:, 1], h["blk"][:, 3])
+    assert np.array_equal(np.repeat(h["blk"][:, 3], np.diff(h["bstart"])),
+                          n[order])
+    assert (blocks[:-1] + h["blk"][:-1, 3] <= blocks[1:]).all()
+    assert np.array_equal(h["ts"], plan.roff[plan.wsrc][order])
+    assert np.array_equal(h["tc"], plan.coef[order])
+    return h
+
+
 def _run_bucket(ref, bk, pool, left):
     """The JAX kernels on one reference bucket: res [C, S, Xp, Yp] and the
     output pool after its mix chunks."""
@@ -174,8 +242,13 @@ def test_twins_match_slab_exec_and_mix_scatter(chain, direction):
         out = stacked.stk_mix(res, stacked.mix_tables(one, CPU,
                                                       torch.float64),
                               torch.zeros(one.out_cap, dtype=torch.float64))
-        assert np.abs(out.numpy() - out_ref).max() <= \
-            1e-12 * max(np.abs(out_ref).max(), 1e-300)
+        scale = max(np.abs(out_ref).max(), 1e-300)
+        assert np.abs(out.numpy() - out_ref).max() <= 1e-12 * scale
+        # the kernel's own walk of the same tables
+        h = check_mix_tables(one)
+        emu, writes = gather_emulate(r, h, 0, np.zeros(one.out_cap))
+        check_units(h, writes)
+        assert np.abs(emu - out_ref).max() <= 1e-12 * scale
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -197,6 +270,27 @@ def test_execute_matches_jax(chain, direction, dtype):
                                    interop.slab_pool(pool, "cpu", dtype))
     assert np.abs(got2.numpy() - want).max() <= TOL[dtype] * \
         np.abs(want).max()
+
+
+@pytest.mark.parametrize("direction", ["left", "right"])
+def test_mix_tables_follow_the_rows(chain, direction):
+    """K11's tables at every bond of the chain (check_mix_tables), the
+    work split covering every output element once, and the kernel's walk of
+    them (gather_emulate) on the whole plan against the JAX
+    execute_stacked."""
+    for t in BONDS[direction]:
+        ref, port, pool, _ = _stacked_plans(chain, t, direction)
+        h = check_mix_tables(port)
+        bp, kp = stacked.site_pools(port, CPU, torch.float64)
+        res = stacked.slab_exec(
+            torch.as_tensor(pool), bp, kp,
+            stacked.slab_plain_tables(port, CPU, torch.float64), port.left,
+            torch.zeros(port.res_total + 1, dtype=torch.float64)).numpy()
+        got, writes = gather_emulate(res, h, 0, np.zeros(port.out_cap))
+        check_units(h, writes)
+        want = np.asarray(ref_stacked.execute_stacked(
+            ref, jnp.asarray(pool), dtype=np.float64))
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
 def _cmp(host, got):
