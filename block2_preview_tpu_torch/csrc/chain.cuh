@@ -1,5 +1,5 @@
-// Chain product of one item of the kernels K10 (slab.cu), K18 (plan_exec.cu)
-// and K22 (plan_exec_shard.cu), and of K8 and K9 before their redesigns:
+// Chain product of one item of the kernels K18 (plan_exec.cu) and K22
+// (plan_exec_shard.cu), and of K8, K9 and K10 before their redesigns:
 //
 //   out[x, y] += coef * sum_{l, k} A(x, l) B(l, k) C(k, y)
 //

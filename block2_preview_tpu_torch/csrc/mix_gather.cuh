@@ -1,21 +1,27 @@
-// The gather-by-output mix core of K11 (stk_mix.cu) and of K12's stage 3
-// (tiled_blocking.cu).  For every output block b, a window of rows x cols
-// elements at ob with row stride ostr, and its terms m (a source offset
-// s_m and a coefficient coef_m):
+// The gather-by-output mix core of K11 (stk_mix.cu), K12's stage 3
+// (tiled_blocking.cu) and K15 (mix_v2.cu).  For every output block b, a
+// window of rows x cols elements at ob with row stride ostr and column
+// stride ocstr, and its terms m (a source offset s_m and a coefficient
+// coef_m):
 //
-//   out[ob + r ostr + c] += sum_m coef_m src[s_m + r sstr + c]
+//   out[ob + r ostr + c ocstr] += sum_m coef_m src[s_m + r sstr + c]
 //
-// for r < rows, c < cols.  Output blocks are disjoint, so every output
-// element has one owner lane: it sums the block's terms in registers in a
-// fixed order and adds the sum with one plain read-add-write.  No atomics:
-// results are bitwise equal from launch to launch.
+// for r < rows, c < cols.  Output blocks are element-disjoint, so every
+// output element has one owner lane: it sums the block's terms in
+// registers in a fixed order and adds the sum with one plain
+// read-add-write.  No atomics: results are bitwise equal from launch to
+// launch.
 //
-// Tables (built on the host by ops/stacked.py gather_tables, all int32 but
-// the coefficients):
-//   blk    [nb, 4]   (ob, ostr, rows, cols) of each output block
+// Tables (built on the host by ops/stacked.py gather_tables or
+// core_tables, all int32 but the coefficients):
+//   blk    [nb, 4]   (ob, ostr, rows, cols) of each output block; the
+//                    strided instance (kStrided, K15) reads [nb, 6] =
+//                    (ob, ostr, rows, cols, ocstr, sstr), a column stride
+//                    and a source row stride a block, where the plain one
+//                    takes ocstr = 1 and one sstr for the launch
 //   bstart [nb + 1]  block b's terms are [bstart[b], bstart[b + 1])
-//   ts, tc [M]       s_m and coef_m, sorted by block (a stable sort, so a
-//                    block's terms keep the plan's order)
+//   ts, tc [M]       s_m and coef_m, grouped by block (in the plan's order
+//                    within a block)
 //   units  [U, 2]    (block, first element): one warp each
 //
 // Work split.  Blocks are mostly tiny (a median of 3 elements at the K=16
@@ -43,7 +49,7 @@ constexpr int kGatherWarps = 8;      // warps (units) a CUDA block
 constexpr int kSplitMax = 16;        // blocks this small: one split warp
 constexpr int kGatherChunk = 32;     // elements a unit of a wider block
 
-template <typename S>
+template <typename S, bool kStrided>
 __global__ void __launch_bounds__(kGatherWarps * 32)
 mix_gather_kernel(const S* __restrict__ src, int sstr,
                   const int* __restrict__ units, int n_units,
@@ -54,10 +60,13 @@ mix_gather_kernel(const S* __restrict__ src, int sstr,
   const int lane = threadIdx.x & 31;
   const int u = blockIdx.x * kGatherWarps + (threadIdx.x >> 5);
   if (u >= n_units) return;          // the whole warp leaves together
+  constexpr int kRec = kStrided ? 6 : 4;   // ints a block record
   const int b = units[2 * u], e0 = units[2 * u + 1];
-  const long long ob = blk[4 * b];
-  const int ostr = blk[4 * b + 1], rows = blk[4 * b + 2];
-  const int cols = blk[4 * b + 3];
+  const int* w = blk + kRec * (long long)b;
+  const long long ob = w[0];
+  const int ostr = w[1], rows = w[2], cols = w[3];
+  const int ocstr = kStrided ? w[4] : 1;
+  if (kStrided) sstr = w[5];
   const int n_el = rows * cols;
   const int m0 = bstart[b], m1 = bstart[b + 1];
   if (n_el <= kSplitMax) {
@@ -77,7 +86,7 @@ mix_gather_kernel(const S* __restrict__ src, int sstr,
       acc += __shfl_xor_sync(0xffffffffu, acc, d);
     if ((lane >> lg) == 0 && e < n_el) {
       const int r = e / cols, c = e - r * cols;
-      S* o = out + ob + (long long)r * ostr + c;
+      S* o = out + ob + (long long)r * ostr + (long long)c * ocstr;
       *o = *o + acc;
     }
     return;
@@ -97,20 +106,21 @@ mix_gather_kernel(const S* __restrict__ src, int sstr,
     acc += tc[m + 3] * v3;
   }
   for (; m < m1; ++m) acc += tc[m] * src[ts[m] + off];
-  S* o = out + ob + (long long)r * ostr + c;
+  S* o = out + ob + (long long)r * ostr + (long long)c * ocstr;
   *o = *o + acc;
 }
 
 // One launch of the core over units [0, n_units) of the tables (the
-// caller offsets `units` to a wave's first unit).
-template <typename S>
+// caller offsets `units` to a wave's first unit); kStrided reads the
+// six-int block records (sstr is then unused).
+template <typename S, bool kStrided = false>
 inline cudaError_t mix_gather(const S* src, int sstr, const int* units,
                               int n_units, const int* blk, const int* bstart,
                               const int* ts, const S* tc, S* out,
                               cudaStream_t st) {
   if (n_units > 0) {
     const int grid = (n_units + kGatherWarps - 1) / kGatherWarps;
-    mix_gather_kernel<S><<<grid, kGatherWarps * 32, 0, st>>>(
+    mix_gather_kernel<S, kStrided><<<grid, kGatherWarps * 32, 0, st>>>(
         src, sstr, units, n_units, blk, bstart, ts, tc, out);
   }
   return cudaGetLastError();

@@ -5,76 +5,57 @@
 //
 //   out[obase + r*orstr + c*ocstr] += coef[k] * epool[ebase + r*estr + c]
 //
-// for r < ermax, c < ecmax.  Task rows come from the plan's table as it
-// is, s [n_tasks / B, 7, B] int32 (ebase, estr, ermax, ecmax, obase,
-// orstr, ocstr), coef [n_tasks]; the reference scans it in launches of
-// _MIX_SCAN x B tasks (a TPU watchdog bound) — here one launch covers
-// every task, padded tasks (obase < 0) exit at once.
+// for r < min(ermax, T), c < min(ecmax, T).  The reference scans the
+// plan's [n_launch, _MIX_SCAN, 7, B] task table in launches of _MIX_SCAN x
+// B tasks (a TPU watchdog bound), padded tasks (obase < 0) masked.
 //
-// Design.  One block of 256 threads per task, threads over the tile's
-// elements.  Tasks of different (symbol, entry) pairs add into the same
-// output elements, so the add is atomic (native f64 on sm_90; the order
-// varies between runs, so results agree with the plain version to
-// rounding).  Masked lanes add nothing: the output's sentinel slot
-// (ncap) stays zero even where the env pool's own sentinel is not.
+// Design.  The gather-by-output core (mix_gather.cuh), its strided
+// instance: one output block a distinct output window (a task's obase;
+// the tasks that share it share the window, its strides and the source
+// row stride estr), the window's terms the tasks' (ebase, coef).  Every
+// output element is summed by one owner lane in registers, in the plan's
+// task order, and written once — no atomics, bitwise repeatable; the
+// output's sentinel slot (ncap) and its padding are never touched.  The
+// tables come from the plan's own obase order (ops/resident.py
+// k15_tables, cached on the plan): no sort, padded tasks dropped, the
+// windows checked element-disjoint.  The design it replaces ran one
+// 256-thread block a task, padded tasks included, and one f64 atomicAdd an
+// element: the tasks that add into one window contended for it.
+//
 // Bound on the card: bytes — each live task element reads one env value
-// and updates one output value; the atomics' read-modify-write on shared
-// output elements is what it pays beyond that.
+// (the pool read once), each output element is read and written once, the
+// terms' (offset, coefficient) once.
 
-#include "common.cuh"
+#include "mix_gather.cuh"
 
 namespace {
 
-using b2t::kThreads;
-
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
-mix_v2_kernel(const S* __restrict__ epool, const int* __restrict__ s,
-              const S* __restrict__ coef, int B, int T,
-              S* __restrict__ out) {
-  const long long k = blockIdx.x;
-  const int* row = s + (k / B) * 7LL * B + (k % B);
-  const int obase = row[4 * (long long)B];
-  if (obase < 0) return;
-  const int ebase = row[0], estr = row[B], ermax = row[2 * (long long)B],
-            ecmax = row[3 * (long long)B], orstr = row[5 * (long long)B],
-            ocstr = row[6 * (long long)B];
-  const int nr = min(ermax, T), nc = min(ecmax, T);
-  if (nr <= 0 || nc <= 0) return;
-  const S cf = coef[k];
-  for (int e = threadIdx.x; e < nr * nc; e += kThreads) {
-    const int r = e / nc, c = e % nc;
-    atomicAdd(out + (long long)obase + (long long)r * orstr +
-                  (long long)c * ocstr,
-              cf * epool[(long long)ebase + (long long)r * estr + c]);
-  }
-}
-
-template <typename S>
-int mix_v2(const void* epool, const int* s, const void* coef,
-           long long n_tasks, int B, int T, void* out, void* stream) {
-  if (n_tasks > 0)
-    mix_v2_kernel<S><<<(unsigned)n_tasks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const S*>(epool), s, static_cast<const S*>(coef), B, T,
-        static_cast<S*>(out));
-  return (int)cudaGetLastError();
+int mix_v2(const void* epool, const int* units, int n_units, const int* blk,
+           const int* bstart, const int* ts, const void* tc, void* out,
+           void* stream) {
+  return (int)b2t::mix_gather<S, true>(
+      static_cast<const S*>(epool), 0, units, n_units, blk, bstart, ts,
+      static_cast<const S*>(tc), static_cast<S*>(out),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" {
 
-int b2t_mix_v2_f64(const void* epool, const int* s, const void* coef,
-                   long long n_tasks, int B, int T, void* out,
-                   void* stream) {
-  return mix_v2<double>(epool, s, coef, n_tasks, B, T, out, stream);
+int b2t_mix_v2_f64(const void* epool, const int* units, int n_units,
+                   const int* blk, const int* bstart, const int* ts,
+                   const void* tc, void* out, void* stream) {
+  return mix_v2<double>(epool, units, n_units, blk, bstart, ts, tc, out,
+                        stream);
 }
 
-int b2t_mix_v2_f32(const void* epool, const int* s, const void* coef,
-                   long long n_tasks, int B, int T, void* out,
-                   void* stream) {
-  return mix_v2<float>(epool, s, coef, n_tasks, B, T, out, stream);
+int b2t_mix_v2_f32(const void* epool, const int* units, int n_units,
+                   const int* blk, const int* bstart, const int* ts,
+                   const void* tc, void* out, void* stream) {
+  return mix_v2<float>(epool, units, n_units, blk, bstart, ts, tc, out,
+                       stream);
 }
 
 }  // extern "C"

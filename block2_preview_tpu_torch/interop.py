@@ -95,8 +95,10 @@ def mix_plan_v2(ref_plan) -> MixPlan:
     """Port v2 MixPlan from a reference MixPlan."""
     p = MixPlan()
     for k in MixPlan.__slots__:
-        setattr(p, k, getattr(ref_plan, k))
+        if k != "_dev":     # the port's own cache
+            setattr(p, k, getattr(ref_plan, k))
     p.meta_out = stacked_meta(ref_plan.meta_out)
+    p._dev = {}
     return p
 
 

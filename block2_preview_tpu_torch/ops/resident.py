@@ -43,7 +43,8 @@ from .csr import w_nonzero as _w_nonzero
 from .device_davidson import davidson
 from .mixv3 import MixPlanV3, _build_tab, build_mix_plan_v3, execute_mix_v3
 from .mixv4 import MixPlanV4, execute_mix_v4, plan_v4
-from .stacked import StackedMeta, _cap_class, _pow2
+from .stacked import (StackedMeta, _cap_class, _pow2, check_windows,
+                      core_tables, gather_device, gather_plain)
 from .tiled import _TILE_CFG, pick_tile
 from .tilev2 import (MatvecV2, _locate, gather_tiles, mv_exec,
                      mv_exec_sharded)
@@ -59,17 +60,18 @@ _TWIN_CHUNK = 4096
 
 # the reference's scan depth per launch and tasks per scan step; they shape
 # the plan's [n_launch, _MIX_SCAN, 7, _MIX_B] table (its TPU watchdog
-# bound), which the port keeps as it is and runs in one launch
+# bound), which the port keeps as it is; K15 runs every live task of it in
+# one launch, through tables grouped by output window (k15_tables)
 _MIX_SCAN = 8
 _MIX_B = 4096
 
-# mix tasks per chunk of the plain version (bounds its temporaries)
-_TWIN_MIX_TASKS = 16384
-
 
 class MixPlan:
+    """A v2 mix plan: the reference's fields, and ``_dev``, the K15
+    tables cached with it (host under "k15", device under ("k15", device,
+    dtype))."""
     __slots__ = ("meta_out", "T", "ncap_out", "s", "coef", "n_launch",
-                 "dims_hint")
+                 "dims_hint", "_dev")
 
 
 def build_mix_plan(meta_env: StackedMeta, entries, quanta,
@@ -227,55 +229,105 @@ def build_mix_plan(meta_env: StackedMeta, entries, quanta,
     plan.coef = cf_arr.reshape(n_launch, _MIX_SCAN, B)
     plan.n_launch = n_launch
     plan.dims_hint = dims
+    plan._dev = {}
     return plan
 
 
+def k15_tables(plan: MixPlan) -> Dict:
+    """K15's host tables of a v2 plan, built once and cached in
+    ``plan._dev["k15"]``: the strided mix core's
+    (:func:`stacked.core_tables`) with one output block a distinct obase
+    of the live tasks (obase >= 0; padded tasks dropped), ``blk`` [nb, 6]
+    = (obase, orstr, min(ermax, T), min(ecmax, T), ocstr, estr), and its
+    terms the tasks' (ebase, coef) in the plan's order.  The plan sorts
+    its tasks by obase (stably), so a block is a run of its table: no
+    sort.  Raises ValueError where the live tasks are out of obase order,
+    where the tasks of one obase disagree on (orstr, ocstr, ermax, ecmax,
+    estr), or where two windows share an output element or reach the
+    sentinel slot ``ncap_out`` (:func:`stacked.check_windows`).  Adds
+    ``n_tasks``, ``seconds`` (the build) and ``seconds_windows`` (its
+    disjointness check and the core's tables)."""
+    h = plan._dev.get("k15")
+    if h is not None:
+        return h
+    t0 = time.perf_counter()
+    s = np.asarray(plan.s)
+
+    def row(r):
+        """Row r of the task table, every task in the plan's order."""
+        return s[:, :, r, :].reshape(-1)
+
+    ob = row(4)
+    live = np.flatnonzero((ob >= 0) & (row(2) > 0) & (row(3) > 0))
+    n = len(live)
+    # the plan's live tasks are its first n (build_mix_plan pads after
+    # them): slice them out rather than gather
+    pick = ((lambda a: a[:n]) if n and live[-1] == n - 1 else
+            (lambda a: a[live]))
+    ob = pick(ob)
+    if (ob[1:] < ob[:-1]).any():
+        raise ValueError("the v2 plan's live tasks are not in obase order")
+    # (obase, orstr, ermax, ecmax, ocstr, estr): a block is a run of one
+    # obase, whose tasks must agree on the rest
+    cols = [ob] + [pick(row(r)) for r in (5, 2, 3, 6, 1)]
+    new = np.ones(n, bool)
+    new[1:] = ob[1:] != ob[:-1]
+    differ = np.zeros(max(n - 1, 0), bool)
+    for c in cols[1:]:
+        differ |= c[1:] != c[:-1]
+    if (differ & ~new[1:]).any():
+        raise ValueError("the tasks of one output window disagree on its "
+                         "strides or shape")
+    first = np.flatnonzero(new)
+    blk = np.stack([c[first] for c in cols], 1).astype(np.int64)
+    blk[:, 2:4] = np.minimum(blk[:, 2:4], plan.T)
+    t1 = time.perf_counter()
+    check_windows(blk, plan.ncap_out)
+    h = core_tables(blk, np.append(first, n), pick(row(0)),
+                    pick(np.asarray(plan.coef).reshape(-1)))
+    h.update(n_tasks=n, seconds=time.perf_counter() - t0,
+             seconds_windows=time.perf_counter() - t1)
+    plan._dev["k15"] = h
+    return h
+
+
 def mix_tables(plan: MixPlan, device, dtype) -> Dict:
-    """Device tables of a v2 plan for K15 (and its twin): ``s``
-    [n_launch * _MIX_SCAN, 7, _MIX_B] int32 and ``coef`` [n_tasks] in
-    ``dtype`` — the plan's layout with the per-launch split dropped."""
+    """K15's tables (its plain version's too) on ``device``, the
+    coefficients in ``dtype``: :func:`k15_tables` through
+    :func:`stacked.gather_device`, cached on the plan for each device and
+    type, so they go up once a plan."""
     if np.iscomplexobj(plan.coef) or dtype.is_complex:
         raise TypeError("mix v2 takes real plans and types only (the "
                         "reference's execute_mix drops imaginary parts)")
-    s = np.ascontiguousarray(plan.s.reshape(-1, 7, _MIX_B), dtype=np.int32)
-    return {"s": torch.as_tensor(s, device=device),
-            "coef": torch.as_tensor(plan.coef.reshape(-1), dtype=dtype,
-                                    device=device),
-            "n_tasks": s.shape[0] * _MIX_B, "T": plan.T}
+    key = ("k15", str(device), dtype)
+    d = plan._dev.get(key)
+    if d is None:
+        d = plan._dev[key] = gather_device(k15_tables(plan), device, dtype,
+                                           "K15's")
+    return d
 
 
 def mix_v2_twin(out, epool, d: Dict):
     """Plain PyTorch version of K15 (same signature as
-    :func:`mix_v2_exec`): out[obase + r*orstr + c*ocstr] += coef *
-    epool[ebase + r*estr + c] for r < ermax, c < ecmax of every task with
-    obase >= 0 (the reference's _mix_exec).  Masked lanes add nothing, so
-    the sentinel slot stays as it was."""
-    T = d["T"]
-    s = d["s"].long().transpose(0, 1).reshape(7, -1)
-    r = torch.arange(T, device=out.device)[None, :, None]
-    c = torch.arange(T, device=out.device)[None, None, :]
-    live = torch.nonzero(s[4] >= 0).squeeze(1)
-    for k in range(0, len(live), _TWIN_MIX_TASKS):
-        ids = live[k:k + _TWIN_MIX_TASKS]
-        t = s[:, ids]
-        vals = gather_tiles(epool, t[0], t[1], t[2], t[3], T) \
-            * d["coef"][ids][:, None, None]
-        t = t[:, :, None, None]
-        ok = (r < t[2]) & (c < t[3])
-        out.index_add_(0, (t[4] + r * t[5] + c * t[6])[ok], vals[ok])
-    return out
+    :func:`mix_v2_exec`) on K15's own tables: :func:`stacked.gather_plain`
+    over every output window, its tasks' tiles in the plan's order.
+    Padded tasks are not in the tables, so the sentinel slot stays as it
+    was (the reference's _mix_exec)."""
+    return gather_plain(epool, d, out, 0)
 
 
 def mix_v2_exec(out, epool, d: Dict):
-    """Mix v2 (kernel K15): adds every task of the plan into the slab pool
-    ``out`` (zero-initialised by the caller) in place; ``d`` from
-    :func:`mix_tables`."""
+    """Mix v2 (kernel K15): adds every live task of the plan into the slab
+    pool ``out`` (zero-initialised by the caller) in place, each output
+    window summed by one lane an element; ``d`` from :func:`mix_tables`.
+    CPU tensors run :func:`mix_v2_twin`."""
     if epool.device.type == "cpu":
         return mix_v2_twin(out, epool, d)
     if not epool.is_cuda:
         raise ValueError(f"unsupported device {epool.device}")
-    _kernels.launch("K15_mix_v2", "b2t_mix_v2", epool.dtype, epool, d["s"],
-                    d["coef"], d["n_tasks"], _MIX_B, d["T"], out)
+    _kernels.launch("K15_mix_v2", "b2t_mix_v2", epool.dtype, epool,
+                    d["units"], d["n_units"], d["blk"], d["bstart"], d["ts"],
+                    d["tc"], out)
     return out
 
 
@@ -283,7 +335,7 @@ def execute_mix(plan: MixPlan, epool):
     """LW/RW slab pool [ncap_out + 1] (zero sentinel last) from the env
     slab pool ``epool`` on its device and in its dtype, by a v2 plan —
     what the reference's execute_mix returns — in one K15 launch over all
-    tasks."""
+    live tasks."""
     d = mix_tables(plan, epool.device, epool.dtype)
     out = torch.zeros(plan.ncap_out + 1, dtype=epool.dtype,
                       device=epool.device)

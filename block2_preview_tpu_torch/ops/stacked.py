@@ -24,7 +24,9 @@ then, per mix row m (an entry (i, o) of the MPO site tensor):
     out[tgt_m + x*dy + y] += coef_m * res[src_m][x, y]
 
 Device side: K10 (``csrc/slab.cu``, replaces ``_slab_exec`` :163) forms
-every referenced (c, j) product at true dims into a compact ``res`` pool;
+every referenced (c, j) product at true dims into a compact ``res`` pool
+(host tables :func:`slab_kernel_tables`: a CUDA block a run of one item's
+works, which share the item's bra and ket blocks, no atomics);
 K11 (``csrc/stk_mix.cu``, replaces ``_mix_scatter`` :205) adds every mix
 row into the output pool on the gather-by-output mix core
 (``csrc/mix_gather.cuh``, host tables :func:`gather_tables`, shared with
@@ -41,6 +43,7 @@ sentinel): K1/K2 and ``meta_out.unpack`` read it.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -484,30 +487,54 @@ def _check_real(plan: StackedPlan) -> None:
                         "on the host")
 
 
+# works of one item a CUDA block of K10 at most (csrc/slab.cu)
+SLAB_WORKS = 8
+
+
 def slab_kernel_tables(plan: StackedPlan, device) -> Dict:
-    """K10's tables on ``device``, cached on the plan: the items ``it``
-    [C, 7] int32, the works ``wk`` [n, 3] int32 (item, symbol, res
-    offset) and ``cum`` [n + 1], the prefix sums of each work's CUDA
-    blocks (csrc/chain.cuh)."""
-    from .exec_bucket import _int32, chain_blocks
+    """K10's tables on ``device``, cached on the plan: ``ce`` [n] int32,
+    each work's env block eoff + j dl dk, and ``ch`` [n_chunks, 9] int32,
+    the CUDA blocks (:func:`slab_host_tables`).  The host tables are built
+    once a plan (``plan._dev["k10"]``, with ``seconds``)."""
     key = ("k10", str(device))
     d = plan._dev.get(key)
     if d is None:
-        f = plan.items[plan.work[:, 0]]
-        last = f[:, _EOFF] + (plan.work[:, 1] + 1) * f[:, _DL] * f[:, _DK]
-        _int32(last, "a K10 env offset")
-        cum = np.concatenate([[0], np.cumsum(chain_blocks(f[:, _DX],
-                                                          f[:, _DY]))])
-        wk = np.stack([plan.work[:, 0], plan.work[:, 1], plan.roff[:-1]], 1)
-        d = {"it": torch.as_tensor(_int32(plan.items, "a K10 pool offset"),
-                                   device=device),
-             "wk": torch.as_tensor(_int32(wk, "a K10 res offset"),
-                                   device=device),
-             "cum": torch.as_tensor(_int32(cum, "K10's block count"),
-                                    device=device),
-             "n_works": len(wk), "n_blocks": int(cum[-1])}
+        h = plan._dev.get("k10")
+        if h is None:
+            h = plan._dev["k10"] = slab_host_tables(plan)
+        d = {k: torch.as_tensor(h[k], device=device) for k in ("ce", "ch")}
+        d["n_chunks"] = len(h["ch"])
         plan._dev[key] = d
     return d
+
+
+def slab_host_tables(plan: StackedPlan) -> Dict:
+    """K10's numpy tables: ``ce`` [n] (each work's env offset eoff + j dl
+    dk) and ``ch`` [n_chunks, 9] = (first work, end, boff, koff, dl, dx,
+    dk, dy, res offset of the first work), runs of at most SLAB_WORKS works
+    of one item (the plan's works are sorted by item, and one item's res
+    blocks are consecutive), by decreasing FLOPs; ``seconds``."""
+    from .exec_bucket import _int32
+    t0 = time.perf_counter()
+    f = plan.items[plan.work[:, 0]]
+    n = len(f)
+    ce = f[:, _EOFF] + plan.work[:, 1] * f[:, _DL] * f[:, _DK]
+    _int32(ce + f[:, _DL] * f[:, _DK], "a K10 env offset")
+    # each item's works, cut into runs of SLAB_WORKS
+    new = np.ones(n, bool)
+    new[1:] = plan.work[1:, 0] != plan.work[:-1, 0]
+    rank = np.arange(n) - np.maximum.accumulate(np.where(new, np.arange(n),
+                                                         0))
+    first = np.flatnonzero(new | (rank % SLAB_WORKS == 0))
+    end = np.append(first[1:], n)
+    g = f[first]
+    fl = (end - first) * 2 * g[:, _DL] * g[:, _DY] * (g[:, _DK] + g[:, _DX])
+    ch = np.stack([first, end, g[:, _BOFF], g[:, _KOFF], g[:, _DL],
+                   g[:, _DX], g[:, _DK], g[:, _DY], plan.roff[first]], 1)
+    return {"ce": _int32(ce, "a K10 env offset"),
+            "ch": _int32(ch[np.argsort(-fl, kind="stable")].reshape(-1, 9),
+                         "a K10 pool or res offset"),
+            "seconds": time.perf_counter() - t0}
 
 
 def slab_plain_tables(plan: StackedPlan, device, tdt) -> Dict:
@@ -531,19 +558,19 @@ def slab_plain(ep, bp, kp, d: Dict, left: bool, res):
 
 def slab_exec(ep, bp, kp, d: Dict, left: bool, res):
     """Slab product (kernel K10): every work's product at true dims into
-    the zero-initialised compact pool ``res`` [res_total + 1], from the
-    flat env/bra/ket pools; ``d`` from :func:`slab_kernel_tables` (CPU
-    tensors run :func:`slab_plain` on :func:`slab_plain_tables`).
-    Returns res."""
+    the compact pool ``res`` [res_total + 1] (zero-initialised by the
+    caller: the plain version adds into it, the kernel writes every work's
+    block), from the flat env/bra/ket pools; ``d`` from
+    :func:`slab_kernel_tables` (CPU tensors run :func:`slab_plain` on
+    :func:`slab_plain_tables`).  Returns res."""
     if any(t.dim() != 1 for t in (ep, bp, kp, res)):
         raise ValueError("slab_exec takes flat pools and a flat res")
     if ep.device.type == "cpu":
         return slab_plain(ep, bp, kp, d, left, res)
     if not ep.is_cuda:
         raise ValueError(f"unsupported device {ep.device}")
-    _kernels.launch("K10_slab", "b2t_slab", ep.dtype, ep, bp, kp, d["it"],
-                    d["wk"], d["cum"], d["n_works"], d["n_blocks"],
-                    int(left), res)
+    _kernels.launch("K10_slab", "b2t_slab", ep.dtype, ep, bp, kp, d["ce"],
+                    d["ch"], d["n_chunks"], int(left), res)
     return res
 
 
@@ -577,10 +604,8 @@ def gather_tables(key, n_keys: int, rec, s, coef) -> Dict:
     ``coef[i] src[s[i] + r sstr + c]`` into the output block ``key[i]``
     (an integer in [0, n_keys); blocks are ordered by key) whose window
     ``rec[i]`` = (ob, ostr, rows, cols) every term of the block must share
-    (ValueError otherwise).  Returns numpy ``blk`` [nb, 4], ``bstart``
-    [nb + 1], ``ts``, ``tc`` (the terms sorted stably by block), ``units``
-    [U, 2] (block, first element), ``keys`` [nb] (each block's key) and
-    ``work`` [nb + 1], the prefix sums of terms x elements a block."""
+    (ValueError otherwise).  Returns :func:`core_tables` of the terms
+    sorted stably by block, and ``keys`` [nb] (each block's key)."""
     key = np.asarray(key, np.int64)
     rec = np.asarray(rec, np.int64).reshape(-1, 4)
     present = np.zeros(n_keys, bool)
@@ -596,15 +621,58 @@ def gather_tables(key, n_keys: int, rec, s, coef) -> Dict:
     if not np.array_equal(blk[bid], rec):
         raise ValueError("the terms of one output block disagree on its "
                          "window")
+    h = core_tables(blk, bstart, np.asarray(s)[order],
+                    np.asarray(coef)[order])
+    h["keys"] = keys
+    return h
+
+
+def core_tables(blk, bstart, ts, tc) -> Dict:
+    """The mix core's host tables from its output blocks ``blk`` [nb, 4]
+    = (ob, ostr, rows, cols), or [nb, 6] with (ocstr, sstr) appended for
+    the strided instance (K15), the blocks' term ranges ``bstart``
+    [nb + 1] and the terms ``ts``/``tc`` grouped by block: adds ``units``
+    [U, 2] (block, first element), one warp each, and ``work`` [nb + 1],
+    the prefix sums of terms x elements a block."""
     n_el = blk[:, 2] * blk[:, 3]
     nu = np.where(n_el <= GATHER_SPLIT, 1, -(-n_el // GATHER_CHUNK))
     ub = np.repeat(np.arange(len(blk), dtype=np.int64), nu)
     ue = (np.arange(int(nu.sum()), dtype=np.int64)
           - np.repeat(np.cumsum(nu) - nu, nu)) * GATHER_CHUNK
-    return {"blk": blk, "bstart": bstart, "ts": np.asarray(s)[order],
-            "tc": np.asarray(coef)[order], "units": np.stack([ub, ue], 1),
-            "keys": keys,
-            "work": np.concatenate([[0], np.cumsum(counts * n_el)])}
+    return {"blk": blk, "bstart": bstart, "ts": ts, "tc": tc,
+            "units": np.stack([ub, ue], 1),
+            "work": np.concatenate([[0], np.cumsum(np.diff(bstart)
+                                                   * n_el)])}
+
+
+def check_windows(blk, n: int) -> None:
+    """Raise ValueError unless the strided mix core's output windows
+    ``blk`` [nb, 6] = (ob, ostr, rows, cols, ocstr, sstr) lie in [0, n)
+    and no two share an element (a race between two owner lanes would be
+    a silent wrong answer).  Marks every window element in a bitmap of n:
+    O(n + window elements)."""
+    blk = np.asarray(blk, np.int64)
+    seen = np.zeros(n, bool)
+    total = 0
+    cols = blk[:, 3]
+    for C in np.unique(cols).tolist():
+        b = blk[cols == C]
+        rows = b[:, 2]
+        rb = np.repeat(np.arange(len(b)), rows)
+        r = np.arange(len(rb)) - np.repeat(np.cumsum(rows) - rows, rows)
+        start = b[rb, 0] + r * b[rb, 1]        # each window row's first
+        step = b[rb, 4]
+        if len(rb) and (start.min() < 0
+                        or (start + (C - 1) * step).max() >= n):
+            raise ValueError(f"an output window leaves [0, {n})")
+        if n < 2 ** 31:                        # int32 addresses: half the
+            start = start.astype(np.int32)     # bytes through the bitmap
+            step = step.astype(np.int32)
+        seen[start[:, None] + step[:, None] * np.arange(C, dtype=start.dtype)
+             ] = True
+        total += len(rb) * C
+    if np.count_nonzero(seen) != total:
+        raise ValueError("two output windows share an element")
 
 
 def gather_device(h: Dict, device, tdt, what: str) -> Dict:
@@ -626,7 +694,8 @@ def gather_plain(src, d: Dict, out, sstr: int, b0: int = 0,
     (:func:`gather_device`), output blocks [b0, b1): every term's window
     elements, scaled, added into ``out`` by ``index_add_`` in the tables'
     term order, in chunks of blocks of about ``_MIX_CHUNK`` elements.
-    Returns out."""
+    Six-int block records carry their own column stride and source row
+    stride (``sstr`` is then unused).  Returns out."""
     b1 = d["n_blocks"] if b1 is None else b1
     work, bs = d["work_h"], d["bstart_h"]
     dev = out.device
@@ -645,8 +714,9 @@ def gather_plain(src, d: Dict, out, sstr: int, b0: int = 0,
         w = rows_t[ti]
         r, c = e // w[:, 3], e % w[:, 3]
         s = d["ts"][m0:m1].long()[ti]
-        out.index_add_(0, w[:, 0] + r * w[:, 1] + c,
-                       src[s + r * sstr + c] * d["tc"][m0:m1][ti])
+        oc, ss = (w[:, 4], w[:, 5]) if w.shape[1] == 6 else (1, sstr)
+        out.index_add_(0, w[:, 0] + r * w[:, 1] + c * oc,
+                       src[s + r * ss + c] * d["tc"][m0:m1][ti])
         b0 = c1
     return out
 

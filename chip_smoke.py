@@ -72,8 +72,9 @@ package's host path by the CPU tests):
                counter 0; within 1e-8 Ha of phase 5's port energy and
                1e-6 Ha of its host reference
   9c. mix v2   the same start under B2TPU_MIX=2, one sweep (D=250, noise
-               1e-4): the split, the v2 plan-build time and the K15
-               launches; within 1e-8 Ha of phase 5's sweep-0 energy
+               1e-4): the split, the v2 plan-build time, the K15
+               launches and its host tables' seconds (inside Teff); within
+               1e-8 Ha of phase 5's sweep-0 energy
   10a. npdm    Hubbard-L8, a port ground state (D=80, 6 sweeps, phase 4's
                schedule) and a second state (D=30, 2 sweeps): orders 1-4
                through DMRGDriver.get_npdm (1 and 2 on the host engine,
@@ -145,20 +146,28 @@ package's host path by the CPU tests):
                f64 and f32, and a three-root host Davidson around K8
                against the host Davidson on the host matvec; K10, K11
                (library: one index_add_) and K12 on the site's left and
-               right bucket-engine and v1 plans, f64 and f32 (K11 and
-               K12, which share the gather-by-output mix core, also
-               bitwise against a second launch; their rows print the
-               core's output blocks, terms a block and work split, K12's
-               waves, scratch and device tables); then again
+               right bucket-engine and v1 plans, f64 and f32 (K10, a
+               CUDA block a run of one item's works, and K11 and K12,
+               which share the gather-by-output mix core, also bitwise
+               against a second launch; K10's rows print its works' dims
+               and its tables' host seconds, K11's and K12's the core's
+               output blocks, terms a block and work split, K12's waves,
+               scratch and device tables); then again
                at the mid-chain site of a Hubbard-L16 MPS of bond
                dimension 1000, whose plans pick K1's T=128 tiles
                (K5's and K12's blocking plans are built with T=128 there;
-               K8 meets its widest buckets there); K13 (every GEMM group
-               of the K=16 site's LW and RW v3 plans, and one window at
+               K8 meets its widest buckets there; K10 alone, f64, whose
+               operands there pass 32 x 32 and are read from the pools);
+               K13 (every GEMM group of the K=16 site's LW and RW v3
+               plans, and one window at
                c0 > 0), K14 (library: one torch.take; bitwise against its
                twin on the slab and on two windows at c0 > 0 of odd
                length, one across the live end; tail and sentinel 0), K15
-               on the same sides' v2 plans (library: one index_add_) and
+               on the same sides' v2 plans (library: one index_add_; on
+               the mix core, bitwise against a second launch, held
+               against the v3 pool, padding and sentinel 0; its rows print
+               the tasks, output windows, tasks a window and the tables'
+               host seconds) and
                K16 (the v1 slab matvec on the site's LW/RW pools, also
                held against K1 to 1e-12 relative), f64 and f32; K17 at
                the shapes of the largest class closes of 10b (K=16 order
@@ -194,8 +203,10 @@ package's host path by the CPU tests):
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card and exits non-zero (printing no result) without
 one.  ``python3 chip_smoke.py --beside PARENT_TREE`` instead times phase
-3's K10-K12 rows at the K=16 site of this tree and of an unpacked earlier
-commit in turns (parent, this, this, parent; ``beside_parent``).  The
+3's K9-K16 rows at the K=16 site and the sweeps of phases 8b and 9c of
+this tree and of an unpacked earlier commit in turns (parent, this, this,
+parent; ``beside_parent``), and holds the change's K9, K11 and K12
+outputs against the parent's.  The
 host references of phase 5 and of phase 3's three-root Davidson run in
 two spawned worker processes beside the device phases
 (their numerical libraries held to 3 threads each); the script
@@ -476,14 +487,16 @@ def ptxas_usage(log: str):
             src = _kernel_source_name(name)
             # value type: d / f, or cplx<d / f> of the same anonymous
             # namespace (mangled NS_4cplxI.EE)
+            # and an int or bool second argument (Li128E, Lb1E)
             k = src and re.match(r"I(?:NS_4cplxI([df])EE|([df]))"
-                                 r"(?:Li(\d+)E)?", src[1])
+                                 r"(?:L(?:i(\d+)|b([01]))E)?", src[1])
             if k:
                 real = "double" if (k.group(1) or k.group(2)) == "d" \
                     else "float"
                 vt = f"complex<{real}>" if k.group(1) else real
-                name = (f"{src[0]}<{vt}"
-                        f"{',' + k.group(3) if k.group(3) else ''}>")
+                arg = k.group(3) or {"0": "false", "1": "true",
+                                     None: ""}[k.group(4)]
+                name = f"{src[0]}<{vt}{',' + arg if arg else ''}>"
             spill = ""
         elif "spill stores" in ln:
             spill = ln.strip()
@@ -1229,15 +1242,16 @@ def _mix_library_call(plan, device, tdt):
     return call
 
 
-def gather_shape(h) -> str:
+def gather_shape(h, terms: str = "rows") -> str:
     """The mix core's work split on its host tables ``h``
-    (ops/stacked.py gather_tables): output blocks, terms a block, elements
-    a block, the thresholds and the warps (units) of each kind."""
+    (ops/stacked.py core_tables): output blocks, terms (``terms``) a
+    block, elements a block, the thresholds and the warps (units) of each
+    kind."""
     from block2_preview_tpu_torch.ops import stacked
     rows = np.diff(h["bstart"])
     n_el = h["blk"][:, 2] * h["blk"][:, 3]
     small = n_el <= stacked.GATHER_SPLIT
-    return (f"blocks {len(rows)} rows a block median "
+    return (f"blocks {len(rows)} {terms} a block median "
             f"{int(np.median(rows)) if len(rows) else 0} max "
             f"{int(rows.max()) if len(rows) else 0}; elements a block "
             f"{histogram(n_el, (1, 4, 16, 32, 256, 1024))}; split <= "
@@ -1258,6 +1272,22 @@ def table_bytes(d) -> int:
     return n
 
 
+def slab_shape(plan) -> str:
+    """K10's shapes on a stacked plan: works, the percentiles (50, 90,
+    99, max) of each work's dl, dk, dx, dy, and works (symbols) an
+    item."""
+    f = plan.items[plan.work[:, 0]]
+    pct = " ".join(
+        f"{name} " + "/".join(str(int(v)) for v in np.percentile(
+            f[:, col], (50, 90, 99, 100), method="higher"))
+        for name, col in (("dl", 3), ("dk", 5), ("dx", 4), ("dy", 6)))
+    per = np.bincount(plan.work[:, 0])
+    per = per[per > 0]
+    return (f"items {len(plan.items)} works {len(f)} (p50/p90/p99/max "
+            f"{pct}; works an item median {int(np.median(per))} max "
+            f"{int(per.max())})")
+
+
 def _bitwise(name, side, fn):
     """Two launches of ``fn`` on the same inputs must give bitwise equal
     outputs (the kernel makes no atomics)."""
@@ -1266,6 +1296,62 @@ def _bitwise(name, side, fn):
     if not torch.equal(a, b):
         fail(f"{name} {side}: two launches differ "
              f"({float((a - b).abs().max()):.3e})")
+
+
+def k10_check(acc, device, dtype, side, sp, ep, bp, kp, e_total, tol):
+    """K10 against its twin on the bucket-engine plan ``sp`` (the env pool
+    ``ep`` of ``e_total`` live elements, the site pools ``bp``, ``kp``), and
+    bitwise against a second launch; one phase-3 row.  Returns the twin's
+    res (its live part)."""
+    import torch
+    from block2_preview_tpu_torch.ops import stacked
+    tdt, esz = ep.dtype, ep.element_size()
+    t0 = time.perf_counter()
+    dk = (stacked.slab_kernel_tables(sp, device) if device.type == "cuda"
+          else stacked.slab_plain_tables(sp, device, tdt))
+    t_tab = time.perf_counter() - t0
+    dp = stacked.slab_plain_tables(sp, device, tdt)
+
+    def k10(fn, d):
+        # the zero fill of res is part of the timed call
+        return fn(ep, bp, kp, d, sp.left, torch.zeros(
+            sp.res_total + 1, dtype=tdt, device=device))
+
+    r_k = k10(stacked.slab_exec, dk)[:sp.res_total]
+    r_t = k10(stacked.slab_plain, dp)[:sp.res_total]
+    # env, bra and ket values in, res out, K10's tables (an env offset a
+    # work, nine ints a CUDA block)
+    nw = len(sp.work)
+    h10 = sp._dev.get("k10", {})
+    n_ch = len(h10.get("ch", ()))
+    _check(acc, "K10_slab", dtype, side, r_k, r_t, tol,
+           time_ms(lambda: k10(stacked.slab_exec, dk), device),
+           time_ms(lambda: k10(stacked.slab_plain, dp), device, reps=1),
+           None, live_bytes(esz, e_total + 1 + bp.numel() + kp.numel()
+                            + sp.res_total, nw + 9 * n_ch),
+           sp.flops,
+           f"{slab_shape(sp)}; CUDA blocks {n_ch}; res {sp.res_total} "
+           f"({sp.res_total * esz / 2 ** 20:.1f} MiB) GFLOP "
+           f"{sp.flops / 1e9:.3f}; tables {h10.get('seconds', 0.0):.3f} s "
+           f"on the host, {t_tab:.3f} s with the upload")
+    if device.type == "cuda":
+        _bitwise("K10", side, lambda: k10(stacked.slab_exec, dk))
+    return r_t
+
+
+def phase_slab_wide(device, mpo, mps, me, t):
+    """K10 alone (f64, both sides, :func:`k10_check`) on the bucket-engine
+    plans next to center t: at the Hubbard-L16 D=1000 site its operands
+    pass 32 x 32 elements, so the kernel reads them from the pools rather
+    than from shared memory."""
+    import torch
+    from block2_preview_tpu_torch.ops import stacked
+    for direction, (sp, _, pool, e_total) in _stacked_plans(
+            mpo, mps, me, t).items():
+        ep = torch.as_tensor(pool, device=device)
+        bp, kp = stacked.site_pools(sp, device, ep.dtype)
+        k10_check(None, device, np.float64, direction[0], sp, ep, bp, kp,
+                  e_total, ATOMIC_TOL[np.float64])
 
 
 def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
@@ -1290,31 +1376,8 @@ def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
             bp, kp = stacked.site_pools(sp, device, tdt)
             esz = ep.element_size()
             if bucket:
-                dk = (stacked.slab_kernel_tables(sp, device)
-                      if device.type == "cuda" else
-                      stacked.slab_plain_tables(sp, device, tdt))
-                dp = stacked.slab_plain_tables(sp, device, tdt)
-
-                def k10(fn, d, sp=sp, ep=ep, bp=bp, kp=kp):
-                    return fn(ep, bp, kp, d, sp.left, torch.zeros(
-                        sp.res_total + 1, dtype=tdt, device=device))
-
-                r_k = k10(stacked.slab_exec, dk)[:sp.res_total]
-                r_t = k10(stacked.slab_plain, dp)[:sp.res_total]
-                # env, bra and ket values in, res out; items, works, cum
-                nw = len(sp.work)
-                _check(acc, "K10_slab", dtype, side, r_k, r_t, tol,
-                       time_ms(lambda: k10(stacked.slab_exec, dk), device),
-                       time_ms(lambda: k10(stacked.slab_plain, dp), device,
-                               reps=1),
-                       None, live_bytes(esz, e_total + 1 + bp.numel()
-                                        + kp.numel() + sp.res_total,
-                                        7 * len(sp.items) + 4 * nw + 1),
-                       sp.flops,
-                       f"items {len(sp.items)} works {nw} blocks "
-                       f"{dk.get('n_blocks', 0)} res {sp.res_total} "
-                       f"({sp.res_total * esz / 2 ** 20:.1f} MiB) GFLOP "
-                       f"{sp.flops / 1e9:.3f}")
+                r_t = k10_check(acc, device, dtype, side, sp, ep, bp, kp,
+                                e_total, tol)
                 t0 = time.perf_counter()
                 d11 = stacked.mix_tables(sp, device, tdt)
                 t_tab = time.perf_counter() - t0
@@ -1735,6 +1798,13 @@ def phase_mix_full(device, drv, mpo, ver, sched, tag, D=250):
           f"{solver.host_redo_count}  host_env_materialized "
           f"{solver.host_env_materialized}  host_ops_downloads "
           f"{solver.host_ops_downloads}", flush=True)
+    if ver == "2":
+        secs = [p._dev["k15"]["seconds"] for _, p in
+                solver._res_caches["mix"].values() if "k15" in p._dev]
+        print(f"[{tag}] K15 host tables: {len(secs)} plans, "
+              f"{sum(secs):.2f} s in all (a plan median "
+              f"{np.median(secs) if secs else 0.0:.3f}, max "
+              f"{max(secs, default=0.0):.3f} s), inside Teff", flush=True)
     mix_launch_rules(tag, ver, counts, solver.me, cuda)
     for what in ("host_redo_count", "host_env_materialized",
                  "host_ops_downloads"):
@@ -1768,26 +1838,30 @@ def check_mix(e9b, e9c0, e5, e5_0, ref):
 _K15_LIBRARY_ELEMS = 1 << 29
 
 
-def _k15_library_call(d, epool, n_out):
+def _k15_library_call(plan, epool):
     """K15's function as one PyTorch call, out.index_add_(0, dst,
-    epool[src] * cf), on element index lists expanded from the plan's
-    tasks on the device (the yardstick only; the port never calls it);
-    None where the lists would not fit."""
+    epool[src] * cf), on element index lists expanded on the device from
+    the plan's own task table (the yardstick only; the port never calls
+    it); None where the lists would not fit."""
     import torch
-    T = d["T"]
-    s = d["s"].transpose(0, 1).reshape(7, -1)
+    dev = epool.device
+    T = plan.T
+    s = torch.as_tensor(np.asarray(plan.s).transpose(2, 0, 1, 3)
+                        .reshape(7, -1), device=dev)
+    cf = torch.as_tensor(np.asarray(plan.coef).reshape(-1),
+                         dtype=epool.dtype, device=dev)
     live = s[4] >= 0
     s = s[:, live].long()
-    cf = d["coef"][live]
+    cf = cf[live]
     per = s[2].clamp(0, T) * s[3].clamp(0, T)
     n = int(per.sum())
     if n > _K15_LIBRARY_ELEMS:
         return None, n
-    dst = torch.empty(n, dtype=torch.int32, device=epool.device)
-    src = torch.empty(n, dtype=torch.int32, device=epool.device)
-    cfe = torch.empty(n, dtype=epool.dtype, device=epool.device)
-    r = torch.arange(T, device=epool.device)[None, :, None]
-    c = torch.arange(T, device=epool.device)[None, None, :]
+    dst = torch.empty(n, dtype=torch.int32, device=dev)
+    src = torch.empty(n, dtype=torch.int32, device=dev)
+    cfe = torch.empty(n, dtype=epool.dtype, device=dev)
+    r = torch.arange(T, device=dev)[None, :, None]
+    c = torch.arange(T, device=dev)[None, None, :]
     k = 0
     for a in range(0, s.shape[1], 8192):
         t = s[:, a:a + 8192, None, None]
@@ -1797,6 +1871,7 @@ def _k15_library_call(d, epool, n_out):
         src[k:k + m] = (t[0] + r * t[1] + c)[ok].int()
         cfe[k:k + m] = cf[a:a + 8192, None, None].expand(ok.shape)[ok]
         k += m
+    n_out = plan.ncap_out + 1
 
     def call(ep):
         out = torch.zeros(n_out, dtype=ep.dtype, device=ep.device)
@@ -1953,7 +2028,10 @@ def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
                    f"{len(p3.winflat['src'])}")
             del idx
             pools[side] = s_t
+            t0 = time.perf_counter()
             d2 = resident.mix_tables(p2, device, tdt)
+            t_tab = time.perf_counter() - t0
+            h15 = p2._dev["k15"]
 
             def k15(fn, d2=d2, ep=ep, p2=p2):
                 return fn(torch.zeros(p2.ncap_out + 1, dtype=tdt,
@@ -1964,7 +2042,7 @@ def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
             if not rel <= atol:
                 fail(f"K15 {side}: the v2 pool differs from the v3 pool "
                      f"({rel:.3e})")
-            lib, n_el = _k15_library_call(d2, ep, p2.ncap_out + 1)
+            lib, n_el = _k15_library_call(p2, ep)
             lib_ms = None
             if lib is not None:
                 rel, _ = rel_err(lib(ep), m_t)
@@ -1973,20 +2051,36 @@ def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
                          f"({rel:.3e})")
                 lib_ms = time_ms(lambda: lib(ep), device)
             del lib
-            n_tasks = int((p2.s[:, :, 4] >= 0).sum())
-            _check(acc, "K15_mix_v2", dtype, side, k15(resident.mix_v2_exec),
-                   m_t, atol, time_ms(lambda: k15(resident.mix_v2_exec),
-                                      device),
+            o_k = k15(resident.mix_v2_exec)
+            rel, _ = rel_err(o_k, s_t)
+            if not rel <= atol:
+                fail(f"K15 {side}: the kernel's pool differs from the v3 "
+                     f"pool ({rel:.3e})")
+            if o_k[p2.meta_out.total:].any():
+                fail(f"K15 {side}: the padding [{p2.meta_out.total}, "
+                     f"{p2.ncap_out}] or the sentinel was written")
+            n_tasks, n_blk = h15["n_tasks"], len(h15["blk"])
+            _check(acc, "K15_mix_v2", dtype, side, o_k, m_t, atol,
+                   time_ms(lambda: k15(resident.mix_v2_exec), device),
                    time_ms(lambda: k15(resident.mix_v2_twin), device,
                            reps=1), lib_ms,
                    # the env pool read, each task's coefficient, the live
-                   # slab written; the live task rows; 2 FLOPs per element
+                   # slab written; the tasks' env offsets, the windows,
+                   # their term starts and the units; 2 FLOPs an element
                    live_bytes(esz, metas[side].total + 1 + n_tasks
-                              + p2.meta_out.total, 7 * n_tasks),
+                              + p2.meta_out.total,
+                              n_tasks + 7 * n_blk + 1
+                              + 2 * len(h15["units"])),
                    2.0 * n_el,
-                   f"T {p2.T} tasks {n_tasks} elements {n_el}"
+                   f"T {p2.T} tasks {n_tasks} elements {n_el}; "
+                   f"{gather_shape(h15, 'tasks')}; tables "
+                   f"{h15['seconds']:.3f} s on the host (the windows' "
+                   f"check and the core's tables "
+                   f"{h15['seconds_windows']:.3f} s), {t_tab:.3f} s with "
+                   f"the upload"
                    + ("" if lib_ms is not None else
                       " (no library call: its index lists do not fit)"))
+            _bitwise("K15", side, lambda: k15(resident.mix_v2_exec))
         xp = torch.as_tensor(ex16.pad(x), dtype=tdt, device=device)
         d16 = ex16.to_device(device)
         d1 = ex1.to_device(device)
@@ -3407,6 +3501,7 @@ def main():
                  kinds="K8")
     phase_stacked_kernels(device, *wide, site[0], 7, T=128, summary=False,
                           bucket=False)
+    phase_slab_wide(device, *wide, site[0], 7)
     if "jax" in sys.modules or "block2_preview_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     for r in rows:
@@ -3419,26 +3514,66 @@ def main():
 
 BESIDE_RUN = """
 import pickle, sys, torch
+import numpy as np
 import chip_smoke as c
+from block2_preview_tpu_torch.ops import blocking_device, stacked
+from block2_preview_tpu_torch.ops import tiled_blocking
+from block2_preview_tpu_torch.ops.blocking_plan import _pools
 from block2_preview_tpu_torch.runtime import resolve_device
-d = resolve_device("cuda")
+d = resolve_device(sys.argv[3] if len(sys.argv) > 3 else "cuda")
+D = int(sys.argv[4]) if len(sys.argv) > 4 else 250
+f64 = torch.float64
 c.phase_build()
 drv, mpo, _ = c.qc_system(16, 16)
 with open(sys.argv[1], "rb") as f:
     ket = pickle.load(f)
-c.phase_stacked_kernels(d, mpo, ket, c.mid_site(mpo, ket, 7)[0], 7,
-                        summary=False)
+me = c.mid_site(mpo, ket, 7)[0]
+c.phase_bucket(d, mpo, ket, me, None, 7, summary=False, kinds="K9")
+c.phase_stacked_kernels(d, mpo, ket, me, 7, summary=False)
+c.phase_mix_kernels(d, mpo, ket, me, 7, summary=False)
+# the paths K10 and K15 run: phases 8b and 9c
+c.phase_stacked_full(d, drv, mpo, D=D)
+c.phase_mix_full(d, drv, mpo, "2", c.qc_sched(D, n_sweeps=1), "9c mix v2",
+                 D=D)
+# K9, K11 and K12 (the kernels on the shared cores) on fixed inputs, f64
+outs = {}
+for side, (sp, tp, pool, _) in c._stacked_plans(mpo, ket, me, 7).items():
+    res = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        sp.res_total + 1), device=d)
+    outs["K12 input " + side] = torch.as_tensor(pool)
+    outs["K11 " + side] = stacked.stk_mix(
+        res, stacked.mix_tables(sp, d, f64),
+        torch.zeros(sp.out_cap, dtype=f64, device=d)).cpu()
+    tb, tk = stacked.site_pools(tp, d, f64)
+    outs["K12 " + side] = tiled_blocking.tblk_exec(
+        torch.as_tensor(pool, device=d), tb, tk,
+        tiled_blocking.tblk_tables(tp, d, f64), tp.T, tp.left,
+        torch.zeros(tp.ncap, dtype=f64, device=d)).cpu()
+for side, (plan, env, T) in c._blocking_plans(mpo, ket, me, 7).items():
+    pools = [torch.as_tensor(p, device=d)
+             for p in _pools(plan, env, T, T, np.dtype(np.float64))]
+    outs["K9 input " + side] = pools[0].cpu()
+    tab = (blocking_device.kernel_tables if d.type == "cuda" else
+           blocking_device.plain_tables)(plan, d, f64)
+    outs["K9 " + side] = blocking_device.bucket_blocking(
+        *pools, tab, side == "left",
+        torch.zeros(plan.total_out + 1, dtype=f64, device=d)).cpu()
+torch.save(outs, sys.argv[2])
 """
 
 
 def beside_parent(parent: str, turns=("parent", "change", "change",
                                       "parent")):
-    """K10, K11 and K12 of this tree beside those of the tree at
-    ``parent`` (an unpacked earlier commit), each at phase 3's K=16 site 7
-    and in a process of its own, in the order ``turns``: the state is
-    phase 5's port run, made once here and handed to every run as a
-    pickle.  Each run builds its own tree's kernels and prints its phase-3
-    rows, prefixed by its turn."""
+    """K9-K16 of this tree beside those of the tree at ``parent`` (an
+    unpacked earlier commit; phase 3's K9, stacked and mix kernel rows,
+    then the runs of phases 8b and 9c), each at phase 3's K=16 site 7 and
+    in a process of its own, in the order ``turns``: the state is phase
+    5's port run, made once here and handed to every run as a pickle.
+    Each run builds its own tree's kernels and prints its phase-3 rows
+    and its 8b and 9c sweeps, prefixed by its turn, and saves K9's, K11's
+    and K12's f64 outputs on fixed inputs; the change's are then held
+    against the parent's (bitwise, or the largest difference where they
+    are not)."""
     import pickle
     import tempfile
     import torch
@@ -3457,20 +3592,41 @@ def beside_parent(parent: str, turns=("parent", "change", "change",
         path = os.path.join(tmp, "ket.pkl")
         with open(path, "wb") as f:
             pickle.dump(copy_mps(ket), f)
+        outs = []
         for i, turn in enumerate(turns):
             root = parent if turn == "parent" else here
+            saved = os.path.join(tmp, f"out{i}.pt")
             t0 = time.time()
-            run = subprocess.run([sys.executable, "-c", BESIDE_RUN, path],
-                                 cwd=root, capture_output=True, text=True,
-                                 env=dict(os.environ, PYTHONPATH=root))
+            run = subprocess.run([sys.executable, "-c", BESIDE_RUN, path,
+                                  saved], cwd=root, capture_output=True,
+                                 text=True, env=dict(os.environ,
+                                                     PYTHONPATH=root))
             for line in run.stdout.splitlines():
-                if line.startswith(("[3 kernels]", "[2 build]", "FAIL")):
+                if line.startswith(("[3 kernels]", "[2 build]", "[8b",
+                                    "[9c", "FAIL")):
                     print(f"[beside {i} {turn}] {line}", flush=True)
             print(f"[beside {i} {turn}] exit {run.returncode} in "
                   f"{time.time() - t0:.1f} s", flush=True)
             if run.returncode != 0:
                 print(run.stderr[-4000:], flush=True)
                 fail(f"the {turn} run failed")
+            outs.append((turn, torch.load(saved)))
+    beside_outputs(outs)
+
+
+def beside_outputs(outs):
+    """Print each kernel output of the change's turns against the first
+    parent turn's: bitwise equal, or the largest difference relative to
+    the parent's largest entry."""
+    ref = next(o for turn, o in outs if turn == "parent")
+    for i, (turn, o) in enumerate(outs):
+        for k, v in o.items():
+            same = bool(v.equal(ref[k]))
+            rel, _ = rel_err(v, ref[k])
+            print(f"[beside {i} {turn}] {k} output "
+                  + ("bitwise equal to the parent's" if same else
+                     f"differs from the parent's: rel {rel:.2e}"),
+                  flush=True)
 
 
 if __name__ == "__main__":

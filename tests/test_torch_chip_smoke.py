@@ -171,7 +171,8 @@ def test_chip_smoke_stacked_phases_on_cpu(capsys):
     torch_tiled under tiled_v1, against the host backend), phases 8b and
     8c (the stacked backend and the tiled_v1 resident run at K=6, D=20,
     against phase 5's port energy and host reference) and the phase-3
-    K10/K11/K12 rows, on the CPU."""
+    K10/K11/K12 rows (K10's also alone, as at the wide site), on the
+    CPU."""
     dev = torch.device("cpu")
     chip_smoke.phase_stacked_parity(dev, L=4, D=16, ns=4)
     n_orb, D = 6, 20
@@ -198,6 +199,7 @@ def test_chip_smoke_stacked_phases_on_cpu(capsys):
     assert chip_smoke.phase_stacked_kernels(dev, mpo, ket, me, t, T=32,
                                             summary=False,
                                             bucket=False) == []
+    chip_smoke.phase_slab_wide(dev, mpo, ket, me, t)
     out = capsys.readouterr().out
     for k in ("[8a stacked] torch_stacked bucket 1 roots",
               "[8a stacked] torch_stacked bucket 3 roots",
@@ -206,8 +208,10 @@ def test_chip_smoke_stacked_phases_on_cpu(capsys):
               "[8b stacked] sweep 1", "largest res pool",
               "[8c tiled_v1] sweep 1", "[8c tiled_v1] E",
               "[3 kernels] K10_slab  f64 l", "[3 kernels] K11_stk_mix f32 r",
-              "[3 kernels] K12_tiled_blocking f64 r", "(T 32 groups"):
+              "[3 kernels] K12_tiled_blocking f64 r", "(T 32 groups",
+              "works an item median", "CUDA blocks"):
         assert k in out, k
+    assert out.count("[3 kernels] K10_slab  f64 r") == 2
 
 
 def test_chip_smoke_mix_phases_on_cpu(capsys):
@@ -269,6 +273,51 @@ def test_chip_smoke_mix_phases_on_cpu(capsys):
         assert k in out, k
 
 
+def test_beside_run_times_k9_to_k16_and_keeps_their_outputs(
+        tmp_path, monkeypatch, capsys):
+    """The script ``--beside`` runs in each tree (BESIDE_RUN), on the CPU
+    at K=10, D=12 (site 7): the K9 rows, the stacked (K10-K12) and mix
+    (K13-K16) rows, phases 8b and 9c, and K9's, K11's and K12's f64
+    outputs saved for the
+    parent-against-change check, which finds a run bitwise equal to
+    itself and reports a difference."""
+    import pickle
+    drv, mpo, _ = chip_smoke.qc_system(10, 10)
+    ket = chip_smoke.copy_mps(drv.get_random_mps(12, seed=11))
+    path, saved = tmp_path / "ket.pkl", tmp_path / "out.pt"
+    with open(path, "wb") as f:
+        pickle.dump(ket, f)
+    monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)
+    monkeypatch.setattr(chip_smoke, "qc_system",
+                        lambda n_orb, n_elec: (drv, mpo, 0.0))
+    monkeypatch.setattr(sys, "argv", ["-c", str(path), str(saved), "cpu",
+                                      "12"])
+    exec(compile(chip_smoke.BESIDE_RUN, "BESIDE_RUN", "exec"),
+         {"__name__": "__beside__"})
+    out = capsys.readouterr().out
+    for k in ("K9_bucket_blocking f64 r", "K10_slab  f32 l",
+              "K11_stk_mix f64 r", "K12_tiled_blocking f32 r",
+              "K13_env_gemm f64 lw", "K14_place_v3 f64 rw",
+              "K15_mix_v2 f32 rw", "K16_slab_matvec f64"):
+        assert f"[3 kernels] {k}" in out, k
+    for k in ("[8b stacked] sweep 1", "[9c mix v2] sweep 0",
+              "[9c mix v2] K15 host tables"):
+        assert k in out, k
+    outs = torch.load(saved)
+    assert sorted(outs) == ["K11 left", "K11 right", "K12 input left",
+                            "K12 input right", "K12 left", "K12 right",
+                            "K9 input left", "K9 input right", "K9 left",
+                            "K9 right"]
+    moved = {k: v.clone() for k, v in outs.items()}
+    moved["K11 right"][0] += 1.0
+    chip_smoke.beside_outputs([("parent", outs), ("change", outs),
+                               ("change", moved)])
+    out = capsys.readouterr().out
+    assert "[beside 1 change] K12 left output bitwise equal" in out
+    assert "[beside 2 change] K11 right output differs from the parent's" \
+        in out
+
+
 def test_wide_site_checks_its_tile():
     """Phase 3's second site runs the kernels at the tile size it names,
     and fails when the plan picks another (here a small Hubbard-L8 MPS,
@@ -303,6 +352,9 @@ ptxas info    : Used 128 registers, 400 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0a1b2c3d_11_mix_v2_cu_5e6f7a8b13mix_v2_kernelIdEEvPKT_PKiS3_iiPS1_' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 30 registers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3b2t17mix_gather_kernelIdLb1EEEvPKT_iPKiiS5_S5_S5_PS3_PS1_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 380 bytes cmem[0]
 """
 
 
@@ -319,7 +371,9 @@ def test_ptxas_usage_names_each_kernel_instance():
         ("tiled_kernel<complex<float>,128>", 128, "8 bytes stack frame, 4 "
          "bytes spill stores, 4 bytes spill loads"),
         ("mix_v2_kernel<double>", 30, "0 bytes stack frame, 0 bytes spill "
-         "stores, 0 bytes spill loads")]
+         "stores, 0 bytes spill loads"),
+        ("mix_gather_kernel<double,true>", 40, "0 bytes stack frame, 0 "
+         "bytes spill stores, 0 bytes spill loads")]
 
 
 def test_launch_path_us_times_the_call_it_names():

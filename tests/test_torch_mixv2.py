@@ -1,9 +1,14 @@
-"""Mix v2 of the port — kernel K15 (scatter tile mix): the plan of
-build_mix_plan field by field against the reference's, K15's plain twin
-(what execute_mix runs on CPU tensors) against the reference's _mix_exec
-(JAX on the CPU) on the same tables, execute_mix against the reference's
-and against the v3/v4 pools (f64: 1e-12 relative to the pool scale;
-f32: 1e-5), the LW/RW blocks against the host assembly, and
+"""Mix v2 of the port — kernel K15 (scatter tile mix on the
+gather-by-output mix core): the plan of build_mix_plan field by field
+against the reference's, K15's tables (one block a distinct output
+window, from the plan's own obase order) against the plan's task table,
+their windows element-disjoint and the kernel's walk of them emulated in
+numpy against the reference's _mix_exec, hand-made plans whose windows
+overlap (or disagree, or leave the pool, or come out of order) refused,
+K15's plain twin (what execute_mix runs on CPU tensors) against
+_mix_exec (JAX on the CPU) on the same plan, execute_mix against the
+reference's and against the v3/v4 pools (f64: 1e-12 relative to the pool
+scale; f32: 1e-5), the LW/RW blocks against the host assembly, and
 torch_resident under B2TPU_MIX=2 against jax_resident under the same
 variable."""
 
@@ -21,6 +26,7 @@ from block2_preview_tpu_torch.ops.stacked import env_pool
 
 from test_torch_plans import (SITES, Site, _eq, hubbard_driver,
                               hubbard_system)
+from test_torch_stacked import check_units, gather_emulate
 
 
 @pytest.fixture(scope="module")
@@ -62,17 +68,10 @@ def test_v2_plans_equal(system, t, side):
 def test_mix_twin_matches_mix_exec(system, dtype):
     """K15's twin against _mix_exec, launch by launch, with a nonzero
     sentinel in the input pool: the output's sentinel stays 0."""
-    import jax.numpy as jnp
     r2, pool = _ref_plan(Site(*system, SITES[1]), "rw")
     pool = pool.astype(dtype)
     pool[-1] = 7.0
-    out = jnp.zeros(r2.ncap_out + 1, dtype=dtype)
-    for li in range(r2.n_launch):
-        out = ref_resident._mix_exec(
-            out, jnp.asarray(pool), jnp.asarray(r2.s[li]),
-            jnp.asarray(r2.coef[li].astype(dtype)), r2.T, r2.ncap_out,
-            ref_resident._MIX_SCAN)
-    ref = np.asarray(out)
+    ref = _jax_mix(r2, pool, dtype)
     p2 = interop.mix_plan_v2(r2)
     tdt = torch.float64 if dtype == np.float64 else torch.float32
     d = resident.mix_tables(p2, "cpu", tdt)
@@ -80,6 +79,110 @@ def test_mix_twin_matches_mix_exec(system, dtype):
                                torch.as_tensor(pool), d).numpy()
     _close(got, ref, 1e-12 if dtype == np.float64 else 1e-5)
     assert got[-1] == 0.0 and ref[-1] == 0.0
+
+
+def _jax_mix(r2, pool, dtype):
+    """The reference's _mix_exec over every launch of its plan."""
+    import jax.numpy as jnp
+    out = jnp.zeros(r2.ncap_out + 1, dtype=dtype)
+    for li in range(r2.n_launch):
+        out = ref_resident._mix_exec(
+            out, jnp.asarray(pool), jnp.asarray(r2.s[li]),
+            jnp.asarray(r2.coef[li].astype(dtype)), r2.T, r2.ncap_out,
+            ref_resident._MIX_SCAN)
+    return np.asarray(out)
+
+
+def check_k15_tables(p2):
+    """K15's tables against the plan's task table: the live tasks only
+    (obase >= 0), one block a distinct obase in increasing order, every
+    task's window, strides and source stride its block's record, and the
+    terms the live tasks' (ebase, coef) in the plan's order.  Returns the
+    tables."""
+    h = resident.k15_tables(p2)
+    s = np.asarray(p2.s).transpose(2, 0, 1, 3).reshape(7, -1)
+    live = s[4] >= 0
+    assert h["n_tasks"] == int(live.sum()) == len(h["ts"])
+    t = s[:, live].astype(np.int64)
+    blk = h["blk"]
+    assert blk.shape[1] == 6 and (np.diff(blk[:, 0]) > 0).all()
+    of = np.repeat(np.arange(len(blk)), np.diff(h["bstart"]))
+    want = np.stack([t[4], t[5], np.minimum(t[2], p2.T),
+                     np.minimum(t[3], p2.T), t[6], t[1]], 1)
+    assert np.array_equal(blk[of], want)
+    assert np.array_equal(h["ts"], t[0])
+    assert np.array_equal(h["tc"], np.asarray(p2.coef).reshape(-1)[live])
+    return h
+
+
+@pytest.mark.parametrize("t", SITES)
+@pytest.mark.parametrize("side", ["lw", "rw"])
+def test_k15_tables_follow_the_plan(system, t, side):
+    """K15's tables on the reference's plan (check_k15_tables) and on the
+    port's own (the same tables), their windows element-disjoint and off
+    the sentinel, and the kernel's walk of them (the mix core's, emulated
+    by gather_emulate: every output element written once, by one lane)
+    against the reference's _mix_exec, f64 to 1e-12."""
+    site = Site(*system, t)
+    r2, pool = _ref_plan(site, side)
+    h = check_k15_tables(interop.mix_plan_v2(r2))
+    meta, _ = env_pool(site.penv[side], site.dqs[side], np.float64)
+    hp = resident.k15_tables(resident.build_mix_plan(
+        meta, *site.ppos[side], **site.pkw[side]))
+    for k in ("blk", "bstart", "ts", "tc", "units"):
+        _eq(hp[k], h[k], k)
+    got, writes = gather_emulate(pool, h, 0, np.zeros(r2.ncap_out + 1))
+    check_units(h, writes)
+    assert writes.max() == 1 and writes[-1] == 0 and got[-1] == 0.0
+    _close(got, _jax_mix(r2, pool, np.float64), 1e-12)
+
+
+def hand_plan(tasks, T=4, ncap=15):
+    """A v2 plan of hand-made tasks (ebase, estr, ermax, ecmax, obase,
+    orstr, ocstr), coefficients 1, 2, ..., padded as build_mix_plan pads."""
+    B = resident._MIX_B * resident._MIX_SCAN
+    s = np.zeros((7, B), np.int32)
+    s[4] = -1
+    s[:, :len(tasks)] = np.asarray(tasks, np.int32).T
+    p = resident.MixPlan()
+    p.T, p.ncap_out, p.n_launch, p._dev = T, ncap, 1, {}
+    p.s = s.reshape(7, 1, resident._MIX_SCAN, resident._MIX_B).transpose(
+        1, 2, 0, 3)
+    p.coef = np.zeros(B)
+    p.coef[:len(tasks)] = np.arange(1, len(tasks) + 1)
+    p.coef = p.coef.reshape(1, resident._MIX_SCAN, resident._MIX_B)
+    return p
+
+
+def test_k15_tables_refuse_bad_windows():
+    """Hand-made plans: two interleaved strided windows (element-disjoint)
+    and two tasks of one window pass, and give the hand-computed output
+    with the sentinel 0; overlapping windows, a window past the pool, two
+    tasks of one obase with different windows, and tasks out of obase
+    order raise."""
+    ep = torch.arange(1.0, 17.0, dtype=torch.float64)
+    # A: 2 x 2 at 0, columns 0, 2; B: at 1, columns 1, 3; C adds into A
+    ok = hand_plan([(0, 4, 2, 2, 0, 4, 2), (0, 4, 2, 2, 0, 4, 2),
+                    (5, 4, 2, 2, 1, 4, 2)])
+    h = check_k15_tables(ok)
+    assert len(h["blk"]) == 2 and list(h["bstart"]) == [0, 2, 3]
+    out = resident.execute_mix(ok, ep).numpy()
+    want = np.zeros(16)
+    e = ep.numpy()
+    for k, (eb, es, ob) in enumerate(((0, 4, 0), (0, 4, 0), (5, 4, 1))):
+        for r in range(2):
+            for c in range(2):
+                want[ob + 4 * r + 2 * c] += (k + 1) * e[eb + es * r + c]
+    assert np.array_equal(out, want) and out[-1] == 0.0
+    for tasks, match in (
+            ([(0, 4, 2, 2, 0, 4, 1), (0, 4, 2, 2, 1, 4, 1)], "share"),
+            ([(0, 4, 2, 2, 0, 4, 2), (0, 4, 2, 3, 4, 4, 2)], "share"),
+            ([(0, 4, 4, 4, 3, 4, 1)], "leaves"),
+            ([(0, 4, 2, 2, 0, 4, 1), (0, 4, 2, 3, 0, 4, 1)], "disagree"),
+            ([(0, 4, 2, 2, 0, 4, 1), (0, 3, 2, 2, 0, 4, 1)], "disagree"),
+            ([(0, 4, 1, 1, 5, 4, 1), (0, 4, 1, 1, 2, 4, 1)], "order")):
+        with pytest.raises(ValueError, match=match):
+            resident.k15_tables(hand_plan(tasks))
 
 
 @pytest.mark.parametrize("t", SITES)

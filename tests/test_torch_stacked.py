@@ -5,9 +5,12 @@ kernels K10 and K11; backend "torch_stacked") against the JAX package's
 sector items and mix rows against ``build_stacked_plan`` (the reference's
 order once its shape buckets and padding rows are taken out), the plain
 versions of K10 and K11 against ``_slab_exec`` and ``_mix_scatter`` bucket
-by bucket, K11's tables (the mix core's: rows grouped stably by output
-block) against the plan's rows and the kernel's walk of them emulated in
-numpy (``gather_emulate``: every output element written once),
+by bucket, K10's tables (CUDA blocks of runs of one item's works, their
+``res`` blocks covering the pool once) walked in the kernel's order
+against ``_slab_exec`` in f64 and f32, K11's tables (the mix core's: rows
+grouped stably by output block) against the plan's rows and the
+kernel's walk of them emulated in numpy (``gather_emulate``: every
+output element written once),
 ``execute_stacked`` against the JAX ``execute_stacked`` (f64 to 1e-12 and
 f32 to 1e-5 relative to the largest entry) and against the host
 blocking ``execute_plan_numpy`` over four-bond chains (1e-11, mirroring
@@ -140,7 +143,7 @@ def gather_emulate(src, h, sstr, out):
     ``out``; returns it and the writes each output element received."""
     writes = np.zeros(len(out), np.int64)
     for b, e0 in h["units"]:
-        ob, ostr, rows, cols = h["blk"][b]
+        ob, ostr, rows, cols, oc, ss = window(h["blk"][b], sstr)
         n_el = rows * cols
         m = np.arange(h["bstart"][b], h["bstart"][b + 1])
         if n_el <= stacked.GATHER_SPLIT:
@@ -156,23 +159,33 @@ def gather_emulate(src, h, sstr, out):
         for g in range(groups):
             mm = m[g::groups]
             part[g] = (h["tc"][mm, None]
-                       * src[h["ts"][mm, None] + r * sstr + c]).sum(0)
+                       * src[h["ts"][mm, None] + r * ss + c]).sum(0)
         d = groups // 2
         while d:
             part = part + part[np.arange(groups) ^ d]
             d //= 2
-        idx = ob + r * ostr + c
+        idx = ob + r * ostr + c * oc
         out[idx] += part[0]
         writes[idx] += 1
     return out, writes
+
+
+def window(rec, sstr):
+    """(ob, ostr, rows, cols, ocstr, sstr) of a mix-core block record: a
+    strided one (K15) carries its column and source row strides, a plain
+    one has ocstr 1 and the launch's ``sstr``."""
+    rec = [int(v) for v in rec]
+    return tuple(rec) if len(rec) == 6 else (*rec, 1, sstr)
 
 
 def check_units(h, writes):
     """Every element of every output block was written once, and nothing
     else (``writes`` from :func:`gather_emulate`)."""
     want = np.zeros_like(writes)
-    for ob, ostr, rows, cols in h["blk"]:
-        want[ob + np.arange(rows)[:, None] * ostr + np.arange(cols)] += 1
+    for rec in h["blk"]:
+        ob, ostr, rows, cols, oc, _ = window(rec, 0)
+        want[ob + np.arange(rows)[:, None] * ostr
+             + np.arange(cols) * oc] += 1
     assert np.array_equal(writes, want) and want.max() <= 1
 
 
@@ -291,6 +304,110 @@ def test_mix_tables_follow_the_rows(chain, direction):
         want = np.asarray(ref_stacked.execute_stacked(
             ref, jnp.asarray(pool), dtype=np.float64))
         assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def check_slab_tables(plan):
+    """K10's host tables against the plan's works: every env offset is its
+    work's block eoff + j dl dk; the CUDA blocks are runs of at most
+    SLAB_WORKS works of one item, with that item's bra and ket blocks and
+    dims and its first work's res offset, by decreasing FLOPs; together
+    they hold every work once, and their res blocks cover ``res`` exactly
+    once but its last slot.  Returns the tables."""
+    h = stacked.slab_host_tables(plan)
+    assert h["ce"].dtype == np.int32 and h["ch"].dtype == np.int32
+    f = plan.items[plan.work[:, 0]]
+    assert np.array_equal(h["ce"], f[:, 0] + plan.work[:, 1] * f[:, 3]
+                          * f[:, 5])
+    ch = h["ch"].astype(np.int64)
+    w0, w1 = ch[:, 0], ch[:, 1]
+    assert ((w1 > w0) & (w1 - w0 <= stacked.SLAB_WORKS)).all()
+    held = np.zeros(len(plan.work), np.int64)
+    cover = np.zeros(plan.res_total + 1, np.int64)
+    for a, b, boff, koff, dl, dx, dk, dy, r0 in ch:
+        held[a:b] += 1
+        assert (plan.work[a:b, 0] == plan.work[a, 0]).all()
+        assert tuple(plan.items[plan.work[a, 0], 1:]) == (boff, koff, dl,
+                                                          dx, dk, dy)
+        assert np.array_equal(plan.roff[a:b + 1],
+                              r0 + dx * dy * np.arange(b - a + 1))
+        cover[r0:r0 + (b - a) * dx * dy] += 1
+    assert (held == 1).all()
+    assert (cover[:-1] == 1).all() and cover[-1] == 0
+    flops = (w1 - w0) * ch[:, 4] * ch[:, 7] * (ch[:, 6] + ch[:, 5])
+    assert (np.diff(flops) <= 0).all()
+    return h
+
+
+def slab_walk(h, pools, left, dtype, n_out, rows=16):
+    """K10's tables walked as csrc/slab.cu walks them, in numpy and
+    ``dtype``: block by block, work by work, the work's rows of E in runs
+    of ``rows`` — tmp = E[run] MK, then res (+)= MB[run]^T tmp — into a
+    flat res of ``n_out`` (the last slot untouched)."""
+    ep, bp, kp = (np.asarray(p, dtype) for p in pools)
+    out = np.zeros(n_out, dtype)
+    for a, b, boff, koff, dl, dx, dk, dy, r0 in h["ch"].astype(np.int64):
+        mb = bp[boff:boff + dl * dx]
+        mb = mb.reshape(dl, dx) if left else mb.reshape(dx, dl).T
+        mk = kp[koff:koff + dk * dy]
+        mk = mk.reshape(dk, dy) if left else mk.reshape(dy, dk).T
+        for w in range(a, b):
+            e = ep[h["ce"][w]:h["ce"][w] + dl * dk].reshape(dl, dk)
+            o = out[r0 + (w - a) * dx * dy:r0 + (w - a + 1) * dx * dy]
+            for l0 in range(0, dl, rows):
+                part = mb[l0:l0 + rows].T @ (e[l0:l0 + rows] @ mk)
+                o += part.reshape(-1)
+    return out
+
+
+@pytest.mark.parametrize("direction", ["left", "right"])
+def test_slab_tables_cover_each_work(chain, direction):
+    """K10's tables at every bond of the chain (check_slab_tables), and
+    walked as the kernel walks them (slab_walk) they give K10's plain
+    version's res, f64 to 1e-12; the device tables are the host ones,
+    cached on the plan."""
+    for t in BONDS[direction]:
+        _, port, pool, _ = _stacked_plans(chain, t, direction)
+        h = check_slab_tables(port)
+        bp, kp = stacked.site_pools(port, CPU, torch.float64)
+        want = stacked.slab_exec(
+            torch.as_tensor(pool), bp, kp,
+            stacked.slab_plain_tables(port, CPU, torch.float64), port.left,
+            torch.zeros(port.res_total + 1, dtype=torch.float64)).numpy()
+        got = slab_walk(h, (pool, bp.numpy(), kp.numpy()), port.left,
+                        np.float64, port.res_total + 1)
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+        d = stacked.slab_kernel_tables(port, CPU)
+        assert d["n_chunks"] == len(h["ch"]) and d["ch"].dtype == \
+            torch.int32
+        assert stacked.slab_kernel_tables(port, CPU) is d
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("direction", ["left", "right"])
+def test_slab_walk_matches_slab_exec(chain, direction, dtype):
+    """Bucket by bucket: K10's tables walked in the kernel's order in
+    ``dtype`` (slab_walk; also in runs of 4 rows of E, so a work's later
+    runs add into its block) against the JAX _slab_exec on every work, f64
+    to 1e-12 and f32 to 1e-5 relative to the bucket's largest entry."""
+    ref, _, pool, _ = _stacked_plans(chain, BONDS[direction][1], direction)
+    left = direction == "left"
+    for bk in ref.buckets:
+        res_ref, _ = _run_bucket(ref, bk, pool, left)
+        one = interop.stacked_plan(SimpleNamespace(
+            buckets=[bk], meta_out=ref.meta_out, direction=ref.direction,
+            bra_sizes=ref.bra_sizes, ket_sizes=ref.ket_sizes))
+        bp, kp = stacked.site_pools(one, CPU, torch.float64)
+        h = check_slab_tables(one)
+        scale = max(np.abs(res_ref).max(), 1e-300)
+        for rows in (16, 4):
+            r = slab_walk(h, (pool, bp.numpy(), kp.numpy()), left, dtype,
+                          one.res_total + 1, rows)
+            assert r.dtype == dtype and r[-1] == 0
+            for (c, j), o in zip(one.work, one.roff[:-1]):
+                dx, dy = one.items[c, 4], one.items[c, 6]
+                got = r[o:o + dx * dy].reshape(dx, dy)
+                assert np.abs(got - res_ref[c, j, :dx, :dy]).max() \
+                    <= TOL[dtype] * scale
 
 
 def _cmp(host, got):
