@@ -16,72 +16,43 @@
 //
 // Design.  The works of one item share MB, MK and every dim (at the K=16
 // site a median of 21 works an item, dims a median of 10 and at most 30),
-// and their res blocks are consecutive.  One CUDA block of kWarps warps
-// takes a chunk of at most 8 works of one item (ops/stacked.py
-// slab_host_tables: `ch` [n, 9] = (first work, end, boff, koff, dl, dx,
-// dk, dy, res offset of the first), heaviest first, `ce` [works] each
-// work's env offset):
-//  * the block stages MB and MK in shared memory once, in (l, x) and
-//    (k, y) order whatever the side (the right side's transposes cost no
-//    copy in memory), then each warp takes the chunk's works in turn and
-//    stages its E_j (contiguous) with coalesced loads;
-//  * lane y owns column y of the work's block (a pass per 32 columns):
-//    for each run of at most kLMax rows of E it forms tmp(l) = sum_k E(l,
-//    k) MK(k, y) in registers (E read as a shared-memory broadcast, MK
-//    conflict-free), then for each row x of the block r = sum_l MB(l, x)
-//    tmp(l) (MB a broadcast), stored into res (added for the later runs of
-//    rows) — each output element by one lane, in a fixed order, so no
-//    atomics, bitwise repeatable, and the stores of a row coalesced;
-//  * a run of rows is unrolled at 8 or 16 (the smallest that holds it),
-//    so the small works of the K=16 site waste few predicated slots.
-// Operands too large for shared memory (more than 32 x 32 elements) are
-// read from the pools through their strides instead, so any dims run.
-// Only true dims are multiplied, on the FMA pipes: the dims are far below
-// an MMA fragment's worth of reuse.  Every res element of a work is
-// written (res needs no zero fill).  Earlier designs: chain.cuh's
-// product, a 256-thread block a 32-row strip of a work with four block
-// barriers a 16-deep step and atomics into res (PRs 5-13); K9's warp
-// chain (a warp a 32 x 32 piece of a work, MB and MK re-read for every
-// work), only 5% faster in f64.
+// and their res blocks are consecutive.  One CUDA block of the slab core
+// (csrc/slab_core.cuh, shared with K5 and K21) takes a chunk of at most 8
+// works of one item (ops/stacked.py slab_host_tables: `ch` [n, 9] =
+// (first work, end, boff, koff, dl, dx, dk, dy, res offset of the first),
+// heaviest first, `ce` [works] each work's env offset): MB and MK staged
+// once, E per warp, a lane a column of the product, stored into res
+// (added for the later runs of rows) — each output element by one lane,
+// in a fixed order, so no atomics, bitwise repeatable, and the stores of
+// a row coalesced.  Every res element of a work is written (res needs no
+// zero fill).  Earlier designs: chain.cuh's product, a 256-thread block a
+// 32-row strip of a work with four block barriers a 16-deep step and
+// atomics into res; K9's warp chain (a warp a 32 x 32 piece of a work, MB
+// and MK re-read for every work), only 5% faster in f64.
 //
 // Bound on the card: the env slabs, site pools and res written once
 // against sum 2 (dl dk dy + dx dl dy) FLOPs per work.
 
-#include "common.cuh"
+#include "slab_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;       // warps a block
-constexpr int kStage = 1024;    // shared elements of MB, MK and each E
-constexpr int kLMax = 16;       // rows of E in registers at a time
+using slab_core::kStage;
+using slab_core::kWarps;
 
-// res(x, y) (+)= sum_{l < tl} MB(l0 + l, x) tmp(l), tmp(l) = sum_k E(l0 +
-// l, k) MK(k, y), for this lane's column y and every row x < dx.
-template <typename S, int kL>
-__device__ __forceinline__ void rows_run(const S* E, int dk, const S* MB,
-                                         int mbl, int mbx, const S* MK,
-                                         int mkk, int mky, int l0, int tl,
-                                         int y, int dx, int dy, S* R,
-                                         bool first) {
-  S tmp[kL];
-#pragma unroll
-  for (int l = 0; l < kL; ++l) tmp[l] = S(0);
-  for (int k = 0; k < dk; ++k) {
-    const S m = MK[k * mkk + y * mky];
-#pragma unroll
-    for (int l = 0; l < kL; ++l)
-      if (l < tl) tmp[l] += E[(l0 + l) * dk + k] * m;
+// K10's works: an env offset each (`ce`), products stored into res, the
+// works of a run consecutive from the run's res offset
+template <typename S>
+struct SlabWork {
+  const int* ce;
+  S* R0;           // res + the run's res offset
+  int w0, dxdy, dy;
+  __device__ __forceinline__ int eoff(int w) const { return ce[w]; }
+  __device__ __forceinline__ slab_core::RowOut<S> out(int w, int) const {
+    return {R0 + (long long)(w - w0) * dxdy, dy};
   }
-#pragma unroll 4
-  for (int x = 0; x < dx; ++x) {
-    S r = S(0);
-#pragma unroll
-    for (int l = 0; l < kL; ++l)
-      if (l < tl) r += MB[(l0 + l) * mbl + x * mbx] * tmp[l];
-    S* o = R + (long long)x * dy + y;
-    *o = first ? r : *o + r;
-  }
-}
+  __device__ __forceinline__ void done(int, int, int, int, int) const {}
+};
 
 template <typename S>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -92,61 +63,8 @@ slab_kernel(const S* __restrict__ ep, const S* __restrict__ bp,
   __shared__ S MKs[kStage];
   __shared__ S Es[kWarps][kStage];
   const int* q = ch + 9 * (long long)blockIdx.x;
-  const int w0 = q[0], w1 = q[1], dl = q[4], dx = q[5], dk = q[6],
-            dy = q[7];
-  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
-  const S* mb = bp + q[2];
-  const S* mk = kp + q[3];
-  // MB(l, x) = MB[l * mbl + x * mbx], MK(k, y) = MK[k * mkk + y * mky]
-  const int pbl = left ? dx : 1, pbx = left ? 1 : dl;
-  const int pkk = left ? dy : 1, pky = left ? 1 : dk;
-  const S* MB = mb;
-  int mbl = pbl, mbx = pbx;
-  const S* MK = mk;
-  int mkk = pkk, mky = pky;
-  if (dl * dx <= kStage) {
-    for (int e = tid; e < dl * dx; e += kWarps * 32) {
-      const int l = e / dx, x = e - l * dx;
-      MBs[e] = mb[l * pbl + x * pbx];
-    }
-    MB = MBs;
-    mbl = dx;
-    mbx = 1;
-  }
-  if (dk * dy <= kStage) {
-    for (int e = tid; e < dk * dy; e += kWarps * 32) {
-      const int k = e / dy, y = e - k * dy;
-      MKs[e] = mk[k * pkk + y * pky];
-    }
-    MK = MKs;
-    mkk = dy;
-    mky = 1;
-  }
-  __syncthreads();
-  const bool stage = dl * dk <= kStage;
-  for (int w = w0 + wp; w < w1; w += kWarps) {
-    const S* E = ep + ce[w];
-    if (stage) {
-      for (int e = lane; e < dl * dk; e += 32) Es[wp][e] = E[e];
-      __syncwarp();
-      E = Es[wp];
-    }
-    S* R = res + q[8] + (long long)(w - w0) * dx * dy;
-    for (int y = lane; y < ((dy + 31) & ~31); y += 32) {
-      if (y < dy) {
-        for (int l0 = 0; l0 < dl; l0 += kLMax) {
-          const int tl = min(kLMax, dl - l0);
-          if (tl <= 8)
-            rows_run<S, 8>(E, dk, MB, mbl, mbx, MK, mkk, mky, l0, tl, y,
-                           dx, dy, R, l0 == 0);
-          else
-            rows_run<S, kLMax>(E, dk, MB, mbl, mbx, MK, mkk, mky, l0, tl,
-                               y, dx, dy, R, l0 == 0);
-        }
-      }
-    }
-    if (stage) __syncwarp();   // E is read before the next work replaces it
-  }
+  const SlabWork<S> wk{ce, res + q[8], q[0], q[5] * q[7], q[7]};
+  slab_core::run_block<S>(ep, bp, kp, q, left, wk, MBs, MKs, Es);
 }
 
 template <typename S>

@@ -49,8 +49,9 @@ class KernelInfo:
     source: str       # path in the repository
     replaces: str     # file:line of the JAX kernel it replaces
     launches: int = 0
-    units: int = 0    # work of the sharded kernels' launches: K20's
-                      # stage-1 units, K21's and K22's CUDA blocks
+    units: int = 0    # work of the launches where the caller counts
+                      # it: K20's stage-1 units, K5's, K21's and K22's
+                      # CUDA blocks
 
 
 KERNELS: Dict[str, KernelInfo] = {
@@ -146,11 +147,12 @@ _SIGS = {
     "b2t_diag": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "b2t_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
     "b2t_place": (_P, _P, _P, _P, _I, _L, _P, _P),
-    "b2t_block": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P),
-    "b2t_block_units": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I,
-                        _P, _P),
-    "b2t_noise_x": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P),
-    "b2t_noise_rho": (_P, _P, _P, _I, _L, _I, _P, _P),
+    "b2t_block": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _L, _I,
+                  _I, _I, _P, _P),
+    "b2t_block_units": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                        _L, _I, _I, _I, _P, _P),
+    "b2t_noise": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                  _P),
     "b2t_tiled": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_bucket": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_bucket_blk": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P),

@@ -17,12 +17,19 @@ as the reference's three stages on T x T tiles:
 Device side:
 
   K5 (``csrc/blocking.cu``, replaces ``_blk_scan`` :60 via
-  ``_blk_exec_chunkp`` :177 / ``_blk_exec_chunk`` :157): one CUDA block per
-  stage-1 unit (item, li, yi); stages 2 and 3 are linear, so the block adds
-  coef x (its partial sum over l) for each entry of the item straight into
-  the output pool with atomics.  One launch covers the whole plan: the
-  reference's task groups (``g1/g2/g3``, ``tb``/``pb`` bases, the
-  ``B``/``nt1``/``ntp`` budgets) and its launch chunking are not read.
+  ``_blk_exec_chunkp`` :177 / ``_blk_exec_chunk`` :157): two paths in one
+  call, split by :func:`k5_host_tables`.  Items whose operands fit the
+  slab core's shared memory (``K5_STAGE`` elements each) run in runs of
+  at most ``K5_RUN`` items that share one bra and one ket block, a CUDA
+  block a run (``csrc/slab_core.cuh``, K10's core): on the v3 rotate
+  plans each output element is stored by one lane, no atomics; on v2
+  plans the product is formed once an item and added atomically into each
+  entry's block.  The others take the tile path, a CUDA block a stage-1
+  unit (item, li, yi) adding coef x (its partial sum over l) for each
+  entry of the item with atomics; on the v3 rotate plans a block a column
+  strip (item, yi) that sums over li in order and stores, no atomics.  The reference's task groups (``g1/g2/
+  g3``, ``tb``/``pb`` bases, the ``B``/``nt1``/``ntp`` budgets) and its
+  launch chunking are not read.
 
 ``execute_blocking_v2`` runs K5 into the output pool; ``execute_blocking_v3``
 runs K5 into the ROT pool (combos as the symbol axis, identity entries)
@@ -42,6 +49,7 @@ import torch
 
 from . import _kernels
 from .csr import w_triplets
+from .exec_bucket import _int32
 from .mixv4 import emit_gemm_items, mix_exec
 from .stacked import StackedMeta, _cap_class, _pow2, site_pools
 from .tiled import pick_tile
@@ -117,29 +125,133 @@ class BlockingV3Plan:
 def _cumu(plan: BlockingV2Plan) -> np.ndarray:
     """Prefix sums [n + 1] of the stage-1 units nl * ny of the live
     items."""
-    it = plan.it.astype(np.int64)
-    live = np.diff(plan.cum1.astype(np.int64)) > 0
+    live = np.diff(plan.cum1) > 0
     return np.concatenate([[0], np.cumsum(np.where(
-        live, it[:, 7] * it[:, 10], 0))])
+        live, plan.it[:, 7].astype(np.int64) * plan.it[:, 10], 0))])
+
+
+# items of one CUDA block of K5's slab path at most, and the elements of
+# each operand it stages in shared memory (csrc/slab_core.cuh kStage)
+K5_RUN = 8
+K5_STAGE = 1024
+
+
+def _efs(plan: BlockingV2Plan) -> np.ndarray:
+    """Each item's first entry row [n + 1] (entries are sorted by item;
+    the padded ones own no tiles)."""
+    ne = int(np.count_nonzero(np.diff(plan.cum3) > 0))
+    return np.searchsorted(plan.ef[:ne, 0], np.arange(len(plan.it) + 1),
+                           side="left")
+
+
+def exclusive(plan: BlockingV2Plan, efs: np.ndarray) -> bool:
+    """True when every live item has exactly one entry and no two live
+    entry blocks (obase, odx x ody) overlap — the v3 rotate plans — so
+    K5 may store each output element from the one lane that owns it."""
+    live = np.diff(plan.cum1) > 0
+    ne = int(efs[-1])
+    if not (np.diff(efs)[live] == 1).all() or ne != int(live.sum()):
+        return False
+    ef = plan.ef[:ne]
+    o = np.argsort(ef[:, 1])
+    lo = ef[o, 1].astype(np.int64)
+    size = ef[o, 2].astype(np.int64) * ef[o, 3]
+    return bool((lo[:-1] + size[:-1] <= lo[1:]).all())
+
+
+def k5_host_tables(plan: BlockingV2Plan, items=None,
+                   stage: int = K5_STAGE) -> Dict:
+    """K5's numpy tables over the live items of ``plan``, or of the item
+    ranges ``items`` (one rank's task groups, K21):
+
+    - ``rh`` [n_runs, 9] int32, the slab path's CUDA blocks: (first work,
+      end, bbase, kbase, dl, dx, dk, dy, 0), runs of at most ``K5_RUN``
+      items with the same bra and ket blocks and dims (stably in plan
+      order), by decreasing FLOPs;
+    - ``wt`` [n_small, 3] int32, their items in run order: (env offset,
+      first entry, end entry);
+    - ``units`` int32, the stage-1 units (item, li, yi) of the items that
+      take the tile path: those with an operand (MB, MK, E, and on
+      fan-out plans the product) above ``stage`` elements; on exclusive
+      plans only the units li = 0, whose CUDA block runs every li of its
+      column strip yi in order and stores;
+    - ``excl`` (:func:`exclusive`), ``small``/``large`` (the item ids of
+      each path, in run order / plan order), ``cumu`` (:func:`_cumu`)
+      and ``efs`` (:func:`_efs`)."""
+    live = np.diff(plan.cum1) > 0
+    if items is not None:
+        sel = np.zeros(len(live), bool)
+        for a, b in items:
+            sel[a:b] = True
+        live &= sel
+    efs = _efs(plan)
+    excl = exclusive(plan, efs)
+    ids = np.flatnonzero(live)
+    # ebase, dk, db (= dl), kbase, dy, bbase, dx
+    f = plan.it[ids, :7].astype(np.int64)
+    dl, dk, dx, dy = f[:, 2], f[:, 1], f[:, 6], f[:, 4]
+    fits = ((dl * dx <= stage) & (dk * dy <= stage) & (dl * dk <= stage)
+            & (excl | (dx * dy <= stage)))
+    small, large, g = ids[fits], ids[~fits], f[fits]
+    # runs: items with equal bra and ket blocks (which fix the dims),
+    # stably in plan order
+    order = np.argsort(g[:, 5] * (int(g[:, 3].max(initial=0)) + 1)
+                       + g[:, 3], kind="stable")
+    small, g = small[order], g[order]
+    key = g[:, [5, 3, 2, 6, 1, 4]]
+    n = len(small)
+    new = np.ones(n, bool)
+    new[1:] = (key[1:] != key[:-1]).any(axis=1)
+    rank = np.arange(n) - np.maximum.accumulate(np.where(new, np.arange(n),
+                                                         0))
+    first = np.flatnonzero(new | (rank % K5_RUN == 0))
+    end = np.append(first[1:], n)[:len(first)]
+    h = key[first]
+    fl = (end - first) * 2 * h[:, 2] * h[:, 5] * (h[:, 4] + h[:, 3])
+    rh = np.stack([first, end, h[:, 0], h[:, 1], h[:, 2], h[:, 3],
+                   h[:, 4], h[:, 5], np.zeros_like(first)], 1)
+    rh = rh[np.argsort(-fl, kind="stable")].reshape(-1, 9)
+    wt = np.stack([g[:, 0], efs[small], efs[small + 1]], 1).reshape(-1, 3)
+    cu = _cumu(plan)
+    # exclusive plans: a unit (item, 0, yi) a column strip, which sums its
+    # strips of l in order itself; fan-out plans: every (item, li, yi)
+    nu = (plan.it[large, 10].astype(np.int64) if excl
+          else cu[large + 1] - cu[large])
+    units = np.repeat(cu[large] - np.cumsum(nu) + nu, nu) + np.arange(
+        int(nu.sum()))
+    return {"rh": _int32(rh, "a K5 run field"),
+            "wt": _int32(wt, "a K5 env offset or entry"),
+            "units": _int32(units, "a K5 unit"), "excl": excl,
+            "small": small, "large": large, "cumu": cu, "efs": efs}
+
+
+def _k5_device(h: Dict, device) -> Dict:
+    """K5's launch tables on ``device`` from :func:`k5_host_tables`."""
+    return {"wt": torch.as_tensor(h["wt"], device=device),
+            "rh": torch.as_tensor(h["rh"], device=device),
+            "n_runs": len(h["rh"]), "excl": int(h["excl"]),
+            "units": torch.as_tensor(h["units"], device=device),
+            "n_lunits": len(h["units"])}
 
 
 def blk_tables(plan: BlockingV2Plan, device, dtype) -> Dict:
     """Device tables of a v2 plan for K5 (and its twin), cached on the
     plan per (device, dtype).  Derived here, beside the shared layout:
     ``cumu`` [n+1], prefix sums of the stage-1 units nl * ny of the live
-    items, and ``efs`` [n+1], each item's first entry row."""
+    items, ``efs`` [n+1], each item's first entry row, and the tables of
+    K5's two paths (:func:`k5_host_tables`, kept in ``plan._dev["k5"]``)."""
     key = (str(device), dtype)
     d = plan._dev.get(key)
     if d is not None:
         return d
-    cumu = _cumu(plan)
-    ne = int(np.count_nonzero(np.diff(plan.cum3.astype(np.int64)) > 0))
-    efs = np.searchsorted(plan.ef[:ne, 0], np.arange(len(plan.it) + 1),
-                          side="left")
-    if cumu[-1] >= (1 << 31):
-        raise ValueError("blocking unit count exceeds int32")
     if np.iscomplexobj(plan.coef):
         raise TypeError("complex blocking plans are not on this slice")
+    h = plan._dev.get("k5")
+    if h is None:
+        h = plan._dev["k5"] = k5_host_tables(plan)
+    cumu, efs = h["cumu"], h["efs"]
+    if cumu[-1] >= (1 << 31):
+        raise ValueError("blocking unit count exceeds int32")
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
@@ -148,7 +260,8 @@ def blk_tables(plan: BlockingV2Plan, device, dtype) -> Dict:
     d = {"it": i32(plan.it), "ef": i32(plan.ef), "cum1": i32(plan.cum1),
          "cum2": i32(plan.cum2), "cum3": i32(plan.cum3),
          "cumu": i32(cumu), "efs": i32(efs), "n_units": int(cumu[-1]),
-         "coef": torch.as_tensor(plan.coef, dtype=dtype, device=device)}
+         "coef": torch.as_tensor(plan.coef, dtype=dtype, device=device),
+         **_k5_device(h, device)}
     plan._dev[key] = d
     return d
 
@@ -231,6 +344,16 @@ def blk_twin(epool, bpool, kpool, d: Dict, T: int, left: bool, out,
     return out
 
 
+def _launch(kernel: str, entry: str, epool, bpool, kpool, d: Dict,
+            k5: Dict, T: int, left: bool, out) -> None:
+    """One call of K5's (or K21's) two paths over the tables ``k5``."""
+    _kernels.launch(kernel, entry, epool.dtype, epool, bpool, kpool,
+                    d["it"], d["cumu"], d["it"].shape[0], d["ef"],
+                    d["coef"], d["efs"], k5["wt"], k5["rh"], k5["n_runs"],
+                    k5["units"], k5["n_lunits"], T, int(left), k5["excl"],
+                    out, units=k5["n_runs"] + k5["n_lunits"])
+
+
 def blk_exec(epool, bpool, kpool, d: Dict, T: int, left: bool, out):
     """Blocking (kernel K5): adds every contribution of the plan into the
     output pool ``out`` (zero-initialised by the caller) in place."""
@@ -238,9 +361,8 @@ def blk_exec(epool, bpool, kpool, d: Dict, T: int, left: bool, out):
         return blk_twin(epool, bpool, kpool, d, T, left, out)
     if not epool.is_cuda:
         raise ValueError(f"unsupported device {epool.device}")
-    _kernels.launch("K5_block", "b2t_block", epool.dtype, epool, bpool,
-                    kpool, d["it"], d["cumu"], d["it"].shape[0], d["ef"],
-                    d["coef"], d["efs"], d["n_units"], T, int(left), out)
+    _launch("K5_block", "b2t_block", epool, bpool, kpool, d, d, T, left,
+            out)
     return out
 
 
@@ -254,9 +376,11 @@ def blk_rank_part(plan: BlockingV2Plan, rank: int, world: int,
     reference's round-robin interleave of the task groups (rank r runs the
     groups r, r + world, ...; ends in global group order first, reference
     blockv2.py:921-931, the same as the matvec's ``shard_groups``), as
-    ``items`` (their item ranges, the plain version's), ``units`` (their
-    stage-1 units, K21's index list, int32) and ``n_units``; cached on
-    the plan."""
+    ``items`` (their item ranges, the plain version's), ``n_units``
+    (their stage-1 units) and K21's tables: K5's two paths over those
+    items only (``k5``, :func:`k5_host_tables`; on ``device``: ``wt``,
+    ``rh``, ``n_runs``, ``units``, ``n_lunits``, ``excl``); cached on the
+    plan."""
     key = ("part", rank, world, str(device))
     part = plan._dev.get(key)
     if part is not None:
@@ -268,9 +392,9 @@ def blk_rank_part(plan: BlockingV2Plan, rank: int, world: int,
     sl = slice(rank * ngl, (rank + 1) * ngl)
     h = group_units(g1i[sl], e1i[sl], g2i[sl], e2i[sl], plan.cum1,
                     plan.cum2, _cumu(plan))
+    k5 = k5_host_tables(plan, items=h["items"])
     part = {"items": h["items"], "n_units": int(h["units"].shape[0]),
-            "units": torch.as_tensor(h["units"].astype(np.int32),
-                                     device=device)}
+            "k5": k5, **_k5_device(k5, device)}
     plan._dev[key] = part
     return part
 
@@ -280,19 +404,16 @@ def blk_exec_part(epool, bpool, kpool, d: Dict, part: Dict, T: int,
     """This rank's partial blocking (kernel K21): adds the contributions
     of the rank's task groups (``part`` from :func:`blk_rank_part`) into
     ``out`` in place.  CPU tensors run :func:`blk_twin` over the same
-    items; CUDA tensors launch K21 (nothing when the rank owns no unit) or
+    items; CUDA tensors launch K21 (nothing when the rank owns no item) or
     raise."""
     if epool.device.type == "cpu":
         return blk_twin(epool, bpool, kpool, d, T, left, out,
                         items=part["items"])
     if not epool.is_cuda:
         raise ValueError(f"unsupported device {epool.device}")
-    if part["n_units"] > 0:
-        _kernels.launch("K21_block_shard", "b2t_block_units", epool.dtype,
-                        epool, bpool, kpool, d["it"], d["cumu"],
-                        d["it"].shape[0], d["ef"], d["coef"], d["efs"],
-                        part["units"], part["n_units"], T, int(left), out,
-                        units=part["n_units"])
+    if part["n_runs"] + part["n_lunits"] > 0:
+        _launch("K21_block_shard", "b2t_block_units", epool, bpool, kpool,
+                d, part, T, left, out)
     return out
 
 

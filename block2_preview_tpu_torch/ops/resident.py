@@ -851,6 +851,13 @@ def execute_diag(dstruct, lpool, rpool):
 
 # stage tasks per chunk of the plain version (bounds its temporaries)
 _TWIN_NOISE_TASKS = 8192
+# items of one K6 run at most, and the rows of its rho strips
+# (csrc/noise.cu kStrip); runs are also cut at 1 / NOISE_BLOCKS of the
+# plan's FLOPs, unless the partial pool would pass NOISE_PART elements
+NOISE_RUN = 16
+NOISE_STRIP = 64
+NOISE_BLOCKS = 2048
+NOISE_PART = 1 << 23
 
 
 class NoisePlan:
@@ -866,15 +873,20 @@ class NoisePlan:
 
     it [n, 10] int32: wbase, wstride, DB, pb, na, nk, nn, tb, rb, DK, as
     the reference's, except ``tb``: here the item's first tile in ONE x
-    scratch pool of ``n_x`` tiles (the reference restarted it per task
-    group).  cum1/cum2 [n+1]: stage-1 tasks (ai, ni, ki) and stage-2 tasks
-    (ar, ac, ni) per item.  rho tiles: [nrho + 1, T, T]."""
+    pool of ``n_x`` tiles (the plain version's; the reference restarted it
+    per task group).  cum1/cum2 [n+1]: stage-1 tasks (ai, ni, ki) and
+    stage-2 tasks (ar, ac, ni) per item.  rho tiles: [nrho + 1, T, T].
+    ``pn`` [n, 2]: each item's flat psi offset and DN (what K6 reads in
+    place of the tiles).  ``psi_idx``, the psi tile gather of the plain
+    version, is built at first use (the RW side's transposed one in
+    Python)."""
 
-    __slots__ = ("it", "cum1", "cum2", "nrho", "T", "sectors", "psi_idx",
-                 "n_x", "flops", "_dev")
+    __slots__ = ("it", "cum1", "cum2", "nrho", "T", "sectors", "_psi_idx",
+                 "_psi_args", "side", "pn", "n_x", "flops", "_dev")
 
     def __init__(self, space, meta, group, side, T, psi_idx):
         self.T = T
+        self.side = side
         # psi tile layout bases (must match the psi_idx tile order)
         vbk = {}
         nv = 0
@@ -884,7 +896,18 @@ class NoisePlan:
                 r, c = c, r
             vbk[k] = nv
             nv += (-(-r // T)) * (-(-c // T))
-        if side == "rw" and psi_idx is None:
+        self._psi_idx = psi_idx
+        self._psi_args = (space, vbk, nv)
+        self._rows(space, meta, group, side, T, vbk)
+
+    @property
+    def psi_idx(self):
+        """The psi tile gather of the plain version: the matvec's
+        ``psi_idx`` (LW side) or the transposed one (RW side), built here
+        at first use."""
+        if self._psi_idx is None and self.side == "rw":
+            space, vbk, nv = self._psi_args
+            T = self.T
             # transposed psi tiles: tile grid over [DRk, DLk]
             sp = _pow2(space.size + 1)
             psi_idx = np.full((_pow2(nv + 1), T, T), sp, dtype=np.int32)
@@ -898,8 +921,10 @@ class NoisePlan:
                 tidx = ((base + (fr // T) * ncc + (fc // T)) * (T * T)
                         + (fr % T) * T + (fc % T))
                 psi_idx.reshape(-1)[tidx] = off + fc * c + fr
-        self.psi_idx = psi_idx
+            self._psi_idx = psi_idx
+        return self._psi_idx
 
+    def _rows(self, space, meta, group, side, T, vbk):
         dq_of = {}
         for gi, (dq, syms) in enumerate(meta.groups):
             for s in syms:
@@ -907,6 +932,7 @@ class NoisePlan:
         # rho sectors over the bond quantum qb; tiled [na, na] per sector
         rows = []       # wbase, wstride, DB, pb, DK, DN
         rkeys = []      # qb per row
+        poffs = []      # flat psi offset per row
         sec_dims = {}
         for m, (gm, jm) in sorted(meta.sym_pos.items()):
             dq = dq_of[m]
@@ -935,6 +961,7 @@ class NoisePlan:
                 rows.append((off + jm * DB * DKw, DKw, DB, vbk[k], DK,
                              DN))
                 rkeys.append(qb)
+                poffs.append(space.offsets[k])
                 d = sec_dims.get(qb)
                 if d is None or DB > d:
                     sec_dims[qb] = DB
@@ -951,6 +978,8 @@ class NoisePlan:
         self.nrho = _pow2(nrho + 1) - 1
 
         n = len(rows)
+        self.pn = np.asarray([(o, r[5]) for o, r in zip(poffs, rows)],
+                             np.int64).reshape(-1, 2)
         # x = W psi (DB x DK x DN) and x x^T (DB x DB x DN) per item
         self.flops = float(sum(2 * DB * DN * (DK + DB)
                                for (_, _, DB, _, DK, DN) in rows))
@@ -976,30 +1005,128 @@ class NoisePlan:
             [c2, np.full(n_q - n, c2[-1])]).astype(np.int32)
         self._dev = {}
 
-    def tables(self, device) -> Dict:
-        """Device tables for K6 (and its twin), cached per device.
-        Derived here: ``cumr`` [n+1], prefix sums of the stage-2 units
-        na * na of the live items (K6's x kernel runs one block per x
-        tile, ``n_x`` of them)."""
-        key = str(device)
+    def host_tables(self) -> Dict:
+        """K6's numpy tables (cached in ``_dev["k6"]``; ``csrc/noise.cu``):
+        ``nw`` [n, 5] (W offset, psi offset, DK, DN, DB) of the items
+        sorted stably by rho sector; ``nb`` [n_blocks, 6] (first item, end,
+        DB, a, c, partial offset), a CUDA block a run of at most
+        ``NOISE_RUN`` items of one sector (cut at 1 / ``NOISE_BLOCKS`` of
+        the plan's FLOPs while the partial pool stays within
+        ``NOISE_PART`` elements) and a pair a <= c of its
+        ``NOISE_STRIP``-row strips, by decreasing FLOPs; ``ns`` [n_sec, 5]
+        (partial offset of the sector's first run, runs, DB, rb, na);
+        ``n_part`` (the partial pool: DB^2 elements a run),
+        ``sum_blocks``, ``wide`` (a sector wider than two strips: K6 runs
+        its two-blocks-an-SM instance) and ``seconds``."""
+        h = self._dev.get("k6")
+        if h is not None:
+            return h
+        from .exec_bucket import _int32
+        t0 = time.perf_counter()
+        n = len(self.pn)
+        order = np.argsort(self.it[:n, 8], kind="stable")
+        f = self.it[:n].astype(np.int64)[order]
+        pn = self.pn[order]
+        nw = np.stack([f[:, 0], pn[:, 0], f[:, 9], pn[:, 1], f[:, 2]], 1)
+        rb = f[:, 8]
+        sec = {base: (na, D) for base, na, D in self.sectors.values()}
+        new = np.ones(n, bool)
+        new[1:] = rb[1:] != rb[:-1]
+        start = np.maximum.accumulate(np.where(new, np.arange(n), 0))
+        rank = np.arange(n) - start
+        # each item's FLOPs (x and x x^T over its whole sector) and the
+        # FLOPs before it in its sector
+        ifl = 2 * nw[:, 4] * nw[:, 3] * (nw[:, 2] + nw[:, 4])
+        cfl = np.concatenate([[0], np.cumsum(ifl)])
+        before = cfl[:-1] - cfl[start]
+        cap = max(float(cfl[-1]) / NOISE_BLOCKS, 1.0)
+        while True:
+            # a run: at most NOISE_RUN items of one sector, cut where the
+            # sector's FLOPs pass a multiple of the cap
+            key = np.floor(before / cap).astype(np.int64)
+            cut = new.copy()
+            cut[1:] |= ((rank[1:] // NOISE_RUN != rank[:-1] // NOISE_RUN)
+                        | (key[1:] != key[:-1]))
+            first = np.flatnonzero(cut)
+            end = np.append(first[1:], n)[:len(first)]
+            run_rb = rb[first]
+            run_d = np.asarray([sec[int(b)][1] for b in run_rb], np.int64)
+            pbase = np.concatenate([[0], np.cumsum(run_d * run_d)])
+            if pbase[-1] <= NOISE_PART or cap >= cfl[-1]:
+                break
+            cap *= 2
+        # blocks: (run, a, c), a <= c, over the run's strips (rho is
+        # symmetric: the sum writes the (c, a) strip pair from (a, c))
+        nst = -(-run_d // NOISE_STRIP)
+        rep = nst * (nst + 1) // 2
+        m = int(nst.max()) if len(nst) else 0
+        pairs = np.asarray([(a, c) for c in range(m) for a in range(c + 1)],
+                           np.int64).reshape(-1, 2)
+        r = np.repeat(np.arange(len(first)), rep)
+        k = np.arange(int(rep.sum())) - np.repeat(np.cumsum(rep) - rep, rep)
+        sa, sc = pairs[k, 0], pairs[k, 1]
+        d = run_d[r]
+        ra = np.minimum(NOISE_STRIP, d - sa * NOISE_STRIP)
+        rc = np.minimum(NOISE_STRIP, d - sc * NOISE_STRIP)
+        # per run: sum DN DK and sum DN of its items
+        cdk = np.concatenate([[0], np.cumsum(nw[:, 3] * nw[:, 2])])
+        cdn = np.concatenate([[0], np.cumsum(nw[:, 3])])
+        sdk = (cdk[end] - cdk[first])[r]
+        sdn = (cdn[end] - cdn[first])[r]
+        fl = sdk * (ra + np.where(sa == sc, 0, rc)) + sdn * ra * rc
+        nb = np.stack([first[r], end[r], d, sa, sc, pbase[r]], 1)
+        nb = nb[np.argsort(-fl, kind="stable")].reshape(-1, 6)
+        # sectors: their runs are consecutive
+        snew = np.flatnonzero(np.append(True, run_rb[1:] != run_rb[:-1]))
+        scount = np.diff(np.append(snew, len(first)))
+        sna = np.asarray([sec[int(b)][0] for b in run_rb[snew]], np.int64)
+        ns = np.stack([pbase[snew], scount, run_d[snew], run_rb[snew],
+                       sna.reshape(-1)], 1).reshape(-1, 5)
+        dmax = int(run_d.max()) if len(run_d) else 0
+        h = {"nw": _int32(nw, "a K6 pool offset"),
+             "nb": _int32(nb, "a K6 partial offset"),
+             "ns": _int32(ns, "a K6 sector field"),
+             "n_part": int(pbase[-1]),
+             "sum_blocks": max(1, min(-(-dmax * dmax // 256), 4096)),
+             "wide": int(dmax > 2 * NOISE_STRIP),
+             "seconds": time.perf_counter() - t0}
+        self._dev["k6"] = h
+        return h
+
+    def twin_tables(self, device) -> Dict:
+        """The plain version's tables on ``device`` (the reference's item
+        rows and task prefix sums, the psi tile gather), cached."""
+        key = ("twin", str(device))
         d = self._dev.get(key)
         if d is None:
-            it = self.it.astype(np.int64)
-            live = np.diff(self.cum1.astype(np.int64)) > 0
-            cumr = np.concatenate([[0], np.cumsum(
-                np.where(live, it[:, 4] * it[:, 4], 0))])
-            cumx = np.concatenate([[0], np.cumsum(
-                np.where(live, it[:, 4] * it[:, 6], 0))])
-
             def i32(a):
                 return torch.as_tensor(
                     np.ascontiguousarray(a, dtype=np.int32), device=device)
 
             d = {"it": i32(self.it), "cum1": i32(self.cum1),
-                 "cum2": i32(self.cum2), "cumx": i32(cumx),
-                 "cumr": i32(cumr), "n_r": int(cumr[-1]),
+                 "cum2": i32(self.cum2),
                  "psi_idx": i32(self.psi_idx.reshape(-1)),
                  "n_x": self.n_x, "nrho": self.nrho}
+            self._dev[key] = d
+        return d
+
+    def tables(self, device) -> Dict:
+        """The tables :func:`noise_exec` takes on ``device``, cached: K6's
+        (:meth:`host_tables`) on a CUDA device, the plain version's
+        (:meth:`twin_tables`) on the CPU."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return self.twin_tables(device)
+        key = str(device)
+        d = self._dev.get(key)
+        if d is None:
+            h = self.host_tables()
+            d = {k: torch.as_tensor(h[k], device=device)
+                 for k in ("nw", "nb", "ns")}
+            d.update(n_blocks=len(h["nb"]), n_sec=len(h["ns"]),
+                     n_part=h["n_part"], sum_blocks=h["sum_blocks"],
+                     rw=int(self.side == "rw"), wide=h["wide"],
+                     nrho=self.nrho)
             self._dev[key] = d
         return d
 
@@ -1016,9 +1143,9 @@ class NoisePlan:
 
 
 def noise_twin(xp, wpool, d: Dict, T: int):
-    """Plain PyTorch version of K6 (same signature as :func:`noise_exec`):
-    stage 1 forms the x tiles into the scratch pool, stage 2 adds their
-    outer products into the rho tiles."""
+    """Plain PyTorch version of K6 (the reference's two stages; ``d`` from
+    :meth:`NoisePlan.twin_tables`): stage 1 forms the x tiles into a
+    scratch pool, stage 2 adds their outer products into the rho tiles."""
     it = d["it"].long()
     cum1, cum2 = d["cum1"].long(), d["cum2"].long()
     pp = xp[d["psi_idx"].long()].reshape(-1, T, T)
@@ -1050,18 +1177,19 @@ def noise_twin(xp, wpool, d: Dict, T: int):
 def noise_exec(xp, wpool, d: Dict, T: int):
     """Noise density-matrix tiles [nrho + 1, T, T] (kernel K6) from the
     padded flat psi ``xp`` [size_p + 1] (zero last slot) and the LW (or RW)
-    slab pool; ``d`` from :meth:`NoisePlan.tables`."""
+    slab pool; ``d`` from :meth:`NoisePlan.tables` on ``xp``'s device.
+    CPU tensors run :func:`noise_twin`; CUDA tensors launch K6 into a
+    partial pool of ``d["n_part"]`` elements, or raise."""
     if xp.device.type == "cpu":
         return noise_twin(xp, wpool, d, T)
     if not xp.is_cuda:
         raise ValueError(f"unsupported device {xp.device}")
     dt, dev = xp.dtype, xp.device
-    x = torch.empty(max(d["n_x"], 1) * T * T, dtype=dt, device=dev)
+    part = torch.empty(max(d["n_part"], 1), dtype=dt, device=dev)
     rho = torch.zeros((d["nrho"] + 1) * T * T, dtype=dt, device=dev)
-    _kernels.call("b2t_noise_x", dt, xp, wpool, d["psi_idx"], d["it"],
-                  d["cumx"], d["it"].shape[0], d["n_x"], T, x)
-    _kernels.launch("K6_noise", "b2t_noise_rho", dt, x, d["it"], d["cumr"],
-                    d["it"].shape[0], d["n_r"], T, rho)
+    _kernels.launch("K6_noise", "b2t_noise", dt, xp, wpool, d["nw"],
+                    d["nb"], d["n_blocks"], d["ns"], d["n_sec"],
+                    d["sum_blocks"], T, d["rw"], d["wide"], part, rho)
     return rho.reshape(-1, T, T)
 
 

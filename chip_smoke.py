@@ -11,7 +11,9 @@ package's host path by the CPU tests):
   5. full      seeded K=16 quantum-chemistry Hamiltonian (16 electrons,
                full QC MPO), D=[250, 250], noise [1e-4, 0], Davidson
                |r|^2 < 1e-14, f64: |dE| < 1e-6 Ha, every kernel K1-K6
-               launched, no host redo, no environment or LW/RW download
+               launched, no host redo, no environment or LW/RW download;
+               prints the peak device memory and the most one noise call
+               (K6) allocated above what it found
   6a. tiled    Hubbard-L8: backend="torch_tiled" ground state (D=80, 6
                sweeps with noise) against the host reference to 1e-8 Ha;
                from it, real-time (complex128, dt 0.05) and imaginary-time
@@ -138,7 +140,13 @@ package's host path by the CPU tests):
                that reason; its launches are not counted): K1-K6 in f64
                and f32 (K4 on a slab of NaNs, bitwise against its twin
                and one index_add_; a zero fill of the slab also timed
-               alone), K7 in f64, f32, complex128 and complex64 (the
+               alone; K5 on the left and right v3 rotate plans (l3, r3)
+               and v2 plans (l2, r2), its rows printing its slab-core
+               runs and tile-path units, the v3 ones also bitwise against
+               a second launch; K6 lw and rw, bitwise against a second
+               launch, its rows printing its runs, blocks and partial
+               pool beside the x scratch of the earlier design), K7 in
+               f64, f32, complex128 and complex64 (the
                same operators cast to complex) and in complex128 on the
                complex environments of the state phase 6b leaves, and the
                tiled Davidson (K7) against the host Davidson; K8 in f64
@@ -157,7 +165,10 @@ package's host path by the CPU tests):
                dimension 1000, whose plans pick K1's T=128 tiles
                (K5's and K12's blocking plans are built with T=128 there;
                K8 meets its widest buckets there; K10 alone, f64, whose
-               operands there pass 32 x 32 and are read from the pools);
+               operands there pass 32 x 32 and are read from the pools;
+               K5 alone on v3 plans built at T=16, whose wide items take
+               its tile path with up to 8 strips of l, bitwise over two
+               launches and K21's two shares summed bitwise one launch);
                K13 (every GEMM group of the K=16 site's LW and RW v3
                plans, and one window at
                c0 > 0), K14 (library: one torch.take; bitwise against its
@@ -183,7 +194,8 @@ package's host path by the CPU tests):
                (the matvec), K21 (the left and right v3 rotate plans), K22
                (PlanExecutor's buckets) and B22e (K17 on the row slices of
                10b's largest close), each share against its twin and their
-               sum against K1 / K5 / K18 / one K17 launch.  K1, K20, K8
+               sum against K1 / K5 / K18 / one K17 launch (K21's v3 shares
+               summed bitwise equal to one K5 launch).  K1, K20, K8
                and K7 run on one chain core (csrc/chain_mv.cuh; atomics,
                so they agree with their twins to rounding): K1's row
                prints its order tables' build time and the live 8 x 8
@@ -203,10 +215,11 @@ package's host path by the CPU tests):
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card and exits non-zero (printing no result) without
 one.  ``python3 chip_smoke.py --beside PARENT_TREE`` instead times phase
-3's K9-K16 rows at the K=16 site and the sweeps of phases 8b and 9c of
-this tree and of an unpacked earlier commit in turns (parent, this, this,
-parent; ``beside_parent``), and holds the change's K9, K11 and K12
-outputs against the parent's.  The
+3's K1-K6, K10-K12 and K20-K22 rows at the K=16 site and the sweeps of
+phases 5 and 8b of this tree and of an unpacked earlier commit in turns
+(parent, this, this, parent; ``beside_parent``), and holds the change's
+K10 outputs (bitwise) and K5's v3 rotate outputs (1e-14) against the
+parent's, and reports K6's.  The
 host references of phase 5 and of phase 3's three-root Davidson run in
 two spawned worker processes beside the device phases
 (their numerical libraries held to 3 threads each); the script
@@ -779,15 +792,14 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
             bp, kp = site_pools(rp, device, tdt)
             d5 = blockv2.blk_tables(rp, device, tdt)
             # env, bra and ket values in, the live output out (the ROT
-            # pool for v3); live item rows with cumu and efs, and the
-            # live entries' ef rows with their coefficients
+            # pool for v3); K5's tables and the live entries' ef rows with
+            # their coefficients
             out_total = plan.rot_total if mix else plan.meta_out.total
             n_ent = live_items(rp.cum3)
             k5_bytes = live_bytes(
                 ep.element_size(),
                 e_total + 1 + bp.numel() + kp.numel() + n_ent + out_total,
-                item_ints(rp.cum1, rp.it.shape[1]) + live_items(rp.cum1) + 1
-                + 4 * n_ent)
+                k5_ints(rp._dev["k5"], n_ent))
 
             def k5(fn, ep=ep, bp=bp, kp=kp, d5=d5, rp=rp):
                 return fn(ep, bp, kp, d5, rp.T, rp.left,
@@ -801,7 +813,9 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
                    k5_bytes, rp.flops,
                    f"T {rp.T} items {live_items(rp.cum1)} units "
                    f"{d5['n_units']} entries {n_ent} out {out_total} "
-                   f"GFLOP {rp.flops / 1e9:.2f}")
+                   f"GFLOP {rp.flops / 1e9:.2f}; {k5_shape(rp)}")
+            if mix and device.type == "cuda":
+                _bitwise("K5", tag, lambda: k5(blockv2.blk_exec))
             if float(o_k[out_total:].abs().max()) != 0.0:
                 fail(f"K5 {tag}: nonzero sentinel slots")
             if mix:
@@ -813,7 +827,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
                 if not rel <= tol:
                     fail(f"blocking v3 {tag}: rel err {rel:.3e} > {tol:.0e}")
         for side, npl in noise.items():
-            d6 = npl.tables(device)
+            d6, dt6 = npl.tables(device), npl.twin_tables(device)
             wp = pools[side]
             xs = xp
 
@@ -821,23 +835,21 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
                 return fn(xs, wp, d6, npl.T)
 
             # psi and the LW (RW) pool in, the live rho tiles out; the
-            # psi_idx of the live psi tiles and the live item rows
+            # live item rows
             n_rho = sum(na * na for (_, na, _) in npl.sectors.values())
             k6_bytes = live_bytes(
                 xs.element_size(),
                 eff.size + plans[side].meta_out.total + n_rho * npl.T ** 2,
-                n_tiles(eff.ket_space, npl.T) * npl.T ** 2
-                + item_ints(npl.cum1, npl.it.shape[1]))
+                item_ints(npl.cum1, npl.it.shape[1]))
             r_k = k6(resident.noise_exec)
             _check(acc, "K6_noise", dtype, side, r_k,
-                   k6(resident.noise_twin), tol,
+                   resident.noise_twin(xs, wp, dt6, npl.T), tol,
                    time_ms(lambda: k6(resident.noise_exec), device),
-                   time_ms(lambda: k6(resident.noise_twin), device), None,
-                   k6_bytes, npl.flops,
-                   f"items {live_items(npl.cum1)} "
-                   f"x tiles {npl.n_x} (scratch "
-                   f"{npl.n_x * npl.T ** 2 * xs.element_size() / 2 ** 20:.1f}"
-                   f" MiB) rho tiles {n_rho}")
+                   time_ms(lambda: resident.noise_twin(xs, wp, dt6, npl.T),
+                           device), None,
+                   k6_bytes, npl.flops, k6_shape(npl, xs.element_size()))
+            if device.type == "cuda":
+                _bitwise("K6", side, lambda: k6(resident.noise_exec))
     return summary_rows(rows)
 
 
@@ -1298,6 +1310,50 @@ def _bitwise(name, side, fn):
              f"({float((a - b).abs().max()):.3e})")
 
 
+def k5_ints(h, n_ent: int) -> int:
+    """int32 table entries K5 (or K21) reads with its tables ``h``
+    (blockv2.k5_host_tables): a run header of 9, 3 an item of the slab
+    path, 4 an entry (ef), and on the tile path an item row of 13 with its
+    cumu and efs entries and a unit index."""
+    return (9 * len(h["rh"]) + 3 * len(h["wt"]) + 4 * n_ent
+            + 15 * len(h["large"]) + len(h["units"]))
+
+
+def k5_shape(rp) -> str:
+    """K5's two paths on the rotate (or v2) plan ``rp``: the slab path's
+    runs and items, items a run and the runs' dims, the tile path's items
+    and units, whether the plan stores (no atomics) and the tables' host
+    seconds."""
+    from block2_preview_tpu_torch.ops import blockv2
+    t0 = time.perf_counter()
+    h = blockv2.k5_host_tables(rp)
+    secs = time.perf_counter() - t0
+    rh = h["rh"].astype(np.int64)
+    dims = rh[:, 4:8].max(axis=1) if len(rh) else np.zeros(0, np.int64)
+    return (f"slab path: runs {len(rh)}, items {len(h['small'])} (a run: "
+            f"{histogram(rh[:, 1] - rh[:, 0], (1, 2, 4, 7))}; largest dim "
+            f"a run: {histogram(dims, (8, 16, 24, 32))}); tile path: items "
+            f"{len(h['large'])}, units {len(h['units'])}; "
+            f"{'stores' if h['excl'] else 'atomics'}; tables "
+            f"{secs:.3f} s on the host")
+
+
+def k6_shape(npl, esize: int) -> str:
+    """K6's items, runs, CUDA blocks and partial pool (its size beside the
+    x scratch pool of the earlier two-launch design) and the tables' host
+    seconds."""
+    h = npl.host_tables()
+    nb = h["nb"].astype(np.int64)
+    runs = len(np.unique(nb[:, 5]))
+    mib = esize / 2 ** 20
+    return (f"items {len(npl.pn)} sectors {len(h['ns'])} runs {runs} "
+            f"blocks {len(nb)} (DB a block: "
+            f"{histogram(nb[:, 2], (16, 32, 48, 64, 128))}); partial pool "
+            f"{h['n_part']} elements ({h['n_part'] * mib:.2f} MiB; the x "
+            f"scratch was {npl.n_x * npl.T ** 2 * mib:.1f} MiB); tables "
+            f"{h['seconds']:.3f} s on the host")
+
+
 def k10_check(acc, device, dtype, side, sp, ep, bp, kp, e_total, tol):
     """K10 against its twin on the bucket-engine plan ``sp`` (the env pool
     ``ep`` of ``e_total`` live elements, the site pools ``bp``, ``kp``), and
@@ -1352,6 +1408,59 @@ def phase_slab_wide(device, mpo, mps, me, t):
         bp, kp = stacked.site_pools(sp, device, ep.dtype)
         k10_check(None, device, np.float64, direction[0], sp, ep, bp, kp,
                   e_total, ATOMIC_TOL[np.float64])
+
+
+def phase_k5_strips(device, mpo, mps, me, t, T=16):
+    """K5 (and K21 over two ranks' shares) on the v3 rotate plans next to
+    center t built at tile ``T``, f64: at the Hubbard-L16 D=1000 site the
+    wide items take the tile path with three and more strips of l, which
+    a block sums in order and stores (csrc/blocking.cuh, kOwn).  Against
+    the twin, bitwise over two launches, and the shares summed bitwise one
+    launch; fails unless some item has three strips."""
+    import torch
+    from block2_preview_tpu_torch.ops import blockv2
+    from block2_preview_tpu_torch.ops.stacked import env_pool, site_pools
+    f64 = torch.float64
+    for direction, bond, st in (("left", t, t), ("right", t + 2, t + 1)):
+        env = me.left_envs[bond] if direction == "left" \
+            else me.right_envs[bond]
+        meta, pool = env_pool(env, mpo.bond_dqs[bond], np.float64)
+        rp = blockv2.build_blocking_v2(
+            meta, mpo.tensors[st], mpo.site_quanta[st], mps.tensors[st],
+            mps.tensors[st], mpo.group, direction, mpo.bond_dqs[bond],
+            mpo.bond_dqs[t + 1], T=T, gemm_mix=True).rot
+        ep = torch.as_tensor(pool, device=device)
+        bp, kp = site_pools(rp, device, f64)
+        d5 = blockv2.blk_tables(rp, device, f64)
+        h = rp._dev["k5"]
+        nl = rp.it[h["large"], 7]
+
+        def run(fn=blockv2.blk_exec, *a, ep=ep, bp=bp, kp=kp, d5=d5, rp=rp):
+            return fn(ep, bp, kp, d5, *a, rp.T, rp.left,
+                      torch.zeros(rp.ncap, dtype=f64, device=device))
+
+        o_k = run()
+        rel, _ = rel_err(o_k, run(blockv2.blk_twin))
+        shares = sum(run(blockv2.blk_exec_part,
+                         blockv2.blk_rank_part(rp, r, 2, device))
+                     for r in range(2))
+        same = torch.equal(o_k, run())
+        one = torch.equal(shares, o_k)
+        print(f"[3 kernels] K5_block f64 {direction[0]}3 at T {rp.T}: tile "
+              f"path items {len(nl)} (strips of l: "
+              f"{histogram(nl, (1, 2, 4, 8))}), units {d5['n_lunits']}; "
+              f"rel {rel:.2e}; two launches "
+              f"{'bitwise equal' if same else 'DIFFER'}; K21's 2 shares "
+              f"summed {'bitwise one launch' if one else 'DIFFER'}",
+              flush=True)
+        if not (nl >= 3).any():
+            fail(f"K5 {direction} T {rp.T}: no tile-path item of three "
+                 f"strips of l")
+        if not rel <= F64_TOL:
+            fail(f"K5 {direction} T {rp.T}: rel err {rel:.3e}")
+        if device.type == "cuda" and not (same and one):
+            fail(f"K5 {direction} T {rp.T}: two launches differ, or K21's "
+                 f"shares summed are not one launch, bitwise")
 
 
 def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
@@ -2314,6 +2423,38 @@ def phase_tdvp(device, drv, mpo, ket, D=250, dt=0.02):
     return k7
 
 
+@contextlib.contextmanager
+def noise_peaks(device):
+    """Wraps the noise call (resident.noise_exec, K6) while the block
+    runs: yields a dict with its ``calls``, the largest device memory one
+    call allocated above what it found (``peak``, bytes) and the run's
+    peak before the last call (``before``: the counter is reset around
+    each call, so the run's peak is the larger of it and
+    max_memory_allocated after the block)."""
+    import torch
+    from block2_preview_tpu_torch.ops import resident
+    orig = resident.noise_exec
+    out = {"calls": 0, "peak": 0, "before": 0}
+    cuda = device.type == "cuda"
+
+    def wrapped(*a, **k):
+        out["calls"] += 1
+        if not cuda:
+            return orig(*a, **k)
+        out["before"] = max(out["before"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        r = orig(*a, **k)
+        out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated() - m0)
+        return r
+
+    resident.noise_exec = wrapped
+    try:
+        yield out
+    finally:
+        resident.noise_exec = orig
+
+
 def phase_full(device, drv, mpo, D=250, n_orb=16):
     """Main path at full width; returns the kernel launch counts of the
     run, the MPS it leaves, its energy and its sweep-0 energy.
@@ -2332,7 +2473,8 @@ def phase_full(device, drv, mpo, D=250, n_orb=16):
     ket = drv.get_random_mps(D, seed=11)
     _kernels.reset_counts()
     t0 = time.time()
-    e_port = drv.dmrg(mpo, ket, device=device, **qc_sched(D))
+    with noise_peaks(device) as npk:
+        e_port = drv.dmrg(mpo, ket, device=device, **qc_sched(D))
     if device.type == "cuda":
         torch.cuda.synchronize()
     t1 = time.time()
@@ -2342,8 +2484,11 @@ def phase_full(device, drv, mpo, D=250, n_orb=16):
         print(f"[5 full] sweep {i} D={D} E {r['energy']:.10f} wall "
               f"{r['wall']:.1f} s  Teff {r['teff']:.1f} Teig {r['teig']:.1f} "
               f"Tdm {r['tdm']:.1f} Tblk {r['tblk']:.1f}", flush=True)
-    mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+    mem = (max(torch.cuda.max_memory_allocated(), npk["before"]) / 2 ** 30
            if device.type == "cuda" else float("nan"))
+    print(f"[5 full] noise calls {npk['calls']}: peak of one call "
+          f"{npk['peak'] / 2 ** 20:.2f} MiB above what it found allocated",
+          flush=True)
     print(f"[5 full] port total {t1 - t0:.1f} s  launches {counts}  "
           f"max_memory_allocated {mem:.2f} GiB  largest ROT pool "
           f"{solver.me.max_rot_pool} elements  host_redo_count "
@@ -3304,7 +3449,7 @@ def phase_shard_kernels(device, mpo, mps, t, site, eff, close_shape,
                 + _unique_sum(f[:, 3], f[:, 1] * f[:, 4])
                 + _unique_sum(f[:, 5], f[:, 2] * f[:, 6])
                 + len(ents) + _unique_sum(e[:, 1], e[:, 2] * e[:, 3]),
-                14 * len(items) + 5 * len(ents) + part["n_units"])
+                k5_ints(part["k5"], len(ents)))
 
             def k21(fn=blockv2.blk_exec_part, part=part):
                 return fn(ep, bp, kp, d5, part, rp.T, rp.left,
@@ -3323,12 +3468,23 @@ def phase_shard_kernels(device, mpo, mps, t, site, eff, close_shape,
                    n_bytes, flops,
                    f"rank {r} of {world}: groups {len(part['items'])} of "
                    f"{len(rp.g1)}, items {len(items)}, units "
-                   f"{part['n_units']} of {d5['n_units']}, entries "
+                   f"{part['n_units']} of {d5['n_units']} (slab runs "
+                   f"{part['n_runs']}, tile units {part['n_lunits']}), "
+                   f"entries "
                    f"{len(ents)}")
             total = o if total is None else total + o
-        hold(f"K21_block_shard {direction}", total, blockv2.blk_exec(
-            ep, bp, kp, d5, rp.T, rp.left,
-            torch.zeros(rp.ncap, dtype=tdt, device=device)))
+        one = blockv2.blk_exec(ep, bp, kp, d5, rp.T, rp.left,
+                               torch.zeros(rp.ncap, dtype=tdt, device=device))
+        hold(f"K21_block_shard {direction}", total, one)
+        # v3 rotate plans: one writer an element, so the shares summed are
+        # one launch bitwise
+        same = bool(torch.equal(total, one))
+        print(f"[3 kernels] K21_block_shard {direction}: the {world} shares "
+              f"summed {'bitwise equal to' if same else 'DIFFER from'} one "
+              f"K5 launch", flush=True)
+        if device.type == "cuda" and not same:
+            fail(f"K21 {direction}: the shares summed are not one K5 launch "
+                 f"bitwise")
 
     pe = exec_bucket.PlanExecutor(eff, dtype=np.float64, device=device)
     x = np.random.default_rng(9).standard_normal(eff.size)
@@ -3502,6 +3658,7 @@ def main():
     phase_stacked_kernels(device, *wide, site[0], 7, T=128, summary=False,
                           bucket=False)
     phase_slab_wide(device, *wide, site[0], 7)
+    phase_k5_strips(device, *wide, site[0], 7)
     if "jax" in sys.modules or "block2_preview_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     for r in rows:
@@ -3516,9 +3673,9 @@ BESIDE_RUN = """
 import pickle, sys, torch
 import numpy as np
 import chip_smoke as c
-from block2_preview_tpu_torch.ops import blocking_device, stacked
-from block2_preview_tpu_torch.ops import tiled_blocking
-from block2_preview_tpu_torch.ops.blocking_plan import _pools
+from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+from block2_preview_tpu_torch.ops import blockv2, resident, stacked, tilev2
+from block2_preview_tpu_torch.ops.stacked import env_pool
 from block2_preview_tpu_torch.runtime import resolve_device
 d = resolve_device(sys.argv[3] if len(sys.argv) > 3 else "cuda")
 D = int(sys.argv[4]) if len(sys.argv) > 4 else 250
@@ -3527,53 +3684,85 @@ c.phase_build()
 drv, mpo, _ = c.qc_system(16, 16)
 with open(sys.argv[1], "rb") as f:
     ket = pickle.load(f)
-me = c.mid_site(mpo, ket, 7)[0]
-c.phase_bucket(d, mpo, ket, me, None, 7, summary=False, kinds="K9")
+site = c.mid_site(mpo, ket, 7)
+me, peff = site
+eff = EffectiveHamiltonian2(me, 7)
+# phase 3's K1-K6, K10-K12 and K20-K22 rows at site 7
+c.phase_kernels(d, mpo, ket, 7, site=site)
 c.phase_stacked_kernels(d, mpo, ket, me, 7, summary=False)
-c.phase_mix_kernels(d, mpo, ket, me, 7, summary=False)
-# the paths K10 and K15 run: phases 8b and 9c
+c.phase_shard_kernels(d, mpo, ket, 7, site, eff, (8, 19332, 1542))
+# the paths K5, K6 and K10 run: phases 5 and 8b
+c.phase_full(d, drv, mpo, D=D)
 c.phase_stacked_full(d, drv, mpo, D=D)
-c.phase_mix_full(d, drv, mpo, "2", c.qc_sched(D, n_sweeps=1), "9c mix v2",
-                 D=D)
-# K9, K11 and K12 (the kernels on the shared cores) on fixed inputs, f64
+# K10, K5 (v3 rotate plans) and K6 on fixed inputs, f64
 outs = {}
-for side, (sp, tp, pool, _) in c._stacked_plans(mpo, ket, me, 7).items():
-    res = torch.as_tensor(np.random.default_rng(5).standard_normal(
-        sp.res_total + 1), device=d)
-    outs["K12 input " + side] = torch.as_tensor(pool)
-    outs["K11 " + side] = stacked.stk_mix(
-        res, stacked.mix_tables(sp, d, f64),
-        torch.zeros(sp.out_cap, dtype=f64, device=d)).cpu()
-    tb, tk = stacked.site_pools(tp, d, f64)
-    outs["K12 " + side] = tiled_blocking.tblk_exec(
-        torch.as_tensor(pool, device=d), tb, tk,
-        tiled_blocking.tblk_tables(tp, d, f64), tp.T, tp.left,
-        torch.zeros(tp.ncap, dtype=f64, device=d)).cpu()
-for side, (plan, env, T) in c._blocking_plans(mpo, ket, me, 7).items():
-    pools = [torch.as_tensor(p, device=d)
-             for p in _pools(plan, env, T, T, np.dtype(np.float64))]
-    outs["K9 input " + side] = pools[0].cpu()
-    tab = (blocking_device.kernel_tables if d.type == "cuda" else
-           blocking_device.plain_tables)(plan, d, f64)
-    outs["K9 " + side] = blocking_device.bucket_blocking(
-        *pools, tab, side == "left",
-        torch.zeros(plan.total_out + 1, dtype=f64, device=d)).cpu()
+for side, (sp, _, pool, _) in c._stacked_plans(mpo, ket, me, 7).items():
+    ep = torch.as_tensor(pool, device=d)
+    bp, kp = stacked.site_pools(sp, d, f64)
+    outs["K10 input " + side] = torch.as_tensor(pool)
+    tab = (stacked.slab_kernel_tables(sp, d) if d.type == "cuda" else
+           stacked.slab_plain_tables(sp, d, f64))
+    outs["K10 " + side] = stacked.slab_exec(
+        ep, bp, kp, tab, sp.left,
+        torch.zeros(sp.res_total + 1, dtype=f64, device=d)).cpu()
+for direction, bond, st in (("left", 7, 7), ("right", 9, 8)):
+    env = me.left_envs[bond] if direction == "left" else me.right_envs[bond]
+    meta, pool = env_pool(env, mpo.bond_dqs[bond], np.float64)
+    plan = blockv2.build_blocking_v2(
+        meta, mpo.tensors[st], mpo.site_quanta[st], ket.tensors[st],
+        ket.tensors[st], mpo.group, direction, mpo.bond_dqs[bond],
+        mpo.bond_dqs[8], gemm_mix=True)
+    outs["K5 input " + direction] = torch.as_tensor(pool)
+    outs["K5 " + direction] = blockv2.execute_blocking_v2(
+        plan.rot, torch.as_tensor(pool, device=d)).cpu()
+plans, pools = {}, {}
+for side, (_, pool, args, kws) in c.site_mix_inputs(mpo, me, peff,
+                                                    7).items():
+    plans[side] = resident.build_mix_plan_v4(*args, **kws)
+    pools[side] = resident.execute_mix_plan(
+        plans[side], torch.as_tensor(pool, device=d))
+ex = tilev2.MatvecV2(peff.ket_space, plans["lw"].meta_out,
+                     plans["rw"].meta_out, mpo.group, peff.target,
+                     dtype=np.float64, bra_space=peff.bra_space)
+s = ex.struct
+xp = torch.as_tensor(ex.pad(np.random.default_rng(5).standard_normal(
+    peff.size)), device=d)
+for side, meta in (("lw", plans["lw"].meta_out),
+                   ("rw", plans["rw"].meta_out)):
+    npl = resident.NoisePlan(peff.ket_space, meta, mpo.group, side, s["T"],
+                             s["psi_idx"] if side == "lw" else None)
+    tab = npl.tables(d)
+    resident.noise_exec(xp, pools[side], tab, npl.T)
+    if d.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+    outs["K6 " + side] = resident.noise_exec(xp, pools[side], tab,
+                                             npl.T).cpu()
+    if d.type == "cuda":
+        print(f"[3 kernels] K6 {side}: one call allocates "
+              f"{(torch.cuda.max_memory_allocated() - m0) / 2 ** 20:.2f} "
+              f"MiB above what it found", flush=True)
 torch.save(outs, sys.argv[2])
 """
+
+# what --beside holds the change's outputs to against the parent's:
+# bitwise, or a largest difference relative to the parent's largest entry
+BESIDE_TOL = {"K10": 0.0, "K5": 1e-14}
 
 
 def beside_parent(parent: str, turns=("parent", "change", "change",
                                       "parent")):
-    """K9-K16 of this tree beside those of the tree at ``parent`` (an
-    unpacked earlier commit; phase 3's K9, stacked and mix kernel rows,
-    then the runs of phases 8b and 9c), each at phase 3's K=16 site 7 and
-    in a process of its own, in the order ``turns``: the state is phase
-    5's port run, made once here and handed to every run as a pickle.
-    Each run builds its own tree's kernels and prints its phase-3 rows
-    and its 8b and 9c sweeps, prefixed by its turn, and saves K9's, K11's
-    and K12's f64 outputs on fixed inputs; the change's are then held
-    against the parent's (bitwise, or the largest difference where they
-    are not)."""
+    """K1-K6, K10-K12 and K20-K22 of this tree beside those of the tree
+    at ``parent`` (an unpacked earlier commit): phase 3's rows of those
+    kernels at the K=16 site 7, then the runs of phases 5 and 8b, each in
+    a process of its own, in the order ``turns``; the state is phase 5's
+    port run, made once here and handed to every run as a pickle.  Each
+    run builds its own tree's kernels and prints its phase-3 rows, its 5
+    and 8b sweeps and each noise call's own allocation, prefixed by its
+    turn, and saves K10's, K5's (the v3 rotate plans) and K6's f64
+    outputs on fixed inputs; the change's are then held against the
+    parent's (:func:`beside_outputs`)."""
     import pickle
     import tempfile
     import torch
@@ -3602,8 +3791,8 @@ def beside_parent(parent: str, turns=("parent", "change", "change",
                                  text=True, env=dict(os.environ,
                                                      PYTHONPATH=root))
             for line in run.stdout.splitlines():
-                if line.startswith(("[3 kernels]", "[2 build]", "[8b",
-                                    "[9c", "FAIL")):
+                if line.startswith(("[3 kernels]", "[2 build]", "[5 full]",
+                                    "[8b", "FAIL")):
                     print(f"[beside {i} {turn}] {line}", flush=True)
             print(f"[beside {i} {turn}] exit {run.returncode} in "
                   f"{time.time() - t0:.1f} s", flush=True)
@@ -3615,9 +3804,11 @@ def beside_parent(parent: str, turns=("parent", "change", "change",
 
 
 def beside_outputs(outs):
-    """Print each kernel output of the change's turns against the first
-    parent turn's: bitwise equal, or the largest difference relative to
-    the parent's largest entry."""
+    """Print each kernel output of every turn against the first parent
+    turn's: bitwise equal, or the largest difference relative to the
+    parent's largest entry; fail where a change turn's output of a kernel
+    in BESIDE_TOL differs by more than its tolerance (inputs must be
+    bitwise equal)."""
     ref = next(o for turn, o in outs if turn == "parent")
     for i, (turn, o) in enumerate(outs):
         for k, v in o.items():
@@ -3627,6 +3818,11 @@ def beside_outputs(outs):
                   + ("bitwise equal to the parent's" if same else
                      f"differs from the parent's: rel {rel:.2e}"),
                   flush=True)
+            tol = 0.0 if " input " in k else BESIDE_TOL.get(k.split()[0])
+            if turn == "change" and tol is not None and not (
+                    same or rel <= tol):
+                fail(f"beside: {k} rel {rel:.3e} against the parent's "
+                     f"(allowed {tol:.0e})")
 
 
 if __name__ == "__main__":

@@ -88,6 +88,11 @@ def test_chip_smoke_phases_on_cpu(capsys):
     for k in ("K1_matvec f64", "K5_block  f64 l3", "K5_block  f32 r2",
               "K6_noise  f64 lw", "K6_noise  f32 rw"):
         assert f"[3 kernels] {k}" in out, k
+    # K5's rows name its two paths, K6's its runs and partial pool, and
+    # phase 5 the noise calls' own peak
+    assert out.count("slab path: runs ") == 8 and "; stores;" in out
+    assert "; atomics;" in out and out.count("partial pool ") == 4
+    assert "[5 full] noise calls " in out
     json.dumps(rows)
     assert np.isfinite([r["ms"] for r in rows]).all()
 
@@ -276,11 +281,11 @@ def test_chip_smoke_mix_phases_on_cpu(capsys):
 def test_beside_run_times_k9_to_k16_and_keeps_their_outputs(
         tmp_path, monkeypatch, capsys):
     """The script ``--beside`` runs in each tree (BESIDE_RUN), on the CPU
-    at K=10, D=12 (site 7): the K9 rows, the stacked (K10-K12) and mix
-    (K13-K16) rows, phases 8b and 9c, and K9's, K11's and K12's f64
-    outputs saved for the
-    parent-against-change check, which finds a run bitwise equal to
-    itself and reports a difference."""
+    at K=10, D=12 (site 7): phase 3's K1-K6 rows, the stacked (K10-K12)
+    and sharded (K20-K22) rows, phases 5 and 8b, and K10's, K5's (v3
+    rotate plans) and K6's f64 outputs with K10's and K5's inputs saved
+    for the parent-against-change check, which finds a run bitwise equal
+    to itself and reports a difference."""
     import pickle
     drv, mpo, _ = chip_smoke.qc_system(10, 10)
     ket = chip_smoke.copy_mps(drv.get_random_mps(12, seed=11))
@@ -295,27 +300,64 @@ def test_beside_run_times_k9_to_k16_and_keeps_their_outputs(
     exec(compile(chip_smoke.BESIDE_RUN, "BESIDE_RUN", "exec"),
          {"__name__": "__beside__"})
     out = capsys.readouterr().out
-    for k in ("K9_bucket_blocking f64 r", "K10_slab  f32 l",
-              "K11_stk_mix f64 r", "K12_tiled_blocking f32 r",
-              "K13_env_gemm f64 lw", "K14_place_v3 f64 rw",
-              "K15_mix_v2 f32 rw", "K16_slab_matvec f64"):
+    for k in ("K5_block  f64 l3", "K5_block  f32 r2", "K6_noise  f64 rw",
+              "K10_slab  f32 l", "K11_stk_mix f64 r",
+              "K12_tiled_blocking f32 r", "K21_block_shard f64 l1",
+              "K20_matvec_shard f64 r0"):
         assert f"[3 kernels] {k}" in out, k
-    for k in ("[8b stacked] sweep 1", "[9c mix v2] sweep 0",
-              "[9c mix v2] K15 host tables"):
+    for k in ("[5 full] sweep 1", "[5 full] noise calls",
+              "[8b stacked] sweep 1"):
         assert k in out, k
     outs = torch.load(saved)
-    assert sorted(outs) == ["K11 left", "K11 right", "K12 input left",
-                            "K12 input right", "K12 left", "K12 right",
-                            "K9 input left", "K9 input right", "K9 left",
-                            "K9 right"]
+    assert sorted(outs) == ["K10 input left", "K10 input right",
+                            "K10 left", "K10 right", "K5 input left",
+                            "K5 input right", "K5 left", "K5 right",
+                            "K6 lw", "K6 rw"]
     moved = {k: v.clone() for k, v in outs.items()}
-    moved["K11 right"][0] += 1.0
+    moved["K6 rw"][0] += 1.0
     chip_smoke.beside_outputs([("parent", outs), ("change", outs),
                                ("change", moved)])
     out = capsys.readouterr().out
-    assert "[beside 1 change] K12 left output bitwise equal" in out
-    assert "[beside 2 change] K11 right output differs from the parent's" \
+    assert "[beside 1 change] K10 left output bitwise equal" in out
+    assert "[beside 2 change] K6 rw output differs from the parent's" \
         in out
+
+
+def test_beside_outputs_hold_k10_bitwise_and_k5_to_1e14(capsys):
+    """The parent-against-change gate: K10's outputs and every input must
+    be bitwise equal, K5's within 1e-14 of the parent's largest entry; a
+    parent turn that differs is only reported."""
+    f64 = torch.float64
+    base = {"K10 left": torch.arange(4.0, dtype=f64),
+            "K5 left": torch.ones(4, dtype=f64),
+            "K5 input left": torch.ones(3, dtype=f64)}
+
+    def run(turn, key, delta):
+        moved = {k: v.clone() for k, v in base.items()}
+        moved[key][0] += delta
+        chip_smoke.beside_outputs([("parent", base), (turn, moved)])
+
+    run("change", "K5 left", 1e-15)
+    run("parent", "K10 left", 1.0)
+    for key, delta in (("K10 left", 1e-12), ("K5 left", 1e-12),
+                       ("K5 input left", 1e-12)):
+        with pytest.raises(SystemExit):
+            run("change", key, delta)
+    assert "FAIL: beside: K10 left rel" in capsys.readouterr().out
+
+
+def test_noise_peaks_counts_each_noise_call():
+    """noise_peaks wraps the noise call for the block only: it counts the
+    calls made through resident.noise_exec and restores it after (on the
+    CPU no device memory is read)."""
+    from block2_preview_tpu_torch.ops import resident
+    orig = resident.noise_exec
+    with chip_smoke.noise_peaks(torch.device("cpu")) as npk:
+        assert resident.noise_exec is not orig
+        with pytest.raises(Exception):
+            resident.noise_exec(None, None, {}, 16)
+    assert resident.noise_exec is orig
+    assert npk["calls"] == 1 and npk["peak"] == 0
 
 
 def test_wide_site_checks_its_tile():
@@ -328,6 +370,28 @@ def test_wide_site_checks_its_tile():
     assert len(rows) == 6
     with pytest.raises(SystemExit):
         chip_smoke.phase_kernels(dev, mpo, mps, 3, tile=128)
+
+
+def test_k5_strips_phase_needs_three_strips(capsys):
+    """The phase that runs K5's tile path over items of three and more
+    strips of l (the Hubbard-L16 D=1000 site at T=16) passes there on the
+    plain versions, printing its histogram, the bitwise checks and K21's
+    shares; on a small Hubbard-L8 site, where no item has three strips,
+    it fails."""
+    dev = torch.device("cpu")
+    mpo, mps = chip_smoke.wide_system()
+    chip_smoke.phase_k5_strips(dev, mpo, mps,
+                               chip_smoke.mid_site(mpo, mps, 7)[0], 7)
+    out = capsys.readouterr().out
+    for side in ("l3", "r3"):
+        assert (f"[3 kernels] K5_block f64 {side} at T 16: tile path items "
+                in out)
+    assert out.count("two launches bitwise equal; K21's 2 shares summed "
+                     "bitwise one launch") == 2
+    mpo, mps = chip_smoke.wide_system(L=8, D=60)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_k5_strips(dev, mpo, mps,
+                                   chip_smoke.mid_site(mpo, mps, 3)[0], 3)
 
 
 _PTXAS = """\

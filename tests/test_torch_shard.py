@@ -37,7 +37,8 @@ from block2_preview_tpu_torch.parallel import multihost
 from block2_preview_tpu_torch.parallel.shard import (ShardedPlanExecutor,
                                                      default_mesh)
 
-from test_torch_blockv2 import BONDS, _plans, chain  # noqa: F401
+from test_torch_blockv2 import (BONDS, _plans, blk_walk,  # noqa: F401
+                                chain, check_k5_tables)
 from test_torch_npdm import _solved
 from test_torch_plan_exec import l8  # noqa: F401
 from test_torch_plans import SITES, Site, hubbard_system
@@ -235,10 +236,11 @@ def _ref_pack(mats, offs):
     return jnp.asarray(full)
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_blocking_rank_partials_match_reference(chain, monkeypatch,  # noqa
-                                                world):
-    ref, port, pool = _budget_plans(chain, monkeypatch, False)
+def _ref_rank_partials(ref, pool, world):
+    """The reference's per-device partial output pools of a v2 plan for a
+    world of ``world``: its local scan ``_blk_scan`` fed each device's
+    round-robin slice of the task groups (blockv2.py:921-946), outside
+    ``shard_map``."""
     ns = len(ref.g1)
     ngl = -(-ns // world)
 
@@ -258,10 +260,6 @@ def test_blocking_rank_partials_match_reference(chain, monkeypatch,  # noqa
     ep = jnp.asarray(pool)
     bp, kp = _ref_pack(*ref.bra_pool), _ref_pack(*ref.ket_pool)
     coef = jnp.asarray(np.asarray(ref.coef).real.astype(np.float64))
-    tp = interop.slab_pool(pool, "cpu")
-    pb, pk = site_pools(port, torch.device("cpu"), torch.float64)
-    d = bv2.blk_tables(port, "cpu", torch.float64)
-    total = 0.0
     for r in range(world):
         sl = slice(r * ngl, (r + 1) * ngl)
         out = ref_bv2._blk_scan(
@@ -270,7 +268,18 @@ def test_blocking_rank_partials_match_reference(chain, monkeypatch,  # noqa
             *(jnp.asarray(g[k][sl]) for k in ("g1", "g2", "g3")),
             *(jnp.asarray(e[k][sl]) for k in ("e1", "e2", "e3")), ngl,
             ref.nt1, ref.ntp, ref.T, ref.B, ref.left, ref.ncap)
-        ref_r = np.asarray(out)
+        yield np.asarray(out)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_blocking_rank_partials_match_reference(chain, monkeypatch,  # noqa
+                                                world):
+    ref, port, pool = _budget_plans(chain, monkeypatch, False)
+    tp = interop.slab_pool(pool, "cpu")
+    pb, pk = site_pools(port, torch.device("cpu"), torch.float64)
+    d = bv2.blk_tables(port, "cpu", torch.float64)
+    total = 0.0
+    for r, ref_r in enumerate(_ref_rank_partials(ref, pool, world)):
         part = bv2.blk_rank_part(port, r, world, "cpu")
         got_r = bv2.blk_exec_part(tp, pb, pk, d, part, port.T, port.left,
                                   torch.zeros(port.ncap,
@@ -281,6 +290,43 @@ def test_blocking_rank_partials_match_reference(chain, monkeypatch,  # noqa
     sharded = np.asarray(ref_bv2.execute_blocking_v2(
         ref, jnp.asarray(pool), dtype=np.float64, mesh=ref_mesh(world)))
     assert rel(total, sharded) < TOL
+
+
+@pytest.mark.parametrize("mix", [False, True], ids=["v2", "v3"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_blocking_rank_runs_walk_matches_reference(chain, monkeypatch,
+                                                   world, mix):
+    """K21's tables (blk_rank_part's ``k5``, and the same tables with a
+    staging of 24 elements, which sends the wider items down the tile
+    path): each rank's slab runs and tile-path units cover exactly the
+    items of its task groups (check_k5_tables), the ranks' items
+    partition the plan's live items, and each rank's walk in the kernel's
+    order (blk_walk) matches the reference's partial for that device
+    (_blk_scan on its groups) to 1e-12; on v3 rotate plans each element
+    has one writer, so the ranks' walks summed equal one walk of the
+    whole plan bitwise."""
+    ref, port, pool = _budget_plans(chain, monkeypatch, mix)
+    rp, rr = (port.rot, ref.rot) if mix else (port, ref)
+    bp, kp = site_pools(rp, torch.device("cpu"), torch.float64)
+    pools = (pool, bp.numpy(), kp.numpy())
+    live = np.flatnonzero(np.diff(rp.cum1.astype(np.int64)) > 0)
+    refs = list(_ref_rank_partials(rr, pool, world))
+    for stage in (bv2.K5_STAGE, 24):
+        seen, total = [], 0.0
+        for r, ref_r in enumerate(refs):
+            part = bv2.blk_rank_part(rp, r, world, "cpu")
+            h = part["k5"] if stage == bv2.K5_STAGE else \
+                bv2.k5_host_tables(rp, items=part["items"], stage=stage)
+            check_k5_tables(rp, h, items=part["items"])
+            seen.append(np.concatenate([h["small"], h["large"]]))
+            got_r = blk_walk(rp, h, pools, np.float64)
+            scale = max(np.abs(ref_r).max(), 1e-300)
+            assert np.abs(got_r - ref_r).max() <= TOL * scale
+            total = total + got_r
+        assert np.array_equal(np.sort(np.concatenate(seen)), live)
+        if mix and stage == bv2.K5_STAGE:
+            one = blk_walk(rp, bv2.k5_host_tables(rp), pools, np.float64)
+            assert np.array_equal(total, one)
 
 
 @pytest.mark.parametrize("mix", [False, True], ids=["v2", "v3"])
