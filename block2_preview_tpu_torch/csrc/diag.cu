@@ -5,124 +5,148 @@
 //
 //   diag[(qL, qR)][a, b] = sum_m LW[m][(qL, qL)][a, a] * RW[m][(qR, qR)][b, b]
 //
-// Phase 1 (dl_build) gathers the strided diagonal rows of the LW/RW
-// slabs into contiguous DL/DR pools: out[outoff + i] = pool[base +
-// i*stride] for i < imax (g4 [4, n] rows: base, stride, imax, outoff;
-// rows with base < 0 are padding).  The written ranges are disjoint, so
-// plain stores keep the reference's .at[].set semantics.
-// Phase 2 (diag_kernel) is one block per GEMM tile task: A = DL tile
-// [m, a], B = DR tile [m, b] (a4/b4 rows: base, stride, rmax, cmax),
-// prod[a, b] = sum_m A[m, a] B[m, b], added with atomics into diag tile
-// sD (several m-chunks target one tile).  The flat diagonal then comes
-// out of the tile pool through sig_idx (gather kernel of matvec.cu).
-// Bound on the card: tiny (once per site); launch latency dominates.
+// flattened to the bra space (sector (qL, qR) row-major at its offset).
+//
+// Design: one launch from the LW/RW slab pools straight to the flat
+// diagonal.  The host (ops/resident.py build_diag_struct, once a struct)
+// lists `sym` [M0, 2] = (jl, jr), each common symbol's slab position on
+// the two sides, and `rows` [n, 9] = (flat offset, DL, DR, a0, na, b0, nb,
+// LW sector offset, RW sector offset): a piece of at most 32 x 32 of one
+// sector.  One CUDA block of 16 x 16 threads takes one row: it keeps `sym`
+// in shared memory and stages the piece's diagonals, LW[m][loff + jl DL^2
+// + a (DL + 1)] and RW[m][roff + jr DR^2 + b (DR + 1)], 32 symbols a step
+// through a 2-slot cp.async ring (the next step's loads in flight while
+// this one is summed); thread (ty, tx) owns rows ty + 16 i and columns tx
+// + 16 j of the piece in registers, adds each symbol's outer product in
+// order (a rank-M0 product on the FMA pipes), then stores its elements
+// once.  Every diagonal element is a scattered 8-byte read (a sector of
+// its own), and a block's reads wait on the memory system's outstanding
+// requests, so the pieces are small: on an H100 at the K=16 QC site 7,
+// whole sectors (up to 76 x 76, 152 x 130 reads a block) took longer than
+// 32 x 32 pieces, and 16 x 16 pieces, which read each diagonal more
+// often, longer again.  Rows
+// with DL = 0 are zero ranges (nb elements from the flat offset): the
+// sectors without a dq = 0 contribution and the padded tail, as the
+// earlier design's zero tiles gave them.  No pools, fills, gathers or
+// atomics: two launches are bitwise equal.
+// Bound on the card: tiny (once a Davidson solve; 39,468 outputs and 130
+// symbols at the K=16 QC site 7): one launch's latency; in practice the
+// scattered diagonal reads.
 
-#include "common.cuh"
+#include "chain_mv.cuh"   // cp.async helpers
 
 namespace {
 
-using b2t::kChunk;
-using b2t::kThreads;
+constexpr int kDiagThreads = 256;   // 16 x 16: thread (ty, tx)
+constexpr int kDP = 32;             // rows and columns of a piece at most
+                                    // (host: K2_PIECE)
+constexpr int kDR = kDP / 16;       // rows (columns) a thread: ty + 16 i
+constexpr int kDM = 32;             // symbols staged a step
+constexpr int kDS = 2 * kDP;        // staged diagonal elements a symbol
 
 template <typename S>
-__global__ void dl_build_kernel(const S* __restrict__ pool,
-                                const int* __restrict__ g4, int ng, int T,
-                                S* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)ng * T) return;
-  const int task = (int)(e / T), i = (int)(e % T);
-  const int base = g4[task];
-  if (base < 0 || i >= g4[2 * ng + task]) return;
-  out[(long long)g4[3 * ng + task] + i] =
-      pool[(long long)base + (long long)i * g4[ng + task]];
+__host__ __device__ constexpr size_t diag_smem(int M0) {
+  return 2 * kDM * kDS * sizeof(S) + 2 * sizeof(int) * (size_t)M0;
 }
 
-template <typename S, int T>
-__global__ void __launch_bounds__(kThreads)
-diag_kernel(const S* __restrict__ dl, const S* __restrict__ dr,
-            const int* __restrict__ a4, const int* __restrict__ b4,
-            const int* __restrict__ sD, int nB, S* __restrict__ tiles) {
-  constexpr int R = T / 16;
-  __shared__ S As[kChunk][T];
-  __shared__ S Bs[kChunk][T];
-  const int task = blockIdx.x;
-  const int abase = a4[task];
-  if (abase < 0) return;              // padding task (uniform per block)
-  const int astr = a4[nB + task], arm = a4[2 * nB + task],
-            acm = a4[3 * nB + task];
-  const int bbase = b4[task], bstr = b4[nB + task], brm = b4[2 * nB + task],
-            bcm = b4[3 * nB + task];
+template <typename S>
+__global__ void __launch_bounds__(kDiagThreads)
+diag_kernel(const S* __restrict__ lpool, const S* __restrict__ rpool,
+            const int* __restrict__ rows, const int* __restrict__ sym,
+            int M0, S* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* stage = reinterpret_cast<S*>(smem_raw);   // [2][kDM][kDS]
+  int* js = reinterpret_cast<int*>(stage + 2 * kDM * kDS);   // [M0][2]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int mrm = arm < brm ? arm : brm;   // rows valid in both tiles
-  S acc[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = S(0);
-  for (int m0 = 0; m0 < T && m0 < mrm; m0 += kChunk) {
-    for (int e = tid; e < kChunk * T; e += kThreads) {
-      const int kk = e / T, c = e % T;
-      const int m = m0 + kk;
-      As[kk][c] = (m < arm && c < acm)
-          ? dl[(long long)abase + (long long)m * astr + c] : S(0);
-      Bs[kk][c] = (m < brm && c < bcm)
-          ? dr[(long long)bbase + (long long)m * bstr + c] : S(0);
+  const int* rw = rows + 9 * (long long)blockIdx.x;
+  S* o = out + rw[0];
+  const int DL = rw[1];
+  if (DL == 0) {   // a zero range of nb elements
+    for (int i = tid; i < rw[6]; i += kDiagThreads) o[i] = S(0);
+    return;
+  }
+  const int DR = rw[2], a0 = rw[3], na = rw[4], b0 = rw[5], nb = rw[6];
+  const long long lb = rw[7] + (long long)a0 * (DL + 1);
+  const long long rb = rw[8] + (long long)b0 * (DR + 1);
+  const long long l2 = (long long)DL * DL, r2 = (long long)DR * DR;
+  const int w = na + nb;
+  for (int i = tid; i < 2 * M0; i += kDiagThreads) js[i] = sym[i];
+  __syncthreads();
+
+  // the piece's diagonals of symbols [m0, m0 + kDM) -> stage[slot]: LW's
+  // na elements at [0, na), RW's nb at [kDP, kDP + nb), a symbol
+  auto issue = [&](int m0, int slot) {
+    const int mc = min(kDM, M0 - m0);
+    S* st = stage + slot * kDM * kDS;
+    for (int i = tid; i < mc * w; i += kDiagThreads) {
+      const int mm = i / w, x = i % w, m = m0 + mm;
+      if (x < na)
+        cp_elem(st + mm * kDS + x,
+                lpool + lb + js[2 * m] * l2 + (long long)x * (DL + 1), true);
+      else
+        cp_elem(st + mm * kDS + kDP + x - na,
+                rpool + rb + js[2 * m + 1] * r2 +
+                    (long long)(x - na) * (DR + 1), true);
     }
+  };
+
+  // this thread's rows a = ty + 16 i (i < ia) and columns b = tx + 16 j
+  // (j < jb) of the piece
+  const int ia = (na - ty + 15) >> 4, jb = (nb - tx + 15) >> 4;
+  S acc[kDR][kDR];
+#pragma unroll
+  for (int i = 0; i < kDR; ++i)
+#pragma unroll
+    for (int j = 0; j < kDR; ++j) acc[i][j] = S(0);
+  issue(0, 0);
+  cp_commit();
+  for (int m0 = 0, slot = 0; m0 < M0; m0 += kDM, slot ^= 1) {
+    if (m0 + kDM < M0) issue(m0 + kDM, slot ^ 1);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
+    const S* st = stage + slot * kDM * kDS;
+    const int mc = min(kDM, M0 - m0);
+    for (int mm = 0; mm < mc; ++mm) {
+      S lv[kDR], rv[kDR];
 #pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      S a[R], bv[R];
+      for (int i = 0; i < kDR; ++i) lv[i] = st[mm * kDS + ty + 16 * i];
 #pragma unroll
-      for (int i = 0; i < R; ++i) a[i] = As[kk][ty + 16 * i];
+      for (int j = 0; j < kDR; ++j) rv[j] = st[mm * kDS + kDP + tx + 16 * j];
 #pragma unroll
-      for (int j = 0; j < R; ++j) bv[j] = Bs[kk][tx + 16 * j];
+      for (int i = 0; i < kDR; ++i) {
+        if (i >= ia) break;
 #pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][j] += a[i] * bv[j];
+        for (int j = 0; j < kDR; ++j) {
+          if (j >= jb) break;
+          acc[i][j] += lv[i] * rv[j];
+        }
+      }
     }
     __syncthreads();
   }
-  S* dst = tiles + (long long)sD[task] * T * T;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int a = ty + 16 * i;
-    if (a >= acm) continue;
+  for (int i = 0; i < kDR; ++i) {
+    if (i >= ia) break;
+    S* orow = o + (long long)(a0 + ty + 16 * i) * DR + b0 + tx;
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int bb = tx + 16 * j;
-      if (bb < bcm) atomicAdd(dst + a * T + bb, acc[i][j]);
+    for (int j = 0; j < kDR; ++j) {
+      if (j >= jb) break;
+      orow[16 * j] = acc[i][j];
     }
   }
 }
 
 template <typename S>
-cudaError_t dl_build(const S* pool, const int* g4, int ng, int T, S* out,
-                     void* stream) {
-  const long long n = (long long)ng * T;
-  if (n > 0)
-    dl_build_kernel<S><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
-                         0, static_cast<cudaStream_t>(stream)>>>(
-        pool, g4, ng, T, out);
-  return cudaGetLastError();
-}
-
-template <typename S>
-cudaError_t diag(const S* dl, const S* dr, const int* a4, const int* b4,
-                 const int* sD, int nB, int T, S* tiles, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nB <= 0) return cudaGetLastError();
-  switch (T) {
-    case 16: diag_kernel<S, 16><<<nB, kThreads, 0, st>>>(
-        dl, dr, a4, b4, sD, nB, tiles); break;
-    case 32: diag_kernel<S, 32><<<nB, kThreads, 0, st>>>(
-        dl, dr, a4, b4, sD, nB, tiles); break;
-    case 64: diag_kernel<S, 64><<<nB, kThreads, 0, st>>>(
-        dl, dr, a4, b4, sD, nB, tiles); break;
-    case 128: diag_kernel<S, 128><<<nB, kThreads, 0, st>>>(
-        dl, dr, a4, b4, sD, nB, tiles); break;
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t diag(const S* lpool, const S* rpool, const int* rows,
+                 const int* sym, int M0, int n_rows, S* out, void* stream) {
+  const size_t smem = diag_smem<S>(M0);
+  cudaError_t e = b2t::allow_smem(diag_kernel<S>, smem);
+  if (e != cudaSuccess) return e;
+  if (n_rows > 0)
+    diag_kernel<S><<<(unsigned)n_rows, kDiagThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(lpool, rpool, rows,
+                                                          sym, M0, out);
   return cudaGetLastError();
 }
 
@@ -130,26 +154,16 @@ cudaError_t diag(const S* dl, const S* dr, const int* a4, const int* b4,
 
 extern "C" {
 
-int b2t_dl_build_f64(const double* pool, const int* g4, int ng, int T,
-                     double* out, void* stream) {
-  return (int)dl_build<double>(pool, g4, ng, T, out, stream);
-}
-
-int b2t_dl_build_f32(const float* pool, const int* g4, int ng, int T,
-                     float* out, void* stream) {
-  return (int)dl_build<float>(pool, g4, ng, T, out, stream);
-}
-
-int b2t_diag_f64(const double* dl, const double* dr, const int* a4,
-                 const int* b4, const int* sD, int nB, int T, double* tiles,
+int b2t_diag_f64(const double* lpool, const double* rpool, const int* rows,
+                 const int* sym, int M0, int n_rows, double* out,
                  void* stream) {
-  return (int)diag<double>(dl, dr, a4, b4, sD, nB, T, tiles, stream);
+  return (int)diag<double>(lpool, rpool, rows, sym, M0, n_rows, out, stream);
 }
 
-int b2t_diag_f32(const float* dl, const float* dr, const int* a4,
-                 const int* b4, const int* sD, int nB, int T, float* tiles,
+int b2t_diag_f32(const float* lpool, const float* rpool, const int* rows,
+                 const int* sym, int M0, int n_rows, float* out,
                  void* stream) {
-  return (int)diag<float>(dl, dr, a4, b4, sD, nB, T, tiles, stream);
+  return (int)diag<float>(lpool, rpool, rows, sym, M0, n_rows, out, stream);
 }
 
 }  // extern "C"

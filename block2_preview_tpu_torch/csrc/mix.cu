@@ -1,112 +1,243 @@
-// K3 — symbol-mixing GEMM of the LW/RW assembly (mix v4).
+// K3 — symbol-mixing GEMM of the LW/RW assembly (mix v4) and of the v3
+// environment blocking.
 //
-// Replaces block2_preview_tpu/ops/mixv4.py:136 _mix4_scan (jit
-// _mix4_exec_packed :283).  One plan item is a bounded GEMM sub-block
+// Replaces block2_preview_tpu/ops/mixv4.py:136 _mix4_scan (jits :277
+// _mix4_exec, :283 _mix4_exec_packed; the v3 blocking's at
+// ops/blockv2.py:806-811).  One plan item is a bounded GEMM sub-block
 //
-//   OUT[w, d] += sum_j W[w, j] * E[j, d],   w < nw, j < nsloc, d < width
+//   OUT[w, d] = sum_j W[w, j] * E[j, d],   w < nw, j < nsloc, d < width
 //
 // with W dense at wpool[wbase + w*wstride + j], the env slab rows at
 // epool[ebase + j*estride + d] and OUT at out[obase + w*ostride + d].
-// Item fields `it` [n, 12]: wbase, wstride, nw, ebase, estride, obase,
-// ostride, njT, ndT, tb, width, nsloc.  The reference cuts each item into
-// T=128 layout tiles (wi, di) — the stage-2 tasks counted by cum2 — and
-// segment-sums the j tiles per task inside bounded task groups.
+// Items (the plan's `it` [n, 12], as the reference's) that are j-chunks of
+// one GEMM block (a block with ns > 1024) share their OUT rows.
 //
-// Design.  A 128 x 128 f64 tile is 128 KB, so a CUDA block takes one
-// 64 x 64 quarter of a layout tile (four blocks per stage-2 task) and
-// loops over the whole j range of the item itself (nsloc <= 8 tiles), so
-// the j-reduction of one item needs no scratch and no group tables
-// (tb/g1/g2/e1/e2 are not read).  Items that are j-chunks of the same
-// GEMM block add into the same OUT positions, so the result goes to OUT
-// with atomics.  Bound on the card: W is ~1% dense but densified, so the
-// FMA work is ~100x the useful work; the reads of E dominate memory
-// traffic.
+// Design: output-stationary, one writer an element.  The host
+// (ops/mixv4.py k3_host_tables, once a plan) cuts each GEMM block's OUT
+// into 64 x 64 tiles, `kt` [n_tiles, 8] = (first list entry, entries, rows,
+// columns, OUT offset, OUT row stride, d0, 0), each pointing at a list
+// `kl` [n, 8] = (W offset, W row stride, E offset, E row stride, depth,
+// mask lo, mask hi, item): the block's j-chunk items in j order (one at
+// every width the repository runs), each with the bitmap of the 16-deep j
+// slices in which its W rows of the tile hold a non-zero; the kernel reads
+// no item table.  One CUDA block of 8 warps owns one tile.
+// It walks the set bits of its entries' masks in order: each step's W
+// slice (64 x 16) and E slice (16 x 64), live rows and columns only,
+// zero-filled to the fragment, come through a 2-slot cp.async ring; warp w
+// accumulates rows [8w, 8w + 8) of the tile, all of its 8 x 8 column
+// fragments, in registers (f64 on the tensor cores, DMMA m8n8k4; f32 on the
+// FMA pipes, the port keeps true f32) and skips a 4-deep step whose W
+// fragment is all zero (a warp vote).  The block then stores each OUT
+// element once, the piece staged in shared memory so that a warp writes a
+// row (coalesced: a fragment's lanes hold 8-byte pieces of 8 rows): no
+// atomics, so two launches are bitwise equal, and OUT
+// needs no zero fill: the host also lists every range of OUT that no
+// GEMM block writes (`kz` [n, 2] = start, length: the mix's padding
+// columns and rows, the v3 blocking's sectors without a spec and its tail
+// past meta_out.total, which K1 and the next mix read as zeros), and
+// zero tiles (-1, gaps, first gap) store zeros there, a warp a gap, below
+// `*zlim`: the end of the last element OUT's reader reads (for the mix,
+// formed on the device from K4's windows once a plan, so the size-class
+// tail of its OUT buffer is left alone; for the v3 blocking, the pool).
+// W is partly sparse where it is used: at site 7 of the K=16 QC state
+// that chip_smoke.py phase 5 leaves, 0.101 of the LW mix's 0.654 dense
+// GFLOP and 0.934 of the RW mix's 1.329 fall on W's non-zeros (phase 3).
+// The mask skips the all-zero slices' loads and products, the vote the
+// all-zero fragments' products.
+// Bound on the card: the bytes written (21.7M covered OUT elements of
+// the mix at that site, lw + rw) with the E slab read once; the products
+// on W's non-zeros take a quarter of that time at the f64 tensor-core rate.
 
-#include "common.cuh"
+#include "chain_mv.cuh"
 
 namespace {
 
-using b2t::kChunk;
-using b2t::kThreads;
+constexpr int kMT = 64;                  // tile rows (W rows) and columns
+constexpr int kKS = 16;                  // depth of a j slice (a mask bit)
+constexpr int kLDW = kKS + 4;            // W slice row length in smem
+constexpr int kLDE = kMT + 4;            // E slice row length in smem
+constexpr int kMixThreads = 256;         // 8 warps: one an 8-row block
+constexpr int kMixFrag = kMT / 8;        // 8 x 8 column fragments a warp
+constexpr int kLDO = kMT + 1;            // OUT piece row length in smem
 
-constexpr int kLayout = 128;   // the plan's tile (_T4), a layout constant
-constexpr int kSub = 64;       // rows/cols of OUT one block computes
-constexpr int kR = kSub / 16;  // micro tile per thread
-
-template <typename S>
-__global__ void __launch_bounds__(kThreads)
-mix_kernel(const S* __restrict__ epool, const S* __restrict__ wpool,
-           const int* __restrict__ it, const int* __restrict__ cum2,
-           int n_items, S* __restrict__ out) {
-  __shared__ S Ws[kSub][kChunk + 1];
-  __shared__ S Es[kChunk][kSub];
-  const long long b = blockIdx.x;
-  const long long task = b >> 2;
-  const int q = (int)(b & 3);
-  const int item = b2t::find_item(cum2, n_items, task);
-  const int* f = it + (long long)item * 12;
-  const int o2 = (int)(task - cum2[item]);
-  const int nw = f[2], ndT = f[8], width = f[10], nsloc = f[11];
-  const int wi = o2 / ndT, di = o2 % ndT;
-  const int w0 = wi * kLayout + (q >> 1) * kSub;
-  const int d0 = di * kLayout + (q & 1) * kSub;
-  if (w0 >= nw || d0 >= width) return;   // empty quarter (whole block)
-  const long long wbase = f[0], ebase = f[3], obase = f[5];
-  const int wstride = f[1], estride = f[4], ostride = f[6];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  S acc[kR][kR];
+// acc[j] += W rows [r, r + 8) x depth [0, kc4) . E depth x columns
+// [8j, 8j + 8), for j < nf.  Lane (g, t) holds D[g][2t], D[g][2t + 1].
+// f64: one DMMA a fragment and depth 4, skipped where the warp's W
+// fragment is all zero.
+__device__ __forceinline__ void mix_slice(double (&acc)[kMixFrag][2], int r,
+                                          int nf, const double* Ws,
+                                          const double* Es, int kc4, int g,
+                                          int t) {
 #pragma unroll
-  for (int i = 0; i < kR; ++i)
+  for (int kk = 0; kk < kKS; kk += 4) {
+    if (kk >= kc4) break;
+    const double a = Ws[(r + g) * kLDW + kk + t];
+    if (!__any_sync(0xffffffffu, a != 0.0)) continue;
+    const double* b = Es + (kk + t) * kLDE + g;
 #pragma unroll
-    for (int j = 0; j < kR; ++j) acc[i][j] = S(0);
-  for (int j0 = 0; j0 < nsloc; j0 += kChunk) {
-    for (int e = tid; e < kSub * kChunk; e += kThreads) {
-      const int w = e / kChunk, kk = e % kChunk;
-      Ws[w][kk] = (w0 + w < nw && j0 + kk < nsloc)
-          ? wpool[wbase + (long long)(w0 + w) * wstride + j0 + kk] : S(0);
-    }
-    for (int e = tid; e < kSub * kChunk; e += kThreads) {
-      const int kk = e / kSub, d = e % kSub;
-      Es[kk][d] = (j0 + kk < nsloc && d0 + d < width)
-          ? epool[ebase + (long long)(j0 + kk) * estride + d0 + d] : S(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      S a[kR], bv[kR];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) a[i] = Ws[ty + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < kR; ++j) bv[j] = Es[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kR; ++j) acc[i][j] += a[i] * bv[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int w = w0 + ty + 16 * i;
-    if (w >= nw) continue;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int d = d0 + tx + 16 * j;
-      if (d < width)
-        atomicAdd(out + obase + (long long)w * ostride + d, acc[i][j]);
+    for (int j = 0; j < kMixFrag; ++j) {
+      if (j >= nf) break;
+      dmma(acc[j][0], acc[j][1], a, b[8 * j]);
     }
   }
 }
 
+// f32: the same fragments on the FMA pipes; lane (g, t) forms its own
+// D[g][2t], D[g][2t + 1] from W[g][kk:kk + 4] (one 16-byte load) and
+// E[kk:kk + 4][2t:2t + 2] (four 8-byte loads).
+__device__ __forceinline__ void mix_slice(float (&acc)[kMixFrag][2], int r,
+                                          int nf, const float* Ws,
+                                          const float* Es, int kc4, int g,
+                                          int t) {
+#pragma unroll
+  for (int kk = 0; kk < kKS; kk += 4) {
+    if (kk >= kc4) break;
+    const float4 a =
+        *reinterpret_cast<const float4*>(Ws + (r + g) * kLDW + kk);
+    if (!__any_sync(0xffffffffu, a.x != 0.f || a.y != 0.f || a.z != 0.f ||
+                                     a.w != 0.f))
+      continue;
+#pragma unroll
+    for (int j = 0; j < kMixFrag; ++j) {
+      if (j >= nf) break;
+      const float* b = Es + kk * kLDE + 8 * j + 2 * t;
+      const float2 b0 = *reinterpret_cast<const float2*>(b);
+      const float2 b1 = *reinterpret_cast<const float2*>(b + kLDE);
+      const float2 b2 = *reinterpret_cast<const float2*>(b + 2 * kLDE);
+      const float2 b3 = *reinterpret_cast<const float2*>(b + 3 * kLDE);
+      acc[j][0] = fmaf(a.x, b0.x, fmaf(a.y, b1.x, fmaf(a.z, b2.x,
+                  fmaf(a.w, b3.x, acc[j][0]))));
+      acc[j][1] = fmaf(a.x, b0.y, fmaf(a.y, b1.y, fmaf(a.z, b2.y,
+                  fmaf(a.w, b3.y, acc[j][1]))));
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned long long entry_mask(const int* ent) {
+  return ((unsigned long long)(unsigned)ent[6] << 32) | (unsigned)ent[5];
+}
+
+// the next step (entry e, slice k) after the cursor (e, m: the entry's
+// slices not yet issued); false past the last entry
+__device__ __forceinline__ bool next_step(const int* kl, int cnt, int& e,
+                                          unsigned long long& m, int& k) {
+  while (m == 0) {
+    if (++e >= cnt) return false;
+    m = entry_mask(kl + 8 * (long long)e);
+  }
+  k = __ffsll((long long)m) - 1;
+  m &= m - 1;
+  return true;
+}
+
 template <typename S>
-cudaError_t mix(const S* epool, const S* wpool, const int* it,
-                const int* cum2, int n_items, long long n_tasks, S* out,
+__global__ void __launch_bounds__(kMixThreads, 4)
+mix_kernel(const S* __restrict__ epool, const S* __restrict__ wpool,
+           const int* __restrict__ kt, const int* __restrict__ kl,
+           const int* __restrict__ kz, const int* __restrict__ zlim,
+           S* __restrict__ out) {
+  // the ring (2 slots of a W and an E slice), then the tile's OUT piece
+  __shared__ __align__(16) S smem[2 * (kMT * kLDW + kKS * kLDE)];
+  S(*Ws)[kMT * kLDW] = reinterpret_cast<S(*)[kMT * kLDW]>(smem);
+  S(*Es)[kKS * kLDE] =
+      reinterpret_cast<S(*)[kKS * kLDE]>(smem + 2 * kMT * kLDW);
+  static_assert(kMT * kLDO <= 2 * (kMT * kLDW + kKS * kLDE),
+                "the OUT piece must fit in the ring");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int4* tile = reinterpret_cast<const int4*>(kt) + 2 * blockIdx.x;
+  const int4 t0 = tile[0];
+  if (t0.x < 0) {   // zero tile (-1, gaps, first gap): a warp a gap,
+                    // below the first element no reader reads
+    const int lim = *zlim;
+    for (int q = warp; q < t0.y; q += kMixThreads / 32) {
+      const int* z = kz + 2 * (long long)(t0.z + q);
+      S* o = out + z[0];
+      const int n = min(z[1], lim - z[0]);
+      for (int i = lane; i < n; i += 32) o[i] = S(0);
+    }
+    return;
+  }
+  const int4 t1 = tile[1];
+  const int cnt = t0.y, nrow = t0.z, ncol = t0.w, ostride = t1.y, d0 = t1.z;
+  const int* ents = kl + 8 * (long long)t0.x;
+  const int nrow8 = (nrow + 7) & ~7, ncol8 = (ncol + 7) & ~7;
+  const int nf = ncol8 >> 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = 8 * warp;
+  const bool rows = r < nrow8;
+
+  // W rows [0, nrow) x slice k of entry e -> Ws[slot], E slice k x columns
+  // [d0, d0 + ncol) -> Es[slot]; returns the slice's depth rounded to 4
+  auto issue = [&](int e, int k, int slot) {
+    const int* ent = ents + 8 * (long long)e;
+    const long long wb = ent[0] + (long long)k * kKS;
+    const long long eb = ent[2] + (long long)k * kKS * ent[3] + d0;
+    const int wstr = ent[1], estr = ent[3];
+    const int kd = min(kKS, ent[4] - k * kKS);
+    S* wd = Ws[slot];
+    for (int i = tid; i < nrow8 * kKS; i += kMixThreads) {
+      const int rr = i / kKS, kk = i % kKS;
+      const bool ok = rr < nrow && kk < kd;
+      cp_elem(wd + rr * kLDW + kk,
+              ok ? wpool + wb + (long long)rr * wstr + kk : wpool, ok);
+    }
+    S* ed = Es[slot];
+    for (int i = tid; i < kKS * ncol8; i += kMixThreads) {
+      const int kk = i / ncol8, c = i % ncol8;
+      const bool ok = kk < kd && c < ncol;
+      cp_elem(ed + kk * kLDE + c,
+              ok ? epool + eb + (long long)kk * estr + c : epool, ok);
+    }
+    return (kd + 3) & ~3;
+  };
+
+  S acc[kMixFrag][2];
+#pragma unroll
+  for (int j = 0; j < kMixFrag; ++j) acc[j][0] = acc[j][1] = S(0);
+
+  int pe = 0, k = 0, kc4 = 0;
+  unsigned long long pm = entry_mask(ents);
+  bool cur = next_step(ents, cnt, pe, pm, k);
+  if (cur) kc4 = issue(pe, k, 0);
+  cp_commit();
+  for (int slot = 0; cur; slot ^= 1) {
+    const bool nxt = next_step(ents, cnt, pe, pm, k);
+    const int nc4 = nxt ? issue(pe, k, slot ^ 1) : 0;
+    cp_commit();
+    cp_wait<1>();      // this step's copies (this thread's) have landed
+    __syncthreads();   // ... and everyone's
+    if (rows) mix_slice(acc, r, nf, Ws[slot], Es[slot], kc4, g, t);
+    __syncthreads();   // the slot is free for the step after next
+    cur = nxt;
+    kc4 = nc4;
+  }
+
+  // the piece through shared memory (the ring is free: the last step
+  // ended on a barrier), then a warp a row, lanes along the columns
+  if (rows) {
+    S* os = smem + (r + g) * kLDO + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kMixFrag; ++j) {
+      if (j >= nf) break;
+      os[8 * j] = acc[j][0];
+      os[8 * j + 1] = acc[j][1];
+    }
+  }
+  __syncthreads();
+  for (int rr = warp; rr < nrow; rr += kMixThreads / 32) {
+    S* o = out + t1.x + (long long)rr * ostride;
+    for (int c = lane; c < ncol; c += 32) o[c] = smem[rr * kLDO + c];
+  }
+}
+
+template <typename S>
+cudaError_t mix(const S* epool, const S* wpool, const int* kt, const int* kl,
+                const int* kz, const int* zlim, int n_tiles, S* out,
                 void* stream) {
-  if (n_tasks > 0)
-    mix_kernel<S><<<(unsigned)(n_tasks * 4), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        epool, wpool, it, cum2, n_items, out);
+  if (n_tiles > 0)
+    mix_kernel<S><<<(unsigned)n_tiles, kMixThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(epool, wpool, kt,
+                                                         kl, kz, zlim, out);
   return cudaGetLastError();
 }
 
@@ -114,17 +245,17 @@ cudaError_t mix(const S* epool, const S* wpool, const int* it,
 
 extern "C" {
 
-int b2t_mix_f64(const double* epool, const double* wpool, const int* it,
-                const int* cum2, int n_items, long long n_tasks, double* out,
-                void* stream) {
-  return (int)mix<double>(epool, wpool, it, cum2, n_items, n_tasks, out,
+int b2t_mix_f64(const double* epool, const double* wpool, const int* kt,
+                const int* kl, const int* kz, const int* zlim, int n_tiles,
+                double* out, void* stream) {
+  return (int)mix<double>(epool, wpool, kt, kl, kz, zlim, n_tiles, out,
                           stream);
 }
 
-int b2t_mix_f32(const float* epool, const float* wpool, const int* it,
-                const int* cum2, int n_items, long long n_tasks, float* out,
-                void* stream) {
-  return (int)mix<float>(epool, wpool, it, cum2, n_items, n_tasks, out,
+int b2t_mix_f32(const float* epool, const float* wpool, const int* kt,
+                const int* kl, const int* kz, const int* zlim, int n_tiles,
+                float* out, void* stream) {
+  return (int)mix<float>(epool, wpool, kt, kl, kz, zlim, n_tiles, out,
                          stream);
 }
 

@@ -76,8 +76,10 @@ def mix_plan_v4(ref_plan) -> MixPlanV4:
     reference's packed upload is not carried)."""
     p = MixPlanV4()
     for k in MixPlanV4.__slots__:
-        setattr(p, k, getattr(ref_plan, k))
+        if k != "_dev":     # the port's own cache
+            setattr(p, k, getattr(ref_plan, k))
     p.meta_out = stacked_meta(ref_plan.meta_out)
+    p._dev = {}
     return p
 
 

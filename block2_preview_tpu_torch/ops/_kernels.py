@@ -143,9 +143,8 @@ _SIGS = {
     "b2t_matvec": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_matvec_units": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_gather": (_P, _P, _L, _P, _P),
-    "b2t_dl_build": (_P, _P, _I, _I, _P, _P),
-    "b2t_diag": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
-    "b2t_mix": (_P, _P, _P, _P, _I, _L, _P, _P),
+    "b2t_diag": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "b2t_mix": (_P, _P, _P, _P, _P, _P, _I, _P, _P),
     "b2t_place": (_P, _P, _P, _P, _I, _L, _P, _P),
     "b2t_block": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _L, _I,
                   _I, _I, _P, _P),

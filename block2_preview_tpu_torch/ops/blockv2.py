@@ -50,7 +50,7 @@ import torch
 from . import _kernels
 from .csr import w_triplets
 from .exec_bucket import _int32
-from .mixv4 import emit_gemm_items, mix_exec
+from .mixv4 import emit_gemm_items, k3_host_tables, mix_exec
 from .stacked import StackedMeta, _cap_class, _pow2, site_pools
 from .tiled import pick_tile
 from .tilev2 import _locate, gather_tiles, group_units, shard_groups
@@ -442,21 +442,33 @@ def execute_blocking_v2(plan: BlockingV2Plan, epool, mesh=None,
     return all_reduce_(out, group)
 
 
+def mix_host(plan: BlockingV3Plan) -> Dict:
+    """K3's host tables of a v3 plan's symbol-mixing GEMM
+    (:func:`mixv4.k3_host_tables`, every final-pool element that no GEMM
+    block writes a zero range), built once and kept in ``plan._dev``."""
+    h = plan._dev.get("k3")
+    if h is None:
+        if np.iscomplexobj(plan.wdense):
+            raise TypeError("complex blocking plans are not on this slice")
+        h = plan._dev["k3"] = k3_host_tables(plan.gtab["it"], plan.wdense,
+                                             plan.ncap)
+    return h
+
+
 def mix_tables(plan: BlockingV3Plan, device, dtype) -> Dict:
     """K3 tables of a v3 plan's symbol-mixing GEMM, cached on the plan."""
     key = (str(device), dtype)
     d = plan._dev.get(key)
     if d is None:
-        g = plan.gtab
+        g, h = plan.gtab, mix_host(plan)
 
         def i32(a):
             return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                    device=device)
 
-        if np.iscomplexobj(plan.wdense):
-            raise TypeError("complex blocking plans are not on this slice")
         d = {"it": i32(g["it"]), "cum1": i32(g["cum1"]),
-             "cum2": i32(g["cum2"]), "n2": int(g["cum2"][-1]),
+             "cum2": i32(g["cum2"]), "kt": i32(h["kt"]), "kl": i32(h["kl"]),
+             "kz": i32(h["kz"]), "zlim": i32([plan.ncap]),
              "wpool": torch.as_tensor(plan.wdense, dtype=dtype,
                                       device=device)}
         plan._dev[key] = d
@@ -466,12 +478,14 @@ def mix_tables(plan: BlockingV3Plan, device, dtype) -> Dict:
 def execute_blocking_v3(plan: BlockingV3Plan, epool, mesh=None,
                         axis: str = "op"):
     """K5 into the ROT pool, then the symbol-mixing GEMM (K3) into the
-    final pool [ncap] (zero above ``meta_out.total``).  With a ``mesh``
-    the rotate stage is sharded (K21 + ``all_reduce``); the mix stage is
-    not, as in the reference (:766-776)."""
+    final pool [ncap] (zero wherever no GEMM block writes, above
+    ``meta_out.total`` too: K3's zero ranges, so the pool is allocated
+    unfilled).  With a ``mesh`` the rotate stage is sharded (K21 +
+    ``all_reduce``); the mix stage is not, as in the reference
+    (:766-776)."""
     rot = execute_blocking_v2(plan.rot, epool, mesh=mesh, axis=axis)
     d = mix_tables(plan, epool.device, epool.dtype)
-    out = torch.zeros(plan.ncap, dtype=epool.dtype, device=epool.device)
+    out = torch.empty(plan.ncap, dtype=epool.dtype, device=epool.device)
     return mix_exec(rot, d["wpool"], d, out)
 
 

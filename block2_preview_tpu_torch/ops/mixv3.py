@@ -193,10 +193,11 @@ def build_mix_plan_v3(meta_env: StackedMeta, entries, quanta,
         secoff = np.concatenate([[0], np.cumsum(dbdk)])
         nw = len(rows)
         ns = len(syms)
-        # W in deduplicated COO form: typically ~1% dense, and the dense
-        # [nw, ns] form would dominate plan memory, the cross-process
-        # pickle, and the per-visit host->device transfer (the device
-        # kernel densifies on-chip)
+        # W in deduplicated COO form (partly sparse: at site 7 of the
+        # K=16 QC state of chip_smoke.py phase 5, 15% of the LW mix's
+        # dense GEMM FLOPs and 70% of the RW mix's fall on non-zeros), so
+        # that the plan and its cross-process pickle do not hold the
+        # dense form (the device kernels densify)
         rr = np.asarray(nnz_r, np.int64)
         jj = np.asarray(nnz_j, np.int64)
         vv = np.asarray(nnz_c, dtype=cdtype)

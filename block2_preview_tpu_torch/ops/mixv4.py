@@ -4,23 +4,28 @@ Host side, copied from block2_preview_tpu/ops/mixv4.py:136-425 (the
 plan: ``emit_gemm_items``, ``MixPlanV4``, ``plan_v4``) so the item and
 window tables are byte-identical to the reference's.  The reference's
 single packed int32 upload (a remedy for a slow host link) is not
-carried: the port uploads the tables as they are.
+carried: the port uploads the tables once a plan and device, cached in
+the plan's ``_dev`` with K3's host tables (:func:`k3_host_tables`).
 
 Device side, :func:`execute_mix_v4` runs
 
   K3 (``csrc/mix.cu``, replaces ``_mix4_scan``):
-      OUT[w, d] += sum_j W[w, j] * E[j, d] per plan item, W dense;
+      OUT[w, d] = sum_j W[w, j] * E[j, d] per GEMM block, one CUDA block
+      a 64 x 64 OUT tile, each element stored once (no atomics);
   K4 (``csrc/place.cu``, replaces ``_place4_exec_packed``):
       slab[dst + r*rs + c*cs] = OUT[src + r*sst + c] per window (the
       windows are disjoint), every other slab element 0;
 
 and returns the LW/RW slab pool [ncap_out + 1] with the zero sentinel
-last.  On CPU tensors the wrappers run the plain PyTorch twins; on CUDA
-tensors they launch the kernels or raise.
+last.  OUT is not zero-filled: K3 writes all of it that K4 reads, the
+ranges that no GEMM block covers as zeros.  On CPU tensors the wrappers
+run the plain PyTorch twins; on CUDA tensors they launch the kernels or
+raise.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -126,13 +131,14 @@ def emit_gemm_items(specs):
 
 class MixPlanV4:
     """Execution form derived from a MixPlanV3 (same meta_out / place
-    tables; see build_mix_plan_v3).  Host arrays only: device tables are
-    uploaded per execution and never stored on the plan."""
+    tables; see build_mix_plan_v3): the reference's fields, and ``_dev``,
+    the port's cache of K3's host tables (under "k3") and of the device
+    tables (under (device, dtype))."""
 
     __slots__ = ("meta_out", "ncap_out", "out_total", "iscpx",
                  "dims_hint", "n_launch",
                  "it", "cum1", "cum2", "g1", "g2", "e1", "e2",
-                 "ng_live", "wdense", "pit", "pcum", "png")
+                 "ng_live", "wdense", "pit", "pcum", "png", "_dev")
 
 
 def plan_v4(p3) -> Optional["MixPlanV4"]:
@@ -213,6 +219,7 @@ def plan_v4(p3) -> Optional["MixPlanV4"]:
         np.add.at(wd, (wr, wc), wv)
         wdense[wo:wo + nw * ns] = wd.ravel()
     p.wdense = wdense
+    p._dev = {}
 
     return p
 
@@ -266,18 +273,221 @@ def mix_twin(epool, wpool, d: Dict, out):
     return out
 
 
+# K3's OUT tile (csrc/mix.cu kMT), the depth of one mask bit (kKS) and
+# the elements of one zero tile
+K3_TILE = 64
+K3_SLICE = 16
+K3_ZERO = 1 << 14
+
+
+def _segments(n):
+    """(owner, position) of every element of consecutive segments of
+    lengths ``n``: the segment each belongs to and its place in it."""
+    own = np.repeat(np.arange(len(n)), n)
+    return own, np.arange(len(own)) - np.repeat(np.cumsum(n) - n, n)
+
+
+def _w_masks(f, wdense):
+    """For the live item rows ``f`` [n, 12]: (masks, moff, inv, nnz) —
+    ``masks[moff[inv[i]] + wt]``, the bitmap of the K3_SLICE-deep j slices
+    in which item i's W rows [K3_TILE wt, + K3_TILE) hold a non-zero, and
+    ``nnz[inv[i]]``, the non-zeros of its W block.  Formed once per
+    distinct W block (an item's W block is the same for all items with
+    its W offset: the sectors of one GEMM), from a prefix count of the
+    pool's non-zeros: a (row, slice) holds one where the count grows
+    across it."""
+    _, first, inv = np.unique(f[:, 0], return_index=True,
+                              return_inverse=True)
+    wb, ws, nw, ns = f[first][:, [0, 1, 2, 11]].T
+    if not np.array_equal(f[:, [1, 2, 11]],
+                          np.stack([ws, nw, ns], 1)[inv.reshape(-1)]):
+        raise ValueError("K3: items with one W offset differ in W shape")
+    nsl = -(-ns // K3_SLICE)
+    if np.any(nsl > 64) or np.any(wb + (nw - 1) * ws + ns > len(wdense)):
+        raise ValueError("K3: a W block out of range")
+    cnt = np.zeros(len(wdense) + 1, np.int32)
+    np.cumsum((wdense != 0).view(np.uint8), dtype=np.int32, out=cnt[1:])
+    ru, r = _segments(nw)                    # every row of every block
+    pu, q = _segments(np.repeat(nsl, nw))    # every slice of every row
+    start = (wb[ru] + r * ws[ru])[pu] + q * K3_SLICE
+    end = start + np.minimum(K3_SLICE, ns[ru][pu] - q * K3_SLICE)
+    bit = np.where(cnt[end] > cnt[start],
+                   np.left_shift(np.uint64(1), q.astype(np.uint64)),
+                   np.uint64(0))
+    rows = np.bitwise_or.reduceat(bit, np.flatnonzero(q == 0))
+    masks = np.bitwise_or.reduceat(rows, np.flatnonzero(r % K3_TILE == 0))
+    row0 = wb[ru] + r * ws[ru]
+    nnz = np.add.reduceat(cnt[row0 + ns[ru]] - cnt[row0],
+                          np.flatnonzero(r == 0))
+    moff = np.concatenate([[0], np.cumsum(-(-nw // K3_TILE))])
+    return masks, moff, inv.reshape(-1), nnz
+
+
+def _k3_cover(ob, S, nw, wd):
+    """The OUT elements that GEMM blocks (obase ``ob`` ascending, row
+    stride ``S``, ``nw`` rows of ``wd`` elements) write, as (starts, ends)
+    of disjoint intervals, merged where they touch.  Blocks side by side in
+    the same rows (the sectors of one mix GEMM) are joined first, so there
+    is an interval a GEMM row, or one a block whose rows touch.  Raises if
+    two blocks share an element (K3 stores each element once)."""
+    full = (wd == S) | (nw == 1)
+    link = np.zeros(len(ob), bool)
+    link[1:] = ((ob[1:] == ob[:-1] + wd[:-1]) & (S[1:] == S[:-1])
+                & (nw[1:] == nw[:-1]) & ~full[1:] & ~full[:-1])
+    head = np.flatnonzero(~link)
+    cw = np.add.reduceat(wd, head)
+    hob, hS, hnw = ob[head], S[head], nw[head]
+    if np.any(cw > np.where(hnw > 1, hS, cw)):
+        raise ValueError("K3: GEMM blocks overlap in OUT")
+    one = (cw == hS) | (hnw == 1)            # contiguous rows: one interval
+    nr = np.where(one, 1, hnw)
+    ri = np.arange(int(nr.sum())) - np.repeat(np.cumsum(nr) - nr, nr)
+    starts = np.repeat(hob, nr) + ri * np.repeat(hS, nr)
+    ends = starts + np.repeat(np.where(one, (hnw - 1) * hS + cw, cw), nr)
+    o = np.argsort(starts, kind="stable")
+    starts, ends = starts[o], ends[o]
+    if np.any(starts[1:] < ends[:-1]):
+        raise ValueError("K3: GEMM blocks overlap in OUT")
+    brk = np.ones(len(starts), bool)
+    brk[1:] = starts[1:] != ends[:-1]
+    last = np.append(np.flatnonzero(brk)[1:] - 1, len(ends) - 1)
+    return starts[brk], ends[last]
+
+
+def _k3_gaps(cs, ce, n: int):
+    """The ranges of [0, n) outside the intervals [cs, ce), cut into
+    pieces of at most K3_ZERO elements (``kz`` [n_gaps, 2]: start,
+    length), and the zero tiles (-1, gaps, first gap, 0) that store them:
+    runs of at most 64 gaps and about K3_ZERO elements."""
+    if len(ce) and ce[-1] > n:
+        raise ValueError("K3: OUT blocks reach past the buffer")
+    zs = np.concatenate([[0], ce])
+    zn = np.concatenate([cs, [n]]) - zs
+    zs, zn = zs[zn > 0], zn[zn > 0]
+    k = -(-zn // K3_ZERO)
+    zi = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
+    z0 = np.repeat(zs, k) + zi * K3_ZERO
+    kz = np.stack([z0, np.minimum(np.repeat(zs + zn, k) - z0, K3_ZERO)], 1)
+    before = np.cumsum(kz[:, 1]) - kz[:, 1]
+    run = before // K3_ZERO
+    new = np.ones(len(kz), bool)
+    new[1:] = run[1:] != run[:-1]
+    pos = np.arange(len(kz)) - np.maximum.accumulate(
+        np.where(new, np.arange(len(kz)), 0))
+    first = np.flatnonzero(new | (pos % 64 == 0))
+    cnt = np.diff(np.append(first, len(kz)))
+    kt = np.stack([np.full(len(first), -1), cnt, first,
+                   np.zeros(len(first), np.int64)], 1)
+    return kz, kt
+
+
+def k3_host_tables(it, wdense, zero_to: int) -> Dict:
+    """K3's output tiles for the item table ``it`` [n, 12] and the dense W
+    pool ``wdense`` (host, real), built once a plan, so that K3 writes
+    every element of OUT [0, zero_to), each once.  A GEMM block is the
+    items with one obase (its j-chunks, in plan order; one at every width
+    this repository runs); its OUT is cut into 64 x 64 tiles.
+
+    ``kt`` [n_tiles, 8] int32: (first entry of ``kl``, entries, rows,
+    columns, OUT offset of the tile, OUT row stride, d0, 0) a tile, the
+    heaviest first, then the zero tiles (-1, gaps, first gap, 0, ...).
+    ``kl`` [n_entries, 8] int32: (W offset of the tile's first row, W row
+    stride, E offset, E row stride, depth, mask lo, mask hi, item), the
+    block's items for one 64-row tile in j order, each with the bitmap of
+    the 16-deep j slices in which its W rows of the tile hold a non-zero
+    (the kernel skips the other slices).
+    ``kz`` [n_gaps, 2] int32: (start, length), the OUT ranges below
+    ``zero_to`` that no block writes, stored as zeros.
+    Also ``steps`` (slices walked), ``flops`` (dense, as the reference
+    multiplies), ``flops_nz`` (on W's non-zeros), ``written`` (elements
+    the blocks store), ``zeros`` and ``seconds``."""
+    t0 = time.perf_counter()
+    T = K3_TILE
+    it = np.asarray(it)
+    live = np.flatnonzero((it[:, 2] > 0) & (it[:, 10] > 0)
+                          & (it[:, 11] > 0))
+    f = it[live].astype(np.int64)
+    o = np.argsort(f[:, 5], kind="stable")   # by obase, then plan order
+    live, f = live[o], f[o]
+    first = np.ones(len(f), bool)
+    first[1:] = f[1:, 5] != f[:-1, 5]
+    gs = np.flatnonzero(first)
+    cnt = np.diff(np.append(gs, len(f)))
+    g = f[gs]
+    gi = np.repeat(np.arange(len(gs)), cnt)
+    if not np.array_equal(f[:, [2, 6, 10]], g[gi][:, [2, 6, 10]]):
+        raise ValueError("K3: items with one obase differ in OUT shape")
+    cs, ce = _k3_cover(g[:, 5], g[:, 6], g[:, 2], g[:, 10])
+    kz, zt = _k3_gaps(cs, ce, int(zero_to))
+    masks, moff, inv, nnz = _w_masks(f, wdense)
+
+    # list entries: per block and 64-row tile, the block's items in j order
+    nwt = -(-g[:, 2] // T)
+    ne = nwt * cnt
+    es = np.concatenate([[0], np.cumsum(ne)])
+    eg = np.repeat(np.arange(len(gs)), ne)
+    loc = np.arange(int(es[-1])) - es[eg]
+    ewt = loc // cnt[eg]
+    ek = gs[eg] + loc % cnt[eg]
+    emask = np.ascontiguousarray(masks[moff[inv[ek]] + ewt])
+    fe = f[ek]
+    kl = np.zeros((len(ek), 8), np.int64)
+    kl[:, 0] = fe[:, 0] + ewt * T * fe[:, 1]
+    kl[:, 1:5] = fe[:, [1, 3, 4, 11]]
+    kl[:, 7] = live[ek]
+    # slices a 64-row tile walks, summed over its entries
+    pc = np.unpackbits(emask.view(np.uint8)).reshape(-1, 64).sum(
+        axis=1, dtype=np.int64)
+    steps_gw = np.add.reduceat(pc, np.flatnonzero(loc % cnt[eg] == 0)) \
+        if len(pc) else pc
+
+    # tiles: per block, 64-row tile and 64-column tile, heaviest first
+    ndt = -(-g[:, 10] // T)
+    nt = nwt * ndt
+    ts = np.concatenate([[0], np.cumsum(nt)])
+    tg = np.repeat(np.arange(len(gs)), nt)
+    tl = np.arange(int(ts[-1])) - ts[tg]
+    w0, d0 = (tl // ndt[tg]) * T, (tl % ndt[tg]) * T
+    gw = np.concatenate([[0], np.cumsum(nwt)])[tg] + w0 // T
+    gt = g[tg]
+    kt = np.zeros((len(tg) + len(zt), 8), np.int64)
+    kt[:len(tg), 0] = es[tg] + (w0 // T) * cnt[tg]
+    kt[:len(tg), 1] = cnt[tg]
+    kt[:len(tg), 2] = np.minimum(T, gt[:, 2] - w0)
+    kt[:len(tg), 3] = np.minimum(T, gt[:, 10] - d0)
+    kt[:len(tg), 4] = gt[:, 5] + w0 * gt[:, 6] + d0
+    kt[:len(tg), 5] = gt[:, 6]
+    kt[:len(tg), 6] = d0
+    kt[:len(tg)] = kt[np.argsort(-steps_gw[gw], kind="stable")]
+    kt[len(tg):, :4] = zt
+    if max(zero_to, int(kl.max(initial=0)), int(kt.max(initial=0))) \
+            >= (1 << 31):
+        raise ValueError("K3 tables exceed int32")
+    kl = kl.astype(np.int32)
+    kl[:, 5:7] = emask.view(np.int32).reshape(-1, 2)
+    width = f[:, 10].astype(np.float64)
+    h = {"kt": kt.astype(np.int32), "kl": kl, "kz": kz.astype(np.int32),
+         "steps": int(steps_gw[gw].sum()),
+         "flops": 2.0 * float((f[:, 2] * f[:, 11] * width).sum()),
+         "flops_nz": 2.0 * float((nnz[inv] * width).sum()),
+         "written": int((ce - cs).sum()), "zeros": int(kz[:, 1].sum()),
+         "seconds": time.perf_counter() - t0}
+    return h
+
+
 def mix_exec(epool, wpool, d: Dict, out):
-    """Mix GEMM (kernel K3): adds every plan item's W @ E into ``out``
-    (the flat OUT buffer, zero-initialised by the caller) in place."""
+    """Mix GEMM (kernel K3): stores every GEMM block's W @ E into ``out``
+    (the flat OUT buffer) in place and zeros into the rest of it below
+    ``d["zlim"]`` (a device int: the end of what OUT's reader reads), so
+    ``out`` needs no fill.  On CPU tensors the twin adds the blocks into
+    ``out`` zeroed here."""
     if epool.device.type == "cpu":
-        return mix_twin(epool, wpool, d, out)
+        return mix_twin(epool, wpool, d, out.zero_())
     if not epool.is_cuda:
         raise ValueError(f"unsupported device {epool.device}")
-    dt = epool.dtype
-    if 4 * d["n2"] >= (1 << 31):
-        raise ValueError("mix task count exceeds the grid")
-    _kernels.launch("K3_mix", "b2t_mix", dt, epool, wpool, d["it"],
-                    d["cum2"], d["it"].shape[0], d["n2"], out)
+    _kernels.launch("K3_mix", "b2t_mix", epool.dtype, epool, wpool,
+                    d["kt"], d["kl"], d["kz"], d["zlim"], d["kt"].shape[0],
+                    out)
     return out
 
 
@@ -327,17 +537,35 @@ def place_exec(outflat, d: Dict, res):
 # execution
 # ---------------------------------------------------------------------------
 
+def plan_host(plan: MixPlanV4) -> Dict:
+    """K3's host tables of a v4 plan (:func:`k3_host_tables` over OUT
+    [otp + 1]; the elements K4 reads are the GEMM blocks'), built once and
+    kept in its ``_dev``."""
+    h = plan._dev.get("k3")
+    if h is None:
+        h = plan._dev["k3"] = k3_host_tables(
+            plan.it, plan.wdense.real, _cap_class(plan.out_total + 1) + 1)
+    return h
+
+
 def plan_tables(plan: MixPlanV4, device, dtype) -> Dict:
-    """Device tables of a v4 plan for K3/K4 (and their twins).  K4's
+    """Device tables of a v4 plan for K3/K4 (and their twins), uploaded
+    once a device and dtype and kept in the plan's ``_dev``.  K4's
     ``wend`` (prefix maximum of each window's last slab position + 1) and
     ``wbeg`` (suffix minimum of its first) are formed on the device from
     ``pit``: no host work per plan; pad rows own no position."""
+    key = (str(device), dtype)
+    d = plan._dev.get(key)
+    if d is not None:
+        return d
+
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                device=device)
 
     if plan.iscpx:
         raise TypeError("complex mix plans are not on this slice")
+    h = plan_host(plan)
     pit = i32(plan.pit)
     dst, rs, cs, nb, nk = pit[:, 2:7].unbind(1)
     live = (nb > 0) & (nk > 0)
@@ -347,23 +575,31 @@ def plan_tables(plan: MixPlanV4, device, dtype) -> Dict:
     wend = torch.where(live, last + 1, 0).cummax(0).values
     wbeg = torch.where(live, first, torch.iinfo(torch.int32).max) \
         .flip(0).cummin(0).values.flip(0)
-    return {"it": i32(plan.it), "cum1": i32(plan.cum1),
-            "cum2": i32(plan.cum2), "pit": pit, "pcum": i32(plan.pcum),
-            "wend": wend.contiguous(), "wbeg": wbeg.contiguous(),
-            "n2": int(plan.cum2[-1]),
-            "wpool": torch.as_tensor(plan.wdense.real, dtype=dtype,
-                                     device=device)}
+    # the end of the last OUT element a window reads: K3 zeroes no gap
+    # past it (OUT's size-class tail), formed here on the device
+    zlim = torch.where(live, pit[:, 0].long() + (nb.long() - 1)
+                       * pit[:, 1].long() + nk, 0).max()
+    d = plan._dev[key] = {
+        "it": i32(plan.it), "cum1": i32(plan.cum1), "cum2": i32(plan.cum2),
+        "kt": i32(h["kt"]), "kl": i32(h["kl"]), "kz": i32(h["kz"]),
+        "zlim": zlim.to(torch.int32).reshape(1), "pit": pit,
+        "pcum": i32(plan.pcum),
+        "wend": wend.contiguous(), "wbeg": wbeg.contiguous(),
+        "wpool": torch.as_tensor(plan.wdense.real, dtype=dtype,
+                                 device=device)}
+    return d
 
 
 def execute_mix_v4(plan: MixPlanV4, epool, d: Optional[Dict] = None):
     """LW/RW slab pool [ncap_out + 1] (zero sentinel last) from the env
     slab pool ``epool`` on its device and in its dtype — what the
     reference's execute_mix_v4 returns.  ``d``: tables from
-    :func:`plan_tables` (built here when omitted)."""
+    :func:`plan_tables` (taken from the plan's cache when omitted).  OUT
+    is allocated unfilled: K3 writes all of it that K4 reads."""
     if d is None:
         d = plan_tables(plan, epool.device, epool.dtype)
     otp = _cap_class(plan.out_total + 1)
-    out = torch.zeros(otp + 1, dtype=epool.dtype, device=epool.device)
+    out = torch.empty(otp + 1, dtype=epool.dtype, device=epool.device)
     mix_exec(epool, d["wpool"], d, out)
     res = torch.empty(plan.ncap_out + 1, dtype=epool.dtype,
                       device=epool.device)

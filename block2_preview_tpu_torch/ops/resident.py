@@ -771,21 +771,76 @@ def build_diag_struct(space, meta_lw: StackedMeta, meta_rw: StackedMeta,
 
     gl, dl_cap = exp_g(gtasks_l, dl_off)
     gr, dr_cap = exp_g(gtasks_r, dr_off)
+    secs = [(space.offsets[k], *space.shapes[k], el[0], er[0], vbb[k])
+            for k in space.keys if k in dl_secoff
+            for el, er in [(meta_lw.sectors[g0l][k[0]],
+                            meta_rw.sectors[g0r][k[1]])]]
     return {"gl": gl, "gr": gr, "dl_cap": dl_cap, "dr_cap": dr_cap,
             "a4": a4, "b4": b4, "sD": sD, "T": T, "nt2": nt2,
-            "sig_idx": sig_idx}
+            "sig_idx": sig_idx,
+            "k2": _k2_rows(secs, sig_idx, T),
+            "k2m": np.asarray([(posl[m], posr[m]) for m in common],
+                              np.int32)}
+
+
+# K2's pieces (csrc/diag.cu kDP): at most K2_PIECE x K2_PIECE elements of
+# one sector; zero ranges of at most K2_ZERO elements
+K2_PIECE = 32
+K2_ZERO = 1 << 14
+
+
+def _k2_rows(secs, sig_idx, T: int) -> np.ndarray:
+    """K2's rows [n, 9] int32 (flat offset, DL, DR, a0, na, b0, nb, LW
+    sector offset, RW sector offset) over the sectors ``secs`` (flat
+    offset, DL, DR, LW offset, RW offset, (tile base, tile rows, tile
+    columns)), then zero ranges (offset, 0, 0, 0, 0, 0, n, 0, 0) over the
+    rest of the flat diagonal [sizb_p]: the output ``sig_idx`` gives the
+    tile pool's diagonal, element for element.  Raises if ``sig_idx`` puts
+    a sector elsewhere than its row-major block at its flat offset (a bra
+    space laid out otherwise than the ket space)."""
+    rows, spans = [], []
+    for (foff, DL, DR, loff, roff, (base, _, ncc)) in secs:
+        a, b = np.divmod(np.arange(DL * DR), DR)
+        tidx = ((base + (a // T) * ncc + b // T) * (T * T)
+                + (a % T) * T + b % T)
+        if not np.array_equal(sig_idx[foff:foff + DL * DR], tidx):
+            raise ValueError("K2: the bra layout is not the ket space's")
+        spans.append((foff, foff + DL * DR))
+        for a0 in range(0, DL, K2_PIECE):
+            for b0 in range(0, DR, K2_PIECE):
+                rows.append((foff, DL, DR, a0, min(K2_PIECE, DL - a0), b0,
+                             min(K2_PIECE, DR - b0), loff, roff))
+    spans.sort()
+    pos = 0
+    for (s0, s1) in spans + [(len(sig_idx), len(sig_idx))]:
+        for z in range(pos, s0, K2_ZERO):
+            rows.append((z, 0, 0, 0, 0, 0, min(K2_ZERO, s0 - z), 0, 0))
+        pos = max(pos, s1)
+    return np.asarray(rows, np.int64).astype(np.int32).reshape(-1, 9)
 
 
 # ---------------------------------------------------------------------------
 # kernel K2 (diagonal) and its plain twin
 # ---------------------------------------------------------------------------
 
-def diag_tables(dstruct, device) -> Dict:
-    """Device tables of a diag struct for K2 (and its twin)."""
+def diag_plain_tables(dstruct, device) -> Dict:
+    """The plain version's tables of a diag struct (the reference's
+    gathers, GEMM tile tasks and ``sig_idx``) on ``device``."""
     d = {k: torch.as_tensor(dstruct[k], device=device)
          for k in ("gl", "gr", "a4", "b4", "sD", "sig_idx")}
     d.update({k: dstruct[k] for k in ("dl_cap", "dr_cap", "T", "nt2")})
     return d
+
+
+def diag_tables(dstruct, device) -> Dict:
+    """The tables of :func:`diag_exec`: K2's (``rows``, ``sym``, ``n``) on
+    a CUDA device, the plain version's on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return diag_plain_tables(dstruct, device)
+    return {"rows": torch.as_tensor(dstruct["k2"], device=device),
+            "sym": torch.as_tensor(dstruct["k2m"], device=device),
+            "n": int(dstruct["sig_idx"].shape[0])}
 
 
 def _dl_build_twin(pool, g4, cap: int, T: int):
@@ -801,7 +856,8 @@ def _dl_build_twin(pool, g4, cap: int, T: int):
 
 
 def diag_twin(lpool, rpool, d: Dict):
-    """Plain PyTorch version of K2 (same signature as :func:`diag_exec`)."""
+    """Plain PyTorch version of K2 (same signature as :func:`diag_exec`,
+    on :func:`diag_plain_tables`)."""
     T, nt2 = d["T"], d["nt2"]
     dl = _dl_build_twin(lpool, d["gl"], d["dl_cap"], T)
     dr = _dl_build_twin(rpool, d["gr"], d["dr_cap"], T)
@@ -818,29 +874,30 @@ def diag_twin(lpool, rpool, d: Dict):
 
 def diag_exec(lpool, rpool, d: Dict):
     """Flat diagonal [sizb_p] of the effective Hamiltonian from the LW/RW
-    slab pools (kernel K2); ``d`` from :func:`diag_tables`."""
+    slab pools (kernel K2: one launch, every element stored once); ``d``
+    from :func:`diag_tables`."""
     if lpool.device.type == "cpu":
         return diag_twin(lpool, rpool, d)
     if not lpool.is_cuda:
         raise ValueError(f"unsupported device {lpool.device}")
-    dt, dev, T = lpool.dtype, lpool.device, d["T"]
-    dl = torch.zeros(d["dl_cap"], dtype=dt, device=dev)
-    dr = torch.zeros(d["dr_cap"], dtype=dt, device=dev)
-    _kernels.call("b2t_dl_build", dt, lpool, d["gl"], d["gl"].shape[1], T,
-                  dl)
-    _kernels.call("b2t_dl_build", dt, rpool, d["gr"], d["gr"].shape[1], T,
-                  dr)
-    tiles = torch.zeros((d["nt2"] + 1) * T * T, dtype=dt, device=dev)
-    _kernels.launch("K2_diag", "b2t_diag", dt, dl, dr, d["a4"], d["b4"],
-                    d["sD"], d["a4"].shape[1], T, tiles)
-    out = torch.empty(d["sig_idx"].shape[0], dtype=dt, device=dev)
-    _kernels.call("b2t_gather", dt, tiles, d["sig_idx"], out.shape[0], out)
+    out = torch.empty(d["n"], dtype=lpool.dtype, device=lpool.device)
+    _kernels.launch("K2_diag", "b2t_diag", lpool.dtype, lpool, rpool,
+                    d["rows"], d["sym"], d["sym"].shape[0],
+                    d["rows"].shape[0], out)
     return out
 
 
-def execute_diag(dstruct, lpool, rpool):
-    """Flat diagonal [sizb_p] on the pools' device (kernel K2)."""
-    return diag_exec(lpool, rpool, diag_tables(dstruct, lpool.device))
+def execute_diag(dstruct, lpool, rpool, cache: Optional[Dict] = None):
+    """Flat diagonal [sizb_p] on the pools' device (kernel K2).
+    ``cache``: a dict that keeps the tables per device (the diag struct's
+    entry in ``ResidentSite``'s cache), so they are uploaded once."""
+    key = str(lpool.device)
+    d = None if cache is None else cache.get(key)
+    if d is None:
+        d = diag_tables(dstruct, lpool.device)
+        if cache is not None:
+            cache[key] = d
+    return diag_exec(lpool, rpool, d)
 
 
 # ---------------------------------------------------------------------------
@@ -1361,16 +1418,15 @@ class ResidentSite:
         sig = hash((self.pl.meta_out.signature(),
                     self.pr.meta_out.signature(), s["T"], s["nt2"]))
         ent = self.caches["diag"].get(key)
-        if ent is not None and ent[0] == sig:
-            ds = ent[1]
-        else:
+        if ent is None or ent[0] != sig:
             ds = build_diag_struct(self.eff.ket_space, self.pl.meta_out,
                                    self.pr.meta_out, s["T"], s["nt2"],
                                    s["sig_idx"])
-            self.caches["diag"][key] = (sig, ds)
-        if ds is None:
+            # the struct, and its device tables kept beside it
+            ent = self.caches["diag"][key] = (sig, ds, {})
+        if ent[1] is None:
             raise RuntimeError("no diagonal contributions")
-        return execute_diag(ds, self.lw_pool, self.rw_pool)
+        return execute_diag(ent[1], self.lw_pool, self.rw_pool, ent[2])
 
     def _sigma(self):
         """The sigma matvec of this site on padded device vectors: K1, or

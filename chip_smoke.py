@@ -537,7 +537,7 @@ def phase_build():
                             "tiled_kernel", "bucket_", "slab_", "mix_gather",
                             "tblk_", "env_gemm", "place_", "mix_v2",
                             "skinny_", "tall_", "reduce_", "plan_exec",
-                            "probe_")) or \
+                            "probe_", "mix_kernel", "diag_kernel")) or \
                 not spill.startswith("0 bytes stack"):
             print(f"    ptxas {name}: {regs} registers; {spill}", flush=True)
 
@@ -646,6 +646,7 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
     ds = resident.build_diag_struct(eff.ket_space, pl.meta_out, pr.meta_out,
                                     s["T"], s["nt2"], s["sig_idx"])
     dd = resident.diag_tables(ds, device)
+    dp = resident.diag_plain_tables(ds, device)
     # blocking steps next to the center: left t -> t+1 (from the bond-t
     # pool) and right t+1 -> t+1 (from the bond-(t+2) pool), each as the
     # v3 plan the sweep runs and as the v2 (entry fan-out) form
@@ -673,27 +674,9 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
             ep = torch.as_tensor(host_pools[side], dtype=tdt, device=device)
             d = mixv4.plan_tables(plan, device, tdt)
             otp = mixv4._cap_class(plan.out_total + 1)
-            it = plan.it.astype(np.int64)
-            k3_flops = 2.0 * float((it[:, 2] * it[:, 11] * it[:, 10]).sum())
-            # K3 reads the env pool, each item's W rows (nw x wstride from
-            # wbase) and its table rows; it writes out_total OUT elements
-            w_live = int((it[:, 0] + it[:, 2] * it[:, 1])[
-                np.diff(plan.cum1.astype(np.int64)) > 0].max())
-            k3_bytes = live_bytes(
-                ep.element_size(),
-                metas[side].total + 1 + w_live + plan.out_total,
-                item_ints(plan.cum2, it.shape[1]))
-
-            def k3(fn, ep=ep, d=d, otp=otp):
-                return fn(ep, d["wpool"], d,
-                          torch.zeros(otp + 1, dtype=tdt, device=device))
-
-            o_k, o_t = k3(mixv4.mix_exec), k3(mixv4.mix_twin)
-            _check(acc, "K3_mix", dtype, side, o_k, o_t, tol,
-                   time_ms(lambda: k3(mixv4.mix_exec), device),
-                   time_ms(lambda: k3(mixv4.mix_twin), device), None,
-                   k3_bytes, k3_flops,
-                   f"items {live_items(plan.cum2)} tasks {d['n2']}")
+            o_t = k3_row(acc, dtype, side, tol, device, ep, d,
+                         mixv4.plan_host(plan), plan.it, otp + 1,
+                         metas[side].total + 1)
 
             def slab(fill=None, plan=plan):
                 n = plan.ncap_out + 1
@@ -709,6 +692,14 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
             # from a slab of NaNs: K4 must write every element
             s_k = mixv4.place_exec(o_t[:otp], d, slab(float("nan")))
             s_t = k4(mixv4.place_twin)
+            # K3 into an OUT of NaNs, then K4: nothing unwritten is read
+            o_n = mixv4.mix_exec(ep, d["wpool"], d, torch.full(
+                (otp + 1,), float("nan"), dtype=tdt, device=device))
+            if not torch.equal(
+                    mixv4.place_exec(o_n[:otp], d, slab(float("nan"))),
+                    mixv4.place_twin(o_n[:otp], d, slab(0.0))):
+                fail(f"K3 -> K4 {side}: the slab from an OUT of NaNs is "
+                     f"not the plain version's")
             lib = _index_add_call(plan, tdt, device)
             s_l = lib(o_t[:otp])
             if not torch.equal(s_l, s_t) or not torch.equal(s_k, s_t):
@@ -761,30 +752,31 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
                   flush=True)
 
         def k2(fn):
-            return fn(pools["lw"], pools["rw"], dd)
+            return fn(pools["lw"], pools["rw"],
+                      dp if fn is resident.diag_twin else dd)
 
-        a4 = ds["a4"].astype(np.int64)
-        b4 = ds["b4"].astype(np.int64)
-        T = s["T"]
-        live = a4[0] >= 0
-        k2_flops = 2.0 * float((np.clip(a4[2], 0, T) * np.clip(a4[3], 0, T)
-                                * np.clip(b4[3], 0, T))[live].sum())
-        # K2 reads only the diagonals of the LW/RW blocks it gathers, the
-        # live columns of its task tables and sig_idx; it writes the
-        # diagonal of the bra space
-        gl, gr = ds["gl"].astype(np.int64), ds["gr"].astype(np.int64)
-        k2_bytes = live_bytes(
-            xp.element_size(),
-            sum(int(np.clip(g[2][g[0] >= 0], 0, T).sum()) for g in (gl, gr))
-            + eff.bra_space.size,
-            4 * int(np.count_nonzero(gl[0] >= 0))
-            + 4 * int(np.count_nonzero(gr[0] >= 0))
-            + 9 * int(np.count_nonzero(live)) + eff.bra_space.size)
+        # K2 reads the diagonals it needs, each once (the M0 symbols' of
+        # every LW sector (qL, qL) and RW sector (qR, qR) of a live pair),
+        # its rows and symbol list; it writes the flat diagonal [sizb_p]
+        rows2, m0 = ds["k2"].astype(np.int64), len(ds["k2m"])
+        live2 = rows2[rows2[:, 1] > 0]
+        n_diag = m0 * int(np.unique(live2[:, [7, 1]], axis=0)[:, 1].sum()
+                          + np.unique(live2[:, [8, 2]], axis=0)[:, 1].sum())
+        k2_flops = 2.0 * m0 * float((live2[:, 4] * live2[:, 6]).sum())
+        k2_bytes = live_bytes(xp.element_size(),
+                              n_diag + ds["sig_idx"].shape[0],
+                              9 * len(rows2) + 2 * m0)
         d_k = k2(resident.diag_exec)
         _check(acc, "K2_diag", dtype, "", d_k, k2(resident.diag_twin), tol,
                time_ms(lambda: k2(resident.diag_exec), device),
                time_ms(lambda: k2(resident.diag_twin), device), None,
-               k2_bytes, k2_flops, f"tasks {int(np.count_nonzero(live))}")
+               k2_bytes, k2_flops,
+               f"{k2_bytes / 1e6:.2f} MB, {k2_flops / 1e9:.4f} GFLOP; rows "
+               f"{len(live2)} zero rows {len(rows2) - len(live2)} "
+               f"symbols {m0} outputs {int((live2[:, 4] * live2[:, 6]).sum())}"
+               f" of {ds['sig_idx'].shape[0]}")
+        if device.type == "cuda":
+            _bitwise("K2", "", lambda: k2(resident.diag_exec))
 
         for (direction, mix), (plan, pool, e_total) in blk.items():
             rp = plan.rot if mix else plan
@@ -821,8 +813,9 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
             if mix:
                 full = blockv2.execute_blocking_v3(plan, ep)
                 d3 = blockv2.mix_tables(plan, device, tdt)
-                ref = mixv4.mix_twin(o_t, d3["wpool"], d3, torch.zeros(
-                    plan.ncap, dtype=tdt, device=device))
+                ref = k3_row(acc, dtype, tag, tol, device, o_t, d3,
+                             blockv2.mix_host(plan), plan.gtab["it"],
+                             plan.ncap, plan.rot_total + 1)
                 rel, _ = rel_err(full, ref)
                 if not rel <= tol:
                     fail(f"blocking v3 {tag}: rel err {rel:.3e} > {tol:.0e}")
@@ -851,6 +844,54 @@ def phase_kernels(device, mpo, mps, t, tile=None, blk_tile=None, site=None):
             if device.type == "cuda":
                 _bitwise("K6", side, lambda: k6(resident.noise_exec))
     return summary_rows(rows)
+
+
+def k3_row(acc, dtype, side, tol, device, ep, d, h, it, n_out, e_live):
+    """One K3 row of phase 3: the kernel against its twin on the env (or
+    ROT) pool ``ep`` with device tables ``d`` and host tables ``h``
+    (mixv4.k3_host_tables) into OUT buffers of ``n_out`` elements, timed
+    into an unfilled buffer (what execute_mix_v4 and execute_blocking_v3
+    allocate); on the card also bitwise over two launches and, into an
+    OUT of NaNs, bitwise the OUT from zeros below ``d["zlim"]`` (K3
+    writes every element OUT's reader reads).  Returns the twin's OUT."""
+    import torch
+    from block2_preview_tpu_torch.ops import mixv4
+
+    def k3(fn, fill=0.0):
+        out = (torch.empty(n_out, dtype=ep.dtype, device=device)
+               if fill is None else
+               torch.full((n_out,), fill, dtype=ep.dtype, device=device))
+        return fn(ep, d["wpool"], d, out)
+
+    o_k, o_t = k3(mixv4.mix_exec), k3(mixv4.mix_twin)
+    it = np.asarray(it, np.int64)
+    live = it[:, 2] > 0
+    # K3 reads the env pool, each item's W rows (nw x wstride from wbase)
+    # and its tables; it writes the elements its GEMM blocks cover (the
+    # zero ranges are not the function's output)
+    w_live = int((it[:, 0] + it[:, 2] * it[:, 1])[live].max())
+    kt, kl, kz = h["kt"], h["kl"], h["kz"]
+    n_zt = int(np.count_nonzero(kt[:, 0] < 0))
+    n_bytes = live_bytes(ep.element_size(), e_live + w_live + h["written"],
+                         kt.size + kl.size + kz.size)
+    _check(acc, "K3_mix", dtype, side, o_k, o_t, tol,
+           time_ms(lambda: k3(mixv4.mix_exec, None), device),
+           time_ms(lambda: k3(mixv4.mix_twin), device), None,
+           n_bytes, h["flops_nz"],
+           f"{n_bytes / 1e6:.1f} MB; items {int(live.sum())} tiles "
+           f"{len(kt) - n_zt} (+{n_zt} zero "
+           f"tiles, {len(kz)} gaps) slices {h['steps']} written "
+           f"{h['written']} zeros {h['zeros']} GFLOP {h['flops'] / 1e9:.3f}"
+           f" dense, {h['flops_nz'] / 1e9:.3f} on W's non-zeros; host "
+           f"tables {h['seconds'] * 1e3:.1f} ms")
+    if device.type == "cuda":
+        _bitwise("K3", side, lambda: k3(mixv4.mix_exec))
+        lim = int(d["zlim"])
+        if not torch.equal(k3(mixv4.mix_exec, float("nan"))[:lim],
+                           o_k[:lim]):
+            fail(f"K3 {side}: the OUT from NaNs is not the OUT from zeros "
+                 f"below {lim}")
+    return o_t
 
 
 def summary_rows(rows):
@@ -1173,7 +1214,8 @@ def phase_bucket(device, mpo, mps, me, eff, t, summary=True, kinds="all",
                    time_ms(lambda: k9(blocking_device.bucket_blocking, dk),
                            device),
                    time_ms(lambda: k9(blocking_device.bucket_blocking_plain,
-                                      dq), device), None, n_bytes, flops,
+                                      dq), device), None,
+                   n_bytes, flops,
                    f"contributions {len(plan.native['dl'])} groups "
                    f"{tab['n_groups']} sub-groups {len(tab['sg'])} chunks "
                    f"{len(tab['ck'])} (atomic "
@@ -2455,6 +2497,17 @@ def noise_peaks(device):
         resident.noise_exec = orig
 
 
+def k3_table_seconds(solver):
+    """(plans, seconds) of K3's host tables over the plans a resident
+    run holds at its end: its mix v4 plans and v3 blocking plans, each
+    with the build time kept in its own ``_dev["k3"]``."""
+    plans = [p for _, p in list(solver._res_caches.get("mix", {}).values())
+             + list(solver.me._stk_plans.values())]
+    hs = [h for h in (getattr(p, "_dev", None) or {} for p in plans)
+          if "k3" in h]
+    return len(hs), sum(h["k3"]["seconds"] for h in hs)
+
+
 def phase_full(device, drv, mpo, D=250, n_orb=16):
     """Main path at full width; returns the kernel launch counts of the
     run, the MPS it leaves, its energy and its sweep-0 energy.
@@ -2484,6 +2537,11 @@ def phase_full(device, drv, mpo, D=250, n_orb=16):
         print(f"[5 full] sweep {i} D={D} E {r['energy']:.10f} wall "
               f"{r['wall']:.1f} s  Teff {r['teff']:.1f} Teig {r['teig']:.1f} "
               f"Tdm {r['tdm']:.1f} Tblk {r['tblk']:.1f}", flush=True)
+    n_k3, k3_s = k3_table_seconds(solver)
+    print(f"[5 full] K3 host tables: {n_k3} plans (mix and v3 blocking) "
+          f"held at the end, {k3_s:.3f} s to build them, "
+          f"{k3_s / max(len(solver.sweep_log), 1):.3f} s a sweep (inside "
+          f"Teff and Tblk)", flush=True)
     mem = (max(torch.cuda.max_memory_allocated(), npk["before"]) / 2 ** 30
            if device.type == "cuda" else float("nan"))
     print(f"[5 full] noise calls {npk['calls']}: peak of one call "
@@ -3564,6 +3622,11 @@ def main():
              "repository root")
     from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
     device = resolve_device("cuda")
+    t_start = time.time()
+
+    def at(what):
+        print(f"[time] {what} at {time.time() - t_start:.1f} s", flush=True)
+
     phase_device()
     phase_build()
     n_orb, D = 16, 250
@@ -3590,6 +3653,7 @@ def main():
         c5_k16 = {"K16_slab_matvec": counts.pop("K16_slab_matvec")}
         if not all(c > 0 for c in counts.values()):
             fail(f"a kernel of the path was never launched: {counts}")
+        at("phase 5")
         ket5 = copy_mps(ket)
         ref3 = pool.apply_async(host_davidson3, (mpo, ket5, t))
         ref10b = [pool.apply_async(host_gram, (ket5, k)) for k in (1, 2)]
@@ -3600,6 +3664,7 @@ def main():
         counts["K7_tiled"] = phase_tdvp(device, drv, mpo, ket, D=D)
         phase_stacked_parity(device, ref=phase_excited(device))
         roots = phase_roots(device, drv, mpo, D=D, n_sweeps=1)
+        at("phases 6-7")
         c8b, e8b = phase_stacked_full(device, drv, mpo, D=D)
         c8c, e8c = phase_resident_v1(device, drv, mpo, D=D)
         phase_mix_parity(device, e_ref=e_hub)
@@ -3623,6 +3688,7 @@ def main():
             ref10e.get(), ket12, ref12.get())
         counts["K19_probe"] = phase_probes(device)
         counts["K18_plan_exec"] = phase_plan_exec(device)
+        at("phases 8-10")
         r5 = ref5.get()
         check_full(e5, r5, n_orb)
         check_stacked(e8b, e8c, e5, r5)
@@ -3632,6 +3698,7 @@ def main():
         for k in ("K20_matvec_shard", "K21_block_shard"):
             counts[k] = sum(r["launches"][k] for r in res11)
         counts["K22_plan_exec_shard"] = sum(r["k22"] for r in res11)
+        at("phase 11 (the host references waited for)")
         site = mid_site(mpo, ket5, t)
         rows = phase_kernels(device, mpo, ket5, t, site=site)
         eff = EffectiveHamiltonian2(site[0], t)
@@ -3645,6 +3712,7 @@ def main():
         phase_k17_edges(device)
         rows += phase_shard_kernels(device, mpo, ket5, t, site, eff,
                                     k17_shapes[0])
+        at("phase 3 at the K=16 site")
     t0 = time.time()
     wide = wide_system()
     print(f"[3 kernels] Hubbard-L16 D=1000 site 7 (T=128 tiles; MPS built "
@@ -3659,6 +3727,7 @@ def main():
                           bucket=False)
     phase_slab_wide(device, *wide, site[0], 7)
     phase_k5_strips(device, *wide, site[0], 7)
+    at("phase 3 at the T=128 site")
     if "jax" in sys.modules or "block2_preview_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     for r in rows:
@@ -3674,7 +3743,8 @@ import pickle, sys, torch
 import numpy as np
 import chip_smoke as c
 from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
-from block2_preview_tpu_torch.ops import blockv2, resident, stacked, tilev2
+from block2_preview_tpu_torch.ops import (blockv2, mixv4, resident, stacked,
+                                          tilev2)
 from block2_preview_tpu_torch.ops.stacked import env_pool
 from block2_preview_tpu_torch.runtime import resolve_device
 d = resolve_device(sys.argv[3] if len(sys.argv) > 3 else "cuda")
@@ -3683,7 +3753,8 @@ f64 = torch.float64
 c.phase_build()
 drv, mpo, _ = c.qc_system(16, 16)
 with open(sys.argv[1], "rb") as f:
-    ket = pickle.load(f)
+    held = pickle.load(f)
+ket = held["ket"]
 site = c.mid_site(mpo, ket, 7)
 me, peff = site
 eff = EffectiveHamiltonian2(me, 7)
@@ -3715,12 +3786,40 @@ for direction, bond, st in (("left", 7, 7), ("right", 9, 8)):
     outs["K5 input " + direction] = torch.as_tensor(pool)
     outs["K5 " + direction] = blockv2.execute_blocking_v2(
         plan.rot, torch.as_tensor(pool, device=d)).cpu()
+    # K3 on the v3 plan's GEMM after K5 (bitwise the same ROT pool), and
+    # its time as each tree's execute_blocking_v3 allocates the final pool:
+    # zero-filled for a K3 that adds, unfilled for one that stores it all
+    outs["K3 " + direction] = blockv2.execute_blocking_v3(
+        plan, torch.as_tensor(pool, device=d)).cpu()
+    rot = blockv2.execute_blocking_v2(plan.rot, torch.as_tensor(pool,
+                                                                device=d))
+    tab = blockv2.mix_tables(plan, d, f64)
+    alloc = torch.empty if hasattr(mixv4, "k3_host_tables") else torch.zeros
+    ms = c.time_ms(lambda: mixv4.mix_exec(rot, tab["wpool"], tab, alloc(
+        plan.ncap, dtype=f64, device=d)), d)
+    print(f"[3 kernels] K3 v3 blocking {direction[0]}3 f64: {ms:.4f} ms a "
+          f"call, its pool's allocation included", flush=True)
 plans, pools = {}, {}
 for side, (_, pool, args, kws) in c.site_mix_inputs(mpo, me, peff,
                                                     7).items():
     plans[side] = resident.build_mix_plan_v4(*args, **kws)
-    pools[side] = resident.execute_mix_plan(
-        plans[side], torch.as_tensor(pool, device=d))
+    ep = torch.as_tensor(pool, device=d)
+    pools[side] = resident.execute_mix_plan(plans[side], ep)
+    # K3's OUT from a zero-filled buffer (the parent adds into it)
+    tab = mixv4.plan_tables(plans[side], d, f64)
+    outs["K3 " + side] = mixv4.mix_exec(ep, tab["wpool"], tab, torch.zeros(
+        mixv4._cap_class(plans[side].out_total + 1) + 1, dtype=f64,
+        device=d)).cpu()
+# K2 on inputs made once for every turn (site 7 and the T=128 site)
+for name, k in held["k2"].items():
+    ds = resident.build_diag_struct(k["space"], k["ml"], k["mr"], k["T"],
+                                    k["nt2"], k["sig_idx"])
+    lw, rw = (torch.as_tensor(k[x], device=d) for x in ("lw", "rw"))
+    outs["K2 " + name] = resident.execute_diag(ds, lw, rw).cpu()
+    tab = resident.diag_tables(ds, d)
+    ms = c.time_ms(lambda: resident.diag_exec(lw, rw, tab), d)
+    print(f"[3 kernels] K2 {name}: {ms:.4f} ms a call ({ms.launches} "
+          f"counted launch{'es' if ms.launches != 1 else ''})", flush=True)
 ex = tilev2.MatvecV2(peff.ket_space, plans["lw"].meta_out,
                      plans["rw"].meta_out, mpo.group, peff.target,
                      dtype=np.float64, bra_space=peff.bra_space)
@@ -3748,7 +3847,30 @@ torch.save(outs, sys.argv[2])
 
 # what --beside holds the change's outputs to against the parent's:
 # bitwise, or a largest difference relative to the parent's largest entry
-BESIDE_TOL = {"K10": 0.0, "K5": 1e-14}
+BESIDE_TOL = {"K10": 0.0, "K5": 1e-14, "K3": 1e-14, "K2": 1e-14}
+
+
+def diag_inputs(device, mpo, mps, t, site=None):
+    """What build_diag_struct and execute_diag take at center t of a
+    state: the ket space, the LW/RW metas, the matvec plan's T, nt2 and
+    sig_idx, and the LW/RW pools (host, f64) of this tree's mix — one
+    input for every --beside turn's K2."""
+    import torch
+    from block2_preview_tpu_torch.ops import resident, tilev2
+    me, eff = site or mid_site(mpo, mps, t)
+    plans, pools = {}, {}
+    for side, (_, pool, args, kws) in site_mix_inputs(mpo, me, eff,
+                                                      t).items():
+        plans[side] = resident.build_mix_plan_v4(*args, **kws)
+        pools[side] = resident.execute_mix_plan(
+            plans[side], torch.as_tensor(pool, device=device)).cpu().numpy()
+    s = tilev2.MatvecV2(eff.ket_space, plans["lw"].meta_out,
+                        plans["rw"].meta_out, mpo.group, eff.target,
+                        dtype=np.float64, bra_space=eff.bra_space).struct
+    return {"space": eff.ket_space, "ml": plans["lw"].meta_out,
+            "mr": plans["rw"].meta_out, "T": s["T"], "nt2": s["nt2"],
+            "sig_idx": s["sig_idx"], "lw": pools["lw"], "rw": pools["rw"]}
+
 
 
 def beside_parent(parent: str, turns=("parent", "change", "change",
@@ -3757,10 +3879,12 @@ def beside_parent(parent: str, turns=("parent", "change", "change",
     at ``parent`` (an unpacked earlier commit): phase 3's rows of those
     kernels at the K=16 site 7, then the runs of phases 5 and 8b, each in
     a process of its own, in the order ``turns``; the state is phase 5's
-    port run, made once here and handed to every run as a pickle.  Each
+    port run, made once here and handed to every run as a pickle, with
+    K2's inputs at its site 7 and at the T=128 Hubbard-L16 site.  Each
     run builds its own tree's kernels and prints its phase-3 rows, its 5
-    and 8b sweeps and each noise call's own allocation, prefixed by its
-    turn, and saves K10's, K5's (the v3 rotate plans) and K6's f64
+    and 8b sweeps (Teff, Tblk) and each noise call's own allocation,
+    prefixed by its turn, and saves K10's, K5's (the v3 rotate plans),
+    K3's (the mix's OUT, the v3 blockings' final pools), K2's and K6's f64
     outputs on fixed inputs; the change's are then held against the
     parent's (:func:`beside_outputs`)."""
     import pickle
@@ -3775,12 +3899,16 @@ def beside_parent(parent: str, turns=("parent", "change", "change",
         fail(f"{parent} holds no chip_smoke.py")
     phase_device()
     phase_build()
+    dev = resolve_device("cuda")
     drv, mpo, _ = qc_system(16, 16)
-    _, ket, e5, _ = phase_full(resolve_device("cuda"), drv, mpo)
+    _, ket, e5, _ = phase_full(dev, drv, mpo)
+    held = {"ket": copy_mps(ket),
+            "k2": {"site7": diag_inputs(dev, mpo, ket, 7),
+                   "T128": diag_inputs(dev, *wide_system(), 7)}}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ket.pkl")
         with open(path, "wb") as f:
-            pickle.dump(copy_mps(ket), f)
+            pickle.dump(held, f)
         outs = []
         for i, turn in enumerate(turns):
             root = parent if turn == "parent" else here

@@ -86,8 +86,29 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert "[5 full] sweep 1" in out and "dE" in out
     assert "host_env_materialized 0  host_ops_downloads 0" in out
     for k in ("K1_matvec f64", "K5_block  f64 l3", "K5_block  f32 r2",
-              "K6_noise  f64 lw", "K6_noise  f32 rw"):
+              "K6_noise  f64 lw", "K6_noise  f32 rw", "K2_diag   f64",
+              "K2_diag   f32"):
         assert f"[3 kernels] {k}" in out, k
+    # K3's rows: the mix's lw and rw, then each v3 blocking plan's after
+    # its K5 row, in f64 and f32; each names its tiles, gaps, slices and
+    # both FLOP counts, and K2's its rows and zero rows
+    k3 = [ln.split()[2:5] for ln in out.splitlines()
+          if ln.startswith("[3 kernels] K3_mix")]
+    assert k3 == [["K3_mix", t, side] for t in ("f64", "f32")
+                  for side in ("lw", "rw", "l3", "r3")]
+    order = [ln.split()[2] + " " + ln.split()[4] for ln in out.splitlines()
+             if ln.startswith(("[3 kernels] K3_mix", "[3 kernels] K5_block"))
+             and " f64 " in ln]
+    assert order == ["K3_mix lw", "K3_mix rw", "K5_block l3", "K3_mix l3",
+                     "K5_block l2", "K5_block r3", "K3_mix r3",
+                     "K5_block r2"]
+    assert out.count("zero tiles, ") == 8 and out.count(
+        "on W's non-zeros; host tables") == 8
+    assert out.count("zero rows ") == 2
+    k3_line = [ln for ln in out.splitlines()
+               if ln.startswith("[5 full] K3 host tables: ")]
+    assert len(k3_line) == 1 and " s a sweep (inside " in k3_line[0]
+    assert int(k3_line[0].split()[5]) > 0
     # K5's rows name its two paths, K6's its runs and partial pool, and
     # phase 5 the noise calls' own peak
     assert out.count("slab path: runs ") == 8 and "; stores;" in out
@@ -283,15 +304,20 @@ def test_beside_run_times_k9_to_k16_and_keeps_their_outputs(
     """The script ``--beside`` runs in each tree (BESIDE_RUN), on the CPU
     at K=10, D=12 (site 7): phase 3's K1-K6 rows, the stacked (K10-K12)
     and sharded (K20-K22) rows, phases 5 and 8b, and K10's, K5's (v3
-    rotate plans) and K6's f64 outputs with K10's and K5's inputs saved
-    for the parent-against-change check, which finds a run bitwise equal
-    to itself and reports a difference."""
+    rotate plans), K3's (the mix's OUT and the v3 final pools), K2's (on
+    the inputs the pickle holds, two sites) and K6's f64 outputs with
+    K10's and K5's inputs saved for the parent-against-change check, which
+    finds a run bitwise equal to itself and reports a difference."""
     import pickle
     drv, mpo, _ = chip_smoke.qc_system(10, 10)
     ket = chip_smoke.copy_mps(drv.get_random_mps(12, seed=11))
     path, saved = tmp_path / "ket.pkl", tmp_path / "out.pt"
+    cpu = torch.device("cpu")
+    wide = chip_smoke.wide_system(L=8, D=30)
     with open(path, "wb") as f:
-        pickle.dump(ket, f)
+        pickle.dump({"ket": ket, "k2": {
+            "site7": chip_smoke.diag_inputs(cpu, mpo, ket, 7),
+            "T128": chip_smoke.diag_inputs(cpu, *wide, 3)}}, f)
     monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)
     monkeypatch.setattr(chip_smoke, "qc_system",
                         lambda n_orb, n_elec: (drv, mpo, 0.0))
@@ -310,9 +336,10 @@ def test_beside_run_times_k9_to_k16_and_keeps_their_outputs(
         assert k in out, k
     outs = torch.load(saved)
     assert sorted(outs) == ["K10 input left", "K10 input right",
-                            "K10 left", "K10 right", "K5 input left",
-                            "K5 input right", "K5 left", "K5 right",
-                            "K6 lw", "K6 rw"]
+                            "K10 left", "K10 right", "K2 T128", "K2 site7",
+                            "K3 left", "K3 lw", "K3 right", "K3 rw",
+                            "K5 input left", "K5 input right", "K5 left",
+                            "K5 right", "K6 lw", "K6 rw"]
     moved = {k: v.clone() for k, v in outs.items()}
     moved["K6 rw"][0] += 1.0
     chip_smoke.beside_outputs([("parent", outs), ("change", outs),

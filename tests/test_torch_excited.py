@@ -31,10 +31,15 @@ from test_torch_tdvp import overlap
 L6, D, NS = 6, 50, 4
 SCHED = dict(bond_dims=[D], noises=[1e-5, 1e-5, 0], dav_thrds=[1e-14],
              n_sweeps=NS, tol=0)
+# the seeded QC case: K=8 (chip_smoke.seeded_qc_integrals, the full QC
+# MPO of phase 7b at a smaller width), two sweeps
+K8, DQ = 8, 24
+QC_SCHED = dict(bond_dims=[DQ], noises=[1e-5, 0], dav_thrds=[1e-14],
+                n_sweeps=2, tol=0)
 
 
-def solve(solver):
-    return np.atleast_1d(solver.solve(**SCHED))
+def solve(solver, sched=SCHED):
+    return np.atleast_1d(solver.solve(**sched))
 
 
 def ref_run(mpo, mps, backend, **kw):
@@ -53,6 +58,24 @@ def hubbard():
 
 
 @pytest.fixture(scope="module")
+def qc8():
+    """The seeded K=8 QC system (8 electrons, S=0) in the reference's
+    driver: the Hamiltonian family of chip_smoke.py's phases 5 and 7b."""
+    from block2_preview_tpu.driver.core import DMRGDriver as RefDriver
+    from block2_preview_tpu.driver.core import SymmetryTypes
+    from chip_smoke import seeded_qc_integrals
+    h1e, g2e = seeded_qc_integrals(K8)
+    drv = RefDriver(symm_type=SymmetryTypes.SZ)
+    drv.initialize_system(n_sites=K8, n_elec=K8, spin=0)
+    return drv, drv.get_qc_mpo(h1e=h1e, g2e=g2e, ecore=0.0)
+
+
+# per system: (fixture, bond dimension, schedule, sites)
+SYSTEMS = {"hubbard": ("hubbard", D, SCHED, L6),
+           "qc8": ("qc8", DQ, QC_SCHED, K8)}
+
+
+@pytest.fixture(scope="module")
 def ground_state(hubbard):
     """The reference's host ground state (the projector of the
     state-specific runs)."""
@@ -62,19 +85,30 @@ def ground_state(hubbard):
     return s.mps
 
 
-@pytest.mark.parametrize("backend,ref_backend,n_roots", [
-    ("torch", "jax", 3), ("torch_device", "jax_device", 3),
-    ("torch_tiled", "jax_tiled", 2)])
-def test_state_averaged_roots(hubbard, backend, ref_backend, n_roots):
-    drv, mpo = hubbard
+@pytest.mark.parametrize("backend,ref_backend,n_roots,system", [
+    pytest.param("torch", "jax", 3, "hubbard", id="torch-jax-3"),
+    pytest.param("torch_device", "jax_device", 3, "hubbard",
+                 id="torch_device-jax_device-3"),
+    pytest.param("torch_tiled", "jax_tiled", 2, "hubbard",
+                 id="torch_tiled-jax_tiled-2"),
+    pytest.param("torch_device", "jax_device", 3, "qc8",
+                 id="torch_device-jax_device-3-qc8")])
+def test_state_averaged_roots(request, backend, ref_backend, n_roots,
+                              system):
+    """State-averaged roots against the JAX package's backend and the
+    port's host one, every root to 1e-8 Ha: on Hubbard-L6, and on a seeded
+    K=8 QC system (the full QC MPO that chip_smoke.py's phase 7b solves
+    at K=16, which nothing else holds against a reference)."""
+    name, dim, sched, n_sites = SYSTEMS[system]
+    drv, mpo = request.getfixturevalue(name)
     _kernels.reset_counts()
-    port = port_run(mpo, drv.get_random_mps(D, seed=7), backend,
+    port = port_run(mpo, drv.get_random_mps(dim, seed=7), backend,
                     n_roots=n_roots)
-    e = solve(port)
-    e_ref = solve(ref_run(mpo, drv.get_random_mps(D, seed=7), ref_backend,
-                          n_roots=n_roots, dtype=np.float64))
-    e_np = solve(port_run(mpo, drv.get_random_mps(D, seed=7), "numpy",
-                          n_roots=n_roots))
+    e = solve(port, sched)
+    e_ref = solve(ref_run(mpo, drv.get_random_mps(dim, seed=7), ref_backend,
+                          n_roots=n_roots, dtype=np.float64), sched)
+    e_np = solve(port_run(mpo, drv.get_random_mps(dim, seed=7), "numpy",
+                          n_roots=n_roots), sched)
     assert e.shape == (n_roots,) and np.all(np.diff(e) > 0)
     assert np.abs(e - e_ref).max() < 1e-8, (e, e_ref)
     assert np.abs(e - e_np).max() < 1e-8, (e, e_np)
@@ -86,7 +120,7 @@ def test_state_averaged_roots(hubbard, backend, ref_backend, n_roots):
     if backend == "torch_device":
         # every blocking step went through the device path: three pools,
         # the tables up and the output down
-        assert log["downloads"] == L6 - 1 and log["uploads"] > 3 * log[
+        assert log["downloads"] == n_sites - 1 and log["uploads"] > 3 * log[
             "downloads"]
     else:
         assert log["uploads"] == log["downloads"] == 0

@@ -150,3 +150,123 @@ def test_resident_site_f32(system):
     w, _, _ = host_davidson(eff.matvec_np, eff.diagonal(), x0[:, None],
                             conv_thrd=1e-12, max_iter=200)
     assert abs(th - float(w[0])) < 1e-4
+
+
+def diag_walk(lpool, rpool, rows, sym, n, chunk=16):
+    """K2's CUDA blocks on numpy arrays, in the kernel's order: per row
+    (flat offset, DL, DR, a0, na, b0, nb, LW offset, RW offset) the
+    diagonals of its piece staged ``chunk`` symbols at a time and each
+    element summed over the symbols in order, stored once; a row with DL
+    = 0 stores nb zeros.  Returns the flat diagonal [n] (from NaNs) and
+    how often each element was stored."""
+    out = np.full(n, np.nan, lpool.dtype)
+    seen = np.zeros(n, np.int64)
+    for (foff, DL, DR, a0, na, b0, nb, lo, ro) in rows.astype(np.int64):
+        if DL == 0:
+            out[foff:foff + nb] = 0
+            seen[foff:foff + nb] += 1
+            continue
+        a, b = a0 + np.arange(na), b0 + np.arange(nb)
+        acc = np.zeros((na, nb), lpool.dtype)
+        for m0 in range(0, len(sym), chunk):
+            jl = sym[m0:m0 + chunk, 0].astype(np.int64)[:, None]
+            jr = sym[m0:m0 + chunk, 1].astype(np.int64)[:, None]
+            L = lpool[lo + jl * DL * DL + a * (DL + 1)]
+            R = rpool[ro + jr * DR * DR + b * (DR + 1)]
+            for mm in range(len(L)):
+                acc += L[mm][:, None] * R[mm][None, :]
+        idx = foff + a[:, None] * DR + b[None, :]
+        out[idx] = acc
+        seen[idx] += 1
+    return out, seen
+
+
+@pytest.mark.parametrize("t", range(7))
+def test_diag_walk_matches_jax(system, t):
+    """K2's rows (build_diag_struct's ``k2``, ``k2m``), walked as
+    csrc/diag.cu walks them, store every element of the flat diagonal
+    [sizb_p] once and give the JAX execute_diag's diagonal and the host
+    effective Hamiltonian's, the padded tail included, on the port's
+    plans and pools at every center of the chain."""
+    import jax.numpy as jnp
+    from block2_preview_tpu_torch.ops import mixv4, resident, tilev2
+    site = Site(*system, t)
+    _, rl, rlp = site.ref_plans("lw")
+    _, rr, rrp = site.ref_plans("rw")
+    _, pl, lpool = site.port_plans("lw")
+    _, pr, rpool = site.port_plans("rw")
+    ref_ex = site.ref_matvec(rl, rr)
+    rs = ref_ex.struct
+    rds = ref_build_diag_struct(site.eff.ket_space, rl.meta_out,
+                                rr.meta_out, rs["T"], rs["nt2"],
+                                rs["sig_idx"])
+    ref = np.asarray(ref_execute_diag(
+        rds, ref_execute_mix(rl, jnp.asarray(rlp), dtype=np.float64),
+        ref_execute_mix(rr, jnp.asarray(rrp), dtype=np.float64)))
+    eff = site.peff
+    ex = tilev2.MatvecV2(eff.ket_space, pl.meta_out, pr.meta_out,
+                         site.pmpo.group, eff.target, dtype=np.float64,
+                         bra_space=eff.bra_space)
+    s = ex.struct
+    ds = resident.build_diag_struct(eff.ket_space, pl.meta_out, pr.meta_out,
+                                    s["T"], s["nt2"], s["sig_idx"])
+    lw = mixv4.execute_mix_v4(pl, torch.as_tensor(lpool)).numpy()
+    rw = mixv4.execute_mix_v4(pr, torch.as_tensor(rpool)).numpy()
+    got, seen = diag_walk(lw, rw, ds["k2"], ds["k2m"], len(s["sig_idx"]))
+    assert np.all(seen == 1) and got.shape == ref.shape
+    assert np.abs(got - ref).max() < 1e-10
+    assert np.abs(got[:eff.size] - site.eff.diagonal()).max() < 1e-10
+    assert np.all(got[eff.size:] == 0)
+    rows = ds["k2"].astype(np.int64)
+    live = rows[rows[:, 1] > 0]
+    assert np.all((live[:, 4] <= resident.K2_PIECE)
+                  & (live[:, 6] <= resident.K2_PIECE))
+    twin = resident.execute_diag(ds, torch.as_tensor(lw),
+                                 torch.as_tensor(rw)).numpy()
+    assert np.abs(got - twin).max() < 1e-12
+
+
+def test_diag_rows_split_wide_sectors():
+    """_k2_rows cuts a sector wider or taller than K2_PIECE into pieces of
+    at most K2_PIECE x K2_PIECE, zero ranges fill the rest of the flat
+    diagonal, and a sig_idx that puts a sector elsewhere is refused."""
+    from block2_preview_tpu_torch.ops import resident
+    P = resident.K2_PIECE
+    T, DL, DR = 16, P + P // 2 + 3, 2 * P + 11
+    nr, ncc = -(-DL // T), -(-DR // T)
+    a, b = np.divmod(np.arange(DL * DR), DR)
+    sig = np.full(2 * DL * DR + 40, 10 ** 6, np.int32)
+    sig[32:32 + DL * DR] = ((a // T) * ncc + b // T) * T * T \
+        + (a % T) * T + b % T
+    rows = resident._k2_rows([(32, DL, DR, 0, 0, (0, nr, ncc))], sig, T)
+    live = rows[rows[:, 1] > 0]
+    assert len(live) == 6 and sorted(set(live[:, 6])) == [11, P]
+    assert sorted(set(live[:, 4])) == [P // 2 + 3, P]
+    cover = np.zeros(len(sig), np.int64)
+    for (f, dl, dr, a0, na, b0, nb, _, _) in rows:
+        if dl == 0:
+            cover[f:f + nb] += 1
+        else:
+            idx = f + (a0 + np.arange(na))[:, None] * dr + b0 + np.arange(nb)
+            cover[idx] += 1
+    assert np.all(cover == 1)
+    sig[40], sig[41] = sig[41], sig[40]
+    with pytest.raises(ValueError, match="bra layout"):
+        resident._k2_rows([(32, DL, DR, 0, 0, (0, nr, ncc))], sig, T)
+
+
+def test_diag_tables_cached_and_wrapper_refuses(system):
+    """ResidentSite keeps the diag struct and its tables per device in its
+    cache (uploaded once), and diag_exec runs its plain version only on
+    CPU tensors, refusing any other non-CUDA device."""
+    from block2_preview_tpu_torch.ops import resident
+    _, rs = _resident(system, SITES[1])
+    d1 = rs.diagonal_device()
+    sig, ds, dev = rs.caches["diag"][("diag", SITES[1])]
+    assert set(dev) == {"cpu"} and "k2" in ds
+    tab = dev["cpu"]
+    assert torch.equal(rs.diagonal_device(), d1)
+    assert rs.caches["diag"][("diag", SITES[1])][2]["cpu"] is tab
+    meta = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resident.diag_exec(meta, meta, {})
