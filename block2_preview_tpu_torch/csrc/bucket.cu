@@ -28,7 +28,7 @@
 // order varies between runs: results agree with the plain version to
 // rounding, not bitwise.  K8 had its own body in chain.cuh before (a
 // 256-thread block an item strip, 2 x 2 FMA micro tiles, one atomic an
-// element an item); chain.cuh stays as it is for K18 and K22.
+// element an item); chain.cuh stays as it is for K22.
 //
 // Bound on the card: at true shapes one matvec must read the LW/RW
 // matrices its triples use, psi and write sigma, and do sum 2akn + 2anp

@@ -1,11 +1,16 @@
 // The chain-matvec core of K1 (matvec.cu), K20 (matvec_shard.cu), K8
-// (bucket.cu) and K7 (tiled.cu): for every item of a plan,
+// (bucket.cu), K7 (tiled.cu) and K18 (plan_exec.cu): for every item of a
+// plan,
 //
 //   sigma[ooff] (a x p) += L[loff] (a x k) . psi[poff] (k x n) . R[roff]^T
 //
 // with L, psi, R (p x n) and sigma row-major in flat pools at the item's
 // offsets.  An item is eight int32 fields: loff, a, k, poff, n, roff, p,
-// ooff.  The host (ops/chain_mv.py) cuts the items into entries (item, ar,
+// ooff.  The strided instance (LD, K18's) reads ten: two more give the
+// row strides of L and R in their pools (K18 reads its items' blocks in
+// place from zero-padded stacks, rows k_pad and n_pad long); the
+// instances of K1, K20, K8 and K7 keep eight fields and their code.  The
+// host (ops/chain_mv.py) cuts the items into entries (item, ar,
 // pi, ni) — output rows [64 ar, +64), output columns [64 pi, +64), psi
 // columns [64 ni, +64) — and groups the entries that write one output
 // piece (ooff, ar, pi) into FLOP-bounded chunks: `ent` [n_ent, 2] = (item,
@@ -70,6 +75,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -111,6 +118,14 @@ struct __align__(2 * sizeof(R)) cplx {
 struct Ent {
   int loff, k, poff, n, roff, ni, nc;
 };
+// an entry of the strided instance: the row strides of its L and R
+struct EntLd : Ent {
+  int ldl, ldr;
+};
+__device__ __forceinline__ int l_stride(const Ent& x) { return x.k; }
+__device__ __forceinline__ int r_stride(const Ent& x) { return x.n; }
+__device__ __forceinline__ int l_stride(const EntLd& x) { return x.ldl; }
+__device__ __forceinline__ int r_stride(const EntLd& x) { return x.ldr; }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -318,18 +333,20 @@ __device__ __forceinline__ void atomic_add(cplx<R>* p, cplx<R> v) {
   atomicAdd(&p->y, v.y);
 }
 
-template <typename S>
+template <typename S, bool LD = false>
 __global__ void __launch_bounds__(kW * 32)
 chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
              const S* __restrict__ rp, const int* __restrict__ items,
              const int* __restrict__ ent, const int* __restrict__ ck,
              S* __restrict__ out) {
   constexpr int NT = kW * 32;
+  constexpr int NF = LD ? 10 : 8;   // int32 fields of an item
+  using EntT = std::conditional_t<LD, EntLd, Ent>;
   constexpr int kLDP = ldp<S>(), kSlot = slot_elems<S>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* ring = reinterpret_cast<S*>(smem_raw);   // [kST][kSlot]
   S* Ts = ring + kST * kSlot;                 // tmp [kT][kLDT]
-  __shared__ Ent E[kMaxEnt];
+  __shared__ EntT E[kMaxEnt];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -340,11 +357,15 @@ chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
   for (int i = tid; i < ne; i += NT) {
     const int item = ent[2 * (long long)(e0 + i)];
     const int ni = ent[2 * (long long)(e0 + i) + 1];
-    const int* f = items + 8 * (long long)item;
-    E[i] = Ent{f[0], f[2], f[3], f[4], f[5], ni, min(kT, f[4] - ni * kT)};
+    const int* f = items + NF * (long long)item;
+    if constexpr (LD)
+      E[i] = EntLd{{f[0], f[2], f[3], f[4], f[5], ni,
+                    min(kT, f[4] - ni * kT)}, f[8], f[9]};
+    else
+      E[i] = Ent{f[0], f[2], f[3], f[4], f[5], ni, min(kT, f[4] - ni * kT)};
   }
   // every entry of a chunk writes the same output piece
-  const int* f0 = items + 8 * (long long)ent[2 * (long long)e0];
+  const int* f0 = items + NF * (long long)ent[2 * (long long)e0];
   const int P = f0[6];
   const long long ooff = f0[7];
   const int lr = min(kT, f0[1] - row0), pc = min(kT, P - col0);
@@ -372,19 +393,19 @@ chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
   };
   auto issue = [&](const Cur& c, int slot) {
     if (c.e >= ne) return;
-    const Ent x = E[c.e];
+    const EntT x = E[c.e];
     S* buf = ring + slot * kSlot;
     const int pcol = x.ni * kT;
     if (c.s == 0) {
       const int kc = min(kKC, x.k - c.off), kc4 = (kc + 3) & ~3;
       // L rows [row0, row0 + lr8) x depth [off, off + kc4) -> [r][kLDA]
-      const S* lsrc = lp + x.loff + (long long)row0 * x.k + c.off;
+      const S* lsrc = lp + x.loff + (long long)row0 * l_stride(x) + c.off;
       for (int i = tid; i < lr8 * kKC; i += NT) {
         const int r = i / kKC, kk = i % kKC;
         if (kk >= kc4) continue;
         const bool ok = r < lr && kk < kc;
         cp_elem(buf + r * kLDA + kk,
-                ok ? lsrc + (long long)r * x.k + kk : lp, ok);
+                ok ? lsrc + (long long)r * l_stride(x) + kk : lp, ok);
       }
       // psi rows [off, off + kc4) x columns [pcol, pcol + nc8) -> [kk][kLDP]
       S* Ps = buf + kT * kLDA;
@@ -400,13 +421,14 @@ chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
     } else {
       const int kc = min(kKC, x.nc - c.off), kc4 = (kc + 3) & ~3;
       // R rows [col0, col0 + pc8) x columns [pcol + off, + kc4) -> [p][kLDA]
-      const S* rsrc = rp + x.roff + (long long)col0 * x.n + pcol + c.off;
+      const S* rsrc =
+          rp + x.roff + (long long)col0 * r_stride(x) + pcol + c.off;
       for (int i = tid; i < pc8 * kKC; i += NT) {
         const int pp = i / kKC, kk = i % kKC;
         if (kk >= kc4) continue;
         const bool ok = pp < pc && kk < kc;
         cp_elem(buf + pp * kLDA + kk,
-                ok ? rsrc + (long long)pp * x.n + kk : rp, ok);
+                ok ? rsrc + (long long)pp * r_stride(x) + kk : rp, ok);
       }
     }
   };
@@ -464,17 +486,18 @@ chain_kernel(const S* __restrict__ xp, const S* __restrict__ lp,
 }
 
 // out += the chain products of every chunk of (items, ent, ck); T is the
-// tile the tables were cut for, which must be kT
-template <typename S>
+// tile the tables were cut for, which must be kT; LD: the strided
+// instance (ten-field items)
+template <typename S, bool LD = false>
 cudaError_t chain_mv(const void* xp, const void* lp, const void* rp,
                      const int* items, const int* ent, const int* ck,
                      long long n_chunks, int T, void* out, void* stream) {
   if (T != kT) return cudaErrorInvalidValue;
   const size_t smem = sizeof(S) * (size_t)smem_elems<S>();
-  cudaError_t e = b2t::allow_smem(chain_kernel<S>, smem);
+  cudaError_t e = b2t::allow_smem(chain_kernel<S, LD>, smem);
   if (e != cudaSuccess) return e;
   if (n_chunks > 0)
-    chain_kernel<S><<<(unsigned)n_chunks, kW * 32, smem,
+    chain_kernel<S, LD><<<(unsigned)n_chunks, kW * 32, smem,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const S*>(xp), static_cast<const S*>(lp),
         static_cast<const S*>(rp), items, ent, ck, static_cast<S*>(out));

@@ -1,106 +1,62 @@
 // K13 — symbol-mixing GEMM of the mix v3 LW/RW assembly.
 //
 // Replaces block2_preview_tpu/ops/mixv3.py:62 _env_gemm and :88
-// _env_gemm_chunk.  For one env delta-quantum group and the output
-// columns d in [c0, c0 + n):
+// _env_gemm_chunk.  Per env delta-quantum group g of a v3 plan and its
+// output columns d:
 //
-//   OUT[w, d] = sum_j W[w, j] * ENV[j, d],
-//   ENV[j, d] = epool[eoff[s] + j * dbdk[s] + d - secoff[s]],
+//   OUT_g[w, d] = sum_j W_g[w, j] * ENV_g[j, d],
+//   ENV_g[j, d] = epool[eoff[s] + j * dbdk[s] + d - secoff[s]],
 //
-// s the env sector of column d (the last s with secoff[s] <= d), and
-// OUT[w, d] = 0 for d >= secoff[nsec] (the padded columns).  W is sparse
-// (1-10% dense); the plan holds it as COO triplets sorted by row, so the
-// wrapper passes it as CSR: rowptr [nw_p + 1], wc, wv.
+// s the env sector of column d, and OUT_g[w, d] = 0 for d >= secoff[nsec]
+// (the padded columns) and for the padded rows w >= nw; OUT_g is the
+// group's [nw_p, dg_p] block of OUT, which K14 then reads through winsrc.
 //
-// Design.  One thread per output column, kRows output rows per block:
-// the thread resolves its column's sector once (binary search over
-// secoff), then for each row walks the row's non-zeros and gathers
-// ENV[j, d] straight from the env pool, so the product is formed here
-// and the dense W or the gathered ENV never reach device memory.  The
-// row's triplets are the same for every thread of the block (broadcast
-// loads); the 32 threads of a warp read neighbouring env elements of one
-// sector row (coalesced).  Every output element of the window is
-// written, zeros included.  The sum runs over the row's non-zeros in
-// column order: the reference densifies W with .at[].add and multiplies
-// at HIGHEST, so results agree to rounding, not bitwise.
-// Bound on the card: the FMA count is 2 nnz per column; each env element
-// is read once per non-zero of its symbol column, mostly from L1/L2, so
-// device memory sees about one read of the group's env rows and one
-// write of OUT.
+// Design: K3's output-stationary body (mix_core.cuh; design notes in
+// mix.cu), one launch a plan.  Restricted to one sector s, a group's
+// GEMM is a plain block: W_g rows at wdense[woff + w * ns + j] (W
+// densified once a plan on the host, where the reference densifies it on
+// every call), ENV rows at epool[eoff[s] + j * dbdk[s] + c] with row
+// stride dbdk[s], OUT at goff + w * dg_p + secoff[s] + c with row stride
+// dg_p — the group-by-sector blocks the v4 plan forms from the v3 one
+// (ops/mixv4.py plan_v4).  The host (ops/mixv3.py k13_host_tables, once a
+// plan) gives those blocks, cut in j at 1024 (a 64-bit slice mask), to
+// mixv4.k3_host_tables: 64 x 64 OUT tiles, each walking only the 16-deep
+// j slices whose W rows hold a non-zero through a 2-slot cp.async ring,
+// f64 on DMMA m8n8k4, f32 on the FMA pipes, each OUT element stored once
+// (no atomics: two launches are bitwise equal), and zero ranges for every
+// element of each group's [nw_p, dg_p] block that no block writes (the
+// padded rows and columns), so OUT needs no fill below `*zlim` (the end
+// of the last group).  The window form (columns [c0, c0 + n) of one
+// group into out [nw_p, n], the reference's chunked jit) runs the same
+// body on blocks cut to the window and re-based to out.  The reference
+// densifies W and multiplies at HIGHEST, so results agree to rounding,
+// not bitwise.
+//
+// K13 ran before as one launch a GEMM group: a thread a column walking
+// each row's COO non-zeros and gathering every env element once a
+// non-zero of its symbol column, on the FMA pipes (2.157 ms for the LW +
+// RW plans of the K=16 site 7, 716 group launches in two sweeps of
+// chip_smoke.py phase 9b).
+//
+// Bound on the card: each group's env rows read once, its triplets, and
+// its live OUT written; 2 FLOPs a non-zero of W and a live column.
 
-#include "common.cuh"
-
-namespace {
-
-constexpr int kCols = 128;   // output columns per block (one per thread)
-constexpr int kRows = 16;    // output rows per block
-
-template <typename S>
-__global__ void __launch_bounds__(kCols)
-env_gemm_kernel(const S* __restrict__ epool, const int* __restrict__ rowptr,
-                const int* __restrict__ wc, const S* __restrict__ wv,
-                const int* __restrict__ eoff, const int* __restrict__ dbdk,
-                const int* __restrict__ secoff, int nsec_p, int nw_p, int c0,
-                int n, S* __restrict__ out) {
-  const int dl = blockIdx.x * kCols + threadIdx.x;   // column in the window
-  if (dl >= n) return;
-  const int d = c0 + dl;
-  const int w0 = blockIdx.y * kRows;
-  const int w1 = min(w0 + kRows, nw_p);
-  if (d >= secoff[nsec_p]) {
-    for (int w = w0; w < w1; ++w) out[(long long)w * n + dl] = S(0);
-    return;
-  }
-  // searchsorted(secoff, d, "right") - 1, clipped to [0, nsec_p - 1]
-  int lo = 0, hi = nsec_p + 1;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (secoff[mid] <= d) lo = mid; else hi = mid;
-  }
-  const int s = min(lo, nsec_p - 1);
-  const long long base = (long long)eoff[s] + (d - secoff[s]);
-  const long long stride = dbdk[s];
-  for (int w = w0; w < w1; ++w) {
-    S acc = S(0);
-    for (int k = rowptr[w]; k < rowptr[w + 1]; ++k)
-      acc += wv[k] * epool[base + (long long)wc[k] * stride];
-    out[(long long)w * n + dl] = acc;
-  }
-}
-
-template <typename S>
-int env_gemm(const void* epool, const int* rowptr, const int* wc,
-             const void* wv, const int* eoff, const int* dbdk,
-             const int* secoff, int nsec_p, int nw_p, int c0, int n,
-             void* out, void* stream) {
-  if (n > 0 && nw_p > 0) {
-    const dim3 grid((n + kCols - 1) / kCols, (nw_p + kRows - 1) / kRows);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    env_gemm_kernel<S><<<grid, kCols, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const S*>(epool), rowptr, wc, static_cast<const S*>(wv),
-        eoff, dbdk, secoff, nsec_p, nw_p, c0, n, static_cast<S*>(out));
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "mix_core.cuh"
 
 extern "C" {
 
-int b2t_env_gemm_f64(const void* epool, const int* rowptr, const int* wc,
-                     const void* wv, const int* eoff, const int* dbdk,
-                     const int* secoff, int nsec_p, int nw_p, int c0, int n,
-                     void* out, void* stream) {
-  return env_gemm<double>(epool, rowptr, wc, wv, eoff, dbdk, secoff, nsec_p,
-                          nw_p, c0, n, out, stream);
+int b2t_env_gemm_f64(const double* epool, const double* wpool, const int* kt,
+                     const int* kl, const int* kz, const int* zlim,
+                     int n_tiles, double* out, void* stream) {
+  return (int)mix<double>(epool, wpool, kt, kl, kz, zlim, n_tiles, out,
+                          stream);
 }
 
-int b2t_env_gemm_f32(const void* epool, const int* rowptr, const int* wc,
-                     const void* wv, const int* eoff, const int* dbdk,
-                     const int* secoff, int nsec_p, int nw_p, int c0, int n,
-                     void* out, void* stream) {
-  return env_gemm<float>(epool, rowptr, wc, wv, eoff, dbdk, secoff, nsec_p,
-                         nw_p, c0, n, out, stream);
+int b2t_env_gemm_f32(const float* epool, const float* wpool, const int* kt,
+                     const int* kl, const int* kz, const int* zlim,
+                     int n_tiles, float* out, void* stream) {
+  return (int)mix<float>(epool, wpool, kt, kl, kz, zlim, n_tiles, out,
+                         stream);
 }
 
 }  // extern "C"

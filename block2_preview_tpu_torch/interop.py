@@ -88,8 +88,10 @@ def mix_plan_v3(ref_plan) -> MixPlanV3:
     device-struct token is not carried)."""
     p = MixPlanV3()
     for k in MixPlanV3.__slots__:
-        setattr(p, k, getattr(ref_plan, k))
+        if k != "_dev":     # the port's own cache
+            setattr(p, k, getattr(ref_plan, k))
     p.meta_out = stacked_meta(ref_plan.meta_out)
+    p._dev = {}
     return p
 
 

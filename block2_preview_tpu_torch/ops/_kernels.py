@@ -159,13 +159,13 @@ _SIGS = {
     "b2t_stk_mix": (_P, _P, _I, _P, _P, _P, _P, _P, _P),
     "b2t_tblk": (_P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _P, _P, _P, _P),
-    "b2t_env_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "b2t_env_gemm": (_P, _P, _P, _P, _P, _P, _I, _P, _P),
     "b2t_place_v3": (_P,) * 15 + (_I, _I, _I, _I, _I, _L, _P, _P),
     "b2t_mix_v2": (_P, _P, _I, _P, _P, _P, _P, _P, _P),
     "b2t_slab_mv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _I, _I, _P, _P, _P),
     "b2t_npdm_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "b2t_plan_exec": (_P, _L, _P, _P, _P, _P, _I, _L, _L, _P, _P),
+    "b2t_plan_exec": (_P, _P, _P, _P, _P, _L, _I, _P, _P),
     "b2t_plan_exec_part": (_P, _L, _P, _P, _P, _P, _P, _I, _L, _L, _P, _P),
     "b2t_probe_dot": (_P, _P, _I, _P, _P),
     "b2t_probe_fill": (_P, _I, _P, _L, _I, _P, _P),

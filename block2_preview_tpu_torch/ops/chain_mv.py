@@ -1,5 +1,5 @@
-"""Chunk tables of the chain-matvec core shared by kernels K1, K20, K8 and
-K7 (``csrc/chain_mv.cuh``), and the plain walk of those tables.
+"""Chunk tables of the chain-matvec core shared by kernels K1, K20, K8, K7
+and K18 (``csrc/chain_mv.cuh``), and the plain walk of those tables.
 
 The sigma matvecs compute, for every item (one triple of the effective
 Hamiltonian),
@@ -10,6 +10,9 @@ with L, psi, R and sigma row-major in flat pools at the item's offsets.
 An item is eight int32 fields ``loff, a, k, poff, n, roff, p, ooff`` (K8's
 own items, which K7 reads too, in any of four types; K1's are derived from
 its MatvecV2 plan in :func:`block2_preview_tpu_torch.ops.tilev2.k1_items`).
+K18's items have ten: two more, the row lengths of L and R in their pools
+(``exec_bucket.plan_chain_tables``: blocks read in place from padded
+stacks); the chunks are cut from the first eight.
 
 The core cuts an item into *entries* (item, ar, pi, ni): rows [ar T,
 ar T + T) of its output, columns [pi T, pi T + T) and the columns
@@ -122,8 +125,9 @@ def chunk_tables(items: np.ndarray, cap: Optional[float] = None) -> Dict:
 
 
 def device_tables(items: np.ndarray, tables: Dict, device) -> Dict:
-    """The tables the core reads, on ``device``: ``items`` [n, 8], ``ent``,
-    ``ck`` (int32) and ``n_chunks``."""
+    """The tables the core reads, on ``device``: ``items`` [n, 8] (or
+    [n, 10], the strided instance's), ``ent``, ``ck`` (int32) and
+    ``n_chunks``."""
     return {"items": torch.as_tensor(np.ascontiguousarray(items,
                                                           np.int32),
                                      device=device),
@@ -138,7 +142,8 @@ def chain_plain(xp, lpool, rpool, d: Dict, n_out: int):
     flat sigma [n_out] at the chunk's output piece — what the core
     computes, in the core's order of chunks and entries (not of the sums
     inside a product).  For the tests and the chip's checks of the tables;
-    the wrappers' plain versions are the kernels' twins."""
+    the wrappers' plain versions are the kernels' twins.  Ten-field items
+    (K18's) read L and R at their own row lengths."""
     out = xp.new_zeros(n_out)
     items = d["items"].cpu().numpy().astype(np.int64)
     ent = d["ent"].cpu().numpy().astype(np.int64)
@@ -152,12 +157,14 @@ def chain_plain(xp, lpool, rpool, d: Dict, n_out: int):
         for item, ni in ent[e0:e1]:
             f = items[item]
             k, n = f[K], f[N]
+            ldl, ldr = (f[8], f[9]) if len(f) > 8 else (k, n)
             n0 = ni * T
             nc = min(T, n - n0)
-            L = lpool[f[LOFF] + r0 * k:f[LOFF] + (r0 + lr) * k].view(lr, k)
+            L = lpool[f[LOFF] + r0 * ldl:f[LOFF] + (r0 + lr) * ldl].view(
+                lr, ldl)[:, :k]
             ps = xp[f[POFF]:f[POFF] + k * n].view(k, n)[:, n0:n0 + nc]
-            R = rpool[f[ROFF] + c0 * n:f[ROFF] + (c0 + pc) * n].view(
-                pc, n)[:, n0:n0 + nc]
+            R = rpool[f[ROFF] + c0 * ldr:f[ROFF] + (c0 + pc) * ldr].view(
+                pc, ldr)[:, n0:n0 + nc]
             y = (L @ ps) @ R.T
             acc = y if acc is None else acc + y
         dst = (ooff + (r0 + torch.arange(lr, device=xp.device)[:, None]) * p

@@ -43,9 +43,11 @@ K7 and taking complex types.
 (exec_jax.py:75-128, whose matvec is ``_execute``/``_bucket_exec``): its
 ``device_buckets`` are the reference's zero-padded stacks (A, R, pidx,
 oidx), field-equal, as views of two flat device pools
-(``runtime.unpack_views``), and its matvec runs them as they are through
-kernel K18 (``csrc/plan_exec.cu``; :func:`plan_exec`), or
-:func:`plan_exec_plain` on CPU tensors.  :meth:`PlanExecutor.rank_part`
+(``runtime.unpack_views``).  Its matvec is kernel K18
+(``csrc/plan_exec.cu``; :func:`plan_exec`): the chain core's strided
+instance over the true items only, each read in place from the padded
+stacks (:func:`plan_chain_tables`), or :func:`plan_exec_plain`, the
+stacks run as they are, on CPU tensors.  :meth:`PlanExecutor.rank_part`
 and :func:`plan_exec_part` (kernel K22, ``csrc/plan_exec_shard.cu``) run
 one rank's batch slices of its buckets, for
 ``parallel/shard.py::ShardedPlanExecutor``.
@@ -63,7 +65,7 @@ from . import _kernels, chain_mv
 
 VEC_PAD = 2048      # flat psi/sigma vectors padded to multiples of this
 
-# CUDA blocks per item of the kernels on csrc/chain.cuh (K10, K18, K22):
+# CUDA blocks per item of the kernel on csrc/chain.cuh (K22):
 # 32-row strips times groups of 128 columns of its output (chain_block)
 _STRIP, _YGROUP = 32, 128
 # elements of one padded gather of the plain versions (bounds their int64
@@ -95,8 +97,8 @@ def padded_size(size: int) -> int:
     return ((size + VEC_PAD) // VEC_PAD) * VEC_PAD
 
 
-# item columns
-_LOFF, _A, _K, _POFF, _N, _ROFF, _P, _OOFF = range(8)
+# item columns (K18's items add _LDL, _LDR: the row lengths of L and R)
+_LOFF, _A, _K, _POFF, _N, _ROFF, _P, _OOFF, _LDL, _LDR = range(10)
 
 
 def build_struct(eff, lw_ids, rw_ids, lw_shapes, rw_shapes) -> Dict:
@@ -225,6 +227,36 @@ def _int32(a: np.ndarray, what: str) -> np.ndarray:
     if a.size and (a.max() >= 2 ** 31 or a.min() < 0):
         raise ValueError(f"{what} does not fit int32")
     return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def plan_chain_tables(items: np.ndarray) -> Dict:
+    """K18's chain-core tables from PlanExecutor's true items ``items``
+    [N, 10] (int64: the offset of the item's A block in the value pool,
+    a, k, the psi offset, n, the offset of its R block, p, the sigma
+    offset, and the row lengths of A and R in their padded stacks): the
+    items sorted by sigma block (stable, as K8's :func:`chain_tables`) as
+    int32 ``items``, their chunks (``ops/chain_mv.py``: ``ent``, ``ck``),
+    the true ``flops`` and the build ``seconds``.  The core addresses the
+    pools with int32 offsets: an A or R block that ends past 2^31 elements
+    of the value pool, or a psi or sigma block past 2^31 elements, raises
+    (no silent widening)."""
+    t0 = time.perf_counter()
+    it = np.asarray(items, np.int64).reshape(-1, 10)
+    ends = {"an A block of the value pool": it[:, _LOFF] + (it[:, _A] - 1)
+            * it[:, _LDL] + it[:, _K],
+            "an R block of the value pool": it[:, _ROFF] + (it[:, _P] - 1)
+            * it[:, _LDR] + it[:, _N],
+            "a psi block": it[:, _POFF] + it[:, _K] * it[:, _N],
+            "a sigma block": it[:, _OOFF] + it[:, _A] * it[:, _P]}
+    for what, end in ends.items():
+        if end.size and int(end.max()) > 2 ** 31 - 1:
+            raise ValueError(f"K18: {what} ends at element {int(end.max())}"
+                             ", past the int32 offsets of its chain items")
+    it = it[np.argsort(it[:, _OOFF], kind="stable")]
+    tab = chain_mv.chunk_tables(it[:, :_LDL])
+    tab["items"] = _int32(it, "a K18 chain item")
+    tab["seconds"] = time.perf_counter() - t0
+    return tab
 
 
 # ---------------------------------------------------------------------------
@@ -441,8 +473,9 @@ def plan_exec_plain(xp, buckets, sig_len: int):
 
 
 def plan_exec(xp, ex: "PlanExecutor"):
-    """Sigma [size_p + 1] (slot size_p the spill of the sentinel) of the
-    padded psi ``xp`` [size_p + 1] through ``ex``'s buckets (kernel K18),
+    """Sigma [size_p + 1] (slot size_p the spill of the sentinel, zero) of
+    the padded psi ``xp`` [size_p + 1] through ``ex``'s buckets (kernel
+    K18: the true items on the chain core, :meth:`PlanExecutor.k18_tables`),
     on the device of ``xp``; CPU tensors run :func:`plan_exec_plain`."""
     sig_len = ex.size_p + 1
     if xp.shape != (sig_len,):
@@ -452,10 +485,11 @@ def plan_exec(xp, ex: "PlanExecutor"):
         return plan_exec_plain(xp, ex.device_buckets, sig_len)
     if not xp.is_cuda:
         raise ValueError(f"unsupported device {xp.device}")
+    d = ex.k18_tables()
     out = xp.new_zeros(sig_len)
-    _kernels.launch("K18_plan_exec", "b2t_plan_exec", xp.dtype, xp,
-                    sig_len, ex.vals, ex.ints, ex.desc, ex.cum,
-                    len(ex.device_buckets), ex.n_blocks, sig_len, out)
+    _kernels.launch("K18_plan_exec", "b2t_plan_exec", xp.dtype, xp, ex.vals,
+                    d["items"], d["ent"], d["ck"], d["n_chunks"],
+                    chain_mv.TILE, out)
     return out
 
 
@@ -497,9 +531,14 @@ class PlanExecutor:
     [B, k, n], oidx [B, a, p] are built as the reference builds them
     (zero blocks, sentinel index ``size_p``).  They are uploaded as one
     value pool ``vals`` and one int32 pool ``ints``; ``device_buckets``
-    holds per bucket the four views into them.  ``desc`` [nb, 9] and
-    ``cum`` [nb + 1] (int64) are K18's bucket table: a, k, n, p, CUDA
-    blocks per item, and the offsets of A, R, pidx and oidx."""
+    holds per bucket the four views into them.  ``desc`` [nb, 9] (int64)
+    is the bucket table of K22's body (``csrc/plan_exec.cuh``): a, k, n,
+    p, CUDA blocks per item, and the offsets of A, R, pidx and oidx;
+    ``cum`` [nb + 1] prefix-sums the blocks of whole buckets (a world of
+    one's :meth:`rank_part`).  ``items`` [N, 10] (int64) are the
+    true items as K18 reads them (:func:`plan_chain_tables`), one a
+    triple, in bucket order; a triple whose psi or sigma block does not
+    have its LW/RW dims raises."""
 
     VEC_PAD = VEC_PAD   # flat psi/sigma vectors padded to multiples of this
 
@@ -527,7 +566,7 @@ class PlanExecutor:
                 (lb, rb, eff.offsets[pk], eff.shapes[pk], eff.offsets[ok],
                  eff.shapes[ok]))
         invalid = self.size_p   # sentinel index -> padded zero / spill slot
-        vals, ints, desc = [], [], []
+        vals, ints, desc, chain = [], [], [], []
         ov = oi = 0
         for (a, k, n, p), items in sorted(buckets.items()):
             B = _round_batch(len(items))
@@ -538,6 +577,12 @@ class PlanExecutor:
             for b, (lb, rb, poff, pshape, ooff, oshape) in enumerate(items):
                 a0, k0 = lb.shape
                 p0, n0 = rb.shape
+                if tuple(pshape) != (k0, n0) or tuple(oshape) != (a0, p0):
+                    raise ValueError(f"PlanExecutor: psi block {pshape} / "
+                                     f"sigma block {oshape} do not match "
+                                     f"LW {(a0, k0)} and RW {(p0, n0)}")
+                chain.append((ov + b * a * k, a0, k0, poff, n0,
+                              ov + A.size + b * p * n, p0, ooff, k, n))
                 A[b, :a0, :k0] = lb
                 R[b, :p0, :n0] = rb
                 kk, nn = pshape
@@ -569,6 +614,27 @@ class PlanExecutor:
         self.desc = torch.as_tensor(d, device=self.device)
         self.cum = torch.as_tensor(cum, device=self.device)
         self.n_blocks = int(cum[-1])
+        self.items = np.asarray(chain, np.int64).reshape(-1, 10)
+        self._k18 = None
+
+    def chain_tables(self) -> Dict:
+        """K18's host tables (:func:`plan_chain_tables` of ``items``),
+        built on first use and kept."""
+        if self._k18 is None:
+            self._k18 = plan_chain_tables(self.items)
+        return self._k18
+
+    def k18_tables(self) -> Dict:
+        """K18's tables on this executor's device (:func:`chain_tables`'
+        ``items``, ``ent``, ``ck`` as ``ops/chain_mv.device_tables``, and
+        the host build ``seconds``), uploaded once and kept."""
+        tab = self.chain_tables()
+        d = tab.get("dev")
+        if d is None:
+            d = tab["dev"] = chain_mv.device_tables(tab["items"], tab,
+                                                    self.device)
+            d["seconds"] = tab["seconds"]
+        return d
 
     def rank_part(self, rank: int, world: int) -> Dict:
         """Rank ``rank`` of ``world``'s share of every bucket: the

@@ -16,23 +16,28 @@ written by exactly one window, so the slab is a permutation of OUT.
 Device side, :func:`execute_mix_v3` (reference :585-709) runs
 
   K13 (``csrc/env_gemm.cu``, replaces ``_env_gemm`` :62 and
-      ``_env_gemm_chunk`` :88) once per GEMM group: OUT_g = W_g @ ENV_g,
-      ENV_g gathered from the env pool inside the kernel;
+      ``_env_gemm_chunk`` :88) once a plan: OUT_g = W_g @ ENV_g for every
+      GEMM group, on K3's output-stationary body over the group-by-sector
+      GEMM blocks (:func:`k13_host_tables`, W densified once a plan);
   K14 (``csrc/place_v3.cu``, replaces ``_place`` :143 and
       ``_place_chunk`` :109) once: slab[i] = OUT[window source of i];
 
 with OUT laid out as the reference's (each group's [nw_p, dg_p] block in
 plan order, padded to ``_cap_class(out_total + 1)``), which ``winsrc``
-indexes.  Each kernel takes a window (c0, n) of its output — the
-reference's chunked jits — and the full call is the window (0, all).  The
-reference's device-struct cache, ``B2TPU_SYNC_MIX``, ``B2TPU_MIX_STATS``
-and the ``B2TPU_MIX_CHUNK_ELEMS`` chunking are not carried.  On CPU
-tensors the wrappers run the plain PyTorch twins; on CUDA tensors they
-launch the kernels or raise.
+indexes.  K13 stores every element of the groups' blocks, zeros
+included, so only the size-class tail past them is filled.  K14 and
+K13's window form (:func:`env_gemm_exec`, one group) take a window
+(c0, n) of their output — the reference's chunked jits.  The tables are
+built once a plan and kept in its ``_dev``.  The reference's
+device-struct cache, ``B2TPU_SYNC_MIX``, ``B2TPU_MIX_STATS`` and the
+``B2TPU_MIX_CHUNK_ELEMS`` chunking are not carried.  On CPU tensors the
+wrappers run the plain PyTorch twins; on CUDA tensors they launch the
+kernels or raise.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,6 +45,7 @@ import torch
 
 from . import _kernels
 from .csr import w_nonzero as _w_nonzero
+from .mixv4 import K3_SLICE, _k3_gaps, k3_host_tables
 from .stacked import StackedMeta, _cap_class, _pow2
 
 # slab elements per chunk of K14's plain version (bounds its temporaries)
@@ -62,8 +68,12 @@ def _cls(n: int, keep_bits: int = 2) -> int:
 
 
 class MixPlanV3:
+    """The reference's fields, and ``_dev``, the port's cache of K13's
+    host tables (under "k13") and of the device tables (under (device,
+    dtype))."""
+
     __slots__ = ("meta_out", "ncap_out", "gemms", "tables", "out_total",
-                 "iscpx", "dims_hint", "n_launch", "winflat")
+                 "iscpx", "dims_hint", "n_launch", "winflat", "_dev")
 
 
 def _build_tab(fused, quanta, ct, act, bond_is_first, group):
@@ -447,7 +457,131 @@ def build_mix_plan_v3(meta_env: StackedMeta, entries, quanta,
     plan.iscpx = iscpx
     plan.dims_hint = dims_hint
     plan.n_launch = len(gemm_specs)
+    plan._dev = {}
     return plan
+
+
+# ---------------------------------------------------------------------------
+# K13's host tables: K3's tiles over the group-by-sector GEMM blocks
+# ---------------------------------------------------------------------------
+
+# j depth of one K3 item: a 64-bit mask of K3_SLICE-deep slices
+K13_DEPTH = 64 * K3_SLICE
+
+
+def _k13_items(blocks) -> np.ndarray:
+    """K3 item rows [n, 12] (the columns k3_host_tables reads: W offset, W
+    row stride, rows, E offset, E row stride, OUT offset, OUT row stride,
+    width, depth) of the GEMM blocks ``blocks`` [m, 9] = (W offset, W row
+    stride, rows nw, depth ns, E offset, E row stride, OUT offset, OUT row
+    stride, width), each cut in j at :data:`K13_DEPTH` into items that
+    share its OUT, in j order."""
+    b = np.asarray(blocks, np.int64).reshape(-1, 9)
+    nj = -(-b[:, 3] // K13_DEPTH)
+    f = b[np.repeat(np.arange(len(b)), nj)]
+    j0 = (np.arange(int(nj.sum())) - np.repeat(np.cumsum(nj) - nj, nj)) \
+        * K13_DEPTH
+    it = np.zeros((len(f), 12), np.int64)
+    it[:, 0] = f[:, 0] + j0
+    it[:, 1:3] = f[:, 1:3]
+    it[:, 3] = f[:, 4] + j0 * f[:, 5]
+    it[:, 4:7] = f[:, 5:8]
+    it[:, 10] = f[:, 8]
+    it[:, 11] = np.minimum(K13_DEPTH, f[:, 3] - j0)
+    return it
+
+
+def _k13_tiles(blocks, wdense, zero_to: int) -> Dict:
+    """:func:`mixv4.k3_host_tables` of the GEMM blocks ``blocks`` (see
+    :func:`_k13_items`) over OUT [0, zero_to); with no block, zero tiles
+    only."""
+    if len(blocks):
+        return k3_host_tables(_k13_items(blocks), wdense, zero_to)
+    kz, zt = _k3_gaps(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                      zero_to)
+    kt = np.zeros((len(zt), 8), np.int64)
+    kt[:, :4] = zt
+    return {"kt": kt.astype(np.int32), "kl": np.zeros((0, 8), np.int32),
+            "kz": kz.astype(np.int32), "steps": 0, "flops": 0.0,
+            "flops_nz": 0.0, "written": 0, "zeros": int(kz[:, 1].sum())}
+
+
+def _group_blocks(spec, woff: int, goff: int, c0: int, n: int, ostride):
+    """The GEMM blocks of one group restricted to its columns [c0, c0 +
+    n): one a sector that meets them, W at ``woff`` (rows of ns), the
+    sector's env rows from the column's place in it, OUT at ``goff`` +
+    (column - c0) with row stride ``ostride``."""
+    sec = np.asarray(spec["secoff"], np.int64)
+    lo = np.maximum(sec[:-1], c0)
+    hi = np.minimum(sec[1:], c0 + n)
+    s = np.flatnonzero(hi > lo)
+    ns, nw = spec["ns"], spec["nw"]
+    b = np.zeros((len(s), 9), np.int64)
+    b[:, 0], b[:, 1], b[:, 2], b[:, 3] = woff, ns, nw, ns
+    b[:, 4] = np.asarray(spec["eoff"], np.int64)[s] + lo[s] - sec[s]
+    b[:, 5] = np.asarray(spec["dbdk"], np.int64)[s]
+    b[:, 6] = goff + lo[s] - c0
+    b[:, 7] = ostride
+    b[:, 8] = hi[s] - lo[s]
+    return b
+
+
+def k13_host_tables(plan: MixPlanV3) -> Dict:
+    """K13's host tables of a v3 plan, built once and kept in its
+    ``_dev["k13"]``: the dense W pool ``wdense`` (each group's W_g [nw,
+    ns] at ``woff[g]``, densified once here; duplicates add, as the
+    reference's ``.at[].add``) and :func:`mixv4.k3_host_tables` over the
+    group-by-sector GEMM blocks (the v4 plan's, ``mixv4.plan_v4``) and OUT
+    [0, out_total): every element of each group's [nw_p, dg_p] block that
+    no block writes (rows nw..nw_p, columns past secoff[nsec]) is a zero
+    range.  ``seconds``: the whole build."""
+    h = plan._dev.get("k13")
+    if h is not None:
+        return h
+    if plan.iscpx:
+        raise TypeError("mix v3 takes real plans only (the reference's "
+                        "execute_mix_v3 drops imaginary parts)")
+    t0 = time.perf_counter()
+    woff = np.concatenate([[0], np.cumsum([g["nw"] * g["ns"]
+                                           for g in plan.gemms])])
+    wdense = np.zeros(int(woff[-1]) + 1, np.float64)
+    blocks = []
+    for g, wo in zip(plan.gemms, woff):
+        np.add.at(wdense, wo + g["wr"].astype(np.int64) * g["ns"] + g["wc"],
+                  np.asarray(g["wv"]).real)
+        blocks.append(_group_blocks(g, int(wo), g["goff"], 0,
+                                    int(g["secoff"][-1]), g["dg_p"]))
+    h = _k13_tiles(np.concatenate(blocks), wdense, plan.out_total)
+    h["wdense"], h["woff"] = wdense, woff
+    h["seconds"] = time.perf_counter() - t0
+    plan._dev["k13"] = h
+    return h
+
+
+def _k13_upload(h: Dict, n_out: int, wpool) -> Dict:
+    """What a K13 launch reads, on the device of the W pool ``wpool``:
+    the host tables ``h``' ``kt``, ``kl``, ``kz``, ``zlim`` = [n_out] (the
+    OUT elements it stores, also kept as the host int ``n_out``)."""
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                               device=wpool.device)
+
+    return {"kt": i32(h["kt"]), "kl": i32(h["kl"]), "kz": i32(h["kz"]),
+            "zlim": i32([n_out]), "n_out": n_out, "wpool": wpool}
+
+
+def k13_tables(plan: MixPlanV3, device, dtype) -> Dict:
+    """K13's tables on ``device`` (:func:`_k13_upload` of
+    :func:`k13_host_tables` over OUT [0, out_total), the dense W pool in
+    ``dtype``), uploaded once and kept in the plan's ``_dev``."""
+    key = ("k13", str(device), dtype)
+    d = plan._dev.get(key)
+    if d is None:
+        h = k13_host_tables(plan)
+        d = plan._dev[key] = _k13_upload(
+            h, plan.out_total, torch.as_tensor(h["wdense"], dtype=dtype,
+                                               device=device))
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -455,22 +589,33 @@ def build_mix_plan_v3(meta_env: StackedMeta, entries, quanta,
 # ---------------------------------------------------------------------------
 
 def v3_tables(plan: MixPlanV3, device, dtype) -> Dict:
-    """Device tables of a v3 plan for K13/K14 (and their twins).  Per GEMM
+    """Device tables of a v3 plan for K13/K14 (and their twins), built
+    once a device and dtype and kept in the plan's ``_dev``.  Per GEMM
     group (``gemms``): the COO triplets padded as the reference uploads
     them (``wr``, ``wc``, ``wv`` to ``_pow2(nnz + 1)``, zero-valued pads),
-    ``rowptr`` [nw_p + 1] over the live triplets (the plan sorts them by
-    row), ``eoff``/``dbdk`` [nsec_p] and ``secoff`` [nsec_p + 1] padded by
-    repeats, the group's OUT offset and sizes; then the place tables."""
+    ``eoff``/``dbdk`` [nsec_p] and ``secoff`` [nsec_p + 1] padded by
+    repeats, the group's OUT offset and sizes — what the twin reads; then
+    the place tables.  On a CUDA device also K13's (``k13``,
+    :func:`k13_tables`) and per group what its window form cuts
+    (``win``)."""
     if plan.iscpx or dtype.is_complex:
         raise TypeError("mix v3 takes real plans and types only (the "
                         "reference's execute_mix_v3 drops imaginary parts)")
+    key = (str(device), dtype)
+    d = plan._dev.get(key)
+    if d is not None:
+        return d
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                device=device)
 
+    k13 = None
+    if torch.device(device).type == "cuda":
+        h = k13_host_tables(plan)
+        k13 = k13_tables(plan, device, dtype)
     gemms = []
-    for spec in plan.gemms:
+    for gi, spec in enumerate(plan.gemms):
         nnz, nsec = len(spec["wv"]), spec["nsec"]
         nnz_p, nsec_p = _pow2(nnz + 1), _pow2(nsec + 1)
         wr = np.zeros(nnz_p, np.int64)
@@ -485,16 +630,21 @@ def v3_tables(plan: MixPlanV3, device, dtype) -> Dict:
         dbdk[:nsec] = spec["dbdk"]
         secoff = np.full(nsec_p + 1, spec["secoff"][-1], np.int64)
         secoff[:nsec + 1] = spec["secoff"]
-        rowptr = np.searchsorted(wr[:nnz], np.arange(spec["nw_p"] + 1))
-        gemms.append({"wr": i32(wr), "wc": i32(wc), "rowptr": i32(rowptr),
+        gemms.append({"wr": i32(wr), "wc": i32(wc),
                       "wv": torch.as_tensor(wv, dtype=dtype, device=device),
                       "eoff": i32(eoff), "dbdk": i32(dbdk),
                       "secoff": i32(secoff), "goff": spec["goff"],
                       "nw_p": spec["nw_p"], "ns": spec["ns"],
                       "ns_p": spec["ns_p"], "dg_p": spec["dg_p"],
                       "nnz": nnz})
+        if k13 is not None:
+            gemms[-1]["win"] = {"spec": spec, "woff": int(h["woff"][gi]),
+                                "wdense": h["wdense"],
+                                "wpool": k13["wpool"], "cut": {}}
     d = {k: i32(plan.tables[k]) for k in PLACE_TABLES}
     d["gemms"] = gemms
+    d["k13"] = k13
+    plan._dev[key] = d
     return d
 
 
@@ -523,18 +673,68 @@ def env_gemm_twin(epool, dg: Dict, c0: int, n: int, out):
     return out
 
 
+def _k13_launch(epool, t: Dict, out) -> None:
+    if out.numel() < t["n_out"]:
+        raise ValueError(f"K13: OUT holds {out.numel()} elements, the "
+                         f"tables store {t['n_out']}")
+    _kernels.launch("K13_env_gemm", "b2t_env_gemm", epool.dtype, epool,
+                    t["wpool"], t["kt"], t["kl"], t["kz"], t["zlim"],
+                    t["kt"].shape[0], out)
+
+
+def env_gemm_plan(epool, d: Dict, out):
+    """Env GEMM (kernel K13) of every group of a plan into the flat OUT
+    ``out`` (at least ``out_total`` long): each group's [nw_p, dg_p] block
+    at its ``goff``, every element of it stored, in one launch; ``d`` from
+    :func:`v3_tables`.  On CPU tensors the twin runs group by group."""
+    if epool.device.type == "cpu":
+        for dg in d["gemms"]:
+            nw_p, dg_p = dg["nw_p"], dg["dg_p"]
+            env_gemm_twin(epool, dg, 0, dg_p, out[
+                dg["goff"]:dg["goff"] + nw_p * dg_p].view(nw_p, dg_p))
+        return out
+    if not epool.is_cuda:
+        raise ValueError(f"unsupported device {epool.device}")
+    _k13_launch(epool, d["k13"], out)
+    return out
+
+
+def window_host_tables(spec, woff: int, wdense, c0: int, n: int) -> Dict:
+    """K13's host tables for columns [c0, c0 + n) of one group (its plan
+    ``spec``, its W at ``woff`` of :func:`k13_host_tables`' ``wdense``)
+    into out [nw_p, n]: the group's blocks cut to the window and re-based
+    to ``out`` (row stride n), every other element of ``out`` a zero
+    range."""
+    return _k13_tiles(_group_blocks(spec, woff, 0, c0, n, n), wdense,
+                      spec["nw_p"] * n)
+
+
+def window_tables(dg: Dict, c0: int, n: int) -> Dict:
+    """:func:`window_host_tables` of one group's window on the device
+    (``h``: the host tables), built once a window and kept in
+    ``dg["win"]["cut"]``."""
+    w = dg["win"]
+    t = w["cut"].get((c0, n))
+    if t is None:
+        h = window_host_tables(w["spec"], w["woff"], w["wdense"], c0, n)
+        t = w["cut"][(c0, n)] = _k13_upload(h, dg["nw_p"] * n, w["wpool"])
+        t["h"] = h
+    return t
+
+
 def env_gemm_exec(epool, dg: Dict, c0: int, n: int, out):
     """Env GEMM (kernel K13) of one group over columns [c0, c0 + n) into
-    ``out`` [nw_p, n] (every element written); ``dg`` is one entry of
-    :func:`v3_tables`' ``gemms``."""
+    ``out`` [nw_p, n] (every element written; the reference's chunked
+    jit); ``dg`` is one entry of :func:`v3_tables`' ``gemms``.  On CUDA
+    tensors K13 runs on :func:`window_tables`."""
     if epool.device.type == "cpu":
         return env_gemm_twin(epool, dg, c0, n, out)
     if not epool.is_cuda:
         raise ValueError(f"unsupported device {epool.device}")
-    _kernels.launch("K13_env_gemm", "b2t_env_gemm", epool.dtype, epool,
-                    dg["rowptr"], dg["wc"], dg["wv"], dg["eoff"],
-                    dg["dbdk"], dg["secoff"], dg["eoff"].shape[0],
-                    dg["nw_p"], c0, n, out)
+    if out.shape != (dg["nw_p"], n):
+        raise ValueError(f"env_gemm_exec: out {tuple(out.shape)} (expected "
+                         f"({dg['nw_p']}, {n}))")
+    _k13_launch(epool, window_tables(dg, c0, n), out)
     return out
 
 
@@ -604,15 +804,14 @@ def place_v3_exec(outflat, d: Dict, c0: int, n: int, out):
 def execute_mix_v3(plan: MixPlanV3, epool):
     """LW/RW slab pool [ncap_out + 1] (zero sentinel last) from the env
     slab pool ``epool`` on its device and in its dtype — what the
-    reference's execute_mix_v3 returns: K13 per GEMM group into OUT, then
-    K14 once."""
+    reference's execute_mix_v3 returns: K13 once into OUT (which it writes
+    whole up to ``out_total``; the size-class tail past it is filled
+    here), then K14 once."""
     d = v3_tables(plan, epool.device, epool.dtype)
-    outflat = torch.zeros(_cap_class(plan.out_total + 1), dtype=epool.dtype,
+    outflat = torch.empty(_cap_class(plan.out_total + 1), dtype=epool.dtype,
                           device=epool.device)
-    for dg in d["gemms"]:
-        nw_p, dg_p = dg["nw_p"], dg["dg_p"]
-        env_gemm_exec(epool, dg, 0, dg_p, outflat[
-            dg["goff"]:dg["goff"] + nw_p * dg_p].view(nw_p, dg_p))
+    outflat[plan.out_total:].zero_()
+    env_gemm_plan(epool, d, outflat)
     n = plan.ncap_out + 1
     return place_v3_exec(outflat, d, 0, n, torch.empty(
         n, dtype=epool.dtype, device=epool.device))

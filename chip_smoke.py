@@ -70,9 +70,10 @@ package's host path by the CPU tests):
                environment's v3 blockings (K3 only blocks, it never mixes)
   9b. mix v3   phase 5's start and schedule under B2TPU_MIX=3: per sweep
                the wall split with the mix-plan build time inside Teff and
-               the K13 / K14 launches; the launch rules of 9a, every host
-               counter 0; within 1e-8 Ha of phase 5's port energy and
-               1e-6 Ha of its host reference
+               the K13 / K14 launches (K13 one a mix plan) and K13's
+               host tables' seconds (inside Teff); the launch rules of
+               9a, every host counter 0; within 1e-8 Ha of phase 5's port
+               energy and 1e-6 Ha of its host reference
   9c. mix v2   the same start under B2TPU_MIX=2, one sweep (D=250, noise
                1e-4): the split, the v2 plan-build time, the K15
                launches and its host tables' seconds (inside Teff); within
@@ -169,8 +170,10 @@ package's host path by the CPU tests):
                K5 alone on v3 plans built at T=16, whose wide items take
                its tile path with up to 8 strips of l, bitwise over two
                launches and K21's two shares summed bitwise one launch);
-               K13 (every GEMM group of the K=16 site's LW and RW v3
-               plans, and one window at
+               K13 (the K=16 site's LW and RW v3 plans, one launch a plan
+               from a buffer of NaNs on K3's output-stationary body,
+               bitwise against a second launch, with its tiles, slices,
+               gap zeros and host-table seconds; and one window at
                c0 > 0), K14 (library: one torch.take; bitwise against its
                twin on the slab and on two windows at c0 > 0 of odd
                length, one across the live end; tail and sentinel 0), K15
@@ -185,7 +188,9 @@ package's host path by the CPU tests):
                2, K=12 order 3; library: one torch.matmul, cuBLAS DGEMM), f64 and
                complex128, each bitwise against a second launch, then at
                63 edge shapes and on an unaligned V (phase_k17_edges); K18
-               at the K=16 site 7 (also against K8), f64 and f32; K19's
+               at the K=16 site 7 (also against K8; the true against the
+               padded GFLOP, its items, chunks and table seconds), f64
+               and f32; K19's
                dot (2048 values; library torch.dot; also the host
                microseconds a call of it, of torch.dot and of the launch
                path, and its launch on a side stream) and fill (2^27
@@ -195,8 +200,9 @@ package's host path by the CPU tests):
                (PlanExecutor's buckets) and B22e (K17 on the row slices of
                10b's largest close), each share against its twin and their
                sum against K1 / K5 / K18 / one K17 launch (K21's v3 shares
-               summed bitwise equal to one K5 launch).  K1, K20, K8
-               and K7 run on one chain core (csrc/chain_mv.cuh; atomics,
+               summed bitwise equal to one K5 launch).  K1, K20, K8,
+               K7 and K18 run on one chain core (csrc/chain_mv.cuh, K18
+               on its strided instance; atomics,
                so they agree with their twins to rounding): K1's row
                prints its order tables' build time and the live 8 x 8
                fragments of its entries and chunks, K8's the histogram of
@@ -215,7 +221,7 @@ package's host path by the CPU tests):
 Run from the repository root:  python3 chip_smoke.py
 It needs one CUDA card and exits non-zero (printing no result) without
 one.  ``python3 chip_smoke.py --beside PARENT_TREE`` instead times phase
-3's K1-K6, K10-K12 and K20-K22 rows at the K=16 site and the sweeps of
+3's K1-K8, K10-K16, K18 and K20-K22 rows at the K=16 site and the sweeps of
 phases 5 and 8b of this tree and of an unpacked earlier commit in turns
 (parent, this, this, parent; ``beside_parent``), and holds the change's
 K10 outputs (bitwise) and K5's v3 rotate outputs (1e-14) against the
@@ -535,7 +541,7 @@ def phase_build():
     for name, regs, spill in usage:
         if name.startswith(("chain_", "blk_kernel", "noise_",
                             "tiled_kernel", "bucket_", "slab_", "mix_gather",
-                            "tblk_", "env_gemm", "place_", "mix_v2",
+                            "tblk_", "place_", "mix_v2",
                             "skinny_", "tall_", "reduce_", "plan_exec",
                             "probe_", "mix_kernel", "diag_kernel")) or \
                 not spill.startswith("0 bytes stack"):
@@ -1949,10 +1955,11 @@ def phase_mix_full(device, drv, mpo, ver, sched, tag, D=250):
           f"{solver.host_redo_count}  host_env_materialized "
           f"{solver.host_env_materialized}  host_ops_downloads "
           f"{solver.host_ops_downloads}", flush=True)
-    if ver == "2":
-        secs = [p._dev["k15"]["seconds"] for _, p in
-                solver._res_caches["mix"].values() if "k15" in p._dev]
-        print(f"[{tag}] K15 host tables: {len(secs)} plans, "
+    if ver in ("2", "3"):
+        k = "k15" if ver == "2" else "k13"
+        secs = [p._dev[k]["seconds"] for _, p in
+                solver._res_caches["mix"].values() if k in p._dev]
+        print(f"[{tag}] {k.upper()} host tables: {len(secs)} plans, "
               f"{sum(secs):.2f} s in all (a plan median "
               f"{np.median(secs) if secs else 0.0:.3f}, max "
               f"{max(secs, default=0.0):.3f} s), inside Teff", flush=True)
@@ -2092,14 +2099,24 @@ def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
             esz = ep.element_size()
             d3 = mixv3.v3_tables(p3, device, tdt)
             otp = mixv3._cap_class(p3.out_total + 1)
+            h13 = mixv3.k13_host_tables(p3)
 
-            def k13(fn, d3=d3, ep=ep, otp=otp):
+            def k13_twin(d3=d3, ep=ep, otp=otp):
                 out = torch.zeros(otp, dtype=tdt, device=device)
                 for dg in d3["gemms"]:
                     nw_p, dg_p = dg["nw_p"], dg["dg_p"]
-                    fn(ep, dg, 0, dg_p, out[dg["goff"]:dg["goff"]
-                                            + nw_p * dg_p].view(nw_p, dg_p))
+                    mixv3.env_gemm_twin(ep, dg, 0, dg_p, out[
+                        dg["goff"]:dg["goff"] + nw_p * dg_p].view(nw_p,
+                                                                  dg_p))
                 return out
+
+            def k13_nan(d3=d3, ep=ep, otp=otp):
+                # one launch a plan into OUT from NaNs (its tail zeroed,
+                # as execute_mix_v3 leaves it): K13 stores every element
+                out = torch.full((otp,), float("nan"), dtype=tdt,
+                                 device=device)
+                out[p3.out_total:] = 0
+                return mixv3.env_gemm_plan(ep, d3, out)
 
             # per group: the env rows it reads, its triplets and CSR, the
             # live OUT it writes; 2 FLOPs per non-zero and live column
@@ -2111,21 +2128,30 @@ def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
                 sum(n_ + x_["nw"] + 1 + 3 * x_["nsec"] + 1 for x_, n_
                     in zip(p3.gemms, nnz)))
             k13_flops = 2.0 * sum(n_ * c_ for n_, c_ in zip(nnz, ncols))
-            o_t = k13(mixv3.env_gemm_twin)
-            _check(acc, "K13_env_gemm", dtype, side, k13(mixv3.env_gemm_exec),
-                   o_t, tol, time_ms(lambda: k13(mixv3.env_gemm_exec),
-                                     device),
-                   time_ms(lambda: k13(mixv3.env_gemm_twin), device), None,
-                   k13_bytes, k13_flops,
+            o_t = k13_twin()
+            o_k = k13_nan()
+            if not torch.equal(o_k, k13_nan()):
+                fail(f"K13 {side}: two launches on the same inputs differ")
+            out13 = torch.empty(otp, dtype=tdt, device=device)
+            _check(acc, "K13_env_gemm", dtype, side, o_k, o_t, tol,
+                   time_ms(lambda: mixv3.env_gemm_plan(ep, d3, out13),
+                           device),
+                   time_ms(k13_twin, device), None, k13_bytes, k13_flops,
                    f"groups {len(p3.gemms)} nnz {sum(nnz)} OUT "
-                   f"{p3.out_total} GFLOP {k13_flops / 1e9:.3f}")
+                   f"{p3.out_total} GFLOP {k13_flops / 1e9:.3f} (on W's "
+                   f"non-zeros; {h13['flops_nz'] / 1e9:.3f} walked of "
+                   f"{h13['flops'] / 1e9:.3f} dense); tiles "
+                   f"{len(h13['kt'])}, slices {h13['steps']}, gap zeros "
+                   f"{h13['zeros']}; host tables {h13['seconds']:.3f} s; "
+                   f"two launches bitwise equal")
+            del out13
             # one window at c0 > 0 of the widest group
             dg = max(d3["gemms"], key=lambda x_: x_["dg_p"])
             c0, n = dg["dg_p"] // 3 + 1, min(1000, dg["dg_p"] // 2)
 
             def k13w(fn, dg=dg, ep=ep, c0=c0, n=n):
-                return fn(ep, dg, c0, n, torch.empty(
-                    dg["nw_p"], n, dtype=tdt, device=device))
+                return fn(ep, dg, c0, n, torch.full(
+                    (dg["nw_p"], n), float("nan"), dtype=tdt, device=device))
 
             _check(None, "K13_env_gemm", dtype, f"{side} window",
                    k13w(mixv3.env_gemm_exec), k13w(mixv3.env_gemm_twin), tol,
@@ -2869,7 +2895,8 @@ def phase_probes(device, pool_elems=1 << 27, tiled=(8, 120, 6)):
 def plan_exec_check(device, eff, tag, rows=None):
     """PlanExecutor (K18) at one center ``eff``: f64 and f32 against its
     twin on the same stacks, and f64 against K8's sigma (BucketExecutor)
-    to 1e-12 relative.  With ``rows`` the f64 case feeds the JSON row."""
+    to 1e-12 relative; prints the true against the padded GFLOP and K18's
+    table build.  With ``rows`` the f64 case feeds the JSON row."""
     import torch
     from block2_preview_tpu_torch.ops import exec_bucket
     rng = np.random.default_rng(9)
@@ -2878,6 +2905,7 @@ def plan_exec_check(device, eff, tag, rows=None):
         t0 = time.time()
         ex = exec_bucket.PlanExecutor(eff, dtype=dtype, device=device)
         t_build = time.time() - t0
+        tab = ex.chain_tables()
         xp = torch.as_tensor(np.concatenate([x, np.zeros(ex.size_p + 1
                                                          - ex.size)]),
                              dtype=ex.vals.dtype, device=device)
@@ -2897,10 +2925,11 @@ def plan_exec_check(device, eff, tag, rows=None):
                dtype, tag, k18(), twin(), ATOMIC_TOL[dtype],
                time_ms(k18, device), time_ms(twin, device), None, n_bytes,
                flops, f"size {eff.size} triples {len(eff.triples)} buckets "
-               f"{len(ex.device_buckets)} blocks {ex.n_blocks} padded A+R "
-               f"{ex.vals.numel()} ints {ex.ints.numel()} GFLOP true "
-               f"{flops / 1e9:.2f} padded {pad / 1e9:.2f} build "
-               f"{t_build:.1f} s")
+               f"{len(ex.device_buckets)} padded A+R {ex.vals.numel()} "
+               f"GFLOP true {flops / 1e9:.2f} (the chain items' "
+               f"{tab['flops'] / 1e9:.2f}) padded {pad / 1e9:.2f}; items "
+               f"{len(tab['items'])} chunks {len(tab['ck'])} (tables "
+               f"{tab['seconds']:.3f} s); stacks built in {t_build:.1f} s")
         if dtype == np.float64:
             got = ex.matvec(x)
             bx = exec_bucket.BucketExecutor(eff, dtype=dtype, device=device)
@@ -3757,10 +3786,19 @@ with open(sys.argv[1], "rb") as f:
 ket = held["ket"]
 site = c.mid_site(mpo, ket, 7)
 me, peff = site
+# site 7's two environments as the driver made them: a host contraction
+# may round differently from process to process (3.7e-16 on the card's
+# host), and every turn's kernels must read bitwise-equal inputs
+list.__setitem__(me.left_envs, 7, held["envs"][0])
+list.__setitem__(me.right_envs, 9, held["envs"][1])
 eff = EffectiveHamiltonian2(me, 7)
-# phase 3's K1-K6, K10-K12 and K20-K22 rows at site 7
+# phase 3's K1-K8, K10-K16, K18 and K20-K22 rows at site 7
 c.phase_kernels(d, mpo, ket, 7, site=site)
+c.phase_tiled(d, me, 7, davidson=False, eff=eff)
+c.phase_bucket(d, mpo, ket, me, eff, 7, summary=False, kinds="K8")
 c.phase_stacked_kernels(d, mpo, ket, me, 7, summary=False)
+c.phase_mix_kernels(d, mpo, ket, me, 7, summary=False)
+c.plan_exec_check(d, eff, "c7")
 c.phase_shard_kernels(d, mpo, ket, 7, site, eff, (8, 19332, 1542))
 # the paths K5, K6 and K10 run: phases 5 and 8b
 c.phase_full(d, drv, mpo, D=D)
@@ -3873,14 +3911,23 @@ def diag_inputs(device, mpo, mps, t, site=None):
 
 
 
+def site_envs(mpo, mps, t):
+    """The host environments of center t of a state (its left bond t and
+    right bond t + 2), which every --beside turn's site then reads."""
+    me, _ = mid_site(mpo, mps, t)
+    return me.left_envs[t], me.right_envs[t + 2]
+
+
 def beside_parent(parent: str, turns=("parent", "change", "change",
                                       "parent")):
-    """K1-K6, K10-K12 and K20-K22 of this tree beside those of the tree
-    at ``parent`` (an unpacked earlier commit): phase 3's rows of those
-    kernels at the K=16 site 7, then the runs of phases 5 and 8b, each in
+    """K1-K8, K10-K16, K18 and K20-K22 of this tree beside those of the
+    tree at ``parent`` (an unpacked earlier commit): phase 3's rows of
+    those kernels at the K=16 site 7 (with PlanExecutor against K8), then
+    the runs of phases 5 and 8b, each in
     a process of its own, in the order ``turns``; the state is phase 5's
     port run, made once here and handed to every run as a pickle, with
-    K2's inputs at its site 7 and at the T=128 Hubbard-L16 site.  Each
+    its site 7's two host environments and K2's inputs at that site and
+    at the T=128 Hubbard-L16 site.  Each
     run builds its own tree's kernels and prints its phase-3 rows, its 5
     and 8b sweeps (Teff, Tblk) and each noise call's own allocation,
     prefixed by its turn, and saves K10's, K5's (the v3 rotate plans),
@@ -3902,7 +3949,7 @@ def beside_parent(parent: str, turns=("parent", "change", "change",
     dev = resolve_device("cuda")
     drv, mpo, _ = qc_system(16, 16)
     _, ket, e5, _ = phase_full(dev, drv, mpo)
-    held = {"ket": copy_mps(ket),
+    held = {"ket": copy_mps(ket), "envs": site_envs(mpo, ket, 7),
             "k2": {"site7": diag_inputs(dev, mpo, ket, 7),
                    "T128": diag_inputs(dev, *wide_system(), 7)}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3920,7 +3967,7 @@ def beside_parent(parent: str, turns=("parent", "change", "change",
                                                      PYTHONPATH=root))
             for line in run.stdout.splitlines():
                 if line.startswith(("[3 kernels]", "[2 build]", "[5 full]",
-                                    "[8b", "FAIL")):
+                                    "[8b", "[10d", "FAIL")):
                     print(f"[beside {i} {turn}] {line}", flush=True)
             print(f"[beside {i} {turn}] exit {run.returncode} in "
                   f"{time.time() - t0:.1f} s", flush=True)

@@ -315,7 +315,8 @@ def test_beside_run_times_k9_to_k16_and_keeps_their_outputs(
     cpu = torch.device("cpu")
     wide = chip_smoke.wide_system(L=8, D=30)
     with open(path, "wb") as f:
-        pickle.dump({"ket": ket, "k2": {
+        pickle.dump({"ket": ket, "envs": chip_smoke.site_envs(mpo, ket, 7),
+                     "k2": {
             "site7": chip_smoke.diag_inputs(cpu, mpo, ket, 7),
             "T128": chip_smoke.diag_inputs(cpu, *wide, 3)}}, f)
     monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)

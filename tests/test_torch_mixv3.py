@@ -24,6 +24,7 @@ from block2_preview_tpu_torch.ops import mixv3, mixv4, resident
 from block2_preview_tpu_torch.ops.mixv3 import MixPlanV3
 from block2_preview_tpu_torch.ops.mixv4 import MixPlanV4
 
+from test_torch_mixv4 import mix_walk
 from test_torch_plans import SITES, Site, hubbard_driver, hubbard_system
 
 
@@ -68,6 +69,84 @@ def test_env_gemm_twin_matches_jax(system, t, side):
         got = mixv3.env_gemm_exec(ep, dg, c0, n,
                                   torch.empty(nw_p, n, dtype=ep.dtype))
         _close(got.numpy(), ref, 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# K13 on K3's output-stationary body: mixv3.k13_host_tables (and a window's
+# window_host_tables) walked in the kernel's order (test_torch_mixv4's
+# mix_walk)
+# ---------------------------------------------------------------------------
+
+_K13_TOL = {np.float64: 1e-13, np.float32: 1e-5}
+
+
+def _jax_args(dg):
+    import jax.numpy as jnp
+    return [jnp.asarray(dg[k].numpy()) for k in
+            ("wr", "wc", "wv", "eoff", "dbdk", "secoff")]
+
+
+@pytest.mark.parametrize("t", SITES)
+@pytest.mark.parametrize("side", ["lw", "rw"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_k13_walk_matches_jax(system, t, side, dtype):
+    """K13's walk over the plan's K3 tiles (one launch a plan: the
+    group-by-sector GEMM blocks, the all-zero W slices skipped) stores
+    every element of each group's [nw_p, dg_p] block exactly once from a
+    buffer of NaNs (the padded rows and columns as zeros, nothing past the
+    last group) and gives the JAX _env_gemm's block for every group; the
+    tables are built once a plan."""
+    import jax.numpy as jnp
+    _, p3, pool = _plan(Site(*system, t), side)
+    h = mixv3.k13_host_tables(p3)
+    assert mixv3.k13_host_tables(p3) is h and h["seconds"] > 0
+    ep = pool.astype(dtype)
+    got, seen, by_block = mix_walk(ep, h["wdense"].astype(dtype), h,
+                                   p3.out_total)
+    assert np.all(seen == 1)
+    d = mixv3.v3_tables(p3, "cpu", torch.float64)
+    jp = jnp.asarray(ep)
+    live = np.zeros(p3.out_total, bool)
+    for dg, spec in zip(d["gemms"], p3.gemms):
+        nw_p, ns_p, dg_p = dg["nw_p"], dg["ns_p"], dg["dg_p"]
+        blk = np.s_[dg["goff"]:dg["goff"] + nw_p * dg_p]
+        want = np.asarray(ref_mixv3._env_gemm(jp, *_jax_args(dg), nw_p, ns_p,
+                                              dg_p))
+        _close(got[blk].reshape(nw_p, dg_p), want, _K13_TOL[dtype])
+        lv = live[blk].reshape(nw_p, dg_p)
+        lv[:spec["nw"], :int(spec["secoff"][-1])] = True
+    assert np.array_equal(by_block, live)     # the rest stored as zeros
+    assert not got[~live].any()
+
+
+@pytest.mark.parametrize("t", SITES)
+@pytest.mark.parametrize("side", ["lw", "rw"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_k13_window_walk_matches_jax_chunk(system, t, side, dtype):
+    """K13's window form (one group's columns [c0, c0 + n), c0 > 0: the
+    blocks cut to the window and re-based to out [nw_p, n]) walked from
+    NaNs: every element stored once, the JAX _env_gemm_chunk's values, on
+    the widest group and on a window that runs past the group's live
+    columns."""
+    import jax.numpy as jnp
+    _, p3, pool = _plan(Site(*system, t), side)
+    h = mixv3.k13_host_tables(p3)
+    ep = pool.astype(dtype)
+    d = mixv3.v3_tables(p3, "cpu", torch.float64)
+    gi = max(range(len(p3.gemms)), key=lambda i: p3.gemms[i]["dg_p"])
+    dg, spec = d["gemms"][gi], p3.gemms[gi]
+    live = int(spec["secoff"][-1])
+    for c0, n in ((dg["dg_p"] // 3 + 1, 16),
+                  (max(1, live - 7), dg["dg_p"] - max(1, live - 7) + 9)):
+        hw = mixv3.window_host_tables(spec, int(h["woff"][gi]),
+                                      h["wdense"], c0, n)
+        got, seen, _ = mix_walk(ep, h["wdense"].astype(dtype), hw,
+                                dg["nw_p"] * n)
+        assert np.all(seen == 1)
+        want = np.asarray(ref_mixv3._env_gemm_chunk(
+            jnp.asarray(ep), *_jax_args(dg), np.int32(c0), dg["nw_p"],
+            dg["ns_p"], n))
+        _close(got.reshape(dg["nw_p"], n), want, _K13_TOL[dtype])
 
 
 @pytest.mark.parametrize("t", SITES)

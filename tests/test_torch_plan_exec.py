@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from block2_preview_tpu.ops.exec_jax import PlanExecutor as RefPlanExecutor
 from block2_preview_tpu.ops.exec_jax import _execute_impl
 
-from block2_preview_tpu_torch.ops import _kernels, exec_bucket
+from block2_preview_tpu_torch.ops import _kernels, chain_mv, exec_bucket
 from block2_preview_tpu_torch.ops.exec_bucket import (BucketExecutor,
                                                       PlanExecutor)
 
@@ -143,3 +143,107 @@ def test_drop_and_checks(l8):
         dtype = np.complex128
     with pytest.raises(TypeError, match="torch_tiled"):
         PlanExecutor(Cplx(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# K18 on the chain core: the true items, read in place from the padded
+# stacks (exec_bucket.plan_chain_tables), walked with chain_mv.chain_plain
+# ---------------------------------------------------------------------------
+
+def _true_items(peff, ex):
+    """(a, k, psi offset, n, p, sigma offset) of every triple, and the LW
+    and RW blocks it multiplies, straight from the operator."""
+    out = []
+    for (m, lk, pk, rk, ok) in peff.triples:
+        lb, rb = peff.LW[m][lk], peff.RW[m][rk]
+        out.append(((lb.shape[0], lb.shape[1], int(peff.offsets[pk]),
+                     rb.shape[1], rb.shape[0], int(peff.offsets[ok])),
+                    lb, rb))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_k18_chunk_walk_matches_reference_execute(l8, dtype):
+    """K18's chunk tables walked in the kernel's order (chain_plain reading
+    A and R in place from ``vals`` at their buckets' padded row lengths)
+    against the JAX _execute_impl on the reference's stacks and against
+    K8's plain version (bucket_sigma_plain) on the same center."""
+    reff, peff = l8
+    ref = RefPlanExecutor(reff, dtype=dtype)
+    ex = PlanExecutor(peff, dtype=dtype, device="cpu")
+    x = np.random.default_rng(6).standard_normal(ex.size).astype(dtype)
+    want = np.asarray(_execute_impl(jnp.asarray(x), ref.device_buckets))
+    xp = torch.zeros(ex.size_p + 1, dtype=ex.vals.dtype)
+    xp[:ex.size] = torch.as_tensor(x)
+    d = ex.k18_tables()
+    assert ex.k18_tables() is d                       # built once
+    assert d["items"].shape[1] == 10 and d["n_chunks"] > 1
+    got = chain_mv.chain_plain(xp, ex.vals, ex.vals, d, ex.size_p + 1)
+    assert rel(got[:ex.size].numpy(), want[:ex.size]) < TOL[dtype]
+    assert not got[ex.size:].any()                    # nothing past size
+    bx = BucketExecutor(peff, dtype=dtype, device="cpu")
+    k8 = exec_bucket.bucket_sigma_plain(xp, bx.lpool, bx.rpool, bx._dev,
+                                        bx.size_p)
+    assert rel(got[:ex.size].numpy(), k8[:ex.size].numpy()) < TOL[dtype]
+
+
+def test_k18_tables_cover_the_true_items_once(l8):
+    """Every triple is one chain item, no padded item is one; each item's
+    A and R read in place from ``vals`` at its row lengths are its LW and
+    RW blocks; the chunks hold every entry of every item exactly once, in
+    sigma-block order, and a chunk writes one piece of one sigma block."""
+    _, peff = l8
+    ex = PlanExecutor(peff, device="cpu")
+    tab = ex.chain_tables()
+    it = tab["items"].astype(np.int64)
+    true = _true_items(peff, ex)
+    assert len(it) == len(true) < sum(b[0].shape[0]
+                                      for b in ex.device_buckets)
+    assert np.all(np.diff(it[:, exec_bucket._OOFF]) >= 0)
+    vals = ex.vals.numpy()
+    want = {}
+    for key, lb, rb in true:
+        want.setdefault(key, []).append((lb, rb))
+    for f in it:
+        a, k, poff, n, roff, p, ooff, ldl, ldr = (
+            f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9])
+        A = vals[f[0]:f[0] + (a - 1) * ldl + k]
+        A = np.stack([A[r * ldl:r * ldl + k] for r in range(a)])
+        R = vals[roff:roff + (p - 1) * ldr + n]
+        R = np.stack([R[r * ldr:r * ldr + n] for r in range(p)])
+        blocks = want[(a, k, poff, n, p, ooff)]
+        hit = [i for i, (lb, rb) in enumerate(blocks)
+               if np.array_equal(lb, A) and np.array_equal(rb, R)]
+        assert hit, "an item that is no triple"
+        blocks.pop(hit[0])
+        assert (ldl, ldr) in {(A_.shape[2], R_.shape[2])
+                              for A_, R_, _, _ in ex.device_buckets}
+    assert not any(want.values())                     # every triple once
+    e = chain_mv.entries(it[:, :8])
+    ent = tab["ent"].astype(np.int64)
+    seen = np.zeros((len(it), int(e["ni"].max()) + 1, int(e["ar"].max()) + 1,
+                     int(e["pi"].max()) + 1), np.int64)
+    for e0, e1, ar, pi in tab["ck"].astype(np.int64):
+        f0 = it[ent[e0, 0]]
+        for item, ni in ent[e0:e1]:
+            assert it[item, exec_bucket._OOFF] == f0[exec_bucket._OOFF]
+            seen[item, ni, ar, pi] += 1
+    assert seen.sum() == len(e["item"]) and seen.max() == 1
+    assert tab["flops"] == int(e["flops"].sum())
+
+
+@pytest.mark.parametrize("col,what", [
+    (exec_bucket._LOFF, "an A block of the value pool"),
+    (exec_bucket._ROFF, "an R block of the value pool"),
+    (exec_bucket._POFF, "a psi block"),
+    (exec_bucket._OOFF, "a sigma block")])
+def test_k18_tables_refuse_int32_overflow(l8, col, what):
+    """An offset that would take a block past 2^31 elements raises and
+    names it, instead of wrapping in the kernel's int32 fields."""
+    _, peff = l8
+    ex = PlanExecutor(peff, device="cpu")
+    items = ex.items.copy()
+    items[-1, col] = 2 ** 31 - 2
+    with pytest.raises(ValueError, match=what):
+        exec_bucket.plan_chain_tables(items)
+    exec_bucket.plan_chain_tables(ex.items)          # the real ones pass
