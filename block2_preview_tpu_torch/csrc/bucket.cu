@@ -26,9 +26,9 @@
 // 8 fragments (f64 on DMMA m8n8k4, f32 on the FMA pipes).  Sigma slots
 // past `size` are never written, which is the reference's mask.  Atomic
 // order varies between runs: results agree with the plain version to
-// rounding, not bitwise.  K8 had its own body in chain.cuh before (a
+// rounding, not bitwise.  K8 had its own block body before (a
 // 256-thread block an item strip, 2 x 2 FMA micro tiles, one atomic an
-// element an item); chain.cuh stays as it is for K22.
+// element an item).
 //
 // Bound on the card: at true shapes one matvec must read the LW/RW
 // matrices its triples use, psi and write sigma, and do sum 2akn + 2anp

@@ -42,9 +42,9 @@
 // Only true shapes are multiplied, on the FMA pipes in both types: the
 // plans' dims are small (median 2-3, 90th percentile 11-15 on a random K=16
 // QC state), far below a DMMA fragment.  The earlier design ran one
-// 256-thread block of chain.cuh per contribution (and per 32-row strip),
-// padded to 32 x 32 tiles with four block barriers a 16-deep step and one
-// atomic an output element a contribution.
+// 256-thread block of a chain product per contribution (and per 32-row
+// strip), padded to 32 x 32 tiles with four block barriers a 16-deep step
+// and one atomic an output element a contribution.
 //
 // Bound on the card: the pools read once and the output written once
 // against the FLOPs of the grouped form, 2 (dl dk dy + dx dl dy) a

@@ -1,17 +1,17 @@
-// The chain-matvec core of K1 (matvec.cu), K20 (matvec_shard.cu), K8
-// (bucket.cu), K7 (tiled.cu) and K18 (plan_exec.cu): for every item of a
-// plan,
+// The chain-matvec core of K1 (matvec.cu), K20 (matvec_shard.cu), K16
+// (slab_matvec.cu), K8 (bucket.cu), K7 (tiled.cu), K18 (plan_exec.cu) and
+// K22 (plan_exec_shard.cu): for every item of a plan,
 //
 //   sigma[ooff] (a x p) += L[loff] (a x k) . psi[poff] (k x n) . R[roff]^T
 //
 // with L, psi, R (p x n) and sigma row-major in flat pools at the item's
 // offsets.  An item is eight int32 fields: loff, a, k, poff, n, roff, p,
-// ooff.  The strided instance (LD, K18's) reads ten: two more give the
-// row strides of L and R in their pools (K18 reads its items' blocks in
-// place from zero-padded stacks, rows k_pad and n_pad long); the
-// instances of K1, K20, K8 and K7 keep eight fields and their code.  The
-// host (ops/chain_mv.py) cuts the items into entries (item, ar,
-// pi, ni) — output rows [64 ar, +64), output columns [64 pi, +64), psi
+// ooff.  The strided instance (LD, K18's and K22's) reads ten: two more
+// give the row strides of L and R in their pools (K18 reads its items'
+// blocks in place from zero-padded stacks, rows k_pad and n_pad long); the
+// instances of K1, K20, K16, K8 and K7 keep eight fields and their code.
+// The host (ops/chain_mv.py) cuts the items into entries (item, ar, pi,
+// ni) — output rows [64 ar, +64), output columns [64 pi, +64), psi
 // columns [64 ni, +64) — and groups the entries that write one output
 // piece (ooff, ar, pi) into FLOP-bounded chunks: `ent` [n_ent, 2] = (item,
 // ni), `ck` [n_chunks, 4] = (first entry, end entry, ar, pi).

@@ -33,33 +33,6 @@
 
 #include "chain_mv.cuh"
 
-namespace {
-
-using b2t::kThreads;
-
-// out[i] = src[idx[i]]: flattens a tile pool through sig_idx (K6's and
-// K16's wrappers).
-template <typename S>
-__global__ void gather_kernel(const S* __restrict__ src,
-                              const int* __restrict__ idx, long long n,
-                              S* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = src[idx[i]];
-}
-
-template <typename S>
-cudaError_t gather(const S* src, const int* idx, long long n, S* out,
-                   void* stream) {
-  if (n > 0) {
-    const long long nb = (n + kThreads - 1) / kThreads;
-    gather_kernel<S><<<(unsigned)nb, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(src, idx, n, out);
-  }
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
 const char* b2t_error_string(int err) {
@@ -80,16 +53,6 @@ int b2t_matvec_f32(const void* xp, const void* lpool, const void* rpool,
                    void* stream) {
   return (int)chain_mv<float>(xp, lpool, rpool, items, ent, ck, n_chunks, T,
                               sig, stream);
-}
-
-int b2t_gather_f64(const double* src, const int* idx, long long n,
-                   double* out, void* stream) {
-  return (int)gather<double>(src, idx, n, out, stream);
-}
-
-int b2t_gather_f32(const float* src, const int* idx, long long n,
-                   float* out, void* stream) {
-  return (int)gather<float>(src, idx, n, out, stream);
 }
 
 }  // extern "C"

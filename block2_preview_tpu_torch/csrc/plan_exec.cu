@@ -29,19 +29,20 @@
 // and sigma at their true flat offsets (no pidx / oidx gather), f64 on
 // DMMA m8n8k4 and f32 on the FMA pipes in 8 x 8 fragments of the true
 // shapes, and sigma gets one atomic an element a chunk.  The stacks stay
-// on the card as the one copy of the operators: K22 and the plain version
-// read them as the reference's buckets.  Sigma slots past the true blocks
-// (the sentinel size_p among them) are never written.  Atomic order varies
-// between runs: results agree with the plain version to rounding.
+// on the card as the one copy of the operators: K22 reads them as K18
+// does, and the plain version as the reference's buckets.  Sigma slots
+// past the true blocks (the sentinel size_p among them) are never written.
+// Atomic order varies between runs: results agree with the plain version
+// to rounding.
 //
-// K18 ran before on csrc/chain.cuh's block body (plan_exec.cuh, which K22
-// keeps): a CUDA block a 32-row strip x 128-column group of one padded
-// item's output, 2 x 2 FMA micro tiles, psi gathered through pidx as it
-// was staged and one atomic an element an item through oidx, zero products
-// skipped (adding them to the one sentinel slot serialized the atomics:
-// 43.0 ms against 5.6 ms at the K=16 site 7, D=250, on an H100 80GB HBM3
-// at 700 W).  It multiplied the padded work (10.40 GFLOP against 4.79
-// true at that site).
+// K18 ran before on a padded block body (K22's too until it moved onto
+// its share of these items): a CUDA block a 32-row strip x 128-column
+// group of one padded item's output, 2 x 2 FMA micro tiles, psi gathered
+// through pidx as it was staged and one atomic an element an item through
+// oidx, zero products skipped (adding them to the one sentinel slot
+// serialized the atomics: 43.0 ms against 5.6 ms at the K=16 site 7,
+// D=250, on an H100 80GB HBM3 at 700 W).  It multiplied the padded work
+// (10.40 GFLOP against 4.79 true at that site).
 //
 // Bound on the card: the true-shape bytes and FLOPs of the items (K8's
 // convention: the LW/RW blocks, psi and sigma once, 2akn + 2anp FLOPs per

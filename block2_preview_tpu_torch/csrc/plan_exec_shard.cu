@@ -6,38 +6,40 @@
 // the mesh size, :53-71), sigma[oidx] += A . xp[pidx] . R^T, before the
 // psum.
 //
-// Design.  K18's kernel (csrc/plan_exec.cuh) over this rank's contiguous
-// slice of each bucket's batch: `cum` [nb + 1] prefix-sums the blocks of
-// the rank's items only and `first` [nb] holds each bucket's first item
-// of the slice, so one launch covers the rank's share of every bucket and
-// nothing else; the bucket table `desc` and the two flat pools are the
-// whole plan's, shared with K18.  The reference's extra padding items (zero
-// blocks, sentinel indices) add nothing, so a slice that would reach past a
-// bucket's batch is cut at its end.  Zero products still skip their
-// atomics.  The caller (parallel/shard.py ShardedPlanExecutor) sums the
-// ranks' sigmas with torch.distributed.all_reduce, the psum's counterpart.
+// Design.  K18's kernel (csrc/plan_exec.cu: the chain core's strided
+// instance, csrc/chain_mv.cuh) over this rank's share of K18's true items.
+// The host (ops/exec_bucket.py PlanExecutor.rank_part) records the bucket
+// and batch index of each true item, keeps the items whose batch index lies
+// in the rank's contiguous slice [i0, i1) of their bucket, sorts them by
+// sigma block with the ket blocks of one taken in turn (as K16's) and cuts
+// them into chunks at K18's FLOP band (a share's chunks hold as much work
+// as K18's), once per (rank, world).
+// The reference's padding items (zero blocks, sentinel indices) add
+// nothing, and no chunk holds one; each true item lies in exactly one
+// rank's share.  A and R are read in place from the whole plan's padded
+// stacks, shared with K18; psi and sigma at their true flat offsets, one
+// atomic a sigma element a chunk (atomic order varies between runs:
+// results agree with the plain version to rounding).  The caller
+// (parallel/shard.py ShardedPlanExecutor) sums the ranks' sigmas with
+// torch.distributed.all_reduce, the psum's counterpart.
 // Bound on the card: as K18, over this rank's share of the items.
 
-#include "plan_exec.cuh"
+#include "chain_mv.cuh"
 
 extern "C" {
 
-int b2t_plan_exec_part_f64(const void* xp, long long x_len, const void* vals,
-                           const int* ints, const long long* desc,
-                           const long long* cum, const long long* first,
-                           int nb, long long n_blocks, long long sig_len,
-                           void* sigma, void* stream) {
-  return plan_exec<double>(xp, x_len, vals, ints, desc, cum, first, nb,
-                           n_blocks, sig_len, sigma, stream);
+int b2t_plan_exec_part_f64(const void* xp, const void* vals, const int* items,
+                           const int* ent, const int* ck, long long n_chunks,
+                           int T, void* out, void* stream) {
+  return (int)chain_mv<double, true>(xp, vals, vals, items, ent, ck,
+                                     n_chunks, T, out, stream);
 }
 
-int b2t_plan_exec_part_f32(const void* xp, long long x_len, const void* vals,
-                           const int* ints, const long long* desc,
-                           const long long* cum, const long long* first,
-                           int nb, long long n_blocks, long long sig_len,
-                           void* sigma, void* stream) {
-  return plan_exec<float>(xp, x_len, vals, ints, desc, cum, first, nb,
-                          n_blocks, sig_len, sigma, stream);
+int b2t_plan_exec_part_f32(const void* xp, const void* vals, const int* items,
+                           const int* ent, const int* ck, long long n_chunks,
+                           int T, void* out, void* stream) {
+  return (int)chain_mv<float, true>(xp, vals, vals, items, ent, ck,
+                                    n_chunks, T, out, stream);
 }
 
 }  // extern "C"

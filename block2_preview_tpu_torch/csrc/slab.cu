@@ -25,7 +25,7 @@
 // (added for the later runs of rows) — each output element by one lane,
 // in a fixed order, so no atomics, bitwise repeatable, and the stores of
 // a row coalesced.  Every res element of a work is written (res needs no
-// zero fill).  Earlier designs: chain.cuh's product, a 256-thread block a
+// zero fill).  Earlier designs: a padded chain product, a 256-thread block a
 // 32-row strip of a work with four block barriers a 16-deep step and
 // atomics into res; K9's warp chain (a warp a 32 x 32 piece of a work, MB
 // and MK re-read for every work), only 5% faster in f64.

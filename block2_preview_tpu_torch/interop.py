@@ -113,6 +113,7 @@ def slab_matvec(ref_ex, dtype=np.float64) -> SlabMatvec:
     ex.space, ex.bra_space = ref_ex.space, ref_ex.bra_space
     ex.size = ref_ex.size
     ex.struct = dict(ref_ex.struct)
+    ex._k16 = None
     ex._dev = {}
     return ex
 

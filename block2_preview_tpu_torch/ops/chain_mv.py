@@ -1,5 +1,6 @@
-"""Chunk tables of the chain-matvec core shared by kernels K1, K20, K8, K7
-and K18 (``csrc/chain_mv.cuh``), and the plain walk of those tables.
+"""Chunk tables of the chain-matvec core shared by kernels K1, K20, K16,
+K8, K7, K18 and K22 (``csrc/chain_mv.cuh``), and the plain walk of those
+tables.
 
 The sigma matvecs compute, for every item (one triple of the effective
 Hamiltonian),
@@ -9,8 +10,10 @@ Hamiltonian),
 with L, psi, R and sigma row-major in flat pools at the item's offsets.
 An item is eight int32 fields ``loff, a, k, poff, n, roff, p, ooff`` (K8's
 own items, which K7 reads too, in any of four types; K1's are derived from
-its MatvecV2 plan in :func:`block2_preview_tpu_torch.ops.tilev2.k1_items`).
-K18's items have ten: two more, the row lengths of L and R in their pools
+its MatvecV2 plan in :func:`block2_preview_tpu_torch.ops.tilev2.k1_items`,
+K16's from the SlabMatvec struct in
+:func:`block2_preview_tpu_torch.ops.resident.k16_items`).  K18's and
+K22's items have ten: two more, the row lengths of L and R in their pools
 (``exec_bucket.plan_chain_tables``: blocks read in place from padded
 stacks); the chunks are cut from the first eight.
 
@@ -79,6 +82,26 @@ def entries(items: np.ndarray) -> Dict:
     pc = np.minimum(T, p[item] - pi * T)
     return {"item": item, "ar": ar, "pi": pi, "ni": ni, "lr": lr, "nc": nc,
             "pc": pc, "flops": 2 * lr * nc * (k[item] + pc)}
+
+
+def ket_round_robin(items: np.ndarray) -> np.ndarray:
+    """An order of ``items`` [n, 8] (or [n, 10]) to cut chunk tables in:
+    by sigma block (``ooff``), and within one sigma block its ket blocks
+    (``poff``) taken in turn, one item of each before a second of any
+    (each ket block's items by L offset).  An output piece's entries then
+    alternate between psi blocks: where they came in runs of one psi
+    block's items (one symbol group after another), K16 and K22 timed
+    slower on an H100 at the K=16 QC site (PERF.md §6).  Returns the
+    permutation (int64)."""
+    it = np.asarray(items, np.int64)
+    o = np.lexsort((it[:, LOFF], it[:, POFF], it[:, OOFF]))
+    key = np.stack([it[o, OOFF], it[o, POFF]])
+    idx = np.arange(len(o))
+    new = np.ones(len(o), bool)
+    new[1:] = (key[:, 1:] != key[:, :-1]).any(0)
+    turn = np.empty(len(o), np.int64)
+    turn[o] = idx - np.maximum.accumulate(np.where(new, idx, 0))
+    return np.lexsort((it[:, POFF], turn, it[:, OOFF]))
 
 
 def chunk_tables(items: np.ndarray, cap: Optional[float] = None) -> Dict:

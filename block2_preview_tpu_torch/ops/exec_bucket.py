@@ -48,9 +48,9 @@ oidx), field-equal, as views of two flat device pools
 instance over the true items only, each read in place from the padded
 stacks (:func:`plan_chain_tables`), or :func:`plan_exec_plain`, the
 stacks run as they are, on CPU tensors.  :meth:`PlanExecutor.rank_part`
-and :func:`plan_exec_part` (kernel K22, ``csrc/plan_exec_shard.cu``) run
-one rank's batch slices of its buckets, for
-``parallel/shard.py::ShardedPlanExecutor``.
+and :func:`plan_exec_part` (kernel K22, ``csrc/plan_exec_shard.cu``: K18's
+instance over the true items of one rank's batch slices of the buckets)
+run one rank's share, for ``parallel/shard.py::ShardedPlanExecutor``.
 """
 
 from __future__ import annotations
@@ -65,9 +65,6 @@ from . import _kernels, chain_mv
 
 VEC_PAD = 2048      # flat psi/sigma vectors padded to multiples of this
 
-# CUDA blocks per item of the kernel on csrc/chain.cuh (K22):
-# 32-row strips times groups of 128 columns of its output (chain_block)
-_STRIP, _YGROUP = 32, 128
 # elements of one padded gather of the plain versions (bounds their int64
 # index temporaries)
 _PLAIN_CHUNK = 1 << 24
@@ -86,11 +83,6 @@ def _round_batch(b: int) -> int:
     """Pad batch counts to powers of two (the reference's jit signatures;
     here only :func:`reference_struct` uses it)."""
     return 1 << max(b - 1, 0).bit_length() if b > 0 else 1
-
-
-def chain_blocks(rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
-    """CUDA blocks of one chain.cuh item of output (rows x cols)."""
-    return -(-rows // _STRIP) * -(-cols // _YGROUP)
 
 
 def padded_size(size: int) -> int:
@@ -229,14 +221,15 @@ def _int32(a: np.ndarray, what: str) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.int32)
 
 
-def plan_chain_tables(items: np.ndarray) -> Dict:
+def plan_chain_tables(items: np.ndarray, cap=None) -> Dict:
     """K18's chain-core tables from PlanExecutor's true items ``items``
     [N, 10] (int64: the offset of the item's A block in the value pool,
     a, k, the psi offset, n, the offset of its R block, p, the sigma
     offset, and the row lengths of A and R in their padded stacks): the
     items sorted by sigma block (stable, as K8's :func:`chain_tables`) as
-    int32 ``items``, their chunks (``ops/chain_mv.py``: ``ent``, ``ck``),
-    the true ``flops`` and the build ``seconds``.  The core addresses the
+    int32 ``items``, their chunks (``ops/chain_mv.py``: ``ent``, ``ck``,
+    cut at the FLOP band ``cap``, by default the items' own), the
+    entries' ``flops`` and the build ``seconds``.  The core addresses the
     pools with int32 offsets: an A or R block that ends past 2^31 elements
     of the value pool, or a psi or sigma block past 2^31 elements, raises
     (no silent widening)."""
@@ -253,7 +246,7 @@ def plan_chain_tables(items: np.ndarray) -> Dict:
             raise ValueError(f"K18: {what} ends at element {int(end.max())}"
                              ", past the int32 offsets of its chain items")
     it = it[np.argsort(it[:, _OOFF], kind="stable")]
-    tab = chain_mv.chunk_tables(it[:, :_LDL])
+    tab = chain_mv.chunk_tables(it[:, :_LDL], cap)
     tab["items"] = _int32(it, "a K18 chain item")
     tab["seconds"] = time.perf_counter() - t0
     return tab
@@ -498,7 +491,8 @@ def plan_exec_part(xp, ex: "PlanExecutor", part: Dict):
     buckets cut to the rank's contiguous batch slices (``part`` from
     :meth:`PlanExecutor.rank_part`).  CPU tensors run
     :func:`plan_exec_plain` on the sliced buckets; CUDA tensors launch K22
-    (nothing when the rank owns no item) or raise."""
+    (K18's instance over the chunks of the rank's true items; nothing when
+    the rank owns no item) or raise."""
     sig_len = ex.size_p + 1
     if xp.shape != (sig_len,):
         raise ValueError(f"plan_exec_part: psi {tuple(xp.shape)} (expected "
@@ -511,12 +505,12 @@ def plan_exec_part(xp, ex: "PlanExecutor", part: Dict):
     if not xp.is_cuda:
         raise ValueError(f"unsupported device {xp.device}")
     out = xp.new_zeros(sig_len)
-    if part["n_blocks"] > 0:
+    d = part["chain"]
+    if d["n_chunks"] > 0:
         _kernels.launch("K22_plan_exec_shard", "b2t_plan_exec_part",
-                        xp.dtype, xp, sig_len, ex.vals, ex.ints, ex.desc,
-                        part["cum"], part["first"], len(ex.device_buckets),
-                        part["n_blocks"], sig_len, out,
-                        units=part["n_blocks"])
+                        xp.dtype, xp, ex.vals, d["items"], d["ent"], d["ck"],
+                        d["n_chunks"], chain_mv.TILE, out,
+                        units=d["n_chunks"])
     return out
 
 
@@ -531,14 +525,12 @@ class PlanExecutor:
     [B, k, n], oidx [B, a, p] are built as the reference builds them
     (zero blocks, sentinel index ``size_p``).  They are uploaded as one
     value pool ``vals`` and one int32 pool ``ints``; ``device_buckets``
-    holds per bucket the four views into them.  ``desc`` [nb, 9] (int64)
-    is the bucket table of K22's body (``csrc/plan_exec.cuh``): a, k, n,
-    p, CUDA blocks per item, and the offsets of A, R, pidx and oidx;
-    ``cum`` [nb + 1] prefix-sums the blocks of whole buckets (a world of
-    one's :meth:`rank_part`).  ``items`` [N, 10] (int64) are the
-    true items as K18 reads them (:func:`plan_chain_tables`), one a
-    triple, in bucket order; a triple whose psi or sigma block does not
-    have its LW/RW dims raises."""
+    holds per bucket the four views into them.  ``items`` [N, 10] (int64)
+    are the true items as K18 and K22 read them
+    (:func:`plan_chain_tables`), one a triple, in bucket order, and
+    ``slots`` [N, 2] (int64) the bucket and batch index each came from; a
+    triple whose psi or sigma block does not have its LW/RW dims
+    raises."""
 
     VEC_PAD = VEC_PAD   # flat psi/sigma vectors padded to multiples of this
 
@@ -566,9 +558,9 @@ class PlanExecutor:
                 (lb, rb, eff.offsets[pk], eff.shapes[pk], eff.offsets[ok],
                  eff.shapes[ok]))
         invalid = self.size_p   # sentinel index -> padded zero / spill slot
-        vals, ints, desc, chain = [], [], [], []
-        ov = oi = 0
-        for (a, k, n, p), items in sorted(buckets.items()):
+        vals, ints, chain, slots = [], [], [], []
+        ov = 0
+        for bi, ((a, k, n, p), items) in enumerate(sorted(buckets.items())):
             B = _round_batch(len(items))
             A = np.zeros((B, a, k), dtype=self.dtype)
             R = np.zeros((B, p, n), dtype=self.dtype)
@@ -583,6 +575,7 @@ class PlanExecutor:
                                      f"LW {(a0, k0)} and RW {(p0, n0)}")
                 chain.append((ov + b * a * k, a0, k0, poff, n0,
                               ov + A.size + b * p * n, p0, ooff, k, n))
+                slots.append((bi, b))
                 A[b, :a0, :k0] = lb
                 R[b, :p0, :n0] = rb
                 kk, nn = pshape
@@ -591,10 +584,7 @@ class PlanExecutor:
                 aa, pp = oshape
                 oidx[b, :aa, :pp] = (ooff + np.arange(aa * pp)
                                      ).reshape(aa, pp)
-            desc.append((a, k, n, p, int(chain_blocks(a, p)), ov, ov + A.size,
-                         oi, oi + pidx.size))
             ov += A.size + R.size
-            oi += pidx.size + oidx.size
             vals += [A, R]
             ints += [pidx, oidx]
         flat_v = np.concatenate([v.ravel() for v in vals]) if vals \
@@ -607,15 +597,11 @@ class PlanExecutor:
         i = unpack_views(self.ints, [x.shape for x in ints])
         self.device_buckets = tuple((v[2 * b], v[2 * b + 1], i[2 * b],
                                      i[2 * b + 1])
-                                    for b in range(len(desc)))
-        d = np.asarray(desc, dtype=np.int64).reshape(-1, 9)
-        cum = np.concatenate([[0], np.cumsum(
-            d[:, 4] * [x.shape[0] for x in vals[::2]])]).astype(np.int64)
-        self.desc = torch.as_tensor(d, device=self.device)
-        self.cum = torch.as_tensor(cum, device=self.device)
-        self.n_blocks = int(cum[-1])
+                                    for b in range(len(vals) // 2))
         self.items = np.asarray(chain, np.int64).reshape(-1, 10)
+        self.slots = np.asarray(slots, np.int64).reshape(-1, 2)
         self._k18 = None
+        self._parts: Dict[Tuple[int, int], Dict] = {}
 
     def chain_tables(self) -> Dict:
         """K18's host tables (:func:`plan_chain_tables` of ``items``),
@@ -637,30 +623,40 @@ class PlanExecutor:
         return d
 
     def rank_part(self, rank: int, world: int) -> Dict:
-        """Rank ``rank`` of ``world``'s share of every bucket: the
-        reference's ``P(axis)`` split of the batch after padding it to a
-        multiple of ``world`` (parallel/shard.py:53-71), each rank taking
-        ``ceil(B / world)`` items in rank order; the padding items add
-        nothing, so a slice is cut at the batch's end.  ``slices`` (i0,
-        i1) per bucket, and K22's tables: ``first`` [nb] (each slice's
-        first item) and ``cum`` [nb + 1] (prefix sums of the slices'
-        blocks), int64 on the device, and ``n_blocks``."""
+        """Rank ``rank`` of ``world``'s share of every bucket, built once
+        and kept: the reference's ``P(axis)`` split of the batch after
+        padding it to a multiple of ``world`` (parallel/shard.py:53-71),
+        each rank taking ``ceil(B / world)`` items in rank order; the
+        padding items add nothing, so a slice is cut at the batch's end.
+        ``slices`` (i0, i1) per bucket (the plain version's), ``rows``
+        (the rows of ``items`` whose batch index lies in their bucket's
+        slice, in ``chain_mv.ket_round_robin``'s order), ``tables`` (:func:`plan_chain_tables` of those rows, cut
+        at K18's FLOP band, so a share's chunks hold as much work as
+        K18's; the share's own band cuts even a small share into about
+        :data:`chain_mv.TARGET_CHUNKS` chunks, which timed slower on the
+        card) and ``chain``, K22's copy of them on this executor's device
+        (``ops/chain_mv.device_tables``)."""
+        part = self._parts.get((rank, world))
+        if part is not None:
+            return part
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} outside a world of {world}")
-        d = self.desc.cpu().numpy()
-        slices, blocks = [], []
-        for (A, _, _, _), bpi in zip(self.device_buckets, d[:, 4]):
+        slices = []
+        for A, _, _, _ in self.device_buckets:
             B = A.shape[0]
             per = -(-B // world)
-            i0, i1 = min(rank * per, B), min((rank + 1) * per, B)
-            slices.append((i0, i1))
-            blocks.append((i1 - i0) * int(bpi))
-        cum = np.concatenate([[0], np.cumsum(blocks)]).astype(np.int64)
-        return {"slices": slices, "n_blocks": int(cum[-1]),
-                "first": torch.as_tensor(
-                    np.asarray([a for a, _ in slices], np.int64),
-                    device=self.device),
-                "cum": torch.as_tensor(cum, device=self.device)}
+            slices.append((min(rank * per, B), min((rank + 1) * per, B)))
+        sl = np.asarray(slices, np.int64).reshape(-1, 2)[self.slots[:, 0]]
+        b = self.slots[:, 1]
+        rows = np.flatnonzero((b >= sl[:, 0]) & (b < sl[:, 1]))
+        rows = rows[chain_mv.ket_round_robin(self.items[rows])]
+        band = max(self.chain_tables()["flops"] / chain_mv.TARGET_CHUNKS,
+                   1.0)
+        tab = plan_chain_tables(self.items[rows], band)
+        part = self._parts[(rank, world)] = {
+            "slices": slices, "rows": rows, "tables": tab,
+            "chain": chain_mv.device_tables(tab["items"], tab, self.device)}
+        return part
 
     def matvec(self, x: np.ndarray) -> np.ndarray:
         """H x for a host vector x [size]; float64 host values, as the

@@ -37,7 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from . import _kernels
+from . import _kernels, chain_mv
 from .blocking import _plan_args_sig
 from .csr import w_nonzero as _w_nonzero
 from .device_davidson import davidson
@@ -344,8 +344,9 @@ def execute_mix(plan: MixPlan, epool):
 
 # ---------------------------------------------------------------------------
 # v1 slab matvec (SlabMatvec): struct (host) and kernel K16 with its twin
-# sigma[ok] += LW[m][lk] @ psi[pk] @ RW[m][rk]^T, L/R tiles gathered from
-# the row-major slab pools
+# sigma[ok] += LW[m][lk] @ psi[pk] @ RW[m][rk]^T over the row-major slab
+# pools: the twin on the struct's L/R tiles, K16 on K1's chain core over
+# one item a triple (k16_items)
 # ---------------------------------------------------------------------------
 
 # stage tasks per chunk of the plain version (bounds its temporaries)
@@ -384,22 +385,86 @@ def slab_mv_twin(xp, lpool, rpool, d: Dict, T: int, nt1: int, nt2: int):
 def slab_mv_exec(xp, lpool, rpool, d: Dict, T: int, nt1: int, nt2: int):
     """Slab sigma matvec (kernel K16): flat sigma [sizb_p] from the padded
     flat psi ``xp`` [size_p + 1] (zero last slot) and the LW/RW slab
-    pools; ``d`` from :meth:`SlabMatvec.to_device`."""
+    pools; ``d`` from :meth:`SlabMatvec.to_device`.  CPU tensors run
+    :func:`slab_mv_twin`; CUDA tensors launch K16 (the chain core over
+    ``d["chain"]``, sigma written at its flat offsets: no tile pool or
+    gather) or raise."""
     if xp.device.type == "cpu":
         return slab_mv_twin(xp, lpool, rpool, d, T, nt1, nt2)
     if not xp.is_cuda:
         raise ValueError(f"unsupported device {xp.device}")
-    dt, dev = xp.dtype, xp.device
-    G, B = d["pa"].shape
-    tmp = torch.zeros((d["ntmp"] + 1) * T * T, dtype=dt, device=dev)
-    sig = torch.zeros((nt2 + 1) * T * T, dtype=dt, device=dev)
-    _kernels.launch("K16_slab_matvec", "b2t_slab_mv", dt, xp, lpool, rpool,
-                    d["psi_idx"], d["l4"], d["pa"], d["s1"], d["ta"],
-                    d["r4"], d["s2"], d["toff"], G, B, T, nt1, nt2, tmp,
-                    sig)
-    out = torch.empty(d["sig_idx"].shape[0], dtype=dt, device=dev)
-    _kernels.call("b2t_gather", dt, sig, d["sig_idx"], out.shape[0], out)
+    c = d["chain"]
+    out = torch.zeros(d["sig_idx"].shape[0], dtype=xp.dtype,
+                      device=xp.device)
+    _kernels.launch("K16_slab_matvec", "b2t_slab_mv", xp.dtype, xp, lpool,
+                    rpool, c["items"], c["ent"], c["ck"], c["n_chunks"],
+                    chain_mv.TILE, out)
     return out
+
+
+def k16_items(struct: Dict) -> np.ndarray:
+    """K16's items in the chain core's fields (``ops/chain_mv.py``), one
+    row a triple of ``struct`` (:meth:`SlabMatvec._build`) in the order
+    it was built: L offset, DLb, DLk, the flat psi offset of the ket
+    sector, DRk, R offset, DRb, the flat sigma offset of the bra sector
+    (int64 [n_triples, 8]).
+
+    Read from the struct's task tables alone, so a struct made elsewhere
+    (``interop.slab_matvec``) gives them too.  A triple's tasks touch the
+    tmp tiles (ai, ni) of its group.  The stage-1 task of a tile at ki = 0
+    is the one whose L column bound equals its stride (DLk): its L base
+    is the row band's (``lbase + ai T DLk``), its row bound ``DLb - ai T``
+    and its psi tile ``pb + ni``.  The tile's stage-2 tasks carry ni as
+    ``(stride - cmax) / T`` of their R tiles, and the one with the lowest R
+    base has pi = 0: ``rbase + ni T``, row bound DRb, sigma tile
+    ``ob + ai npp``.  The tiles at ni = 0 of one triple share the end of
+    its L block (``base + rows DLk``), pb and rbase, which no other
+    triple shares; the one with the most rows is ai = 0 (L base lbase,
+    psi tile pb, sigma tile ob).  The flat offsets are psi_idx at pb's
+    first element and the flat index sig_idx sends to ob's."""
+    T = struct["T"]
+    TT = T * T
+    nt1, nt2 = struct["nt1"], struct["nt2"]
+    l4 = struct["l4"].astype(np.int64)
+    r4 = struct["r4"].astype(np.int64)
+    s1, s2 = struct["s1"], struct["s2"]
+    # stage 1 at ki = 0: one task a tmp tile (g, s1)
+    g1, b1 = np.nonzero((s1 < nt1) & (l4[:, 3] == l4[:, 1]))
+    k1 = g1 * nt1 + s1[g1, b1]
+    # stage 2 at pi = 0: the lowest R base of each tmp tile (g, ta)
+    g2, b2 = np.nonzero(s2 < nt2)
+    k2 = g2 * nt1 + struct["ta"][g2, b2]
+    o = np.lexsort((r4[g2, 0, b2], k2))
+    o = o[np.r_[True, k2[o][1:] != k2[o][:-1]]] if len(o) else o
+    g2, b2, k2 = g2[o], b2[o], k2[o]
+    j = np.argsort(k1)
+    pos = np.minimum(np.searchsorted(k1[j], k2), max(len(j) - 1, 0))
+    if len(k1) != len(k2) or not np.array_equal(k1[j][pos], k2):
+        raise ValueError("K16: the struct's stage-1 and stage-2 tasks do "
+                         "not cover the same tmp tiles")
+    g1, b1 = g1[j][pos], b1[j][pos]
+    ni = (r4[g2, 1, b2] - r4[g2, 3, b2]) // T
+    z = ni == 0
+    g1, b1, g2, b2, k2 = g1[z], b1[z], g2[z], b2[z], k2[z]
+    lb, dlk, rows = l4[g1, 0, b1], l4[g1, 1, b1], l4[g1, 2, b1]
+    pb = struct["pa"][g1, b1].astype(np.int64)
+    rb = r4[g2, 0, b2]
+    # a triple's tiles: one key (L block end, pb, rbase); ai = 0 first
+    o = np.lexsort((-rows, rb, pb, lb + rows * dlk))
+    key = np.stack([(lb + rows * dlk)[o], pb[o], rb[o]])
+    o = o[np.r_[True, (key[:, 1:] != key[:, :-1]).any(0)]] if len(o) else o
+    o = o[np.argsort(k2[o])]
+    sig = struct["sig_idx"].astype(np.int64)
+    first = np.flatnonzero(sig % TT == 0)
+    tile_first = np.full(nt2 + 2, -1, np.int64)
+    tile_first[sig[first] // TT] = first
+    poff = struct["psi_idx"].reshape(-1)[pb[o] * TT].astype(np.int64)
+    soff = tile_first[s2[g2[o], b2[o]]]
+    if (soff < 0).any():
+        raise ValueError("K16: a bra sector's first tile has no flat "
+                         "element")
+    return np.stack([lb[o], rows[o], dlk[o], poff, r4[g2[o], 1, b2[o]],
+                     rb[o], r4[g2[o], 2, b2[o]], soff], 1)
 
 
 class SlabMatvec:
@@ -411,8 +476,9 @@ class SlabMatvec:
     ``size_p``, ``sizb_p``, ``psi_idx``, ``sig_idx``, ``l4``, ``pa``,
     ``s1``, ``ta``, ``r4``, ``s2``) equals the reference's; it depends
     only on (meta_lw, meta_rw, psi space) and is cached across calls via
-    cache/cache_key.  :meth:`matvec_device` runs K16.  No sweep runs it,
-    as in the reference."""
+    cache/cache_key.  :meth:`matvec_device` runs K16 over
+    :meth:`k16_host`'s items, kept here and not in the struct (which keeps
+    the reference's keys).  No sweep runs it, as in the reference."""
 
     def __init__(self, space, meta_lw: StackedMeta, meta_rw: StackedMeta,
                  group, target_b, target_k, dtype=np.float64,
@@ -438,6 +504,7 @@ class SlabMatvec:
             if cache is not None and cache_key is not None:
                 cache[cache_key] = (sig, struct)
         self.struct = struct
+        self._k16 = None
         self._dev = {}
 
     # ------------------------------------------------------------------
@@ -621,11 +688,27 @@ class SlabMatvec:
                 "s2": s2}
 
     # ------------------------------------------------------------------
+    def k16_host(self) -> Dict:
+        """K16's host tables, built once and kept: ``items``
+        (:func:`k16_items` in ``chain_mv.ket_round_robin``'s order), their
+        chunks (``ops/chain_mv.chunk_tables``: ``ent``, ``ck``, ``flops``)
+        and the ``seconds`` the build took."""
+        if self._k16 is None:
+            t0 = time.perf_counter()
+            items = k16_items(self.struct)
+            items = items[chain_mv.ket_round_robin(items)]
+            tab = chain_mv.chunk_tables(items)
+            tab["items"] = items
+            tab["seconds"] = time.perf_counter() - t0
+            self._k16 = tab
+        return self._k16
+
     def to_device(self, device) -> Dict:
-        """Device tables for K16 (and its twin), cached per device.
-        Derived here: ``toff`` [G + 1], each group's first tile in ONE tmp
-        scratch pool of ``ntmp`` tiles (the reference restarts its tmp
-        pool per group)."""
+        """Device tables for K16 and its twin, cached per device: the
+        struct's tile tables and, derived here, ``toff`` [G + 1] (each
+        group's first tile in ONE tmp pool of ``ntmp`` tiles, the twin's;
+        the reference restarts its tmp pool per group) and ``chain`` (K16's
+        items and chunk tables, :meth:`k16_host`)."""
         key = str(device)
         d = self._dev.get(key)
         if d is None:
@@ -638,6 +721,8 @@ class SlabMatvec:
                            "r4", "s2")}
             d["toff"] = torch.as_tensor(toff.astype(np.int32), device=device)
             d["ntmp"] = int(toff[-1])
+            h = self.k16_host()
+            d["chain"] = chain_mv.device_tables(h["items"], h, device)
             self._dev[key] = d
         return d
 

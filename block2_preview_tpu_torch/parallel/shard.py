@@ -10,8 +10,8 @@ and summing the partial sigmas is exact up to the order of the sums.
 
 Each rank holds the whole ``PlanExecutor`` (every pool replicated, the
 reference's ``P()``), runs its contiguous slice of every bucket's batch on
-K22 (``ops/exec_bucket.py::plan_exec_part``, K18's kernel over the slice)
-and sums with ``torch.distributed.all_reduce``.
+K22 (``ops/exec_bucket.py::plan_exec_part``, K18's kernel over the true
+items of the slice) and sums with ``torch.distributed.all_reduce``.
 """
 
 from __future__ import annotations

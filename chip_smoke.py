@@ -182,8 +182,10 @@ package's host path by the CPU tests):
                against the v3 pool, padding and sentinel 0; its rows print
                the tasks, output windows, tasks a window and the tables'
                host seconds) and
-               K16 (the v1 slab matvec on the site's LW/RW pools, also
-               held against K1 to 1e-12 relative), f64 and f32; K17 at
+               K16 (the v1 slab matvec on the site's LW/RW pools, K1's
+               chain core over one item a triple, its row printing the
+               items, entries, chunks and table seconds; also held
+               against K1 to 1e-12 relative), f64 and f32; K17 at
                the shapes of the largest class closes of 10b (K=16 order
                2, K=12 order 3; library: one torch.matmul, cuBLAS DGEMM), f64 and
                complex128, each bitwise against a second launch, then at
@@ -197,13 +199,15 @@ package's host path by the CPU tests):
                values); the sharded kernels at the K=16 site 7, each
                rank's share of a world of two launched here: K20
                (the matvec), K21 (the left and right v3 rotate plans), K22
-               (PlanExecutor's buckets) and B22e (K17 on the row slices of
-               10b's largest close), each share against its twin and their
-               sum against K1 / K5 / K18 / one K17 launch (K21's v3 shares
-               summed bitwise equal to one K5 launch).  K1, K20, K8,
-               K7 and K18 run on one chain core (csrc/chain_mv.cuh, K18
-               on its strided instance; atomics,
-               so they agree with their twins to rounding): K1's row
+               (PlanExecutor's buckets, f64 and f32, each share's row
+               printing its items, chunks and true GFLOP) and B22e (K17 on
+               the row slices of 10b's largest close), each share against
+               its twin and their sum against K1 / K5 / K18 / one K17
+               launch (K21's v3 shares summed bitwise equal to one K5
+               launch).  K1, K20, K16, K8, K7, K18 and K22 run on one
+               chain core (csrc/chain_mv.cuh, K18 and K22 on its strided
+               instance; atomics, so they agree with their twins to
+               rounding): K1's row
                prints its order tables' build time and the live 8 x 8
                fragments of its entries and chunks, K8's the histogram of
                its item dims (a, k, n, p), K7's its items, entries,
@@ -446,12 +450,6 @@ def item_ints(cum, ncol: int) -> int:
     """int32 entries of an item table's live rows and their prefix sums."""
     n = live_items(cum)
     return n * ncol + n + 1
-
-
-def n_tiles(space, T: int) -> int:
-    """T x T tiles of a wavefunction space's blocks (edge tiles included)."""
-    return sum(-(-r // T) * -(-c // T) for r, c in
-               (space.shapes[k] for k in space.keys))
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -2276,22 +2274,28 @@ def phase_mix_kernels(device, mpo, mps, me, t, summary=True):
         if not rel <= atol:
             fail(f"K16 {np.dtype(dtype).name}: its sigma differs from K1's "
                  f"({rel:.3e})")
-        live1 = int((s16["s1"] < s16["nt1"]).sum())
-        live2 = int((s16["s2"] < s16["nt2"]).sum())
+        h16 = ex16.k16_host()
+        c16 = d16["chain"]
+        f = h16["items"]
+        a, k, nn, p = f[:, 1], f[:, 2], f[:, 4], f[:, 6]
+        flops16 = 2.0 * float((a * k * nn + a * nn * p).sum())
+        n_ent = c16["ent"].shape[0]
         _check(acc, "K16_slab_matvec", dtype, "", y16,
                k16(resident.slab_mv_twin), atol,
                time_ms(lambda: k16(resident.slab_mv_exec), device),
                time_ms(lambda: k16(resident.slab_mv_twin), device), None,
-               # psi, LW, RW in, sigma out (K1's count); the psi_idx of the
-               # live psi tiles, sig_idx, the live stage rows
+               # psi, LW, RW in; sigma out; the chain tables K16 reads: the
+               # items (8 fields), the entries (2), the chunks (4) (K1's
+               # count)
                live_bytes(xp.element_size(),
                           n + pl.meta_out.total + pr.meta_out.total
                           + eff.bra_space.size,
-                          n_tiles(eff.ket_space, s16["T"]) * s16["T"] ** 2
-                          + eff.bra_space.size + 6 * live1 + 6 * live2),
-               float(s1["flops"]),
-               f"T {s16['T']} groups {s16['pa'].shape[0]} stage-1 tasks "
-               f"{live1} stage-2 {live2} tmp tiles {d16['ntmp']} size {n}")
+                          8 * len(f) + 2 * n_ent + 4 * c16["n_chunks"]),
+               flops16,
+               f"T {s16['T']} items {len(f)} (triples) entries {n_ent} "
+               f"chunks {c16['n_chunks']} size {n} GFLOP "
+               f"{flops16 / 1e9:.2f} (K1's {s1['flops'] / 1e9:.2f}); "
+               f"tables {h16['seconds']:.3f} s on the host")
         ex16.free()
     return summary_rows(rows)
 
@@ -3413,11 +3417,11 @@ def _item_index(ranges) -> np.ndarray:
                           [np.zeros(0, np.int64)]).astype(np.int64)
 
 
-def _bucket_shapes(eff):
+def _item_shapes(eff):
     """True (a, k, n, p) of every PlanExecutor item, with the ids of the
-    LW block (m, lk) and the RW block (m, rk) it reads, bucket by bucket in
-    the executor's order (its _round_dim keys sorted, triples in order):
-    [n_items, 6] int64 per bucket."""
+    LW block (m, lk) and the RW block (m, rk) it reads, in the executor's
+    order (its _round_dim keys sorted, triples in order inside a bucket):
+    [n_items, 6] int64, the rows ``rank_part`` keeps index into it."""
     from block2_preview_tpu_torch.ops.exec_bucket import _round_dim
     buckets, ids = {}, {}
     for (m, lk, _pk, rk, _ok) in eff.triples:
@@ -3428,8 +3432,8 @@ def _bucket_shapes(eff):
         buckets.setdefault(key, []).append((
             a0, k0, n0, p0, ids.setdefault(("L", m, lk), len(ids)),
             ids.setdefault(("R", m, rk), len(ids))))
-    return [np.asarray(buckets[k], np.int64).reshape(-1, 6)
-            for k in sorted(buckets)]
+    return np.asarray([s for k in sorted(buckets) for s in buckets[k]],
+                      np.int64).reshape(-1, 6)
 
 
 def phase_shard_kernels(device, mpo, mps, t, site, eff, close_shape,
@@ -3441,8 +3445,9 @@ def phase_shard_kernels(device, mpo, mps, t, site, eff, close_shape,
     slices of the largest 10b close ``close_shape``).  Each share against
     its twin, the shares' sum against K1 / K5 / K18 / one K17 (1e-12
     relative); the bound of each share counts its own items' live bytes
-    (a block read by several items once) and FLOPs.  f64.  Returns the
-    summary rows (the shares' times summed)."""
+    (a block read by several items once) and FLOPs.  f64, and K22 also
+    f32 (its shares against their twins).  Returns the summary rows (the
+    f64 shares' times summed)."""
     import torch
     from block2_preview_tpu_torch.ops import (blockv2, exec_bucket,
                                               npdm_gemm, resident, tilev2)
@@ -3573,43 +3578,51 @@ def phase_shard_kernels(device, mpo, mps, t, site, eff, close_shape,
             fail(f"K21 {direction}: the shares summed are not one K5 launch "
                  f"bitwise")
 
-    pe = exec_bucket.PlanExecutor(eff, dtype=np.float64, device=device)
     x = np.random.default_rng(9).standard_normal(eff.size)
-    xq = torch.as_tensor(np.concatenate([x, np.zeros(pe.size_p + 1
-                                                     - pe.size)]),
-                         device=device)
-    shapes = _bucket_shapes(eff)
-    total = None
-    for r in range(world):
-        part = pe.rank_part(r, world)
-        sh = np.concatenate([b[i0:i1] for b, (i0, i1) in
-                             zip(shapes, part["slices"])])
-        a, k, n, p, lid, rid = sh.T
-        flops = 2.0 * float((a * k * n + a * n * p).sum())
-        # as K18's sigma_bytes_flops over this share: every LW/RW block its
-        # items read once (a block shared by several items once), psi and
-        # sigma once
-        n_bytes = live_bytes(8, 2 * eff.size + _unique_sum(lid, a * k)
-                             + _unique_sum(rid, p * n))
+    shapes = _item_shapes(eff)
+    for dtype in (np.float64, np.float32):
+        pe = exec_bucket.PlanExecutor(eff, dtype=dtype, device=device)
+        if len(shapes) != len(pe.items):
+            fail(f"K22: {len(pe.items)} items against {len(shapes)} "
+                 f"triples")
+        xq = torch.as_tensor(np.concatenate([x, np.zeros(pe.size_p + 1
+                                                         - pe.size)]),
+                             dtype=pe.vals.dtype, device=device)
+        n18 = pe.chain_tables()["ck"].shape[0]
+        total = None
+        for r in range(world):
+            part = pe.rank_part(r, world)
+            a, k, n, p, lid, rid = shapes[part["rows"]].T
+            flops = 2.0 * float((a * k * n + a * n * p).sum())
+            # as K18's sigma_bytes_flops over this share: every LW/RW block
+            # its items read once (a block shared by several items once),
+            # psi and sigma once
+            n_bytes = live_bytes(np.dtype(dtype).itemsize,
+                                 2 * eff.size + _unique_sum(lid, a * k)
+                                 + _unique_sum(rid, p * n))
 
-        def k22(part=part):
-            return exec_bucket.plan_exec_part(xq, pe, part)
+            def k22(part=part):
+                return exec_bucket.plan_exec_part(xq, pe, part)
 
-        def twin(part=part):
-            return exec_bucket.plan_exec_plain(xq, [
-                tuple(v[i0:i1] for v in bk) for bk, (i0, i1) in
-                zip(pe.device_buckets, part["slices"])], pe.size_p + 1)
+            def twin(part=part):
+                return exec_bucket.plan_exec_plain(xq, [
+                    tuple(v[i0:i1] for v in bk) for bk, (i0, i1) in
+                    zip(pe.device_buckets, part["slices"])], pe.size_p + 1)
 
-        y = k22()
-        _check(rows, "K22_plan_exec_shard", np.float64, f"r{r}", y, twin(),
-               ATOMIC_TOL[np.float64], time_ms(k22, device),
-               time_ms(twin, device), None, n_bytes, flops,
-               f"rank {r} of {world}: items {len(sh)} of "
-               f"{sum(len(b) for b in shapes)}, blocks {part['n_blocks']} "
-               f"of {pe.n_blocks}")
-        total = y if total is None else total + y
-    hold("K22_plan_exec_shard", total, exec_bucket.plan_exec(xq, pe))
-    del pe
+            y = k22()
+            c = part["chain"]
+            _check(rows if dtype == np.float64 else None,
+                   "K22_plan_exec_shard", dtype, f"r{r}", y, twin(),
+                   ATOMIC_TOL[dtype], time_ms(k22, device),
+                   time_ms(twin, device), None, n_bytes, flops,
+                   f"rank {r} of {world}: items {len(part['rows'])} of "
+                   f"{len(pe.items)}, chunks {c['n_chunks']} of K18's "
+                   f"{n18}, GFLOP true {flops / 1e9:.2f} (tables "
+                   f"{part['tables']['seconds']:.3f} s on the host)")
+            total = y if total is None else total + y
+        if dtype == np.float64:
+            hold("K22_plan_exec_shard", total, exec_bucket.plan_exec(xq, pe))
+        del pe
 
     n, X, m = close_shape
     rng = np.random.default_rng(17)

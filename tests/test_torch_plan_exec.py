@@ -67,14 +67,26 @@ def test_device_buckets_match_reference(l8, dtype):
         padded |= bool((np.asarray(want[3]) == ref.size_p).all(
             axis=(1, 2)).any())
     assert padded
-    # desc / cum: K18's bucket table
-    d = ex.desc.numpy()
-    for (A, R, pidx, oidx), row in zip(ex.device_buckets, d):
-        assert tuple(row[:4]) == (A.shape[1], A.shape[2], R.shape[2],
-                                  R.shape[1])
-        assert row[4] == exec_bucket.chain_blocks(A.shape[1], R.shape[1])
-    assert ex.n_blocks == int(ex.cum[-1]) == int(
-        (d[:, 4] * [b[0].shape[0] for b in ex.device_buckets]).sum())
+    # items / slots: each true item at its bucket's batch index, reading
+    # A[b] and R[b] at their padded row lengths; padding items are none
+    it, sl = ex.items, ex.slots
+    assert sl.shape == (len(it), 2)
+    esz = ex.vals.element_size()
+    for bi, (A, R, pidx, oidx) in enumerate(ex.device_buckets):
+        mine = sl[:, 0] == bi
+        b = sl[mine, 1]
+        n_true = int((np.asarray(oidx.numpy() < ex.size_p).any(axis=(1, 2))
+                      ).sum())
+        assert np.array_equal(b, np.arange(n_true))
+        f = it[mine]
+        a0 = (A.data_ptr() - ex.vals.data_ptr()) // esz
+        r0 = (R.data_ptr() - ex.vals.data_ptr()) // esz
+        assert np.array_equal(f[:, exec_bucket._LOFF],
+                              a0 + b * A.shape[1] * A.shape[2])
+        assert np.array_equal(f[:, exec_bucket._ROFF],
+                              r0 + b * R.shape[1] * R.shape[2])
+        assert (f[:, exec_bucket._LDL] == A.shape[2]).all()
+        assert (f[:, exec_bucket._LDR] == R.shape[2]).all()
 
 
 def test_buckets_are_views_of_two_pools(l8):
@@ -88,8 +100,11 @@ def test_buckets_are_views_of_two_pools(l8):
             assert v0 <= t.data_ptr() < vend and t.is_contiguous()
         for t in (pidx, oidx):
             assert i0 <= t.data_ptr() < iend and t.dtype == torch.int32
-    assert int(ex.desc[-1, 8]) + ex.device_buckets[-1][3].numel() \
-        == ex.ints.numel()
+    # the last bucket's views end where the pools end
+    A, R, _, oidx = ex.device_buckets[-1]
+    assert (R.data_ptr() - v0) // ex.vals.element_size() + R.numel() \
+        == ex.vals.numel()
+    assert (oidx.data_ptr() - i0) // 4 + oidx.numel() == ex.ints.numel()
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -247,3 +262,46 @@ def test_k18_tables_refuse_int32_overflow(l8, col, what):
     with pytest.raises(ValueError, match=what):
         exec_bucket.plan_chain_tables(items)
     exec_bucket.plan_chain_tables(ex.items)          # the real ones pass
+
+
+# ---------------------------------------------------------------------------
+# K22: one rank's share of K18's items (PlanExecutor.rank_part)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("world", [1, 2, 3])
+def test_k22_rank_items_partition_the_true_items(l8, world):
+    """The ranks' item rows partition ``items``: every true item in exactly
+    one rank, the one whose contiguous slice of ``ceil(B / world)`` batch
+    items of its bucket holds it; each rank's tables are K18's tables of
+    its rows (sorted by sigma block, every entry once, cut at K18's FLOP
+    band), built once."""
+    _, peff = l8
+    ex = PlanExecutor(peff, device="cpu")
+    seen = np.zeros(len(ex.items), np.int64)
+    for r in range(world):
+        part = ex.rank_part(r, world)
+        assert ex.rank_part(r, world) is part              # built once
+        rows = part["rows"]
+        seen[rows] += 1
+        for i in rows:
+            bi, b = ex.slots[i]
+            per = -(-ex.device_buckets[bi][0].shape[0] // world)
+            assert b // per == r
+            assert part["slices"][bi][0] <= b < part["slices"][bi][1]
+        tab = part["tables"]
+        band = ex.chain_tables()["flops"] / chain_mv.TARGET_CHUNKS
+        want = exec_bucket.plan_chain_tables(ex.items[rows], band)
+        for k in ("items", "ent", "ck"):
+            assert np.array_equal(tab[k], want[k])
+        assert np.array_equal(part["chain"]["items"].numpy(), tab["items"])
+        assert part["chain"]["n_chunks"] == len(tab["ck"])
+        if len(rows):
+            e = chain_mv.entries(tab["items"][:, :8])
+            ent = tab["ent"].astype(np.int64)
+            assert len(ent) == len(e["item"])
+            assert tab["flops"] == int(e["flops"].sum())
+    assert (seen == 1).all()
+    if world > 1:                       # the split is exercised
+        assert len(ex.rank_part(1, world)["rows"]) > 0
+    with pytest.raises(ValueError, match="outside a world"):
+        ex.rank_part(world, world)

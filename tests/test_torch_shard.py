@@ -359,13 +359,42 @@ def test_sharded_plan_executor_matches_reference(l8, world):  # noqa: F811
     xp = torch.as_tensor(np.concatenate([x, np.zeros(pe.size_p + 1
                                                      - pe.size)]))
     total = 0.0
-    blocks = 0
+    items = 0
     for r in range(world):
         part = pe.rank_part(r, world)
         total = total + exec_bucket.plan_exec_part(xp, pe, part).numpy()
-        blocks += part["n_blocks"]
-    assert blocks <= pe.n_blocks
+        items += len(part["tables"]["items"])
+    assert items == len(pe.items)       # no padding item, no item twice
     assert rel(total[:pe.size], want) < 1e-11
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_k22_chunk_walk_matches_twin_and_reference(l8, world):  # noqa: F811
+    """Each rank's K22 chunk tables walked in the kernel's order
+    (chain_mv.chain_plain, A and R read in place from ``vals``) against
+    the twin on the rank's sliced buckets (1e-12 relative); the ranks' sum
+    against the JAX ShardedPlanExecutor (1e-11) and K18's walk; nothing
+    is written past the size."""
+    reff, peff = l8
+    x = np.random.default_rng(8).standard_normal(reff.size)
+    want = RefSharded(reff, ref_mesh(world), dtype=np.float64).matvec(x)
+    pe = exec_bucket.PlanExecutor(peff, device="cpu")
+    xp = torch.as_tensor(np.concatenate([x, np.zeros(pe.size_p + 1
+                                                     - pe.size)]))
+    total = 0.0
+    for r in range(world):
+        part = pe.rank_part(r, world)
+        got = chain_mv.chain_plain(xp, pe.vals, pe.vals, part["chain"],
+                                   pe.size_p + 1).numpy()
+        twin = exec_bucket.plan_exec_part(xp, pe, part).numpy()
+        assert np.abs(got - twin).max() <= TOL * max(np.abs(twin).max(),
+                                                     1e-300)
+        assert not got[pe.size:].any()
+        total = total + got
+    assert rel(total[:pe.size], want) < 1e-11
+    one = chain_mv.chain_plain(xp, pe.vals, pe.vals, pe.k18_tables(),
+                               pe.size_p + 1).numpy()
+    assert rel(total, one) < TOL
 
 
 def test_sharded_plan_executor_on_a_world_of_one(l8, mesh1):  # noqa: F811
