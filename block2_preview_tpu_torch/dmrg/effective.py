@@ -19,10 +19,11 @@ Supports bra != ket (mixed bases): the operator then maps ket-space vectors to
 bra-space vectors — the engine behind compression / MPO-fitting / linear
 solves (the reference's Linear sweep, sweep_algorithm.hpp:3270).
 
-Copied from block2_preview_tpu/dmrg/effective.py: EffectiveHamiltonian2
-and EffectiveHamiltonian1 (:414-583, the one-site back-evolution operator
-of two-site TDVP; the right-fused EffectiveHamiltonian1R comes back with
-one-site sweeps).  The host assembly runs from host environment maps; on
+Copied from block2_preview_tpu/dmrg/effective.py: EffectiveHamiltonian2,
+EffectiveHamiltonian1 (:414-583, the one-site back-evolution operator
+of two-site TDVP and the forward one-site sweep's operator) and the
+right-fused EffectiveHamiltonian1R (:584-741, the backward one-site
+sweep's).  The host assembly runs from host environment maps; on
 the resident device path the two-site operators are assembled on the card
 (ops/resident.ResidentSite) and EffectiveHamiltonian2 only supplies the
 sector spaces.
@@ -118,8 +119,8 @@ class EffectiveHamiltonian2:
         assert 0 <= t < L - 1
         self.mixed = bra is not ket
 
-        # dtype: complex if MPO entries or site tensors are complex (the
-        # environments are built from them)
+        # dtype: complex if MPO entries, site tensors or environments are
+        # complex
         dt = np.float64
         for w in (mpo.tensors[t], mpo.tensors[t + 1]):
             for blk in w.values():
@@ -128,6 +129,16 @@ class EffectiveHamiltonian2:
             for b in T.blocks.values():
                 dt = np.result_type(dt, b.dtype)
                 break
+        # host environment maps: a complex bra makes them complex against a
+        # real ket and MPO (device pools, read without unpacking, are real)
+        for env in (list.__getitem__(me.left_envs, t),
+                    list.__getitem__(me.right_envs, t + 2)):
+            if isinstance(env, dict):
+                for bm in env.values():
+                    for b in bm.blocks.values():
+                        dt = np.result_type(dt, b.dtype)
+                        break
+                    break
         self.dtype = dt
 
         flk, frk = _fused_bases(ket, t, self.target)
@@ -460,6 +471,163 @@ class EffectiveHamiltonian1:
                 if lb is not None and rb is not None:
                     off = self.offsets[(qL, qc)]
                     dl, dr = self.shapes[(qL, qc)]
+                    d2 = (np.diag(lb)[:, None] * np.diag(rb)[None, :]).real
+                    diag[off:off + dl * dr] += d2.ravel()
+        return diag
+
+
+class EffectiveHamiltonian1R:
+    """Right-fused one-site effective Hamiltonian at site s: the center is a
+    matrix between the plain bond_s basis and the fused (site_s (x) bond_{s+1})
+    complement basis (block2's FuseTypes::FuseR, reference
+    effective_hamiltonian.hpp:42).  Used by backward one-site sweeps."""
+
+    def __init__(self, me: MovingEnvironment, s: int):
+        self.me = me
+        self.s = s
+        mpo, ket = me.mpo, me.ket
+        g = mpo.group
+        self.g = g
+        self.target = ket.info.target
+        env_l = me.left_envs[s]
+        env_r = me.right_envs[s + 1]
+        assert env_l is not None and env_r is not None
+
+        bond_l = ket.bond_info_at(s)
+        dims: Dict[QN, int] = {}
+        for (ql, qp, qr), b in ket.tensors[s].blocks.items():
+            dims[qr] = max(dims.get(qr, 0), b.shape[2])
+        bond_r = StateInfo(g, dims)
+        comp_r = StateInfo(g, {g.sub(self.target, q): d
+                               for q, d in bond_r.items()})
+        self.bond_l = bond_l
+        self.fr = FusedBasis(g, ket.info.site_infos[s], comp_r)
+
+        dt = np.float64
+        for blk in mpo.tensors[s].values():
+            dt = np.result_type(dt, blk.dtype)
+        for env in (env_l, env_r):
+            for bm in env.values():
+                for b in bm.blocks.values():
+                    dt = np.result_type(dt, b.dtype)
+                    break
+                break
+        for b in ket.tensors[s].blocks.values():
+            dt = np.result_type(dt, b.dtype)
+            break
+        self.dtype = dt
+
+        self.keys: List[Key2] = []
+        for qb in bond_l:
+            qRf = g.sub(self.target, qb)
+            if qRf in self.fr.maps:
+                self.keys.append((qb, qRf))
+        self.keys.sort()
+        self.shapes = {(qb, qRf): (bond_l[qb], self.fr.info[qRf])
+                       for (qb, qRf) in self.keys}
+        self.offsets: Dict[Key2, int] = {}
+        off = 0
+        for k in self.keys:
+            self.offsets[k] = off
+            dl, dr = self.shapes[k]
+            off += dl * dr
+        self.size = off
+
+        active_l = {qb for (qb, _) in self.keys}
+        active_r = {qRf for (_, qRf) in self.keys}
+        quanta = mpo.site_quanta[s]
+
+        # LW[m] = E_L[s][m] directly
+        LW: Dict[int, Dict[Key2, np.ndarray]] = {}
+        for m, bm in env_l.items():
+            dm = LW.setdefault(m, {})
+            for (qb2, qk2), eb in bm.blocks.items():
+                if qb2 in active_l and qk2 in active_l:
+                    dm[(qb2, qk2)] = eb
+        # RW[m] assembled from W_s and E_R[s+1] on the right-fused basis
+        RW = assemble_fused_ops(
+            env_r, mpo.tensors[s], quanta, self.fr, bond_is_first=False,
+            join_on_input=False, comp_target=self.target, group=g,
+            active=active_r, fused_ket=self.fr,
+            comp_target_ket=self.target, active_ket=active_r,
+            dtype=self.dtype)
+        self.LW, self.RW = LW, RW
+
+        triples = []
+        for m, lw in self.LW.items():
+            rw = self.RW.get(m)
+            if rw is None:
+                continue
+            for (qbb, qbk) in lw:
+                qRk = g.sub(self.target, qbk)
+                qRb = g.sub(self.target, qbb)
+                if (qbk, qRk) in self.offsets and (qRb, qRk) in rw \
+                        and (qbb, qRb) in self.offsets:
+                    triples.append((m, (qbb, qbk), (qbk, qRk),
+                                    (qRb, qRk), (qbb, qRb)))
+        self.triples = triples
+
+    # ------------------------------------------------------------------
+    def tensor_to_vec(self, T) -> np.ndarray:
+        g = self.g
+        dt = self.dtype
+        for b in T.blocks.values():
+            dt = np.result_type(dt, b.dtype)
+        x = np.zeros(self.size, dtype=dt)
+        for (ql, qp, qr2), b in T.blocks.items():
+            qRf = g.add(qp, g.sub(self.target, qr2))
+            key = (ql, qRf)
+            if key not in self.offsets:
+                continue
+            off = self.offsets[key]
+            dl, dr = self.shapes[key]
+            so, d1, d2 = self.fr.sub_offset(qRf, qp, g.sub(self.target, qr2))
+            mat = b.reshape(b.shape[0], -1)   # (dl, dp*dr2)
+            x_view = x[off:off + dl * dr].reshape(dl, dr)
+            x_view[:, so:so + d1 * d2] = mat
+        return x
+
+    def vec_to_tensor(self, x: np.ndarray):
+        from .mps import MPSTensor
+        g = self.g
+        blocks = {}
+        for key in self.keys:
+            qb, qRf = key
+            off = self.offsets[key]
+            dl, dr = self.shapes[key]
+            mat = x[off:off + dl * dr].reshape(dl, dr)
+            for (qp, qc2, so, d1, d2) in self.fr.maps[qRf]:
+                qr2 = g.sub(self.target, qc2)
+                blocks[(qb, qp, qr2)] = \
+                    mat[:, so:so + d1 * d2].reshape(dl, d1, d2)
+        return MPSTensor(g, blocks)
+
+    def matvec_np(self, x: np.ndarray) -> np.ndarray:
+        psi = {}
+        for k in self.keys:
+            dl, dr = self.shapes[k]
+            off = self.offsets[k]
+            psi[k] = x[off:off + dl * dr].reshape(dl, dr)
+        dt = np.result_type(self.dtype, x.dtype)
+        out = np.zeros(self.size, dtype=dt)
+        for (m, lk, pk, rk, ok) in self.triples:
+            contrib = self.LW[m][lk] @ psi[pk] @ self.RW[m][rk].T
+            off = self.offsets[ok]
+            out[off:off + contrib.size] += contrib.ravel()
+        return out
+
+    def diagonal(self) -> np.ndarray:
+        diag = np.zeros(self.size)
+        for m, lw in self.LW.items():
+            rw = self.RW.get(m)
+            if rw is None:
+                continue
+            for (qb, qRf) in self.keys:
+                lb = lw.get((qb, qb))
+                rb = rw.get((qRf, qRf))
+                if lb is not None and rb is not None:
+                    off = self.offsets[(qb, qRf)]
+                    dl, dr = self.shapes[(qb, qRf)]
                     d2 = (np.diag(lb)[:, None] * np.diag(rb)[None, :]).real
                     diag[off:off + dl * dr] += d2.ravel()
         return diag

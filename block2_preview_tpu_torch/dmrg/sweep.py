@@ -1,13 +1,14 @@
-"""Two-site DMRG sweeps of the port: ground states, state-averaged roots
-and state-specific excited states.
+"""DMRG sweeps of the port: ground states, state-averaged roots,
+state-specific excited states and one-site sweeps.
 
 Copied from block2_preview_tpu/dmrg/sweep.py (reference
-src/dmrg/sweep_algorithm.hpp:71: update_two_dot at :811, sweep :2551,
-solve :3032) and cut to SZ two-site Hermitian sweeps.  ``n_roots`` > 1
-averages the density matrix over the roots with ``weights`` (equal by
-default); ``proj_mpss`` projects previously converged MPSs out of every
-local solve, or with ``proj_weights`` adds the penalty w_i |phi_i><phi_i|
-(``dmrg/projection.py``; the reference's sweep.py:382-457, 595-708).
+src/dmrg/sweep_algorithm.hpp:71: update_two_dot at :811, update_one_dot
+:183, sweep :2551, solve :3032) and cut to SZ Hermitian sweeps.
+``n_roots`` > 1 averages the density matrix over the roots with
+``weights`` (equal by default); ``proj_mpss`` projects previously
+converged MPSs out of every local solve, or with ``proj_weights`` adds
+the penalty w_i |phi_i><phi_i| (``dmrg/projection.py``; the reference's
+sweep.py:382-457, 595-708).
 One class, six paths:
 
 * ``backend="numpy"``: the reference's host path unchanged — host
@@ -73,6 +74,19 @@ Density-matrix decimation with perturbative noise follows the reference
 (moving_environment.hpp density_matrix / split_density_matrix;
 effective_hamiltonian.hpp:253 perturbative_noise).
 
+One-site sweeps (``solve(..., twodot_to_onedot=n)``: sweeps n, n+1, ...
+update one site at a time; ``last_site_1site=True``: the last site of
+each two-site sweep gets a one-site update; the reference's sweep.py:
+391-418, 893-1160) take one root without projection.  A forward step
+solves on ``EffectiveHamiltonian1``, a backward one on the right-fused
+``EffectiveHamiltonian1R``, routed as the two-site step: "numpy" on the
+host, "torch_tiled" on the tiled executor (K7), "torch", "torch_device"
+and "torch_stacked" on the bucketed one (K8), keyed (kind, site).
+"torch_resident" has no one-site engine (the reference's jax_resident
+falls through to the host Davidson there) and raises.  The one-site
+noise is the density-matrix term on the host LW/RW; the SVD
+decimation waits for ``decomp_type`` (ROADMAP).
+
 Operator sharding (``mesh``, a 1-D ``torch.distributed`` DeviceMesh, the
 reference's ``DMRG(mesh=...)``, sweep.py:386, 477-482; ``torch_resident``
 only): every rank runs this sweep on its own device
@@ -97,7 +111,8 @@ import numpy as np
 
 from ..core.symmetry import QN
 from ..ops.davidson import davidson
-from .effective import EffectiveHamiltonian2, Key2
+from .effective import (EffectiveHamiltonian1, EffectiveHamiltonian1R,
+                        EffectiveHamiltonian2, Key2)
 from .environment import MovingEnvironment
 from .mpo import MPO
 from .mps import MPS, MPSTensor
@@ -346,7 +361,8 @@ class DMRG:
                  n_roots: int = 1, weights: Optional[Sequence[float]] = None,
                  proj_mpss: Optional[Sequence[MPS]] = None,
                  proj_weights: Optional[Sequence[float]] = None,
-                 mesh=None, mesh_axis: str = "op"):
+                 mesh=None, mesh_axis: str = "op",
+                 last_site_1site: bool = False):
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend '{backend}' "
                              f"({' | '.join(_BACKENDS)})")
@@ -374,6 +390,11 @@ class DMRG:
             raise ValueError("backend='torch_resident' solves one root "
                              "without projection; use backend='torch' or "
                              "'torch_device' for n_roots > 1 or proj_mpss")
+        # big-site specialization (reference sweep.py:391, 414-418): in a
+        # two-site sweep the last site gets a one-site update
+        self.last_site_1site = last_site_1site
+        if last_site_1site:
+            self._one_site_check()
         if mesh is not None and backend != "torch_resident":
             raise NotImplementedError(
                 f"a device mesh shards backend='torch_resident' only (got "
@@ -554,15 +575,28 @@ class DMRG:
 
     def _eigen_executor(self, t: int, dav_thrd: float):
         """Bucketed (K8: torch, torch_device, torch_stacked) or tiled (K7:
-        torch_tiled) path of one site: host LW/RW, the executor's matvec on
-        the device inside the host Davidson, or the device Davidson around
-        it for one float32 root without projection (torch_device) and for
-        one root without projection (torch_tiled)."""
+        torch_tiled) path of one two-site step: host LW/RW and
+        :meth:`_executor_solve`."""
         eff = EffectiveHamiltonian2(self.me, t)
         x0 = self._initial_guesses(eff, t)
         diag = eff.diagonal()
         pv = self._proj_vecs(eff)
-        key = ("EffectiveHamiltonian2", t)
+        t1 = time.time()
+        try:
+            w, v, nmv = self._executor_solve(eff, t, x0, diag, dav_thrd, pv)
+        except _DeviceEigenRejected:
+            return self._redo_host(eff, x0, t1, dav_thrd)
+        self._last_flop = _eff_flops(eff) * nmv
+        return eff, t1, w, v, nmv, None
+
+    def _executor_solve(self, eff, t: int, x0, diag, dav_thrd: float, pv):
+        """The executor's matvec on the device inside the host Davidson, or
+        the device Davidson around it for one float32 root without
+        projection (torch_device) and for one root without projection
+        (torch_tiled); the executor is keyed (kind, site) and freed after.
+        Returns (energies, vectors, matvecs); a rejected eigenpair of CPU
+        tensors raises _DeviceEigenRejected."""
+        key = (type(eff).__name__, t)
         if self.backend == "torch_tiled":
             from ..ops.tiled import TiledExecutor
             ex = TiledExecutor(eff, dtype=self.dtype, cache=self._exec_cache,
@@ -574,7 +608,6 @@ class DMRG:
                                 cache_key=key, device=self.device)
             on_device = (self.backend == "torch_device" and self.n_roots == 1
                          and not pv and np.dtype(self.dtype) == np.float32)
-        t1 = time.time()
         try:
             if on_device:
                 th, xv, nmv = ex.solve_ground_state(
@@ -586,12 +619,9 @@ class DMRG:
                                                 dav_thrd, pv)
             for r in range(self.n_roots):
                 self._guard(ex.matvec, float(w[r]), v[:, r], t)
-        except _DeviceEigenRejected:
-            return self._redo_host(eff, x0, t1, dav_thrd)
         finally:
             ex.free()
-        self._last_flop = _eff_flops(eff) * nmv
-        return eff, t1, w, v, nmv, None
+        return w, v, nmv
 
     def update_two_dot(self, t: int, forward: bool, bond_dim: int,
                        noise: float, dav_thrd: float):
@@ -654,6 +684,164 @@ class DMRG:
         tm.tblk += time.time() - t3
         return energies, dw, nmv
 
+    def _one_site_check(self) -> None:
+        """One-site steps take one root without projection, and a backend
+        with a one-site engine."""
+        if self.backend == "torch_resident":
+            raise NotImplementedError(
+                "backend='torch_resident' has no one-site engine (still "
+                "to port, ROADMAP); one-site sweeps run on "
+                "backend='torch_tiled' (K7) or the bucketed backends (K8)")
+        if self.n_roots != 1 or self._proj:
+            raise NotImplementedError("one-site sweeps take one root "
+                                      "without projection")
+
+    def _one_site_solve(self, eff, t: int, x0, diag, dav_thrd: float):
+        """The local solve of a one-site step on the backend's engine."""
+        if self.backend == "numpy":
+            return self._host_davidson(eff.matvec_np, diag, x0, dav_thrd,
+                                       None)
+        try:
+            return self._executor_solve(eff, t, x0, diag, dav_thrd, None)
+        except _DeviceEigenRejected:
+            self.host_redo_count += 1
+            return self._host_davidson(eff.matvec_np, diag, x0, dav_thrd,
+                                       None)
+
+    def update_one_dot(self, t: int, forward: bool, bond_dim: int,
+                       noise: float, dav_thrd: float):
+        """One-site update with the center at site t (reference
+        sweep_algorithm.hpp:183 update_one_dot; the JAX package's
+        sweep.py:893-1060): EffectiveHamiltonian1 going forward,
+        EffectiveHamiltonian1R going backward; the residual of the
+        decimation is absorbed into the next site."""
+        tm = self.timings
+        t0 = time.time()
+        g = self.mpo.group
+        L = self.mpo.n_sites
+        target = self.mps.info.target
+        eff = (EffectiveHamiltonian1 if forward
+               else EffectiveHamiltonian1R)(self.me, t)
+        x0 = eff.tensor_to_vec(self.mps.tensors[t])
+        if np.linalg.norm(x0) < 1e-14:
+            x0 = np.random.RandomState(42).standard_normal(eff.size)
+        x0 = x0 / np.linalg.norm(x0)
+        diag = eff.diagonal()
+        t1 = time.time()
+        tm.teff += t1 - t0
+        w, v, nmv = self._one_site_solve(eff, t, x0[:, None], diag, dav_thrd)
+        self._last_flop = _eff_flops(eff) * nmv
+        t2 = time.time()
+        tm.teig += t2 - t1
+        energy = np.array([float(w[0]) + self.mpo.const_e])
+        psi = {}
+        for k in eff.keys:
+            dl, dr = eff.shapes[k]
+            off = eff.offsets[k]
+            psi[k] = v[off:off + dl * dr, 0].reshape(dl, dr)
+        if (t == L - 1) if forward else (t == 0):
+            self.mps.tensors[t] = eff.vec_to_tensor(v[:, 0])
+            self._center_tensors = [self.mps.tensors[t]]
+            self._center_pos = t
+            tm.tdm += time.time() - t2
+            return energy, 0.0, nmv
+        if forward:
+            # rho over the fused (bond x site) rows
+            rho: Dict[QN, np.ndarray] = {}
+            for (qL, qc), b in psi.items():
+                acc = rho.get(qL)
+                rho[qL] = b @ b.conj().T if acc is None \
+                    else acc + b @ b.conj().T
+            if noise > 0:
+                rho_n: Dict[QN, np.ndarray] = {}
+                for m, lw in eff.LW.items():
+                    for (qLb, qLk), blk in lw.items():
+                        pk = (qLk, g.sub(target, qLk))
+                        if pk not in psi:
+                            continue
+                        x = blk @ psi[pk]
+                        acc = rho_n.get(qLb)
+                        rho_n[qLb] = x @ x.conj().T if acc is None \
+                            else acc + x @ x.conj().T
+                rho = _apply_noise(rho, rho_n, noise)
+            rot, dw = _decimate(rho, bond_dim)
+            a_blocks: Dict[Tuple[QN, QN, QN], np.ndarray] = {}
+            for qL, vmat in rot.items():
+                for (ql, qp, off, dl, dp) in eff.fl.maps[qL]:
+                    a_blocks[(ql, qp, qL)] = vmat[off:off + dl * dp, :] \
+                        .reshape(dl, dp, -1)
+            self.mps.tensors[t] = MPSTensor(g, a_blocks)
+            # absorb the residual into site t+1
+            t_old = self.mps.tensors[t + 1]
+            nb = {}
+            for qL, vmat in rot.items():
+                pk = (qL, g.sub(target, qL))
+                if pk not in psi:
+                    continue
+                mmat = vmat.conj().T @ psi[pk]   # (k, d_old)
+                for (ql2, qp2, qr2), b in t_old.blocks.items():
+                    if ql2 == qL:
+                        nb[(ql2, qp2, qr2)] = np.einsum(
+                            "kd,dpr->kpr", mmat, b, optimize=True)
+            self.mps.tensors[t + 1] = MPSTensor(g, nb)
+            self._center_tensors = [self.mps.tensors[t + 1]]
+            self._center_pos = t + 1
+            t3 = time.time()
+            tm.tdm += t3 - t2
+            self.me.update_left(t)
+            self.me.invalidate_right(t + 1)
+        else:
+            rho = {}
+            for (qb, qRf), b in psi.items():
+                acc = rho.get(qRf)
+                rho[qRf] = b.T @ b.conj() if acc is None \
+                    else acc + b.T @ b.conj()
+            if noise > 0:
+                rho_n = {}
+                for m, rw in eff.RW.items():
+                    for (qRb, qRk), blk in rw.items():
+                        pk = (g.sub(target, qRk), qRk)
+                        if pk not in psi:
+                            continue
+                        x = psi[pk] @ blk.T
+                        acc = rho_n.get(qRb)
+                        rho_n[qRb] = x.T @ x.conj() if acc is None \
+                            else acc + x.T @ x.conj()
+                rho = _apply_noise(rho, rho_n, noise)
+            rot, dw = _decimate(rho, bond_dim)
+            b_blocks: Dict[Tuple[QN, QN, QN], np.ndarray] = {}
+            for qRf, vmat in rot.items():
+                ql_new = g.sub(target, qRf)
+                for (qp, qc2, off, dp, db) in eff.fr.maps[qRf]:
+                    qr2 = g.sub(target, qc2)
+                    b_blocks[(ql_new, qp, qr2)] = \
+                        vmat[off:off + dp * db, :].T.reshape(-1, dp, db)
+            self.mps.tensors[t] = MPSTensor(g, b_blocks)
+            t_old = self.mps.tensors[t - 1]
+            nb = {}
+            for qRf, vmat in rot.items():
+                qb = g.sub(target, qRf)
+                pk = (qb, qRf)
+                if pk not in psi:
+                    continue
+                mmat = psi[pk] @ vmat.conj()   # (d_old, k)
+                for (ql2, qp2, qr2), b in t_old.blocks.items():
+                    if qr2 == qb:
+                        nb[(ql2, qp2, qr2)] = np.einsum(
+                            "lpd,dk->lpk", b, mmat, optimize=True)
+            self.mps.tensors[t - 1] = MPSTensor(g, nb)
+            self._center_tensors = [self.mps.tensors[t - 1]]
+            self._center_pos = t - 1
+            t3 = time.time()
+            tm.tdm += t3 - t2
+            self.me.update_right(t)
+            self.me.invalidate_left(t - 1)
+        if self.device is not None and self.device.type == "cuda":
+            import torch
+            torch.cuda.synchronize(self.device)
+        tm.tblk += time.time() - t3
+        return energy, dw, nmv
+
     def _rank0(self, *site):
         """Under a mesh, rank 0's decimated site tensors, energies and
         discarded weight on every rank (the noise (K6) and the mix rounded
@@ -665,7 +853,9 @@ class DMRG:
 
     # ------------------------------------------------------------------
     def sweep(self, forward: bool, bond_dim: int, noise: float,
-              dav_thrd: float) -> SweepResults:
+              dav_thrd: float, dot: int = 2) -> SweepResults:
+        """One pass: two-site steps (``dot=2``; with ``last_site_1site``
+        the last site's step is a one-site one) or one-site steps."""
         from ..ops import _kernels
         from ..parallel.multihost import stats as coll
         L = self.mpo.n_sites
@@ -681,10 +871,18 @@ class DMRG:
         mat = self.me.host_env_materialized
         mix_plan = self.mix_plan_time
         t0 = time.time()
-        for t in (range(L - 1) if forward else range(L - 2, -1, -1)):
+        ls1 = self.last_site_1site and dot == 2
+        if dot == 1:
+            rng = range(L) if forward else range(L - 1, -1, -1)
+        elif ls1:
+            rng = range(L - 2) if forward else range(L - 3, -1, -1)
+        else:
+            rng = range(L - 1) if forward else range(L - 2, -1, -1)
+
+        def site(t, one_dot):
             tsite = time.time()
-            e, dw, nmv = self.update_two_dot(t, forward, bond_dim, noise,
-                                             dav_thrd)
+            step = self.update_one_dot if one_dot else self.update_two_dot
+            e, dw, nmv = step(t, forward, bond_dim, noise, dav_thrd)
             res.energies.append(e)
             res.discarded.append(dw)
             res.n_matvec += nmv
@@ -694,6 +892,22 @@ class DMRG:
                 print(f"   {'-->' if forward else '<--'} site {t:3d} "
                       f"E = {estr}  dw = {dw:.2e}  nmv = {nmv}  "
                       f"t = {time.time() - tsite:.2f}s", flush=True)
+
+        if ls1 and not forward:
+            # the backward sweep opens with the one-site update of the last
+            # site; its decimation moves the center onto site L-2
+            site(L - 1, True)
+        for t in rng:
+            site(t, dot == 1)
+        if ls1 and forward:
+            # move the center from the last two-site window onto the last
+            # site (canonicalization only), then a one-site update there
+            self.mps.left_canonicalize_site(L - 2)
+            self.me.invalidate_right(L - 1)
+            self.me.update_left(L - 2)
+            self._center_tensors = [self.mps.tensors[L - 1]]
+            self._center_pos = L - 1
+            site(L - 1, True)
         earr = np.stack(res.energies)
         self.sweep_log.append(dict(
             energy=float(earr.min()), energies=earr.min(axis=0),
@@ -717,12 +931,16 @@ class DMRG:
 
     def solve(self, bond_dims: List[int], noises: List[float],
               dav_thrds: List[float], n_sweeps: int = 20,
-              tol: float = 1e-8):
+              tol: float = 1e-8, twodot_to_onedot: Optional[int] = None):
         """Sweeps until the energies move less than ``tol`` on a sweep
-        without noise.  Returns the lowest root's energy (a float) with
-        one root, else every root's energy (an array), as the reference."""
+        without noise; from sweep ``twodot_to_onedot`` on, one-site
+        sweeps.  Returns the lowest root's energy (a float) with one root,
+        else every root's energy (an array), as the reference."""
         def sched(lst, i):
             return lst[min(i, len(lst) - 1)]
+
+        if twodot_to_onedot is not None and twodot_to_onedot < n_sweeps:
+            self._one_site_check()
 
         # start away from the current center: a previous solve() that
         # converged on a forward sweep leaves the center at the right end
@@ -732,7 +950,9 @@ class DMRG:
             bd = sched(bond_dims, isw)
             ns = sched(noises, isw)
             dt = sched(dav_thrds, isw)
-            res = self.sweep(forward, bd, ns, dt)
+            dot = 2 if (twodot_to_onedot is None
+                        or isw < twodot_to_onedot) else 1
+            res = self.sweep(forward, bd, ns, dt, dot=dot)
             e = np.stack(res.energies).min(axis=0)
             dw = max(res.discarded) if res.discarded else 0.0
             self.energies.append(e)

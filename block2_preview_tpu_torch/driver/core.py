@@ -3,11 +3,14 @@
 Copied from block2_preview_tpu/driver/core.py (reference
 pyblock2/driver/core.py:544: initialize_system at :854, get_qc_mpo at :3282
 with FastBipartite, get_mpo at :3885, dmrg at :4437, get_random_mps at
-:7494) and cut to what SZ two-site ground and excited states need.  The other
-methods of the reference driver come back with their slices (ROADMAP);
-``td_dmrg`` (time evolution, reference :4785) is here, and so are the
-analysis of a solved state: ``expectation`` (:6840), ``get_npdm`` (:5504)
-with its fronts ``get_1pdm`` ... ``get_6pdm``, ``get_trans_*pdm`` and
+:7494) and cut to SZ.  The other methods of the reference driver come back
+with their slices (ROADMAP); here are ``td_dmrg`` (time evolution,
+reference :4785), the linear sweeps ``compress_mps`` (:6300),
+``multiply`` (:6506) and ``addition`` (:6702), ``greens_function``
+(:6923), ``orbital_rotation``, ``expr_builder`` (SZ operator strings,
+:8975) with ``get_site_mpo`` and ``get_identity_mpo``, and the analysis
+of a solved state: ``expectation`` (:6840), ``get_npdm`` (:5504) with its
+fronts ``get_1pdm`` ... ``get_6pdm``, ``get_trans_*pdm`` and
 ``get_conventional_*``, and the orbital entropies (:5091).
 
     drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
@@ -15,40 +18,97 @@ with its fronts ``get_1pdm`` ... ``get_6pdm``, ``get_trans_*pdm`` and
     mpo = drv.get_qc_mpo(h1e=h1e, g2e=g2e, ecore=ecore)
     ket = drv.get_random_mps(bond_dim=80)
     energy = drv.dmrg(mpo, ket, bond_dims=[80])      # on the CUDA card
+    e1 = drv.dmrg(mpo, ket, bond_dims=[80], backend="torch_tiled",
+                  twodot_to_onedot=4)               # one-site sweeps last
     roots = drv.dmrg(mpo, drv.get_random_mps(bond_dim=80), bond_dims=[80],
                      backend="torch_device", n_roots=3)  # three energies
     first = drv.extract_root(0)                      # one root as an MPS
     e, te = drv.td_dmrg(mpo, ket, delta_t=0.05, n_steps=2, bond_dim=80)
+    g = drv.greens_function(mpo, ket, energy, "d", 0, -0.4, 0.05, 80)
+    small, nrm = drv.compress_mps(ket, 40, mpo)      # host sweeps
+    drv.orbital_rotation(ket, kappa, bond_dim=80)    # exp(kappa) in place
     dm1, dm2 = drv.get_1pdm(ket), drv.get_2pdm(ket)   # host engine
     dm3 = drv.get_3pdm(ket, algo="poly")    # class closes on the card (K17)
 
-``dmrg``, ``td_dmrg`` and the polynomial PDM engine run on the card
-unless the caller asks for the CPU (``device="cpu"``) or for the host
-reference (``backend="numpy"``; ``device=None`` for the PDM closes).
+``dmrg``, ``td_dmrg``, ``greens_function``, ``orbital_rotation`` and the
+polynomial PDM engine run on the card unless the caller asks for the CPU
+(``device="cpu"``) or for the host reference (``backend="numpy"``;
+``device=None`` for the PDM closes).  The linear sweeps run on the host,
+as in the reference.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..core.expr import TermTable, qc_term_table
+from ..core.expr import TermTable, build_term_table, qc_term_table
 from ..core.fcidump import FCIDUMP
 from ..core.symmetry import SZ_GROUP, SymmetryGroup
 from ..dmrg.mpo import MPO
 from ..dmrg.mpo_builder import build_mpo
 from ..dmrg.mps import MPS, MPSInfo
 from ..dmrg.sweep import DMRG
-from ..ops.local_ops import SZ_SITE
+from ..ops.local_ops import CRE_A, CRE_B, DES_A, DES_B, SZ_SITE
 
-__all__ = ["DMRGDriver", "SymmetryTypes"]
+__all__ = ["DMRGDriver", "ExprBuilder", "SymmetryTypes"]
 
 
 class SymmetryTypes(enum.Enum):
     """Mirrors reference pyblock2/driver/core.py:25 (the port runs SZ)."""
     SZ = "sz"
+
+
+# SZ-mode operator letters, matching pyblock2's ExprBuilder vocabulary
+# (reference core.py:8975): c/d = alpha create/destroy, C/D = beta.
+_OP_LETTERS = {"c": CRE_A, "d": DES_A, "C": CRE_B, "D": DES_B}
+
+
+class ExprBuilder:
+    """Collects second-quantized SZ operator strings for custom
+    Hamiltonians (reference pyblock2/driver/core.py:8975; the JAX
+    package's driver/core.py:43-95).  Its SAny-SU(2) coupled expressions
+    and custom site operators (the JAX package's :62-64, :83-92) are
+    ROADMAP item A6: a letter outside c/d/C/D raises."""
+
+    def __init__(self, driver: "DMRGDriver"):
+        self.driver = driver
+        self.terms: List[Tuple[float, List[Tuple[int, int]]]] = []
+        self.const_e = 0.0
+
+    def add_term(self, expr: str, idx: Sequence[int], coeff) -> "ExprBuilder":
+        """expr like "cd" (one letter per operator), idx = site indices."""
+        co = complex(coeff)
+        co = co.real if co.imag == 0.0 else co
+        if len(expr) == 0:
+            self.const_e += co
+            return self
+        bad = set(expr) - set(_OP_LETTERS)
+        if bad:
+            raise NotImplementedError(
+                f"operator letters {sorted(bad)}: the port's ExprBuilder "
+                "takes SZ strings of c/d/C/D; SAny-SU(2) expressions and "
+                "custom site operators are roadmap item A6")
+        assert len(expr) == len(idx)
+        ops = [(int(i), _OP_LETTERS[ch]) for ch, i in zip(expr, idx)]
+        self.terms.append((co, ops))
+        return self
+
+    def add_sum_term(self, expr: str, arr: np.ndarray,
+                     cutoff: float = 1e-13) -> "ExprBuilder":
+        """Add sum_{indices} arr[indices] * expr(indices)."""
+        arr = np.asarray(arr)
+        for idx in zip(*np.nonzero(np.abs(arr) > cutoff)):
+            self.add_term(expr, [int(i) for i in idx], arr[idx])
+        return self
+
+    def finalize(self, adjust_order: bool = True) -> TermTable:
+        """adjust_order mirrors the reference flag; site ordering is always
+        performed here."""
+        return build_term_table(self.driver.n_sites, self.terms,
+                                group=self.driver.group)
 
 
 class DMRGDriver:
@@ -106,6 +166,18 @@ class DMRGDriver:
         pyblock2/driver/core.py:3885)."""
         return build_mpo(term_table, site_pgs=self.orb_sym, const_e=const_e)
 
+    def get_site_mpo(self, op: str, site: int) -> MPO:
+        """MPO of one elementary operator c/d/C/D at a site (reference
+        pyblock2/driver/core.py:4029)."""
+        tt = build_term_table(self.n_sites,
+                              [(1.0, [(site, _OP_LETTERS[op])])],
+                              group=self.group)
+        return build_mpo(tt, site_pgs=self.orb_sym)
+
+    def expr_builder(self) -> ExprBuilder:
+        """reference pyblock2/driver/core.py:433 (SZ only)."""
+        return ExprBuilder(self)
+
     def get_random_mps(self, bond_dim: int = 250, target=None,
                        seed: int = 1234) -> MPS:
         """reference pyblock2/driver/core.py:7494."""
@@ -122,7 +194,7 @@ class DMRGDriver:
              n_roots: int = 1,
              proj_mpss: Optional[Sequence[MPS]] = None,
              proj_weights: Optional[Sequence[float]] = None,
-             **kw):
+             twodot_to_onedot: Optional[int] = None, **kw):
         """Ground-state, state-averaged (``n_roots``) or state-specific
         (``proj_mpss``: project previously converged states out, or with
         ``proj_weights`` penalize them) SZ DMRG (reference
@@ -150,14 +222,19 @@ class DMRGDriver:
         honours ``B2TPU_MIX`` as the reference's jax_resident does: 4
         (default) mixes LW/RW on mix v4 (K3 + K4), 3 on mix v3 (K13 +
         K14), 2 on the v2 scatter mix (K15).  backend="numpy" is the
-        host reference.  The solver is kept as
+        host reference.  ``twodot_to_onedot`` = n switches to one-site
+        sweeps from sweep n on (one root: K7 on "torch_tiled", K8 on the
+        bucketed backends; "torch_resident" has no one-site engine and
+        raises), and ``last_site_1site=True`` gives the last site of each
+        two-site sweep a one-site update.  The solver is kept as
         ``self._last_dmrg`` (energies, timings, sweep_log,
         host_redo_count and the host transfer counters)."""
         solver = DMRG(mpo, ket, device=device, backend=backend,
                       dtype=dtype, iprint=iprint, n_roots=n_roots,
                       proj_mpss=proj_mpss, proj_weights=proj_weights, **kw)
         e = solver.solve(list(bond_dims), list(noises), list(thrds),
-                         n_sweeps=n_sweeps, tol=tol)
+                         n_sweeps=n_sweeps, tol=tol,
+                         twodot_to_onedot=twodot_to_onedot)
         self._last_dmrg = solver
         return e
 
@@ -197,6 +274,112 @@ class DMRGDriver:
                            backend=backend, device=device)
         e = te.solve(n_steps, delta_t, bond_dim)
         return e, te
+
+    # -- linear sweeps, Green's functions, orbital rotation ---------------
+
+    def get_identity_mpo(self, template: MPO) -> MPO:
+        from ..dmrg.linear import identity_mpo
+        return identity_mpo(template)
+
+    def compress_mps(self, ket: MPS, bond_dim: int, template_mpo: MPO,
+                     n_sweeps: int = 8, seed: int = 4321) -> Tuple[MPS, float]:
+        """|x> ~ |ket> at smaller bond dimension, by host sweeps (reference
+        pyblock2/driver/core.py:6300)."""
+        from ..dmrg.linear import Linear, identity_mpo
+        bra = self.get_random_mps(bond_dim, target=ket.info.target, seed=seed)
+        lin = Linear(bra, [(identity_mpo(template_mpo), ket)])
+        nrm = lin.solve(bond_dim, n_sweeps=n_sweeps)
+        return bra, nrm
+
+    def multiply(self, mpo: MPO, ket: MPS, bond_dim: int,
+                 n_sweeps: int = 8, seed: int = 4321) -> Tuple[MPS, float]:
+        """|x> ~ MPO|ket>, by host sweeps (reference
+        pyblock2/driver/core.py:6506)."""
+        from ..dmrg.linear import Linear
+        bra = self.get_random_mps(bond_dim, target=ket.info.target, seed=seed)
+        lin = Linear(bra, [(mpo, ket)])
+        nrm = lin.solve(bond_dim, n_sweeps=n_sweeps)
+        return bra, nrm
+
+    def addition(self, a: MPS, b: MPS, template_mpo: MPO, bond_dim: int,
+                 coeffs: Tuple[float, float] = (1.0, 1.0),
+                 n_sweeps: int = 8, seed: int = 4321) -> Tuple[MPS, float]:
+        """|x> ~ ca|a> + cb|b>, by host sweeps (reference
+        pyblock2/driver/core.py:6702)."""
+        from ..dmrg.linear import Linear, identity_mpo
+        imp = identity_mpo(template_mpo)
+        bra = self.get_random_mps(bond_dim, target=a.info.target, seed=seed)
+        lin = Linear(bra, [(imp, a), (imp, b)], coeffs=list(coeffs))
+        nrm = lin.solve(bond_dim, n_sweeps=n_sweeps)
+        return bra, nrm
+
+    def greens_function(self, h_mpo: MPO, gs: MPS, e0: float, op: str,
+                        site: int, omega: float, eta: float, bond_dim: int,
+                        n_sweeps: int = 6, iprint: int = 0,
+                        squared: bool = False,
+                        n_harmonic_projection: int = 0, device="cuda",
+                        backend: str = "torch_tiled") -> complex:
+        """G(omega) = <gs|op^dag (omega + E0 + i eta - H)^-1 op|gs>
+        (reference pyblock2/driver/core.py:6923; gfdmrg.py:490).  The
+        right-hand side op|gs> is fitted by host sweeps (``Linear``); the
+        correction-vector sweeps run every local matvec on the tiled
+        engine on ``device`` ("cuda" by default, no fallback; kernel K7,
+        complex128), or on the host with backend="numpy".  squared=True:
+        the real squared-operator solve (reference
+        EquationTypes::GreensFunctionSquared, effective_functions.hpp:292)
+        on K7 in float64, optionally with harmonic-Davidson deflation
+        (``dmrg/greens.py`` takes float32 and the local solvers gcrotmk,
+        idrs and lsqr).  The solver is kept as ``self._last_gf``
+        (sweep_log, counters)."""
+        from ..dmrg.greens import GreensFunction, GreensFunctionSquared
+        from ..dmrg.linear import Linear
+        smpo = self.get_site_mpo(op, site)
+        dq = smpo.bond_dqs[-1][0]
+        tb = self.group.add(gs.info.target, dq)
+        b = self.get_random_mps(bond_dim, target=tb, seed=11)
+        Linear(b, [(smpo, gs)]).solve(bond_dim, n_sweeps=n_sweeps)
+        x = self.get_random_mps(bond_dim, target=tb, seed=13)
+        if squared:
+            gf = GreensFunctionSquared(
+                h_mpo, b, x, iprint=iprint,
+                n_harmonic_projection=n_harmonic_projection,
+                backend=backend, device=device)
+        else:
+            gf = GreensFunction(h_mpo, b, x, iprint=iprint, backend=backend,
+                                device=device)
+        self._last_gf = gf
+        return gf.solve(omega + e0, eta, bond_dim, n_sweeps=n_sweeps)
+
+    def orbital_rotation(self, ket: MPS, kappa: np.ndarray,
+                         bond_dim: int, n_steps: int = 10,
+                         iprint: int = 0, device="cuda",
+                         backend: str = "torch_tiled") -> MPS:
+        """Rotate an MPS into a new orbital basis U = exp(kappa)
+        (kappa real antisymmetric): |psi'> = exp(G)|psi> with the
+        one-body generator G = sum_pq kappa_pq E_pq, applied as
+        real-time TDVP under the Hermitian, complex MPO i*G for unit time
+        (the JAX package's driver/core.py:563-588; reference
+        unit_test/test_rotation_h10_sto6g.cpp semantics).  Every Krylov
+        matvec runs on the tiled engine on ``device`` ("cuda" by default,
+        no fallback; kernel K7, complex128), or on the host with
+        backend="numpy".  Mutates and returns ``ket``; the time
+        evolution is kept as ``self._last_te``."""
+        from ..dmrg.tdvp import TimeEvolution
+        kappa = np.asarray(kappa, dtype=np.float64)
+        if not np.allclose(kappa, -kappa.T, atol=1e-12):
+            raise ValueError("kappa must be antisymmetric")
+        b = self.expr_builder()
+        # i*G is Hermitian; exp(-i (iG) t)|t=1 = exp(G)
+        b.add_sum_term("cd", 1j * kappa)
+        b.add_sum_term("CD", 1j * kappa)
+        gmpo = build_mpo(b.finalize(), site_pgs=self.orb_sym)
+        te = TimeEvolution(gmpo, ket, imaginary=False, normalize=False,
+                           iprint=iprint, backend=backend, device=device)
+        self._last_te = te
+        for _ in range(n_steps):
+            te.sweep(True, 1.0 / n_steps, bond_dim)
+            te.sweep(False, 1.0 / n_steps, bond_dim)
+        return ket
 
     # -- analysis of a solved state (reference pyblock2/driver/core.py) ---
 

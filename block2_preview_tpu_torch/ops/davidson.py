@@ -8,7 +8,9 @@ EffectiveHamiltonian2.matvec_np); orthogonalization and the small
 Rayleigh-Ritz problem stay on host in float64.  This is the host solver
 of backend="numpy" and of the CPU-only host redo.
 
-Copied from block2_preview_tpu/ops/davidson.py (the port keeps its own copy).
+Copied from block2_preview_tpu/ops/davidson.py (the port keeps its own copy):
+``davidson`` and ``harmonic_davidson`` (:158-249, the interior eigenpairs
+that deflate the squared Green's-function solve, ``dmrg/greens.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import scipy.linalg as sla
 
 
 def davidson(matvec: Callable[[np.ndarray], np.ndarray],
@@ -155,3 +158,94 @@ def davidson(matvec: Callable[[np.ndarray], np.ndarray],
                 break
             basis.append(v / nv)
     return theta, ritz, nmv
+
+
+def harmonic_davidson(matvec: Callable[[np.ndarray], np.ndarray],
+                      diag: np.ndarray, x0: np.ndarray, shift: float,
+                      n_roots: int = 1, conv_thrd: float = 1e-8,
+                      max_iter: int = 200, max_subspace: int = 30,
+                      ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Interior eigenpairs closest to `shift` via the harmonic Ritz
+    projection (reference iterative_matrix_functions.hpp:1181
+    harmonic_davidson, DavidsonTypes::Harmonic|CloseTo).
+
+    Solves the projected problem  (W^H W) c = (W^H V) c (theta - shift)
+    with W = (A - shift) V; eigenvalues returned as shift + harmonic
+    Ritz values, sorted by |theta - shift|.
+
+    Interior convergence degrades sharply across subspace restarts (the
+    harmonic subspace cannot be summarized by a few Ritz vectors), so
+    max_subspace should be chosen large enough that the run converges
+    before the first restart — matching the reference's usage, which runs
+    harmonic Davidson with large deflation spaces
+    (iterative_matrix_functions.hpp:1181)."""
+    n = diag.shape[0]
+    x0 = x0.reshape(-1, 1) if x0.ndim == 1 else x0
+    nroots = min(n_roots, n)
+    max_sub = min(max(max_subspace, nroots * 4), n)
+    dtype = np.result_type(np.float64, x0.dtype, diag.dtype)
+    basis: List[np.ndarray] = []
+    for i in range(x0.shape[1]):
+        v = x0[:, i].astype(dtype)
+        for b in basis:
+            v -= np.vdot(b, v) * b
+        nv = np.linalg.norm(v)
+        if nv > 1e-12:
+            basis.append(v / nv)
+    while len(basis) < nroots:
+        v = np.random.RandomState(len(basis)).standard_normal(n)
+        v = v.astype(dtype)
+        for b in basis:
+            v -= np.vdot(b, v) * b
+        basis.append(v / np.linalg.norm(v))
+    sigmas: List[np.ndarray] = []
+    nmv = 0
+    for it in range(max_iter):
+        while len(sigmas) < len(basis):
+            sigmas.append(np.asarray(matvec(basis[len(sigmas)]))
+                          - shift * basis[len(sigmas)])
+            nmv += 1
+        B = np.stack(basis, axis=1)
+        W = np.stack(sigmas, axis=1)
+        # harmonic Ritz pencil: (W^H W) c = (theta - shift) (W^H V) c
+        mu, c = sla.eig(W.conj().T @ W, W.conj().T @ B)
+        order = np.argsort(np.abs(mu))
+        thetas = shift + mu[order].real
+        c = c[:, order]
+        theta = thetas[:nroots]
+        ritz = B @ c[:, :nroots]
+        for i in range(nroots):
+            ritz[:, i] /= np.linalg.norm(ritz[:, i])
+        rvecs = np.stack([np.asarray(matvec(ritz[:, i]))
+                          - theta[i] * ritz[:, i]
+                          for i in range(nroots)], axis=1)
+        nmv += nroots
+        rn2 = (np.abs(rvecs) ** 2).sum(axis=0)
+        if rn2.max() < conv_thrd:
+            return theta.real, ritz, nmv
+        if len(basis) + nroots > max_sub:
+            # thick restart: keep several harmonic Ritz vectors — a
+            # nroots-only restart discards the interior subspace and stalls
+            keep = min(2 * nroots + 4, len(basis))
+            rv = B @ c[:, :keep]
+            basis = []
+            for i in range(keep):
+                v = rv[:, i].copy()
+                for b in basis:
+                    v -= np.vdot(b, v) * b
+                nv = np.linalg.norm(v)
+                if nv > 1e-10:
+                    basis.append(v / nv)
+            sigmas = []
+            continue
+        for i in range(nroots):
+            denom = diag - theta[i].real
+            denom = np.where(np.abs(denom) < 1e-12, 1e-12, denom)
+            v = rvecs[:, i] / denom
+            for b in basis:
+                v -= np.vdot(b, v) * b
+            nv = np.linalg.norm(v)
+            if nv > 1e-10:
+                basis.append(v / nv)
+        sigmas = sigmas[:len(basis)]
+    return theta.real, ritz, nmv

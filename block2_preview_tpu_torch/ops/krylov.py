@@ -1,19 +1,22 @@
-"""Krylov-subspace exponential exp(scale * H) v (host Lanczos).
+"""Krylov-subspace exponential exp(scale * H) v and the GMRES / CG linear
+solvers (host Krylov loops around an opaque matvec).
 
-Copied from block2_preview_tpu/ops/krylov.py:20-61 (reference
-src/core/iterative_matrix_functions.hpp:1571 expo_krylov): Lanczos with
-full reorthogonalization on the host around an opaque matvec — the
-device matvec of the tiled engine (kernel K7) in time evolution — and the
-small tridiagonal exponential by scipy.  The linear solvers of Green's
-functions (``gmres_solve``/``cg_solve``) come with that slice.
+Copied from block2_preview_tpu/ops/krylov.py:20-103 (reference
+src/core/iterative_matrix_functions.hpp:1571 expo_krylov, :1985 conjugate
+gradient): Lanczos with full reorthogonalization on the host around the
+device matvec of the tiled engine (kernel K7) in time evolution, and the
+small tridiagonal exponential by scipy; ``gmres_solve`` and ``cg_solve``
+wrap scipy's GMRES and CG around the same kind of matvec, the local
+solvers of the Green's-function sweeps (``dmrg/greens.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import scipy.linalg as sla
+import scipy.sparse.linalg as spla
 
 
 def expmv(matvec: Callable[[np.ndarray], np.ndarray], v: np.ndarray,
@@ -58,3 +61,45 @@ def expmv(matvec: Callable[[np.ndarray], np.ndarray], v: np.ndarray,
     V = np.stack(vs[:len(alphas)], axis=1)
     out = nrm0 * (V @ eT[:, 0].astype(np.result_type(dtype, eT.dtype)))
     return out, nmv
+
+
+def gmres_solve(matvec: Callable[[np.ndarray], np.ndarray],
+                rhs: np.ndarray, x0: Optional[np.ndarray] = None,
+                tol: float = 1e-10, maxiter: int = 200,
+                dtype=np.complex128) -> Tuple[np.ndarray, int]:
+    """GMRES on an implicitly-defined operator (the local solver of the
+    correction-vector / Green's-function sweeps; plays the role of the
+    reference's GCROT(m,k)/IDR(s)/LSQR family).  Returns (x, n_matvec)."""
+    n = rhs.shape[0]
+    count = [0]
+
+    def mv(x):
+        count[0] += 1
+        return matvec(x.astype(dtype))
+
+    op = spla.LinearOperator((n, n), matvec=mv, dtype=dtype)
+    x, _info = spla.gmres(op, rhs.astype(dtype),
+                          x0=None if x0 is None else x0.astype(dtype),
+                          rtol=tol, maxiter=maxiter)
+    return x, count[0]
+
+
+def cg_solve(matvec, rhs, x0=None, tol=1e-10, maxiter=200, diag=None):
+    """Conjugate gradient for positive-definite operators (reference
+    iterative_matrix_functions.hpp:1985).  diag: Jacobi preconditioner
+    (the reference's `aa` diagonal).  Returns (x, n_matvec)."""
+    n = rhs.shape[0]
+    count = [0]
+
+    def mv(x):
+        count[0] += 1
+        return matvec(x)
+
+    op = spla.LinearOperator((n, n), matvec=mv, dtype=rhs.dtype)
+    M = None
+    if diag is not None:
+        d = np.where(np.abs(diag) < 1e-12, 1.0, diag)
+        M = spla.LinearOperator((n, n), matvec=lambda x: x / d,
+                                dtype=rhs.dtype)
+    x, _info = spla.cg(op, rhs, x0=x0, rtol=tol, maxiter=maxiter, M=M)
+    return x, count[0]

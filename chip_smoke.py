@@ -4,7 +4,8 @@ Drives the port's main path on one CUDA card and checks it against the
 port's own host reference (backend="numpy", held equal to the JAX
 package's host path by the CPU tests):
 
-  1. device    card name and power limit (nvidia-smi), torch / CUDA
+  1. device    card name and power limit (nvidia-smi), torch / CUDA /
+               scipy (the Krylov solvers call scipy with rtol=)
   2. build     nvcc builds kernels K1-K22 from block2_preview_tpu_torch/csrc
                (one nvcc per source, all at once)
   4. parity    Hubbard-L8, D=80, 6 sweeps with noise, f64: |dE| < 1e-8 Ha
@@ -135,6 +136,39 @@ package's host path by the CPU tests):
                pooled_gram(state, 2, device=mesh, device_min_flop=0) on
                10a's ground state against one device's Gram to 1e-12 (K17
                launched on each rank)
+  12a. gf      Hubbard-L8, phase 4's ground state: one Green's-function
+               point, d_0 at E0 - 0.4 + 0.05i, through
+               DMRGDriver.greens_function (Linear fit of d_0|gs>, D=80, 4
+               sweeps) on K7 c128, the same |b> on the host backend, and
+               the squared form on K7 f64 with and without two harmonic
+               projections; each against exact diagonalization (the N-1
+               sector, 3920 states, in a worker) to 5e-5, the complex one
+               against the host to 1e-8; fails unless K7 launched once a
+               matvec with no host matvec; then compress_mps (D=60),
+               multiply and addition (D=160) on the state with
+               tests/test_linear.py's bars
+  12b. gf      the K=16 state phase 5 leaves: greens_function(mpo, ket5,
+               e5, "d", 0, -0.4, 0.05, 250, n_sweeps=2) on K7 c128; per
+               sweep the wall split (blocking, LW/RW assembly, struct,
+               pack, tables, solve, decimation), K7 launches, matvecs and
+               GMRES matvecs a site (largest, median), and G; fails unless
+               G is finite with Im G < 0, K7 launched once a matvec and
+               no host matvec ran; then K7's c128 sigma at center 7 of
+               the solve's own Hamiltonian environments (complex |x>)
+               against matvec_np to 1e-12 relative
+  12c. rotation Hubbard-L8, phase 4's state: orbital_rotation by a seeded
+               antisymmetric kappa (scale 0.12; D=200, 6 steps) on K7 c128
+               under the complex MPO i*G, against the host backend (in a
+               worker): the energies under the rotated integrals to 1e-8
+               Ha, within 3e-4 Ha of E0, and more than 1e-3 Ha off E0
+               under the unrotated ones; fails unless K7 launched once a
+               matvec on the complex operator pools
+  12d. onedot  Hubbard-L8, 6a's start and schedule with
+               twodot_to_onedot=4 on torch_tiled (K7) and torch (K8), and
+               one last_site_1site solve on torch_tiled, each within 1e-8
+               Ha of the host backend's run (in workers); fails unless the
+               kernel launched in both one-site sweeps
+               (EffectiveHamiltonian1 forward, 1R backward)
   3. kernels   each kernel against its plain PyTorch twin on the card, at
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
@@ -237,13 +271,13 @@ terminates them before it exits.  The last line is {"ok": true,
 "device": {...}}; the line before it is the per-kernel JSON summary:
 K1-K6 and K8-K12 from their f64 rows at the K=16 site, K7 from its
 complex128 row on phase 6b's state, with the launches of phases 5
-(K1-K6), 6b (K7), 7b (K8, K9), 8b (K10, K11), 8c (K12), 9b (K13, K14)
-and 9c (K15), 10b (K17), 10d (K18), 10c (K19) and 11b (K20-K22, both
+(K1-K6), 6b and 12 (K7), 7b (K8, K9), 8b (K10, K11), 8c (K12), 9b (K13,
+K14) and 9c (K15), 10b (K17), 10d (K18), 10c (K19) and 11b (K20-K22, both
 ranks summed; the rows' times are the two shares' summed).  No path runs the v1
 slab matvec (K16), as in the JAX package: its launches are those counted
 in the runs of phases 5, 7b, 8b, 8c, 9b and 9c, each from a reset, and
-the script fails unless they are 0.  The host references of phases 10a
-and 10b run in two more workers.
+the script fails unless they are 0.  The host references of phases 10a,
+10b and 12 run in the same workers.
 """
 
 from __future__ import annotations
@@ -471,10 +505,11 @@ def phase_device():
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    import scipy
     print(f"[1 device] {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}  torch {torch.__version__}  "
-          f"cuda {torch.version.cuda}  python {sys.version.split()[0]}",
-          flush=True)
+          f"cuda {torch.version.cuda}  python {sys.version.split()[0]}  "
+          f"scipy {scipy.__version__}", flush=True)
 
 
 def _kernel_source_name(mangled: str):
@@ -2388,7 +2423,7 @@ def phase_hubbard(device):
           f"dE {de:.2e}", flush=True)
     if not abs(de) < HUB_TOL:
         fail(f"Hubbard parity |dE| {abs(de):.3e} >= {HUB_TOL}")
-    return e_ref
+    return e_ref, drv._last_dmrg.mps
 
 
 def phase_tiled_parity(device, L=8, D=80, ns=6, e_ref=None):
@@ -2492,6 +2527,347 @@ def phase_tdvp(device, drv, mpo, ket, D=250, dt=0.02):
     if not abs(1.0 - nrm) <= dw + NORM_TOL:
         fail(f"|1 - |psi|| {abs(1.0 - nrm):.3e} exceeds the discarded "
              f"weight {dw:.3e} + {NORM_TOL}")
+    return k7
+
+
+# ---------------------------------------------------------------------------
+# phase 12: Green's functions, linear sweeps, orbital rotation and one-site
+# sweeps (K7, K8)
+# ---------------------------------------------------------------------------
+
+GF_OMEGA, GF_ETA = -0.4, 0.05   # phase 12: omega relative to E0, eta
+GF_ED_TOL = 5e-5    # phase 12a: G against ED (tests/test_td_gf.py:94)
+GF_HOST_TOL = 1e-8  # phase 12a: the K7 G against the host backend's
+ROT_TOL = 1e-8      # Ha, phase 12c: K7 rotation against the host's
+TROTTER_TOL = 3e-4  # Ha, phase 12c: the rotated energy against E0
+SIGMA_TOL = 1e-12   # phase 12b: K7 c128 against matvec_np, relative
+ROT_D, ROT_STEPS = 200, 6   # phase 12c: bond dimension, TDVP steps
+
+
+def hubbard_gf_ed(L=8):
+    """(G, E0, N-1 sector size) of Hubbard-L (U=2, t=1, half filling) by
+    exact diagonalization: G = <gs|d0^+ (E0 + omega + i eta - H)^-1
+    d0|gs> in the N-1, 2Sz=-1 sector (sparse Lanczos for the ground
+    state, a sparse solve for the resolvent)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    from block2_preview_tpu_torch.core.expr import (build_term_table,
+                                                    qc_term_table)
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.ops.local_ops import DES_A
+    from block2_preview_tpu_torch.utils.ed import (sector_indices,
+                                                   term_table_to_sparse)
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    h = term_table_to_sparse(qc_term_table(fd)).tocsr()
+    ixn = sector_indices(L, L, 0)
+    ixm = sector_indices(L, L - 1, -1)
+    w, v = spla.eigsh(h[ixn][:, ixn], k=1, which="SA")
+    e0 = float(w[0]) + fd.const_e
+    d0 = term_table_to_sparse(build_term_table(L, [(1.0, [(0, DES_A)])]))
+    bvec = d0.tocsr()[ixm][:, ixn] @ v[:, 0]
+    z = e0 + GF_OMEGA + 1j * GF_ETA
+    a = (z - fd.const_e) * sp.identity(len(ixm), format="csc") \
+        - h[ixm][:, ixm].tocsc()
+    return complex(np.vdot(bvec, spla.spsolve(a, bvec))), e0, len(ixm)
+
+
+def _gf_run(tag, device, make, omega, eta, D, n_sweeps):
+    """Run one Green's-function solve (``make()`` builds it) from a count
+    reset; print its value, matvecs and K7 launches; fail unless K7
+    launched once a matvec with no host matvec (on a card).  Returns (G,
+    the solver, its K7 launches)."""
+    from block2_preview_tpu_torch.ops import _kernels
+    _kernels.reset_counts()
+    t0 = time.time()
+    gf = make()
+    g = gf.solve(omega, eta, D, n_sweeps=n_sweeps)
+    wall = time.time() - t0
+    k7 = _kernels.launch_counts()["K7_tiled"]
+    print(f"[12a gf] {tag}: G = {g.real:+.12f} {g.imag:+.12f}i ({wall:.1f} "
+          f"s, {len(gf.sweep_log)} sweeps, {gf.n_matvec} matvecs, K7 "
+          f"launches {k7}, host matvecs {gf.host_matvec_count})",
+          flush=True)
+    gf_launch_rules(tag, gf, k7, device)
+    return g, gf, k7
+
+
+def gf_launch_rules(tag, gf, k7, device):
+    """A Green's function on the card: K7 launched, once a matvec, and no
+    matvec on the host."""
+    if gf.backend == "numpy":
+        return
+    if gf.host_matvec_count != 0:
+        fail(f"{tag} ran {gf.host_matvec_count} host matvecs")
+    if device.type == "cuda" and not (k7 > 0 and k7 == gf.n_matvec):
+        fail(f"{tag}: K7 launches {k7} != matvecs {gf.n_matvec}")
+
+
+def phase_gf_hubbard(device, gs, e0, ed, L=8, D=80, n_sweeps=4):
+    """Phase 12a: the Green's function of Hubbard-L's state ``gs`` (energy
+    ``e0``) at E0 - 0.4 + 0.05i: the driver's complex form on K7 c128
+    (its right-hand side d0|gs> by Linear), the same |b> on the host
+    backend, the squared form on K7 f64 with and without harmonic
+    projection; each against ED (``ed`` from :func:`hubbard_gf_ed`) to
+    5e-5, the complex one against the host to 1e-8; then compress_mps,
+    multiply and addition on ``gs`` with tests/test_linear.py's bars.
+    Returns the K7 launches of the device runs."""
+    from block2_preview_tpu_torch.dmrg.expect import (mpo_expectation,
+                                                      mps_overlap)
+    from block2_preview_tpu_torch.dmrg.greens import (GreensFunction,
+                                                      GreensFunctionSquared)
+    from block2_preview_tpu_torch.ops import _kernels
+    drv, mpo = hubbard_model(L)
+    g_ed, e_ed, n_ed = ed
+    omega = e0 + GF_OMEGA
+    _kernels.reset_counts()
+    t0 = time.time()
+    g = drv.greens_function(mpo, gs, e0, "d", 0, GF_OMEGA, GF_ETA, D,
+                            n_sweeps=n_sweeps, device=device)
+    gf = drv._last_gf
+    k7 = _kernels.launch_counts()["K7_tiled"]
+    print(f"[12a gf] Hubbard-L{L} D={D} d_0 at E0 {GF_OMEGA:+} "
+          f"{GF_ETA:+}i: ED (N-1 sector {n_ed} states, E0 {e_ed:.12f}) "
+          f"G = {g_ed.real:+.12f} {g_ed.imag:+.12f}i", flush=True)
+    print(f"[12a gf] greens_function K7 c128: G = {g.real:+.12f} "
+          f"{g.imag:+.12f}i ({time.time() - t0:.1f} s with the Linear fit"
+          f" of b, {len(gf.sweep_log)} sweeps, {gf.n_matvec} matvecs, K7 "
+          f"launches {k7})", flush=True)
+    gf_launch_rules("12a complex", gf, k7, device)
+    launches = k7
+    b, tb = gf.b, gf.b.info.target
+
+    def x0():
+        return drv.get_random_mps(D, target=tb, seed=13)
+
+    g_host, _, _ = _gf_run("host (numpy) complex", device, lambda:
+                           GreensFunction(mpo, b, x0(), backend="numpy"),
+                           omega, GF_ETA, D, n_sweeps)
+    vals = {"complex K7 c128": g}
+    for nhp in (0, 2):
+        vals[f"squared K7 f64 nhp={nhp}"], _, k = _gf_run(
+            f"squared K7 f64 n_harmonic_projection={nhp}", device,
+            lambda: GreensFunctionSquared(mpo, b, x0(), device=device,
+                                          n_harmonic_projection=nhp),
+            omega, GF_ETA, D, n_sweeps)
+        launches += k
+    dh = abs(g - g_host)
+    print(f"[12a gf] |G - G_host| {dh:.2e}; |G - G_ED|: " + ", ".join(
+        f"{k} {abs(v - g_ed):.2e}" for k, v in vals.items()), flush=True)
+    if not dh < GF_HOST_TOL:
+        fail(f"12a: K7 Green's function {dh:.3e} from the host's")
+    for k, v in vals.items():
+        if not abs(v - g_ed) < GF_ED_TOL:
+            fail(f"12a: {k} Green's function {abs(v - g_ed):.3e} from ED")
+    t0 = time.time()
+    bra, nrm = drv.compress_mps(gs, 60, mpo, n_sweeps=4)
+    ov = mps_overlap(bra, gs)
+    de = mpo_expectation(mpo, bra) / mps_overlap(bra, bra) - e0
+    prod, _ = drv.multiply(mpo, gs, D, n_sweeps=4)
+    dm = mps_overlap(prod, gs) - (e0 - mpo.const_e)
+    r = drv.get_random_mps(30, seed=99)
+    x, _ = drv.addition(gs, r, mpo, 160, n_sweeps=4)
+    da = mps_overlap(x, x) - (mps_overlap(gs, gs) + mps_overlap(r, r)
+                              + 2 * mps_overlap(gs, r))
+    print(f"[12a linear] compress_mps D=60: |nrm - 1| {abs(nrm - 1):.2e} "
+          f"<x|gs> {ov:.10f} dE {de:.2e}; multiply: <Hgs|gs> - (E0 - "
+          f"E_const) {dm:.2e}; addition D=160: d<x|x> {da:.2e} "
+          f"({time.time() - t0:.1f} s, host sweeps)", flush=True)
+    if not (abs(nrm - 1) < 1e-6 and ov > 0.99999 and abs(de) < 1e-5
+            and abs(dm) < 1e-6 and abs(da) < 1e-8):
+        fail("12a: a linear sweep missed tests/test_linear.py's bars")
+    return launches
+
+
+def phase_gf_full(device, drv, mpo, ket, e0, D=250, n_sweeps=2, t=7):
+    """Phase 12b: one Green's-function point of the K=16 state ``ket``
+    (energy ``e0``) at full width, complex, on K7 c128: per sweep the
+    wall split, K7 launches, matvecs and GMRES matvecs a site, and G;
+    fails unless G is finite with Im G < 0, K7 launched once a matvec and
+    no matvec ran on the host.  Then K7's c128 sigma at center ``t`` of
+    the solve's own Hamiltonian environments (complex |x>) against
+    ``matvec_np`` to 1e-12 relative.  Returns the K7 launches of the
+    solve."""
+    import torch
+    from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+    from block2_preview_tpu_torch.ops import _kernels
+    from block2_preview_tpu_torch.ops.tiled import TiledExecutor
+    _kernels.reset_counts()
+    t0 = time.time()
+    g = drv.greens_function(mpo, ket, e0, "d", 0, GF_OMEGA, GF_ETA, D,
+                            n_sweeps=n_sweeps, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    gf = drv._last_gf
+    k7 = _kernels.launch_counts()["K7_tiled"]
+    log = gf.sweep_log
+    init = wall - sum(r["wall"] for r in log)
+    print(f"[12b gf] K={mpo.n_sites} D={D} d_0 at E0 {GF_OMEGA:+} "
+          f"{GF_ETA:+}i: {wall:.1f} s (Linear fit of b and environment init "
+          f"{init:.1f} s)", flush=True)
+    for r in log:
+        sm = r["site_matvecs"]
+        print(f"[12b gf] sweep {'F' if r['forward'] else 'B'} wall "
+              f"{r['wall']:.1f} s  blk {r['blk']:.1f} asm {r['asm']:.1f} "
+              f"struct {r['struct']:.1f} pack+upload {r['pack']:.1f} "
+              f"tables {r['tables']:.2f} solve {r['solve']:.1f} dm "
+              f"{r['dm']:.1f}  K7 launches {r['k7_launches']} matvecs "
+              f"{r['matvecs']} GMRES matvecs a site max {max(sm)} median "
+              f"{int(np.median(sm))}", flush=True)
+    print(f"[12b gf] G = {g.real:+.12f} {g.imag:+.12f}i  K7 launches {k7} "
+          f"matvecs {gf.n_matvec} host matvecs {gf.host_matvec_count}",
+          flush=True)
+    nums = [g.real, g.imag] + [v for r in log for v in r.values()
+                               if isinstance(v, float)]
+    if not np.isfinite(nums).all():
+        fail(f"phase 12b: a number is not finite ({nums})")
+    if not g.imag < 0:
+        fail(f"phase 12b: Im G = {g.imag:.3e} is not negative")
+    gf_launch_rules("12b", gf, k7, device)
+    me = gf.me_h
+    for s in range(t):
+        me.update_left(s)
+    eff = EffectiveHamiltonian2(me, t)
+    v = eff.flatten(eff.initial_guess())
+    ex = TiledExecutor(eff, dtype=np.complex128, device=device)
+    got = ex.matvec(v)
+    ex.free()
+    ref = eff.matvec_np(v)
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"[12b gf] K7 c128 at the solve's center {t} ({eff.size} "
+          f"unknowns, {np.dtype(eff.dtype)} operator, |x> "
+          f"{np.dtype(v.dtype)}) against matvec_np: {err:.2e} relative",
+          flush=True)
+    if not (np.iscomplexobj(v) and err < SIGMA_TOL):
+        fail(f"12b: K7 c128 {err:.3e} from matvec_np (complex |x>: "
+             f"{np.iscomplexobj(v)})")
+    return k7
+
+
+def rotation_case(L=8):
+    """(kappa, the rotated MPO) of Hubbard-L under U = exp(kappa), kappa a
+    seeded antisymmetric matrix of scale 0.12 (tests/test_td_gf.py:142-172's
+    recipe)."""
+    import scipy.linalg as sla
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    drv, _ = hubbard_model(L)
+    fd = FCIDUMP.hubbard(L, u=2, t=1)
+    k = np.random.RandomState(5).standard_normal((L, L)) * 0.12
+    kappa = k - k.T
+    u = sla.expm(kappa)
+    g2 = np.einsum("pi,qj,rk,sl,pqrs->ijkl", u.T, u.T, u.T, u.T, fd.g2e,
+                   optimize=True)
+    return kappa, drv.get_qc_mpo(h1e=u @ fd.h1e @ u.T, g2e=g2,
+                                 ecore=fd.const_e)
+
+
+def rotated_energies(ket, L=8):
+    """<H> of ``ket`` under the rotated and under the unrotated
+    Hubbard-L Hamiltonian."""
+    from block2_preview_tpu_torch.dmrg.expect import mpo_expectation
+    _, mpo = hubbard_model(L)
+    _, rot = rotation_case(L)
+    return tuple(float(np.real(mpo_expectation(m, ket)) + m.const_e)
+                 for m in (rot, mpo))
+
+
+def host_rotation(gs, L=8, D=ROT_D, n_steps=ROT_STEPS):
+    """:func:`rotated_energies` of ``gs`` rotated on the host backend."""
+    drv, _ = hubbard_model(L)
+    ket = copy_mps(gs)
+    drv.orbital_rotation(ket, rotation_case(L)[0], D, n_steps=n_steps,
+                         backend="numpy")
+    return rotated_energies(ket, L)
+
+
+def phase_rotation(device, gs, e0, host, L=8, D=ROT_D, n_steps=ROT_STEPS):
+    """Phase 12c: orbital_rotation of Hubbard-L's state ``gs`` (energy
+    ``e0``) on K7 c128 under the complex MPO i*G, against the host run
+    ``host`` (:func:`host_rotation`): the energies under the rotated
+    integrals to 1e-8 Ha, within 3e-4 Ha of E0 (the Trotter bar), and
+    more than 1e-3 Ha from E0 under the unrotated ones.  Returns the K7
+    launches."""
+    from block2_preview_tpu_torch.ops import _kernels
+    drv, _ = hubbard_model(L)
+    kappa, _ = rotation_case(L)
+    _kernels.reset_counts()
+    t0 = time.time()
+    ket = copy_mps(gs)
+    drv.orbital_rotation(ket, kappa, D, n_steps=n_steps, device=device)
+    wall = time.time() - t0
+    te = drv._last_te
+    k7 = _kernels.launch_counts()["K7_tiled"]
+    e_rot, e_old = rotated_energies(ket, L)
+    h_rot, h_old = host.get()
+    cplx = any(np.iscomplexobj(w) for ent in te.mpo.tensors
+               for w in ent.values())
+    print(f"[12c rotation] Hubbard-L{L} D={D} {n_steps} steps: {wall:.1f} s"
+          f", {te.n_matvec} matvecs, K7 launches {k7}, host matvecs "
+          f"{te.host_matvec_count}, complex MPO {cplx}; E under the rotated"
+          f" integrals {e_rot:.12f} (host {h_rot:.12f}, dE "
+          f"{e_rot - h_rot:.2e}; E0 {e0:.12f}, {e_rot - e0:.2e}), under "
+          f"the old {e_old:.12f} ({e_old - e0:.2e})", flush=True)
+    if not (abs(e_rot - h_rot) < ROT_TOL and abs(e_old - h_old) < ROT_TOL):
+        fail(f"12c: rotated energies {e_rot - h_rot:.3e} / "
+             f"{e_old - h_old:.3e} from the host's")
+    if not (abs(e_rot - e0) < TROTTER_TOL and abs(e_old - e0) > 1e-3):
+        fail(f"12c: rotated energy {e_rot - e0:.3e} from E0, unrotated "
+             f"{e_old - e0:.3e}")
+    if not cplx or te.host_matvec_count != 0:
+        fail(f"12c: complex MPO {cplx}, host matvecs "
+             f"{te.host_matvec_count}")
+    if device.type == "cuda" and not (k7 > 0 and k7 == te.n_matvec):
+        fail(f"12c: K7 launches {k7} != matvecs {te.n_matvec}")
+    return k7
+
+
+def onedot_sched(D=80, ns=6):
+    """Phase 12d's schedule: 6a's, one-site from sweep 4."""
+    return dict(hub_sched(D, ns), twodot_to_onedot=4)
+
+
+def host_onedot(L=8, D=80, ns=6, last_site_1site=False):
+    """The host backend's energy of phase 12d's run."""
+    drv, mpo = hubbard_model(L)
+    sched = hub_sched(D, ns) if last_site_1site else onedot_sched(D, ns)
+    return drv.dmrg(mpo, drv.get_random_mps(D, seed=7), backend="numpy",
+                    last_site_1site=last_site_1site, **sched)
+
+
+def phase_onedot(device, hosts, L=8, D=80, ns=6):
+    """Phase 12d: Hubbard-L from 6a's start with twodot_to_onedot=4 on
+    torch_tiled (K7) and torch (K8), and one last_site_1site solve on
+    torch_tiled, each within 1e-8 Ha of the host backend's run (``hosts``:
+    :func:`host_onedot`'s results for the two schedules); fails unless
+    the kernel launched in both one-site sweeps (EffectiveHamiltonian1
+    forward, 1R backward).  Returns the K7 launches."""
+    from block2_preview_tpu_torch.ops import _kernels
+    drv, mpo = hubbard_model(L)
+    e_host, e_ls1 = (h.get() for h in hosts)
+    k7 = 0
+    for backend, kernel, ls1 in (("torch_tiled", "K7_tiled", False),
+                                 ("torch", "K8_bucket", False),
+                                 ("torch_tiled", "K7_tiled", True)):
+        sched = hub_sched(D, ns) if ls1 else onedot_sched(D, ns)
+        _kernels.reset_counts()
+        t0 = time.time()
+        e = drv.dmrg(mpo, drv.get_random_mps(D, seed=7), device=device,
+                     backend=backend, last_site_1site=ls1, **sched)
+        wall = time.time() - t0
+        log = drv._last_dmrg.sweep_log
+        per = [r["launches"][kernel] for r in log]
+        k7 += _kernels.launch_counts()["K7_tiled"]
+        ref = e_ls1 if ls1 else e_host
+        tag = f"{backend} {'last_site_1site' if ls1 else 'twodot_to_onedot=4'}"
+        print(f"[12d onedot] Hubbard-L{L} D={D} x{ns} {tag}: {e:.12f} "
+              f"({wall:.1f} s, {kernel} launches a sweep {per}) host "
+              f"{ref:.12f} dE {e - ref:.2e}", flush=True)
+        if not abs(e - ref) < HUB_TOL:
+            fail(f"12d {tag}: |dE| {abs(e - ref):.3e} >= {HUB_TOL}")
+        # the one-site steps: sweeps 4 and 5, or every sweep's last site
+        if device.type == "cuda" and not all(per[0 if ls1 else 4:]):
+            fail(f"12d {tag}: {kernel} did not launch in a sweep with "
+                 f"one-site steps ({per})")
     return k7
 
 
@@ -3680,7 +4056,7 @@ def main():
     with host_pool() as pool:
         ref5 = pool.apply_async(timed_host_reference, (
             mpo, drv.get_random_mps(D, seed=11), qc_sched(D)))
-        e_hub = phase_hubbard(device)
+        e_hub, gs_hub = phase_hubbard(device)
         hub = hubbard_npdm_states(device)
         ref10a = pool.apply_async(npdm_host_refs, hub[3:])
         counts, ket, e5, e5_0 = phase_full(device, drv, mpo, D=D,
@@ -3731,6 +4107,10 @@ def main():
         counts["K19_probe"] = phase_probes(device)
         counts["K18_plan_exec"] = phase_plan_exec(device)
         at("phases 8-10")
+        ed12 = pool.apply_async(hubbard_gf_ed)
+        rot12 = pool.apply_async(host_rotation, (gs_hub,))
+        one12 = [pool.apply_async(host_onedot, kwds={"last_site_1site": ls1})
+                 for ls1 in (False, True)]
         r5 = ref5.get()
         check_full(e5, r5, n_orb)
         check_stacked(e8b, e8c, e5, r5)
@@ -3741,6 +4121,15 @@ def main():
             counts[k] = sum(r["launches"][k] for r in res11)
         counts["K22_plan_exec_shard"] = sum(r["k22"] for r in res11)
         at("phase 11 (the host references waited for)")
+        k12 = phase_gf_hubbard(device, gs_hub, e_hub, ed12.get())
+        at("phase 12a")
+        k12 += phase_gf_full(device, drv, mpo, ket5, e5, D=D)
+        at("phase 12b")
+        k12 += phase_rotation(device, gs_hub, e_hub, rot12)
+        at("phase 12c")
+        k12 += phase_onedot(device, one12)
+        counts["K7_tiled"] += k12
+        at("phase 12d")
         site = mid_site(mpo, ket5, t)
         rows = phase_kernels(device, mpo, ket5, t, site=site)
         eff = EffectiveHamiltonian2(site[0], t)

@@ -709,3 +709,72 @@ def test_shard_ranks_fail_on_a_rank_error(capsys):
     with pytest.raises(SystemExit):
         chip_smoke.run_ranks(cfg, deadline=60)
     assert "KeyError: 'L'" in capsys.readouterr().out
+
+
+class _Ready:
+    """A worker's result already in hand (``multiprocessing``'s
+    ``AsyncResult.get``)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def get(self):
+        return self.value
+
+
+def test_chip_smoke_gf_phases_on_cpu(capsys):
+    """Phases 12a-12d at a small size on the CPU (K7's and K8's plain
+    versions): the Hubbard-L4 Green's function against ED and the host,
+    the linear sweeps' bars, one K=4 QC point with its per-sweep split and
+    the K7-vs-matvec_np check at the solve's center, orbital rotation
+    against the host run and one-site sweeps against theirs."""
+    dev = torch.device("cpu")
+    L, D = 4, 16
+    drv, mpo = chip_smoke.hubbard_model(L)
+    gs = drv.get_random_mps(D, seed=7)
+    e0 = drv.dmrg(mpo, gs, backend="numpy", **chip_smoke.hub_sched(D, 6))
+    ed = chip_smoke.hubbard_gf_ed(L)
+    assert abs(ed[1] - e0) < 1e-9 and ed[2] == 24    # C(4,1) C(4,2)
+    assert chip_smoke.phase_gf_hubbard(dev, gs, e0, ed, L=L, D=D) == 0
+    qdrv, qmpo, _ = chip_smoke.qc_system(4, 4)
+    ket = qdrv.get_random_mps(D, seed=11)
+    e5 = qdrv.dmrg(qmpo, ket, bond_dims=[D], noises=[1e-4, 0],
+                   thrds=[1e-12], n_sweeps=2, tol=0, iprint=0,
+                   backend="numpy")
+    assert chip_smoke.phase_gf_full(dev, qdrv, qmpo, ket, e5, D=D, t=1) == 0
+    host = chip_smoke.host_rotation(gs, L=L, D=D)
+    assert chip_smoke.phase_rotation(dev, gs, e0, _Ready(host), L=L,
+                                     D=D) == 0
+    hosts = [_Ready(chip_smoke.host_onedot(L=L, D=D, last_site_1site=ls1))
+             for ls1 in (False, True)]
+    assert chip_smoke.phase_onedot(dev, hosts, L=L, D=D) == 0
+    out = capsys.readouterr().out
+    for k in ("[12a gf] Hubbard-L4 D=16", "[12a gf] greens_function K7",
+              "[12a gf] host (numpy) complex", "n_harmonic_projection=2",
+              "[12a linear] compress_mps", "[12b gf] sweep F",
+              "[12b gf] sweep B", "GMRES matvecs a site max",
+              "[12b gf] K7 c128 at the solve's center 1",
+              "[12c rotation] Hubbard-L4", "[12d onedot] Hubbard-L4",
+              "torch twodot_to_onedot=4", "torch_tiled last_site_1site"):
+        assert k in out, k
+
+
+def test_gf_and_rotation_phases_fail_off_their_references():
+    """12a fails on a Green's function away from ED, 12c on a rotation
+    away from the host's, 12d on an energy away from the host's."""
+    dev = torch.device("cpu")
+    L, D = 4, 16
+    drv, mpo = chip_smoke.hubbard_model(L)
+    gs = drv.get_random_mps(D, seed=7)
+    e0 = drv.dmrg(mpo, gs, backend="numpy", **chip_smoke.hub_sched(D, 6))
+    g, e_ed, n = chip_smoke.hubbard_gf_ed(L)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_gf_hubbard(dev, gs, e0, (g + 1e-4, e_ed, n), L=L,
+                                    D=D)
+    e_rot, e_old = chip_smoke.host_rotation(gs, L=L, D=D)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_rotation(dev, gs, e0, _Ready((e_rot + 1e-7,
+                                                       e_old)), L=L, D=D)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_onedot(dev, [_Ready(e0 + 1e-6), _Ready(e0)], L=L,
+                                D=D)
