@@ -3,7 +3,7 @@
 Copied from block2_preview_tpu/driver/core.py (reference
 pyblock2/driver/core.py:544: initialize_system at :854, get_qc_mpo at :3282
 with FastBipartite, get_mpo at :3885, dmrg at :4437, get_random_mps at
-:7494) and cut to SZ.  The other methods of the reference driver come back
+:7494) and cut to the SZ and SU2 modes.  The other methods of the reference driver come back
 with their slices (ROADMAP); here are ``td_dmrg`` (time evolution,
 reference :4785), the linear sweeps ``compress_mps`` (:6300),
 ``multiply`` (:6506) and ``addition`` (:6702), ``greens_function``
@@ -30,6 +30,21 @@ fronts ``get_1pdm`` ... ``get_6pdm``, ``get_trans_*pdm`` and
     dm1, dm2 = drv.get_1pdm(ket), drv.get_2pdm(ket)   # host engine
     dm3 = drv.get_3pdm(ket, algo="poly")    # class closes on the card (K17)
 
+    su2 = DMRGDriver(symm_type=SymmetryTypes.SU2)    # spin-adapted
+    su2.initialize_system(n_sites=8, n_elec=8, spin=2)  # 2S = 2
+    mpo2 = su2.get_qc_mpo(h1e=h1e, g2e=g2e, ecore=ecore)
+    e2 = su2.dmrg(mpo2, su2.get_random_mps(bond_dim=100), bond_dims=[100])
+
+In the SU2 mode (the JAX package's driver/core.py:1210-1275) the MPO is an
+``SU2MPO`` (the compiled spin-adapted entries, ``dmrg/su2_qc.py``), the
+state an ``SU2MPSSpec`` that the engine materializes, and ``dmrg`` runs
+``dmrg/su2_fermion.SU2FermionDMRG``: on the card by default
+(``backend="torch_tiled"``: environment blocking on K5's v2 path, every
+sigma product on K7), on the kernels' twins with ``device="cpu"``, or on
+the host engine with ``backend="numpy"``.  The SZ-only backends raise
+there; SU(2) PDMs, CSF coefficients, SAnySU2 and custom Hamiltonians,
+spin chains and meshes are ROADMAP item A6b.
+
 ``dmrg``, ``td_dmrg``, ``greens_function``, ``orbital_rotation`` and the
 polynomial PDM engine run on the card unless the caller asks for the CPU
 (``device="cpu"``) or for the host reference (``backend="numpy"``;
@@ -53,12 +68,18 @@ from ..dmrg.mps import MPS, MPSInfo
 from ..dmrg.sweep import DMRG
 from ..ops.local_ops import CRE_A, CRE_B, DES_A, DES_B, SZ_SITE
 
-__all__ = ["DMRGDriver", "ExprBuilder", "SymmetryTypes"]
+__all__ = ["DMRGDriver", "ExprBuilder", "SU2MPO", "SU2MPSSpec",
+           "SymmetryTypes"]
 
 
 class SymmetryTypes(enum.Enum):
-    """Mirrors reference pyblock2/driver/core.py:25 (the port runs SZ)."""
+    """Mirrors reference pyblock2/driver/core.py:25.  The port runs SZ and
+    SU2; SGF and SAny are not ported yet and raise (SAny with SU(2) pairs
+    is ROADMAP item A6b)."""
     SZ = "sz"
+    SGF = "sgf"
+    SU2 = "su2"
+    SAny = "sany"
 
 
 # SZ-mode operator letters, matching pyblock2's ExprBuilder vocabulary
@@ -71,7 +92,7 @@ class ExprBuilder:
     Hamiltonians (reference pyblock2/driver/core.py:8975; the JAX
     package's driver/core.py:43-95).  Its SAny-SU(2) coupled expressions
     and custom site operators (the JAX package's :62-64, :83-92) are
-    ROADMAP item A6: a letter outside c/d/C/D raises."""
+    ROADMAP item A6b: a letter outside c/d/C/D raises."""
 
     def __init__(self, driver: "DMRGDriver"):
         self.driver = driver
@@ -90,7 +111,7 @@ class ExprBuilder:
             raise NotImplementedError(
                 f"operator letters {sorted(bad)}: the port's ExprBuilder "
                 "takes SZ strings of c/d/C/D; SAny-SU(2) expressions and "
-                "custom site operators are roadmap item A6")
+                "custom site operators are roadmap item A6b")
         assert len(expr) == len(idx)
         ops = [(int(i), _OP_LETTERS[ch]) for ch, i in zip(expr, idx)]
         self.terms.append((co, ops))
@@ -113,9 +134,14 @@ class ExprBuilder:
 
 class DMRGDriver:
     def __init__(self, symm_type: SymmetryTypes = SymmetryTypes.SZ):
-        if symm_type != SymmetryTypes.SZ:
-            raise NotImplementedError("the port runs SZ symmetry only")
+        if symm_type not in (SymmetryTypes.SZ, SymmetryTypes.SU2):
+            raise NotImplementedError(
+                f"{symm_type}: the port runs the SZ and SU2 modes; the SGF "
+                "and SAny modes are not ported yet (SAny with SU(2) pairs "
+                "and custom Hamiltonians are roadmap item A6b)")
         self.symm_type = symm_type
+        # the SU2 mode keeps the SZ group for the bookkeeping objects the
+        # spin-adapted engine does not touch (FCIDUMP), as the reference
         self.group: SymmetryGroup = SZ_GROUP
         self.spec = SZ_SITE
         self.n_sites = 0
@@ -157,6 +183,8 @@ class DMRGDriver:
                               twos=self.spin, ipg=self.pg_irrep,
                               orb_sym=self.orb_sym, const_e=ecore,
                               h1e=np.asarray(h1e), g2e=np.asarray(g2e))
+        if self.symm_type == SymmetryTypes.SU2:
+            return _su2_qc_mpo(fcidump.h1e, fcidump.g2e, fcidump.const_e)
         tt = qc_term_table(fcidump, group=self.group, cutoff=cutoff)
         return build_mpo(tt, site_pgs=fcidump.orb_sym,
                          const_e=fcidump.const_e, spec=self.spec)
@@ -164,11 +192,13 @@ class DMRGDriver:
     def get_mpo(self, term_table: TermTable, const_e: float = 0.0) -> MPO:
         """MPO from a term table, bipartite construction (reference
         pyblock2/driver/core.py:3885)."""
+        self._sz_only("get_mpo")
         return build_mpo(term_table, site_pgs=self.orb_sym, const_e=const_e)
 
     def get_site_mpo(self, op: str, site: int) -> MPO:
         """MPO of one elementary operator c/d/C/D at a site (reference
         pyblock2/driver/core.py:4029)."""
+        self._sz_only("get_site_mpo")
         tt = build_term_table(self.n_sites,
                               [(1.0, [(site, _OP_LETTERS[op])])],
                               group=self.group)
@@ -176,11 +206,25 @@ class DMRGDriver:
 
     def expr_builder(self) -> ExprBuilder:
         """reference pyblock2/driver/core.py:433 (SZ only)."""
+        self._sz_only("expr_builder")
         return ExprBuilder(self)
 
+    def _sz_only(self, what: str) -> None:
+        if self.symm_type != SymmetryTypes.SZ:
+            raise NotImplementedError(
+                f"{what} in the SU2 mode (SAnySU2 custom Hamiltonians) is "
+                "roadmap item A6b")
+
     def get_random_mps(self, bond_dim: int = 250, target=None,
-                       seed: int = 1234) -> MPS:
-        """reference pyblock2/driver/core.py:7494."""
+                       seed: int = 1234, init_tensors=None):
+        """reference pyblock2/driver/core.py:7494.  In the SU2 mode an
+        ``SU2MPSSpec`` (target (N, 2S, pg), multiplet bond dimension,
+        seed; ``init_tensors`` a warm start from ``extract_root``)."""
+        if self.symm_type == SymmetryTypes.SU2:
+            return SU2MPSSpec(target or self.target, bond_dim, seed=seed,
+                              init_tensors=init_tensors)
+        if init_tensors is not None:
+            raise ValueError("init_tensors is an SU2-mode warm start")
         site_quanta = [self.spec.quanta(int(p)) for p in self.orb_sym]
         info = MPSInfo(self.group, site_quanta, target or self.target,
                        bond_dim)
@@ -190,7 +234,7 @@ class DMRGDriver:
              noises: Sequence[float] = (1e-4, 1e-5, 0.0),
              thrds: Sequence[float] = (1e-10,), n_sweeps: int = 16,
              tol: float = 1e-9, iprint: int = 1, device="cuda",
-             backend: str = "torch_resident", dtype=np.float64,
+             backend: Optional[str] = None, dtype=np.float64,
              n_roots: int = 1,
              proj_mpss: Optional[Sequence[MPS]] = None,
              proj_weights: Optional[Sequence[float]] = None,
@@ -201,7 +245,7 @@ class DMRGDriver:
         pyblock2/driver/core.py:4437).  Returns the energy (a float) with
         one root, else every root's energy (an array).  On ``device``
         ("cuda" by default; it raises where there is no CUDA, with no
-        fallback), one backend of five:
+        fallback), one backend of five (``None``: "torch_resident"):
 
         * "torch_resident": every two-site step on the device (K1-K6); one
           root, no projection;
@@ -228,7 +272,23 @@ class DMRGDriver:
         raises), and ``last_site_1site=True`` gives the last site of each
         two-site sweep a one-site update.  The solver is kept as
         ``self._last_dmrg`` (energies, timings, sweep_log,
-        host_redo_count and the host transfer counters)."""
+        host_redo_count and the host transfer counters).
+
+        In the SU2 mode ``mpo`` is an ``SU2MPO`` and ``ket`` an
+        ``SU2MPSSpec``, and the spin-adapted engine runs with bond
+        dimension max(bond_dims) (multiplets), as the reference's
+        ``_su2_dmrg``: backend "torch_tiled" (``None``; K5 + K7 on
+        ``device``) or "numpy" (the host engine); the SZ backends,
+        ``twodot_to_onedot`` and a mesh raise.  The engine is kept as
+        ``self._last_dmrg`` and as ``ket.engine``."""
+        if self.symm_type == SymmetryTypes.SU2:
+            return _su2_dmrg(self, mpo, ket, bond_dims, noises, thrds,
+                             n_sweeps, tol, iprint, n_roots=n_roots,
+                             proj_mpss=proj_mpss, proj_weights=proj_weights,
+                             backend=backend or "torch_tiled",
+                             device=device, dtype=dtype,
+                             twodot_to_onedot=twodot_to_onedot, **kw)
+        backend = backend or "torch_resident"
         solver = DMRG(mpo, ket, device=device, backend=backend,
                       dtype=dtype, iprint=iprint, n_roots=n_roots,
                       proj_mpss=proj_mpss, proj_weights=proj_weights, **kw)
@@ -241,9 +301,15 @@ class DMRGDriver:
     def extract_root(self, r: int) -> MPS:
         """Single-root MPS from the last state-averaged solve (reference
         MultiMPS::extract + make_single, state_averaged.hpp:157; used by
-        the statespecific workflow, block2main:2260)."""
+        the statespecific workflow, block2main:2260).  In the SU2 mode an
+        ``SU2MPSSpec`` warm-started from the engine's tensors with root
+        r's centre absorbed (``SU2FermionDMRG.extract_root``)."""
         import copy
         s = self._last_dmrg
+        if self.symm_type == SymmetryTypes.SU2:
+            lv = None if s.LV == (0, 0, 0) else s.LV
+            return SU2MPSSpec(s.T, s.D, init_tensors=s.extract_root(r),
+                              left_vacuum=lv)
         m = copy.copy(s.mps)
         m.tensors = list(s.mps.tensors)
         if s._center_tensors is not None and \
@@ -416,14 +482,15 @@ class DMRGDriver:
         'auto' on chains of at most 8 sites; dmrg/npdm.py) or the
         polynomial pooled-sweep engine (algo 'poly', dmrg/npdm_scheme.py),
         whose class closes run on ``device`` ("cuda" by default, kernel
-        K17; "cpu" runs its twin; None keeps them on host BLAS).  SU(2)
-        states are not carried by the port (roadmap item A6)."""
+        K17; "cpu" runs its twin; None keeps them on host BLAS).  PDMs of
+        an SU(2) state (through SU2 -> SZ) are roadmap item A6b."""
         from ..dmrg.expect import pdm1, pdm2_spatial, pdm3_spatial
         for m in (ket, bra):
             if m is not None and not isinstance(m, MPS):
                 raise NotImplementedError(
                     f"get_npdm takes the port's SZ MPS (got {type(m)}); "
-                    "spin-adapted (SU(2)) states are roadmap item A6")
+                    "PDMs of a spin-adapted state (SU2 -> SZ) are roadmap "
+                    "item A6b")
         sym = self.orb_sym if bra is None else None
         if pdm_type == 1:
             return pdm1(ket, orb_sym=sym, bra=bra)
@@ -500,3 +567,91 @@ class DMRGDriver:
         """reference core.py get_orbital_entropies_use_npdm — the same
         quantities through the correlator route."""
         return self.get_orbital_entropies(ket, ij_symm=ij_symm)
+
+
+# ---------------------------------------------------------------------------
+# the SU2 mode (copied from the JAX package's driver/core.py:1210-1275)
+# ---------------------------------------------------------------------------
+
+class SU2MPO:
+    """Compiled spin-adapted MPO handle (driver SU2 mode): per-site symbol
+    entries + reduced-operator registry for SU2FermionDMRG
+    (reference MPOQC<SU2>, src/dmrg/qc_mpo.hpp:1851)."""
+
+    def __init__(self, entries, n_symbols, sym_dn, sym_rank, registry):
+        self.entries = entries
+        self.n_symbols = n_symbols
+        self.sym_dn = sym_dn
+        self.sym_rank = sym_rank
+        self.registry = registry
+
+
+class SU2MPSSpec:
+    """Deferred spin-adapted MPS: (target, bond_dim, seed); the engine
+    materializes the reduced tensors at dmrg() time."""
+
+    def __init__(self, target, bond_dim, seed=7, init_tensors=None,
+                 left_vacuum=None):
+        self.target = target
+        self.bond_dim = bond_dim
+        self.seed = seed
+        self.engine = None
+        # warm start (extract_root tensors; statespecific workflow)
+        self.init_tensors = init_tensors
+        # singlet embedding (reference core.py:7217): fictitious
+        # boundary multiplet, typically (2S, 2S, 0) with the target
+        # promoted to (n_elec + 2S, 0, pg)
+        self.left_vacuum = left_vacuum
+
+
+def _su2_qc_mpo(h1e, g2e, ecore) -> SU2MPO:
+    from ..dmrg.su2_qc import compile_su2_entries, qc_su2_term_table
+    tt = qc_su2_term_table(np.asarray(h1e),
+                           None if g2e is None else np.asarray(g2e),
+                           float(ecore))
+    return SU2MPO(*compile_su2_entries(tt))
+
+
+def _su2_dmrg(driver, mpo: SU2MPO, ket: SU2MPSSpec, bond_dims, noises,
+              thrds, n_sweeps, tol, iprint, n_roots: int = 1,
+              proj_mpss=None, proj_weights=None, backend="torch_tiled",
+              device="cuda", dtype=np.float64, twodot_to_onedot=None,
+              **kw):
+    from ..dmrg.su2_fermion import BACKENDS, SU2FermionDMRG
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"backend {backend!r} runs SZ states only; the SU2 mode runs "
+            f"{BACKENDS} (torch_tiled: K5 + K7 on the device)")
+    if twodot_to_onedot is not None:
+        raise NotImplementedError("one-site sweeps are SZ only")
+    if kw.get("mesh") is not None:
+        raise NotImplementedError("SU(2) under a mesh is roadmap item A6b")
+    bad = set(kw) - {"mesh"}
+    if bad:
+        raise TypeError(f"SU2-mode dmrg got unexpected options {sorted(bad)}")
+    if not isinstance(mpo, SU2MPO) or not isinstance(ket, SU2MPSSpec):
+        raise TypeError("the SU2 mode takes get_qc_mpo's SU2MPO and "
+                        "get_random_mps's SU2MPSSpec")
+    proj_tensors = None
+    if proj_mpss:
+        # accept SU2MPSSpec (solved: .engine set), raw engines, or
+        # tensor lists from SU2FermionDMRG.extract_root
+        proj_tensors = []
+        for p in proj_mpss:
+            if isinstance(p, SU2MPSSpec):
+                p = p.engine
+            proj_tensors.append(p.tensors if hasattr(p, "tensors")
+                                else p)
+    eng = SU2FermionDMRG(
+        driver.n_sites, mpo.entries, mpo.n_symbols, mpo.sym_dn,
+        target=ket.target, bond_dim=max(bond_dims), seed=ket.seed,
+        iprint=iprint, ops=mpo.registry, ranks=mpo.sym_rank,
+        site_pgs=driver.orb_sym, n_roots=n_roots,
+        proj_tensors=proj_tensors, proj_weights=proj_weights,
+        init_tensors=ket.init_tensors, left_vacuum=ket.left_vacuum,
+        backend=backend, exec_dtype=dtype, device=device)
+    ket.engine = eng
+    e = eng.solve(n_sweeps=n_sweeps, tol=tol, noises=list(noises),
+                  dav_thrds=list(thrds))
+    driver._last_dmrg = eng
+    return e

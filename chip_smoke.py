@@ -115,8 +115,9 @@ package's host path by the CPU tests):
                against its twin and against K8's sigma on the same center
                (f64: 1e-12 relative); phase 3 does the same at the K=16
                site 7
-  11a. shard   the operator-sharded path (torch.distributed) in this
-               process: a mesh of world size 1 under NCCL (file
+  11a. shard   the operator-sharded path (torch.distributed) in a
+               spawned process that runs 11a and 11b beside phase 12
+               (``shard_proc``): a mesh of world size 1 under NCCL (file
                rendezvous), phase 4's start and schedule on torch_resident
                with the mesh, against phase 4's host energy to 1e-8 Ha;
                fails unless K20 and K21 launched and K1 and K5 did not;
@@ -148,8 +149,9 @@ package's host path by the CPU tests):
                multiply and addition (D=160) on the state with
                tests/test_linear.py's bars
   12b. gf      the K=16 state phase 5 leaves: greens_function(mpo, ket5,
-               e5, "d", 0, -0.4, 0.05, 250, n_sweeps=2) on K7 c128; per
-               sweep the wall split (blocking, LW/RW assembly, struct,
+               e5, "d", 0, -0.4, 0.05, 250, n_sweeps=1) on K7 c128 (one
+               sweep since phase 13 came: two passed the time limit's
+               1140 s mark on slower hosts); per sweep the wall split (blocking, LW/RW assembly, struct,
                pack, tables, solve, decimation), K7 launches, matvecs and
                GMRES matvecs a site (largest, median), and G; fails unless
                G is finite with Im G < 0, K7 launched once a matvec and
@@ -169,6 +171,24 @@ package's host path by the CPU tests):
                Ha of the host backend's run (in workers); fails unless the
                kernel launched in both one-site sweeps
                (EffectiveHamiltonian1 forward, 1R backward)
+  13a. su2     spin-adapted DMRG through DMRGDriver(SymmetryTypes.SU2) on
+               the card (environment blocking on K5's v2 path, every sigma
+               product on K7): Hubbard-L8 (U=2, N=8, 2S=0) at D=120
+               multiplets (exact), 6 sweeps, noise [1e-4, 1e-5, 0], within
+               1e-8 Ha of ED and of the port's host engine (backend=
+               "numpy", in a worker); per sweep the wall split; fails
+               unless K7 launched once a matvec with no host matvec, K5
+               once a blocking step, and no other kernel
+  13b. su2     the seeded K=10 QC system with 14 electrons (full SU(2) QC
+               MPO; N2/STO-3G's widths) at D=500 multiplets, at most 6
+               sweeps, tol 1e-10, for 2S=2 and 2S=0, each spin in a
+               spawned process started before 13a (their host LW/RW
+               assembly runs side by side): each within 1e-8 Ha of the
+               host engine on the same schedule (in workers), E(2S=2) <
+               E(2S=0), the launch rules of 13a; then at the middle
+               centre of 2S=0 K7's sigma on the SU(2) adapter against the
+               host matvec and one K5 v2 output pool against its twin,
+               both to 1e-12 relative, printed as phase-3 rows
   3. kernels   each kernel against its plain PyTorch twin on the card, at
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
@@ -271,13 +291,13 @@ terminates them before it exits.  The last line is {"ok": true,
 "device": {...}}; the line before it is the per-kernel JSON summary:
 K1-K6 and K8-K12 from their f64 rows at the K=16 site, K7 from its
 complex128 row on phase 6b's state, with the launches of phases 5
-(K1-K6), 6b and 12 (K7), 7b (K8, K9), 8b (K10, K11), 8c (K12), 9b (K13,
+(K1-K6) and 13 (K5), 6b, 12 and 13 (K7), 7b (K8, K9), 8b (K10, K11), 8c (K12), 9b (K13,
 K14) and 9c (K15), 10b (K17), 10d (K18), 10c (K19) and 11b (K20-K22, both
 ranks summed; the rows' times are the two shares' summed).  No path runs the v1
 slab matvec (K16), as in the JAX package: its launches are those counted
 in the runs of phases 5, 7b, 8b, 8c, 9b and 9c, each from a reset, and
 the script fails unless they are 0.  The host references of phases 10a,
-10b and 12 run in the same workers.
+10b, 12 and 13 run in the same workers.
 """
 
 from __future__ import annotations
@@ -1010,15 +1030,33 @@ def sigma_bytes_flops(eff, dtype):
     return dtype.itemsize * n, flops
 
 
-def phase_tiled(device, me, t, complex_me=None, davidson=True, eff=None):
+def host_davidson1(mpo, mps, t):
+    """Phase 3's host reference of the tiled Davidson, for a worker: the
+    host Davidson's lowest root on matvec_np at center t of ``mps`` from
+    the MPS guess, |r|^2 < 1e-12: (theta, matvecs, seconds)."""
+    from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
+    from block2_preview_tpu_torch.ops.davidson import davidson
+    eff = EffectiveHamiltonian2(mid_site(mpo, mps, t)[0], t)
+    x0 = eff.flatten(eff.initial_guess())
+    x0 /= np.linalg.norm(x0)
+    t0 = time.time()
+    w, _, nmv = davidson(eff.matvec_np, eff.diagonal(), x0[:, None],
+                         n_roots=1, conv_thrd=1e-12)
+    return float(w[0]), nmv, time.time() - t0
+
+
+def phase_tiled(device, me, t, complex_me=None, davidson=True, eff=None,
+                host1=None):
     """K7 against its twin at center t of the host environments ``me``
     (``eff``: its assembled two-site operator when the caller has built
     it): f64 and f32, complex128 and complex64 on the same operators cast
     to complex (a seeded complex vector), and complex128 on the complex
     environments ``complex_me`` (the state phase 6b leaves).  With
     ``davidson``, the tiled Davidson (K7) against the host Davidson on
-    matvec_np.  Returns the summary row: the complex128 row on
-    ``complex_me`` (the inputs phase 6b gives K7) when given, else f64."""
+    matvec_np (``host1``: :func:`host_davidson1`'s worker result at the
+    same center; computed here without one).  Returns the summary row:
+    the complex128 row on ``complex_me`` (the inputs phase 6b gives K7)
+    when given, else f64."""
     import torch
     from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
     from block2_preview_tpu_torch.ops import exec_bucket
@@ -1076,12 +1114,17 @@ def phase_tiled(device, me, t, complex_me=None, davidson=True, eff=None):
                                           max_iter=100)
         ex.free()
         t1 = time.time()
-        w, _, nmv = host_dav(eff.matvec_np, diag, x0[:, None], n_roots=1,
-                             conv_thrd=1e-12)
-        d_th = th - float(w[0])
+        if host1 is not None:
+            w0, nmv, t_host = host1.get()
+        else:
+            w, _, nmv = host_dav(eff.matvec_np, diag, x0[:, None], n_roots=1,
+                                 conv_thrd=1e-12)
+            w0, t_host = float(w[0]), time.time() - t1
+        d_th = th - w0
         print(f"[3 kernels] K7 Davidson site {t}: tiled {th:.12f} ({it} it, "
-              f"{t1 - t0:.1f} s) host {w[0]:.12f} ({nmv} mv, "
-              f"{time.time() - t1:.1f} s) dtheta {d_th:.2e}", flush=True)
+              f"{t1 - t0:.1f} s) host {w0:.12f} ({nmv} mv, {t_host:.1f} s"
+              f"{' in a worker' if host1 is not None else ''}) dtheta "
+              f"{d_th:.2e}", flush=True)
         if not abs(d_th) < 1e-8:
             fail(f"tiled Davidson |dtheta| {abs(d_th):.3e} >= 1e-8")
     return summary_rows(rows)
@@ -1649,20 +1692,24 @@ def phase_stacked_kernels(device, mpo, mps, me, t, T=None, summary=True,
     return summary_rows(rows)
 
 
-def phase_excited(device, L=8, D=80, ns=6):
-    """Phase 7a: state-averaged roots, a projected excited state and an
-    f32 root on the bucketed backends, and two roots on torch_tiled,
-    against the host backend at a small size.  Returns the host energies
-    {n_roots or "proj": array} (seed 7 but for "proj")."""
+def excited_case(L=8, D=80, ns=6):
+    """(driver, MPO, schedule) of phase 7a: Hubbard-L (U=2, t=1, half
+    filling), D, ns sweeps with noise 1e-5, Davidson |r|^2 < 1e-14."""
     from block2_preview_tpu_torch.core.fcidump import FCIDUMP
     from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
-    from block2_preview_tpu_torch.ops import _kernels
     fd = FCIDUMP.hubbard(L, u=2, t=1)
     drv = DMRGDriver(symm_type=SymmetryTypes.SZ)
     drv.initialize_system(n_sites=L, n_elec=L, spin=0)
     mpo = drv.get_qc_mpo(h1e=fd.h1e, g2e=fd.g2e, ecore=fd.const_e)
     sched = dict(bond_dims=[D] * ns, noises=[1e-5] * ns + [0],
                  thrds=[1e-14], n_sweeps=ns, tol=0, iprint=0)
+    return drv, mpo, sched
+
+
+def host_excited(L=8, D=80, ns=6):
+    """Phase 7a's host references, for a worker: ({n_roots or "proj":
+    energies} (seed 7 but for "proj"), the host ground state, seconds)."""
+    drv, mpo, sched = excited_case(L, D, ns)
 
     def host(seed, **kw):
         e = drv.dmrg(mpo, drv.get_random_mps(D, seed=seed), backend="numpy",
@@ -1673,8 +1720,22 @@ def phase_excited(device, L=8, D=80, ns=6):
     ref = {n: host(7, n_roots=n)[0] for n in (2, 3)}
     ref[1], gs = host(7)
     ref["proj"], _ = host(9, proj_mpss=[gs])
+    return ref, gs, time.time() - t0
+
+
+def phase_excited(device, L=8, D=80, ns=6, host=None):
+    """Phase 7a: state-averaged roots, a projected excited state and an
+    f32 root on the bucketed backends, and two roots on torch_tiled,
+    against the host backend at a small size (``host``:
+    :func:`host_excited`'s worker result; computed here without one).
+    Returns the host energies {n_roots or "proj": array} (seed 7 but for
+    "proj")."""
+    from block2_preview_tpu_torch.ops import _kernels
+    drv, mpo, sched = excited_case(L, D, ns)
+    ref, gs, secs = host.get() if host is not None else host_excited(L, D,
+                                                                      ns)
     print(f"[7a excited] Hubbard-L{L} D={D} x{ns} host references "
-          f"({time.time() - t0:.1f} s): roots "
+          f"({secs:.1f} s{' in a worker' if host is not None else ''}): roots "
           f"{' '.join(f'{x:.12f}' for x in ref[3])}, projected "
           f"{ref['proj'][0]:.12f}", flush=True)
     runs = [("torch", np.float64, dict(n_roots=3), 3, 7, HUB_TOL,
@@ -2725,6 +2786,10 @@ def phase_gf_full(device, drv, mpo, ket, e0, D=250, n_sweeps=2, t=7):
         fail(f"phase 12b: Im G = {g.imag:.3e} is not negative")
     gf_launch_rules("12b", gf, k7, device)
     me = gf.me_h
+    if log[-1]["forward"]:
+        # a forward sweep last: the right environments are stale
+        for s in range(mpo.n_sites - 1, t + 1, -1):
+            me.update_right(s)
     for s in range(t):
         me.update_left(s)
     eff = EffectiveHamiltonian2(me, t)
@@ -2869,6 +2934,341 @@ def phase_onedot(device, hosts, L=8, D=80, ns=6):
             fail(f"12d {tag}: {kernel} did not launch in a sweep with "
                  f"one-site steps ({per})")
     return k7
+
+
+# ---------------------------------------------------------------------------
+# phase 13: spin-adapted SU(2) DMRG through the driver's SU2 mode (K5 v2, K7)
+# ---------------------------------------------------------------------------
+
+SU2_TOL = 1e-8          # Ha, 13a/13b: against ED and the port's host engine
+SU2_SIGMA_TOL = 1e-12   # 13b: K7's sigma against the host matvec, relative
+SU2_POOL_TOL = 1e-12    # 13b: a K5 v2 output pool against its twin, relative
+SU2_HUB = dict(kind="hubbard", L=8, n_elec=8, D=120, n_sweeps=6, tol=0.0)
+SU2_QC = dict(kind="qc", L=10, n_elec=14, D=500, n_sweeps=6, tol=1e-10)
+SU2_DEADLINE = 600      # s: 13b's spawned runs
+
+
+def su2_system(cfg, twos=0):
+    """(driver, SU2MPO) in the driver's SU2 mode for ``cfg``: kind
+    "hubbard", the Hubbard chain (U=2, t=1), or "qc", the seeded integrals
+    (``seeded_qc_integrals``) with the full SU(2) QC MPO; L sites, n_elec
+    electrons, 2S = ``twos``."""
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    L = cfg["L"]
+    if cfg["kind"] == "hubbard":
+        fd = FCIDUMP.hubbard(L, u=2, t=1)
+        h1e, g2e = fd.h1e, fd.g2e
+    else:
+        h1e, g2e = seeded_qc_integrals(L)
+    drv = DMRGDriver(symm_type=SymmetryTypes.SU2)
+    drv.initialize_system(n_sites=L, n_elec=cfg["n_elec"], spin=twos)
+    return drv, drv.get_qc_mpo(h1e=h1e, g2e=g2e, ecore=0.0)
+
+
+def su2_sched(cfg):
+    """13a's and 13b's schedule: D multiplets, noise [1e-4, 1e-5, 0],
+    Davidson |r|^2 < 1e-12, at most ``n_sweeps`` sweeps, stopping below
+    ``tol``."""
+    return dict(bond_dims=[cfg["D"]], noises=[1e-4, 1e-5, 0.0],
+                thrds=[1e-12], n_sweeps=cfg["n_sweeps"], tol=cfg["tol"],
+                iprint=0)
+
+
+def host_su2(cfg, twos=0):
+    """(energy, per-sweep energies, seconds) of ``cfg``'s schedule on the
+    port's host engine (backend="numpy"), for a worker."""
+    drv, mpo = su2_system(cfg, twos)
+    t0 = time.time()
+    e = drv.dmrg(mpo, drv.get_random_mps(cfg["D"], seed=7), backend="numpy",
+                 **su2_sched(cfg))
+    return float(e), list(drv._last_dmrg.energies), time.time() - t0
+
+
+def su2_hubbard_ed(cfg=SU2_HUB):
+    """Lowest eigenvalue of the Hubbard chain's (N, 2Sz=0) sector
+    (utils/ed.py): the singlet ground state of the half-filled chain."""
+    from block2_preview_tpu_torch.core.expr import qc_term_table
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
+    from block2_preview_tpu_torch.utils.ed import ground_state_energy
+    fd = FCIDUMP.hubbard(cfg["L"], u=2, t=1)
+    return float(ground_state_energy(qc_term_table(fd), cfg["n_elec"], 0,
+                                     const_e=fd.const_e)[0])
+
+
+def su2_run(tag, device, cfg, twos):
+    """One SU2-mode ``DMRGDriver.dmrg`` on ``device`` from a count reset;
+    prints the energy, the wall time, per sweep the split (blocking: host
+    plan build, the pools' host round trip, K5; LW/RW assembly; K7's
+    executor set-up; the solve; the decimation) and the launches; fails
+    unless K7 launched once a matvec with no host matvec, K5 once a
+    blocking step, and no other kernel.  Returns (energy, engine,
+    launches)."""
+    from block2_preview_tpu_torch.ops import _kernels
+    drv, mpo = su2_system(cfg, twos)
+    _kernels.reset_counts()
+    t0 = time.time()
+    e = drv.dmrg(mpo, drv.get_random_mps(cfg["D"], seed=7), device=device,
+                 **su2_sched(cfg))
+    wall = time.time() - t0
+    counts = _kernels.launch_counts()
+    eng = drv._last_dmrg
+    print(f"[{tag}] L={eng.L} N={eng.T[0]} 2S={eng.T[1]} D={cfg['D']}: E = "
+          f"{e:.12f} ({wall:.1f} s, {len(eng.energies)} sweeps, init "
+          f"{eng.t_init:.1f} s; K5 {counts['K5_block']} launches for "
+          f"{eng.n_blocking} blocking steps ({eng.n_plan_builds} plans "
+          f"built, {eng.n_blocking_empty} empty), K7 {counts['K7_tiled']} "
+          f"for {eng.n_matvec} matvecs, host matvecs "
+          f"{eng.host_matvec_count}; largest bond "
+          f"{max(sum(b.values()) for b in eng.bonds)} multiplets)",
+          flush=True)
+    for i, r in enumerate(eng.sweep_log):
+        setup = r["struct"] + r["pack"] + r["tables"]
+        print(f"[{tag}] sweep {i} {'->' if r['forward'] else '<-'} "
+              f"E {eng.energies[i]:.12f} wall {r['wall']:.2f} s: blocking "
+              f"{r['blk']:.2f} (plans {r['blk_plan']:.2f}, round trip "
+              f"{r['blk_rt']:.2f}, K5 {r['blk_k5']:.3f}) assembly "
+              f"{r['asm']:.2f} K7 set-up {setup:.2f} solve {r['solve']:.2f} "
+              f"decimation {r['dm']:.2f}; matvecs {r['matvecs']}",
+              flush=True)
+    if device.type == "cuda":
+        if eng.host_matvec_count or counts["K7_tiled"] != eng.n_matvec:
+            fail(f"{tag}: K7 launches {counts['K7_tiled']} != matvecs "
+                 f"{eng.n_matvec} or host matvecs {eng.host_matvec_count}")
+        if eng.n_blocking_empty or counts["K5_block"] != eng.n_blocking \
+                or not eng.n_blocking:
+            fail(f"{tag}: K5 launches {counts['K5_block']} for "
+                 f"{eng.n_blocking} blocking steps ({eng.n_blocking_empty} "
+                 "without a plan)")
+        others = {k: c for k, c in counts.items()
+                  if c and k not in ("K5_block", "K7_tiled")}
+        if others:
+            fail(f"{tag}: kernels off the SU(2) path launched: {others}")
+    if not np.isfinite(e):
+        fail(f"{tag}: energy {e}")
+    return float(e), eng, counts
+
+
+def phase_su2_hubbard(device, host, ed, cfg=SU2_HUB):
+    """Phase 13a: Hubbard-L8 (U=2, N=8, 2S=0) at D=120 multiplets (exact),
+    6 sweeps, through DMRGDriver(SU2) on the card, against ED (``ed``) and
+    the port's host engine on the same schedule (``host``), both to 1e-8
+    Ha.  Returns the K5 and K7 launches."""
+    e, _, counts = su2_run("13a su2", device, cfg, 0)
+    e_host, _, t_host = host.get()
+    e_ed = ed.get()
+    print(f"[13a su2] ED {e_ed:.12f} dE {e - e_ed:.2e}; host engine "
+          f"{e_host:.12f} ({t_host:.1f} s in a worker) dE {e - e_host:.2e}",
+          flush=True)
+    for what, ref in (("ED", e_ed), ("the host engine", e_host)):
+        if not abs(e - ref) < SU2_TOL:
+            fail(f"13a: |E - {what}| {abs(e - ref):.3e} >= {SU2_TOL}")
+    return counts["K5_block"], counts["K7_tiled"]
+
+
+def su2_centre(eng, t):
+    """Fill the environments the centre t reads (lenvs[t], renvs[t + 2])
+    where the last sweep left them stale; on the device path they block on
+    K5."""
+    for u in range(eng.L - 1, t + 1, -1):
+        if eng.renvs[u] is None:
+            eng.renvs[u] = eng._right_contract(u)
+    for u in range(t):
+        if eng.lenvs[u + 1] is None:
+            eng.lenvs[u + 1] = eng._left_contract(u)
+
+
+def su2_kernel_rows(device, eng, t):
+    """K7 on the SU(2) adapter and K5 on an SU(2) v2 plan at centre t of
+    the engine ``eng``: K7's sigma against the host matvec (the grouped
+    GEMMs) to 1e-12 relative and K5's output pool against its twin to
+    1e-12 relative, each printed as a phase-3 row with its time, the
+    twin's and the bound."""
+    import torch
+    from block2_preview_tpu_torch.dmrg.su2_fermion import _SU2EffAdapter
+    from block2_preview_tpu_torch.dmrg.sweep import _eff_flops
+    from block2_preview_tpu_torch.ops import blockv2, exec_bucket
+    from block2_preview_tpu_torch.ops.stacked import site_pools
+    from block2_preview_tpu_torch.ops.tiled import (TiledExecutor,
+                                                    tiled_matvec)
+    su2_centre(eng, t)
+    keys, dims, offsets, size, _, _, matvec, _ = eng._effective(t)
+    LW, RW, ranks = eng._last_ops
+    ad = _SU2EffAdapter(keys, dims, offsets, size, LW, RW, ranks, eng.dn)
+    ex = TiledExecutor(ad, device=device)
+    x = np.random.default_rng(13).standard_normal(size)
+    xp = torch.as_tensor(ex.pad(x), device=device)
+    dp = exec_bucket.plain_tables(ex.struct, device)
+
+    def k7(fn, d):
+        return fn(xp, ex.lpool, ex.rpool, d, ex.size_p)
+
+    sig = k7(tiled_matvec, ex._dev)
+    host = torch.as_tensor(matvec(x), device=device)
+    rel, _ = rel_err(sig[:size], host)
+    print(f"[13b su2] K7 sigma at centre {t} (size {size}, {len(ad.triples)}"
+          f" triples) against the host matvec: rel {rel:.2e}", flush=True)
+    if not rel <= SU2_SIGMA_TOL:
+        fail(f"13b: K7 sigma rel err {rel:.3e} > {SU2_SIGMA_TOL}")
+    n_bytes, flops = sigma_bytes_flops(ad, np.float64)
+    tab = exec_bucket.chain_tables(ex.struct)
+    _check(None, "K7_tiled", np.float64, "su2", sig,
+           k7(exec_bucket.bucket_sigma_plain, dp), ATOMIC_TOL[np.float64],
+           time_ms(lambda: k7(tiled_matvec, ex._dev), device),
+           time_ms(lambda: k7(exec_bucket.bucket_sigma_plain, dp), device),
+           None, n_bytes, flops,
+           f"SU(2) adapter, centre {t}: size {size} triples "
+           f"{len(ad.triples)} items {len(tab['items'])} chunks "
+           f"{len(tab['ck'])} true GFLOP {_eff_flops(ad) / 1e9:.3f}")
+    ex.free()
+    # K5: the cached v2 plan that built lenvs[t] from lenvs[t - 1]
+    plan, in_meta, out_meta = eng._blk_cache[(t - 1, "left")][1]
+    tdt = torch.float64
+    ep = torch.as_tensor(in_meta.pack(eng.lenvs[t - 1]), dtype=tdt,
+                         device=device)
+    bp, kp = site_pools(plan, device, tdt)
+    d5 = blockv2.blk_tables(plan, device, tdt)
+
+    def k5(fn):
+        return fn(ep, bp, kp, d5, plan.T, plan.left,
+                  torch.zeros(plan.ncap, dtype=tdt, device=device))
+
+    o_k, o_t = k5(blockv2.blk_exec), k5(blockv2.blk_twin)
+    rel, _ = rel_err(o_k, o_t)
+    out_total = max(o + dx * dy for (o, dx, dy) in out_meta.values())
+    n_ent = live_items(plan.cum3)
+    k5_bytes = live_bytes(8, in_meta.total + 1 + bp.numel() + kp.numel()
+                          + n_ent + out_total,
+                          k5_ints(plan._dev["k5"], n_ent))
+    print(f"[13b su2] K5 v2 pool at site {t - 1} (left): rel {rel:.2e} "
+          "against its twin", flush=True)
+    if not rel <= SU2_POOL_TOL:
+        fail(f"13b: K5 v2 pool rel err {rel:.3e} > {SU2_POOL_TOL}")
+    _check(None, "K5_block", np.float64, "su2", o_k, o_t, SU2_POOL_TOL,
+           time_ms(lambda: k5(blockv2.blk_exec), device),
+           time_ms(lambda: k5(blockv2.blk_twin), device), None,
+           k5_bytes, plan.flops,
+           f"SU(2) v2 plan, site {t - 1} left: T {plan.T} items "
+           f"{live_items(plan.cum1)} entries {n_ent} out {out_total} GFLOP "
+           f"{plan.flops / 1e9:.3f}; {k5_shape(plan)}")
+    if float(o_k[out_total:].abs().max()) != 0.0:
+        fail("13b: K5 wrote past the SU(2) pool's live end")
+
+
+def su2_proc(device, cfg, twos, rows, go, queue):
+    """One 13b spin in a spawned process (the two spins' host assembly
+    runs side by side): :func:`su2_run`, and with ``rows`` the kernel rows
+    at the middle centre once ``go`` is set (so that they time the kernels
+    on an otherwise idle card); puts (2S, {energy, launches}) on
+    ``queue``, or (2S, {"error": ...}) if it failed."""
+    import traceback
+    try:
+        from block2_preview_tpu_torch.runtime import resolve_device
+        dev = resolve_device(device)
+        e, eng, counts = su2_run(f"13b su2 2S={twos}", dev, cfg, twos)
+        if rows:
+            if not go.wait(SU2_DEADLINE):
+                raise TimeoutError("the kernel rows were never let go")
+            su2_kernel_rows(dev, eng, eng.L // 2 - 1)
+        queue.put((twos, {"e": e, "K5_block": counts["K5_block"],
+                          "K7_tiled": counts["K7_tiled"]}))
+    except BaseException:
+        queue.put((twos, {"error": traceback.format_exc()}))
+
+
+def spawn_procs(jobs, tag, go=None, deadline=SU2_DEADLINE, threads=3):
+    """Start each job {key: (target, args)} in a spawned process (their
+    numerical libraries held to ``threads`` threads each); a target is
+    called as target(*args, queue) and puts (key, result) on the queue, or
+    (key, {"error": traceback}).  Returns a function that sets ``go`` (a
+    spawn-context Event, if given), waits for every result, kills any
+    process still alive at the deadline, and returns {key: result}; a
+    missing result or an error fails the phase ``tag``."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    env = {k: str(threads) for k in ("OMP_NUM_THREADS",
+                                     "OPENBLAS_NUM_THREADS",
+                                     "MKL_NUM_THREADS")}
+    saved = {k: os.environ.get(k) for k in env}
+    procs = {key: ctx.Process(target=target, args=(*args, q))
+             for key, (target, args) in jobs.items()}
+    os.environ.update(env)
+    try:
+        for p in procs.values():
+            p.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    t_end = time.time() + deadline
+
+    def wait():
+        if go is not None:
+            go.set()
+        res = {}
+        try:
+            while len(res) < len(procs) and time.time() < t_end:
+                try:
+                    key, out = q.get(timeout=2)
+                    res[key] = out
+                except queue_mod.Empty:
+                    if any(p.exitcode is not None and key not in res
+                           for key, p in procs.items()):
+                        break
+        finally:
+            for p in procs.values():
+                p.join(timeout=10 if len(res) == len(procs) else 1)
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        for key in procs:
+            if key not in res:
+                fail(f"{tag} {key}: no result within {deadline} s (exit "
+                     f"code {procs[key].exitcode})")
+            if "error" in res[key]:
+                fail(f"{tag} {key} raised:\n{res[key]['error']}")
+        return res
+    return wait
+
+
+def su2_spawn(device, cfg, deadline=SU2_DEADLINE):
+    """Start 13b's two spins (2S=2, 2S=0; the kernel rows with 2S=0, let
+    go when the returned function is called) in spawned processes on
+    ``device`` (:func:`spawn_procs`)."""
+    import multiprocessing as mp
+    go = mp.get_context("spawn").Event()
+    return spawn_procs({tw: (su2_proc, (str(device), cfg, tw, tw == 0, go))
+                        for tw in (2, 0)}, "13b 2S=", go=go,
+                       deadline=deadline)
+
+
+def phase_su2_qc(runs, hosts):
+    """Phase 13b: the seeded K=10 QC system with 14 electrons (full SU(2)
+    QC MPO) at D=500 multiplets, noise [1e-4, 1e-5, 0], at most 6 sweeps,
+    tol 1e-10, for 2S=2 and 2S=0 through DMRGDriver(SU2) on the card
+    (``runs``: :func:`su2_spawn`'s wait; the launch rules and the kernel
+    rows at the middle centre held in the runs): each energy within 1e-8
+    Ha of the port's host engine on the same schedule (``hosts``: {2S:
+    worker result}), E(2S=2) < E(2S=0).  Returns the K5 and K7 launches of
+    the two runs."""
+    res = runs()
+    for twos, r in sorted(res.items(), reverse=True):
+        e_host, sweeps, t_host = hosts[twos].get()
+        print(f"[13b su2] 2S={twos}: {r['e']:.12f}, host engine "
+              f"{e_host:.12f} ({t_host:.1f} s in a worker, {len(sweeps)} "
+              f"sweeps) dE {r['e'] - e_host:.2e}", flush=True)
+        if not abs(r["e"] - e_host) < SU2_TOL:
+            fail(f"13b 2S={twos}: |dE| {abs(r['e'] - e_host):.3e} >= "
+                 f"{SU2_TOL}")
+    if not res[2]["e"] < res[0]["e"]:
+        fail(f"13b: E(2S=2) {res[2]['e']:.12f} is not below E(2S=0) "
+             f"{res[0]['e']:.12f}")
+    return (sum(r["K5_block"] for r in res.values()),
+            sum(r["K7_tiled"] for r in res.values()))
 
 
 @contextlib.contextmanager
@@ -3781,6 +4181,24 @@ def phase_shard_ranks(device, gram_state, e_ref, what, n_orb=16, D=250,
     return res
 
 
+def shard_proc(device, e_hub, gram_state, e5, queue):
+    """Phase 11 (11a, then 11b's two ranks) in a spawned process, beside
+    phase 12: puts ("11", the K20-K22 launches of 11b) on ``queue``, or
+    ("11", {"error": traceback}) if it failed."""
+    import traceback
+    try:
+        from block2_preview_tpu_torch.runtime import resolve_device
+        dev = resolve_device(device)
+        phase_shard_one(dev, e_hub)
+        res = phase_shard_ranks(dev, gram_state, e5, "phase 5 port")
+        out = {k: sum(r["launches"][k] for r in res)
+               for k in ("K20_matvec_shard", "K21_block_shard")}
+        out["K22_plan_exec_shard"] = sum(r["k22"] for r in res)
+        queue.put(("11", out))
+    except BaseException:
+        queue.put(("11", {"error": traceback.format_exc()}))
+
+
 def _unique_sum(keys, sizes) -> int:
     """Sum of ``sizes`` over the first occurrence of each key (a block
     read by several items counts once)."""
@@ -4059,6 +4477,7 @@ def main():
         e_hub, gs_hub = phase_hubbard(device)
         hub = hubbard_npdm_states(device)
         ref10a = pool.apply_async(npdm_host_refs, hub[3:])
+        ref7a = pool.apply_async(host_excited)
         counts, ket, e5, e5_0 = phase_full(device, drv, mpo, D=D,
                                            n_orb=n_orb)
         later = ("K7_tiled", "K8_bucket", "K9_bucket_blocking", "K10_slab",
@@ -4080,7 +4499,7 @@ def main():
         ref12 = pool.apply_async(host_gram, (ket12, 3))
         phase_tiled_parity(device, e_ref=e_hub)
         counts["K7_tiled"] = phase_tdvp(device, drv, mpo, ket, D=D)
-        phase_stacked_parity(device, ref=phase_excited(device))
+        phase_stacked_parity(device, ref=phase_excited(device, host=ref7a))
         roots = phase_roots(device, drv, mpo, D=D, n_sweeps=1)
         at("phases 6-7")
         c8b, e8b = phase_stacked_full(device, drv, mpo, D=D)
@@ -4111,30 +4530,46 @@ def main():
         rot12 = pool.apply_async(host_rotation, (gs_hub,))
         one12 = [pool.apply_async(host_onedot, kwds={"last_site_1site": ls1})
                  for ls1 in (False, True)]
+        hub13 = pool.apply_async(host_su2, (SU2_HUB,))
+        ed13 = pool.apply_async(su2_hubbard_ed)
+        qc13 = {tw: pool.apply_async(host_su2, (SU2_QC, tw)) for tw in (2, 0)}
+        ref3t = pool.apply_async(host_davidson1, (mpo, ket5, t))
         r5 = ref5.get()
         check_full(e5, r5, n_orb)
         check_stacked(e8b, e8c, e5, r5)
         check_mix(e9b, e9c0, e5, e5_0, r5)
-        phase_shard_one(device, e_hub)
-        res11 = phase_shard_ranks(device, hub[3], e5, "phase 5 port")
-        for k in ("K20_matvec_shard", "K21_block_shard"):
-            counts[k] = sum(r["launches"][k] for r in res11)
-        counts["K22_plan_exec_shard"] = sum(r["k22"] for r in res11)
-        at("phase 11 (the host references waited for)")
+        # phase 11 and 13b's two spins run in their own processes beside
+        # phase 12 (13b's kernel rows wait for phase 13)
+        runs11 = spawn_procs({"11": (shard_proc, (str(device), e_hub,
+                                                   hub[3], e5))}, "phase",
+                             deadline=2 * RANK_TIMEOUT)
+        runs13 = su2_spawn(device, SU2_QC)
+        at("phases 11 and 13b started (the host references waited for)")
         k12 = phase_gf_hubbard(device, gs_hub, e_hub, ed12.get())
         at("phase 12a")
-        k12 += phase_gf_full(device, drv, mpo, ket5, e5, D=D)
+        # one sweep: the total passed 1140 s on slower hosts (PERF.md §6)
+        k12 += phase_gf_full(device, drv, mpo, ket5, e5, D=D, n_sweeps=1)
         at("phase 12b")
         k12 += phase_rotation(device, gs_hub, e_hub, rot12)
         at("phase 12c")
         k12 += phase_onedot(device, one12)
         counts["K7_tiled"] += k12
         at("phase 12d")
+        counts.update(runs11()["11"])
+        at("phase 11 joined")
+        t13 = time.time()
+        k5_13, k7_13 = phase_su2_hubbard(device, hub13, ed13)
+        at("phase 13a")
+        k5_13b, k7_13b = phase_su2_qc(runs13, qc13)
+        counts["K5_block"] += k5_13 + k5_13b
+        counts["K7_tiled"] += k7_13 + k7_13b
+        at(f"phase 13b (phase 13: {time.time() - t13:.1f} s)")
         site = mid_site(mpo, ket5, t)
         rows = phase_kernels(device, mpo, ket5, t, site=site)
         eff = EffectiveHamiltonian2(site[0], t)
         rows += phase_tiled(device, site[0], t,
-                            complex_me=mid_site(mpo, ket, t)[0], eff=eff)
+                            complex_me=mid_site(mpo, ket, t)[0], eff=eff,
+                            host1=ref3t)
         rows += phase_bucket(device, mpo, ket5, site[0], eff, t,
                              host3=ref3.get())
         rows += phase_stacked_kernels(device, mpo, ket5, site[0], t)

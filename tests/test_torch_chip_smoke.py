@@ -778,3 +778,92 @@ def test_gf_and_rotation_phases_fail_off_their_references():
     with pytest.raises(SystemExit):
         chip_smoke.phase_onedot(dev, [_Ready(e0 + 1e-6), _Ready(e0)], L=L,
                                 D=D)
+
+
+SU2_HUB4 = dict(chip_smoke.SU2_HUB, L=4, n_elec=4, D=20)
+SU2_QC6 = dict(chip_smoke.SU2_QC, L=6, n_elec=8, D=60)
+
+
+def test_chip_smoke_su2_phases_on_cpu(capsys):
+    """Phase 13 at a small size on the CPU (K5's and K7's plain versions):
+    13a on Hubbard-L4 against ED and the host engine, 13b's two spins of
+    seeded K=6 integrals with 8 electrons (a triplet ground state) in
+    spawned processes against the host engine, with the K7 sigma and K5
+    pool checks at the middle centre."""
+    dev = torch.device("cpu")
+    runs = chip_smoke.su2_spawn(dev, SU2_QC6)
+    assert chip_smoke.phase_su2_hubbard(
+        dev, _Ready(chip_smoke.host_su2(SU2_HUB4)),
+        _Ready(chip_smoke.su2_hubbard_ed(SU2_HUB4)), cfg=SU2_HUB4) == (0, 0)
+    hosts = {tw: _Ready(chip_smoke.host_su2(SU2_QC6, tw)) for tw in (2, 0)}
+    assert chip_smoke.phase_su2_qc(runs, hosts) == (0, 0)
+    out = capsys.readouterr().out
+    for k in ("[13a su2] L=4 N=4 2S=0 D=20", "[13a su2] sweep 5",
+              "[13a su2] ED", "[13b su2] 2S=2:", "[13b su2] 2S=0:",
+              "host engine"):
+        assert k in out, k
+
+
+def test_su2_phases_fail_off_their_references():
+    """13a fails on an energy away from ED or the host engine; 13b on an
+    energy away from the host's, on a singlet below the triplet, and on a
+    run that raised."""
+    dev = torch.device("cpu")
+    e_host = chip_smoke.host_su2(SU2_HUB4)
+    e_ed = chip_smoke.su2_hubbard_ed(SU2_HUB4)
+    for host, ed in (((e_host[0] + 1e-7,) + e_host[1:], e_ed),
+                     (e_host, e_ed + 1e-7)):
+        with pytest.raises(SystemExit):
+            chip_smoke.phase_su2_hubbard(dev, _Ready(host), _Ready(ed),
+                                         cfg=SU2_HUB4)
+    res = {2: {"e": -2.0, "K5_block": 0, "K7_tiled": 0},
+           0: {"e": -1.0, "K5_block": 0, "K7_tiled": 0}}
+    ok = {2: _Ready((-2.0, [], 0.0)), 0: _Ready((-1.0, [], 0.0))}
+    assert chip_smoke.phase_su2_qc(lambda: res, ok) == (0, 0)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_su2_qc(lambda: res, {2: _Ready((-2.0 + 1e-7, [], 0)),
+                                              0: ok[0]})
+    flipped = {2: dict(res[2], e=-1.0), 0: dict(res[0], e=-2.0)}
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_su2_qc(lambda: flipped, {
+            2: _Ready((-1.0, [], 0.0)), 0: _Ready((-2.0, [], 0.0))})
+    # 9 electrons on 2 sites: the spawned runs raise (target unreachable)
+    runs = chip_smoke.su2_spawn(dev, dict(SU2_QC6, L=2, n_elec=9))
+    with pytest.raises(SystemExit):
+        runs()
+
+
+def test_gf_full_one_sweep_blocks_the_stale_right_environments(capsys):
+    """12b as the script runs it, one (forward) sweep: the centre check
+    first blocks the right environments the sweep left stale, then holds
+    K7's c128 sigma to matvec_np."""
+    dev = torch.device("cpu")
+    qdrv, qmpo, _ = chip_smoke.qc_system(4, 4)
+    ket = qdrv.get_random_mps(16, seed=11)
+    e5 = qdrv.dmrg(qmpo, ket, bond_dims=[16], noises=[1e-4, 0],
+                   thrds=[1e-12], n_sweeps=2, tol=0, iprint=0,
+                   backend="numpy")
+    assert chip_smoke.phase_gf_full(dev, qdrv, qmpo, ket, e5, D=16, t=1,
+                                    n_sweeps=1) == 0
+    out = capsys.readouterr().out
+    assert "[12b gf] sweep F" in out and "[12b gf] sweep B" not in out
+    assert "[12b gf] K7 c128 at the solve's center 1" in out
+
+
+def _echo_proc(value, queue):
+    queue.put(("echo", {"value": value}))
+
+
+def test_spawn_procs_collects_results_and_fails_on_errors():
+    """The spawned phases' plumbing: a result comes back by its key, and
+    phase 11's process failing (here: a CUDA device on a machine without
+    one) fails the phase instead of passing silently."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without CUDA for the failing run")
+    wait = chip_smoke.spawn_procs({"echo": (_echo_proc, (7,))}, "test")
+    assert wait() == {"echo": {"value": 7}}
+    runs = chip_smoke.spawn_procs({"11": (chip_smoke.shard_proc,
+                                          ("cuda", -1.0, None, -1.0))},
+                                  "phase")
+    with pytest.raises(SystemExit):
+        runs()
