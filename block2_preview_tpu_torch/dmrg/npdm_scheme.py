@@ -471,10 +471,13 @@ def _transfer_right_op(eng: StringExpectation, e: EnvBlocks, t: int,
 
 
 def npdm_spatial_poly(mps: MPS, order: int, bra: Optional[MPS] = None,
-                      device="cuda") -> np.ndarray:
+                      device="cuda", device_min_flop: float = 2e7
+                      ) -> np.ndarray:
     """Spatial k-PDM via the polynomial pooled-sweep engine; same
     convention as dmrg/npdm.py npdm_spatial (block2 get_npdm).  The class
-    closes run on ``device`` (see :func:`pooled_gram`)."""
+    closes of at least ``device_min_flop`` FLOPs run on ``device`` (see
+    :func:`pooled_gram`)."""
     from .npdm import gram_to_spatial
-    G, combos = pooled_gram(mps, order, bra=bra, device=device)
+    G, combos = pooled_gram(mps, order, bra=bra, device=device,
+                            device_min_flop=device_min_flop)
     return gram_to_spatial(G, combos, mps.n_sites, order)

@@ -189,6 +189,33 @@ package's host path by the CPU tests):
                centre of 2S=0 K7's sigma on the SU(2) adapter against the
                host matvec and one K5 v2 output pool against its twin,
                both to 1e-12 relative, printed as phase-3 rows
+  14a. sany    Hubbard-L8 written as a custom ("U1Fermi", "U1") basis
+               (DMRGDriver.set_symmetry_groups, get_custom_hamiltonian,
+               expr_builder over the letters c, d, C, D) on torch_resident
+               with phase 4's start seed and schedule: within 1e-8 Ha of
+               the port's host backend on the same custom MPO and start
+               (in a worker) and 1e-6 Ha of phase 4's built-in SZ energy;
+               fails unless K1-K6 all launched, with no host redo, no
+               environment or LW/RW download
+  14b. sany_su2 the reference tutorial's 4x4 t-J lattice (J=0.4, N=14,
+               2S=0, snake order) through the SAnySU2 mode
+               (set_symmetry_groups("U1Fermi", "SU2", "SU2"), coupled
+               expr_builder terms, get_mpo), bond_dims [250]*2 + [500]*4,
+               noises [1e-4]*2 + [1e-5]*2 + [0], at most 6 sweeps, in its
+               own spawned process beside phase 12 (as 13b's spins): the
+               MPO's symbols, the widest bond in multiplets and each
+               sweep's split as 13a prints them; within 1e-7 Ha of the
+               tutorial's -9.029868687175632; 13a's launch rules (K7 once
+               a matvec, no host matvec, K5 once a blocking step, no other
+               kernel)
+  14c. su2_pdm 13a's solved SU(2) state through get_1pdm, get_2pdm and
+               get_3pdm(algo="poly", device_min_flop=0), each expanding
+               it to SZ (trans_mps_to_sz; the first expansion sweeps
+               forward once on K5 and K7, as 13a's last sweep ran
+               backward): the SZ state's norm 1 to 1e-10, the energy from
+               the 1PDM and 2PDM within 1e-8 Ha of 13a's, the 3PDM within
+               1e-10 of the determinant path (npdm_spatial); fails unless
+               K17 launched
   3. kernels   each kernel against its plain PyTorch twin on the card, at
                a mid-chain site of the MPS that phase 5 leaves — the
                shapes the main path gives the kernels (it runs last for
@@ -290,14 +317,15 @@ two spawned worker processes beside the device phases
 terminates them before it exits.  The last line is {"ok": true,
 "device": {...}}; the line before it is the per-kernel JSON summary:
 K1-K6 and K8-K12 from their f64 rows at the K=16 site, K7 from its
-complex128 row on phase 6b's state, with the launches of phases 5
-(K1-K6) and 13 (K5), 6b, 12 and 13 (K7), 7b (K8, K9), 8b (K10, K11), 8c (K12), 9b (K13,
-K14) and 9c (K15), 10b (K17), 10d (K18), 10c (K19) and 11b (K20-K22, both
-ranks summed; the rows' times are the two shares' summed).  No path runs the v1
+complex128 row on phase 6b's state, with the launches of phases 5 and
+14a (K1-K6), 13, 14b and 14c (K5), 6b, 12, 13, 14b and 14c (K7), 7b (K8,
+K9), 8b (K10, K11), 8c (K12), 9b (K13, K14) and 9c (K15), 10b and 14c
+(K17), 10d (K18), 10c (K19) and 11b (K20-K22, both ranks summed; the
+rows' times are the two shares' summed).  No path runs the v1
 slab matvec (K16), as in the JAX package: its launches are those counted
 in the runs of phases 5, 7b, 8b, 8c, 9b and 9c, each from a reset, and
 the script fails unless they are 0.  The host references of phases 10a,
-10b, 12 and 13 run in the same workers.
+10b, 12, 13 and 14a run in the same workers.
 """
 
 from __future__ import annotations
@@ -2952,9 +2980,12 @@ def su2_system(cfg, twos=0):
     """(driver, SU2MPO) in the driver's SU2 mode for ``cfg``: kind
     "hubbard", the Hubbard chain (U=2, t=1), or "qc", the seeded integrals
     (``seeded_qc_integrals``) with the full SU(2) QC MPO; L sites, n_elec
-    electrons, 2S = ``twos``."""
+    electrons, 2S = ``twos``.  Kind "tj" is phase 14b's t-J lattice in the
+    SAnySU2 mode (:func:`tj_system`)."""
     from block2_preview_tpu_torch.core.fcidump import FCIDUMP
     from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    if cfg["kind"] == "tj":
+        return tj_system(cfg, twos)
     L = cfg["L"]
     if cfg["kind"] == "hubbard":
         fd = FCIDUMP.hubbard(L, u=2, t=1)
@@ -2969,7 +3000,9 @@ def su2_system(cfg, twos=0):
 def su2_sched(cfg):
     """13a's and 13b's schedule: D multiplets, noise [1e-4, 1e-5, 0],
     Davidson |r|^2 < 1e-12, at most ``n_sweeps`` sweeps, stopping below
-    ``tol``."""
+    ``tol``; or ``cfg["sched"]`` where it has one (14b)."""
+    if "sched" in cfg:
+        return dict(cfg["sched"], iprint=0)
     return dict(bond_dims=[cfg["D"]], noises=[1e-4, 1e-5, 0.0],
                 thrds=[1e-12], n_sweeps=cfg["n_sweeps"], tol=cfg["tol"],
                 iprint=0)
@@ -2996,26 +3029,30 @@ def su2_hubbard_ed(cfg=SU2_HUB):
                                      const_e=fd.const_e)[0])
 
 
-def su2_run(tag, device, cfg, twos):
-    """One SU2-mode ``DMRGDriver.dmrg`` on ``device`` from a count reset;
-    prints the energy, the wall time, per sweep the split (blocking: host
-    plan build, the pools' host round trip, K5; LW/RW assembly; K7's
-    executor set-up; the solve; the decimation) and the launches; fails
-    unless K7 launched once a matvec with no host matvec, K5 once a
-    blocking step, and no other kernel.  Returns (energy, engine,
-    launches)."""
+def su2_run(tag, device, cfg, twos, keep=None):
+    """One SU2-mode (or SAnySU2) ``DMRGDriver.dmrg`` on ``device`` from a
+    count reset; prints the energy, the wall time, the MPO's symbols, per
+    sweep the split (blocking: host plan build, the pools' host round
+    trip, K5; LW/RW assembly; K7's executor set-up; the solve; the
+    decimation) and the launches; fails unless K7 launched once a matvec
+    with no host matvec, K5 once a blocking step, and no other kernel.
+    Returns (energy, engine, launches); ``keep`` (a dict), if given,
+    receives the driver ("drv") and the solved state ("ket")."""
     from block2_preview_tpu_torch.ops import _kernels
     drv, mpo = su2_system(cfg, twos)
+    ket = drv.get_random_mps(cfg["D"], seed=cfg.get("seed", 7))
     _kernels.reset_counts()
     t0 = time.time()
-    e = drv.dmrg(mpo, drv.get_random_mps(cfg["D"], seed=7), device=device,
-                 **su2_sched(cfg))
+    e = drv.dmrg(mpo, ket, device=device, **su2_sched(cfg))
     wall = time.time() - t0
     counts = _kernels.launch_counts()
     eng = drv._last_dmrg
+    if keep is not None:
+        keep.update(drv=drv, ket=ket)
     print(f"[{tag}] L={eng.L} N={eng.T[0]} 2S={eng.T[1]} D={cfg['D']}: E = "
           f"{e:.12f} ({wall:.1f} s, {len(eng.energies)} sweeps, init "
-          f"{eng.t_init:.1f} s; K5 {counts['K5_block']} launches for "
+          f"{eng.t_init:.1f} s; MPO {mpo.n_symbols} symbols; K5 "
+          f"{counts['K5_block']} launches for "
           f"{eng.n_blocking} blocking steps ({eng.n_plan_builds} plans "
           f"built, {eng.n_blocking_empty} empty), K7 {counts['K7_tiled']} "
           f"for {eng.n_matvec} matvecs, host matvecs "
@@ -3049,12 +3086,15 @@ def su2_run(tag, device, cfg, twos):
     return float(e), eng, counts
 
 
-def phase_su2_hubbard(device, host, ed, cfg=SU2_HUB):
+def phase_su2_hubbard(device, host, ed, cfg=SU2_HUB, keep=None):
     """Phase 13a: Hubbard-L8 (U=2, N=8, 2S=0) at D=120 multiplets (exact),
     6 sweeps, through DMRGDriver(SU2) on the card, against ED (``ed``) and
     the port's host engine on the same schedule (``host``), both to 1e-8
-    Ha.  Returns the K5 and K7 launches."""
-    e, _, counts = su2_run("13a su2", device, cfg, 0)
+    Ha.  Returns the K5 and K7 launches; ``keep`` (a dict), if given,
+    receives the driver, the solved state and its energy ("e") for 14c."""
+    e, _, counts = su2_run("13a su2", device, cfg, 0, keep=keep)
+    if keep is not None:
+        keep["e"] = e
     e_host, _, t_host = host.get()
     e_ed = ed.get()
     print(f"[13a su2] ED {e_ed:.12f} dE {e - e_ed:.2e}; host engine "
@@ -3269,6 +3309,228 @@ def phase_su2_qc(runs, hosts):
              f"{res[0]['e']:.12f}")
     return (sum(r["K5_block"] for r in res.values()),
             sum(r["K7_tiled"] for r in res.values()))
+
+
+# ---------------------------------------------------------------------------
+# phase 14: SAny custom Hamiltonians (K1-K6; SAnySU2 on K5 and K7) and the
+# density matrices of a spin-adapted state through SU2 -> SZ (K17)
+# ---------------------------------------------------------------------------
+
+SANY_SZ_TOL = 1e-6      # Ha, 14a: the custom basis against phase 4's SZ
+TJ_ANCHOR = -9.029868687175632  # Ha, 14b: the reference tutorial's energy
+TJ_TOL = 1e-7           # Ha, 14b (the reference's own bar,
+                        # tests/test_sany_su2.py:249)
+SZ_NORM_TOL = 1e-10     # 14c: |1 - |the SU2 -> SZ expansion||
+SU2_TJ = dict(kind="tj", LX=4, LY=4, L=16, n_elec=14, J=0.4, D=500,
+              seed=1234, sched=dict(bond_dims=[250] * 2 + [500] * 4,
+                                    noises=[1e-4] * 2 + [1e-5] * 2 + [0.0],
+                                    thrds=[1e-9] * 6, n_sweeps=6, tol=1e-9))
+
+
+def sany_hubbard(L=8, t=1.0, u=2.0):
+    """(driver, MPO) of Hubbard-L (U=2, t=1) written as a custom
+    ("U1Fermi", "U1") basis: |0>, |up>, |dn>, |updn> with the operators of
+    tests/test_sany_custom.py:18-43 (letters c, d, C, D numbered from
+    100), through set_symmetry_groups -> initialize_system(target=(L, 0))
+    -> get_custom_hamiltonian -> expr_builder -> get_mpo."""
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    drv = DMRGDriver(SymmetryTypes.SZ)
+    drv.set_symmetry_groups("U1Fermi", "U1")
+    drv.initialize_system(n_sites=L, target=(L, 0), hamil_init=False)
+    c = np.zeros((4, 4))
+    c[1, 0] = c[3, 2] = 1.0
+    cb = np.zeros((4, 4))
+    cb[2, 0], cb[3, 1] = 1.0, -1.0
+    basis = [[((0, 0), 1), ((1, 1), 1), ((1, -1), 1), ((2, 0), 1)]] * L
+    drv.get_custom_hamiltonian(basis, [{"c": c, "d": c.T.copy(), "C": cb,
+                                        "D": cb.T.copy()}] * L)
+    b = drv.expr_builder()
+    for i in range(L - 1):
+        for x, y in ((i, i + 1), (i + 1, i)):
+            b.add_term("cd", [x, y], -t)
+            b.add_term("CD", [x, y], -t)
+    for i in range(L):
+        b.add_term("cdCD", [i, i, i, i], u)
+    return drv, drv.get_mpo(b.finalize())
+
+
+def host_sany(L=8, D=80, ns=6):
+    """(energy, seconds) of 14a's case, start and schedule on the port's
+    host backend (backend="numpy"), for a worker."""
+    drv, mpo = sany_hubbard(L)
+    t0 = time.time()
+    e = drv.dmrg(mpo, drv.get_random_mps(D, seed=7), backend="numpy",
+                 **hub_sched(D, ns))
+    return float(e), time.time() - t0
+
+
+def phase_sany(device, host, e_sz, L=8, D=80, ns=6):
+    """Phase 14a: Hubbard-L8 as a custom ("U1Fermi", "U1") basis
+    (:func:`sany_hubbard`) on torch_resident with phase 4's start seed and
+    schedule (D=80, 6 sweeps, noise 1e-5): within 1e-8 Ha of the port's
+    host backend on the same custom MPO and start (``host``, a worker's
+    :func:`host_sany`) and 1e-6 Ha of phase 4's built-in SZ energy
+    (``e_sz``); fails unless K1-K6 all launched, with no host redo, no
+    environment or LW/RW download.  Returns the launches of the run."""
+    from block2_preview_tpu_torch.ops import _kernels
+    drv, mpo = sany_hubbard(L)
+    ket = drv.get_random_mps(D, seed=7)
+    _kernels.reset_counts()
+    t0 = time.time()
+    e = drv.dmrg(mpo, ket, device=device, **hub_sched(D, ns))
+    wall = time.time() - t0
+    counts = _kernels.launch_counts()
+    s = drv._last_dmrg
+    e_host, t_host = host.get()
+    path = ("K1_matvec", "K2_diag", "K3_mix", "K4_place", "K5_block",
+            "K6_noise")
+    print(f"[14a sany] Hubbard-L{L} as a custom {drv._sany_names} basis "
+          f"(quanta {ket.info.site_quanta[0]}), MPO bond "
+          f"{max(len(b) for b in mpo.bond_dqs)}, D={D} x{ns} "
+          f"torch_resident {e:.12f} ({wall:.1f} s; "
+          f"{', '.join(f'{k} {counts[k]}' for k in path)}; host_redo_count "
+          f"{s.host_redo_count} host_env_materialized "
+          f"{s.host_env_materialized} host_ops_downloads "
+          f"{s.host_ops_downloads}) host backend {e_host:.12f} ({t_host:.1f}"
+          f" s in a worker) dE {e - e_host:.2e}; phase 4's SZ {e_sz:.12f} "
+          f"dE {e - e_sz:.2e}", flush=True)
+    if not abs(e - e_host) < HUB_TOL:
+        fail(f"14a: |E - host| {abs(e - e_host):.3e} >= {HUB_TOL}")
+    if not abs(e - e_sz) < SANY_SZ_TOL:
+        fail(f"14a: |E - phase 4's SZ energy| {abs(e - e_sz):.3e} >= "
+             f"{SANY_SZ_TOL}")
+    for what in ("host_redo_count", "host_env_materialized",
+                 "host_ops_downloads"):
+        if getattr(s, what) != 0:
+            fail(f"14a: {what} {getattr(s, what)}")
+    if device.type == "cuda" and not all(counts[k] for k in path):
+        fail(f"14a: a kernel of the resident path never launched: {counts}")
+    return counts
+
+
+def tj_system(cfg, twos=0):
+    """(driver, SU2MPO) of phase 14b: the reference tutorial's LX x LY t-J
+    lattice (J, N electrons, snake order; tests/test_sany_su2.py:211-248)
+    in the SAnySU2 mode: set_symmetry_groups("U1Fermi", "SU2", "SU2") ->
+    initialize_system(target=(N, 2S, 2S), hamil_init=False) ->
+    get_custom_hamiltonian (the sites' two multiplets, reduced C and D) ->
+    coupled expr_builder terms -> get_mpo."""
+    from block2_preview_tpu_torch.driver.core import DMRGDriver, SymmetryTypes
+    lx, ly, J = cfg["LX"], cfg["LY"], cfg["J"]
+    L = lx * ly
+    sq2 = 2 ** 0.5
+    drv = DMRGDriver(SymmetryTypes.SZ)
+    drv.set_symmetry_groups("U1Fermi", "SU2", "SU2")
+    drv.initialize_system(n_sites=L, target=(cfg["n_elec"], twos, twos),
+                          hamil_init=False)
+    drv.get_custom_hamiltonian(
+        [[((0, 0, 0), 1), ((1, 1, 1), 1)]] * L,
+        [{"": np.eye(2), "C": np.array([[0, 0], [1, 0]]),
+          "D": np.array([[0, sq2], [0, 0]])}] * L)
+    b = drv.expr_builder()
+
+    def f(i, j):
+        return i * ly + j if i % 2 == 0 else i * ly + ly - 1 - j
+
+    for i in range(lx):
+        for j in range(ly):
+            nbs = ([(i + 1, j)] if i + 1 < lx else []) \
+                + ([(i, j + 1)] if j + 1 < ly else [])
+            for nb in nbs:
+                a, c = f(i, j), f(*nb)
+                b.add_term("(C+D)0", [a, c, c, a], -sq2)
+                b.add_term("((C+D)2+(C+D)2)0", [a, a, c, c],
+                           J * -(3 ** 0.5) / 2)
+                b.add_term("((C+D)0+(C+D)0)0", [a, a, c, c], J * -1 / 2)
+    return drv, drv.get_mpo(b.finalize(adjust_order=True))
+
+
+def tj_proc(device, cfg, queue):
+    """Phase 14b in a spawned process (beside phase 12, as 13b's spins):
+    :func:`su2_run` on ``cfg``'s t-J lattice, with 13a's launch rules;
+    puts ("14b", {energy, launches}) on ``queue``, or ("14b", {"error":
+    ...}) if it failed."""
+    import traceback
+    try:
+        from block2_preview_tpu_torch.runtime import resolve_device
+        e, eng, counts = su2_run("14b sany_su2", resolve_device(device), cfg,
+                                 0)
+        queue.put(("14b", {"e": e, "sweeps": len(eng.energies),
+                           "K5_block": counts["K5_block"],
+                           "K7_tiled": counts["K7_tiled"]}))
+    except BaseException:
+        queue.put(("14b", {"error": traceback.format_exc()}))
+
+
+def phase_sany_su2(runs, anchor=TJ_ANCHOR, tol=TJ_TOL):
+    """Phase 14b: the 4x4 t-J lattice (J=0.4, N=14, 2S=0; :func:`tj_system`)
+    through DMRGDriver's SAnySU2 mode on the card (K5's v2 path and K7),
+    bond_dims [250]*2 + [500]*4, noises [1e-4]*2 + [1e-5]*2 + [0],
+    thrds 1e-9, at most 6 sweeps (``runs``: the wait of its spawned
+    process, whose run holds 13a's launch rules): within 1e-7 Ha of the
+    reference tutorial's -9.029868687175632.  Returns the K5 and K7
+    launches."""
+    r = runs()["14b"]
+    de = r["e"] - anchor
+    print(f"[14b sany_su2] E {r['e']:.12f} after {r['sweeps']} sweeps, the "
+          f"anchor {anchor:.12f} dE {de:.2e}", flush=True)
+    if not abs(de) < tol:
+        fail(f"14b: |E - anchor| {abs(de):.3e} >= {tol}")
+    return r["K5_block"], r["K7_tiled"]
+
+
+def phase_su2_pdm(device, state, h1e, g2e):
+    """Phase 14c: 13a's solved SU(2) Hubbard-L8 state (``state``: the
+    driver, the state and its energy from :func:`phase_su2_hubbard`)
+    through DMRGDriver.get_1pdm, get_2pdm (the host string engine) and
+    get_3pdm(algo="poly", device_min_flop=0: every class close on K17),
+    each expanding the state to SZ (trans_mps_to_sz; 13a's last sweep ran
+    backward, so the first expansion sweeps forward once on K5 and K7):
+    the SZ state's norm 1 to 1e-10, the energy from the 1PDM and 2PDM
+    within 1e-8 Ha of 13a's, the 3PDM within 1e-10 of the determinant path
+    (npdm_spatial of the SZ state); fails unless K17 launched.  Returns
+    the launches (K5 and K7 of the forward sweep, K17)."""
+    from block2_preview_tpu_torch.dmrg.expect import mps_overlap
+    from block2_preview_tpu_torch.dmrg.npdm import npdm_spatial
+    from block2_preview_tpu_torch.ops import _kernels
+    drv, ket, e13 = state["drv"], state["ket"], state["e"]
+    eng = ket.engine
+    refresh = eng._forward_next
+    _kernels.reset_counts()
+    t0 = time.time()
+    sz = drv.trans_mps_to_sz(ket)
+    t_sz = time.time() - t0
+    counts = _kernels.launch_counts()
+    nrm = float(np.sqrt(mps_overlap(sz, sz)))
+    widest = max(sum({k[2]: b.shape[2] for k, b in T.blocks.items()}.values())
+                 for T in sz.tensors)
+    print(f"[14c su2_pdm] SU2 -> SZ {t_sz:.1f} s (a forward sweep first: "
+          f"{refresh}, K5 {counts['K5_block']} K7 {counts['K7_tiled']}; E "
+          f"{eng.energies[-1]:.12f}); SZ target {sz.info.target}, widest "
+          f"bond {widest}, |psi| - 1 {nrm - 1:.2e}", flush=True)
+    if not abs(nrm - 1.0) < SZ_NORM_TOL:
+        fail(f"14c: |1 - |SZ state|| {abs(nrm - 1):.3e} >= {SZ_NORM_TOL}")
+    t0 = time.time()
+    dm1 = drv.get_1pdm(ket)
+    dm2 = drv.get_2pdm(ket)
+    t12 = time.time() - t0
+    e_rdm = rdm_energy(h1e, g2e, 0.0, dm1.sum(axis=0), dm2)
+    print(f"[14c su2_pdm] get_1pdm + get_2pdm {t12:.1f} s: energy "
+          f"{e_rdm:.12f}, 13a {e13:.12f} dE {e_rdm - e13:.2e}", flush=True)
+    if not abs(e_rdm - e13) < RDM_E_TOL:
+        fail(f"14c: RDM energy |dE| {abs(e_rdm - e13):.3e} >= {RDM_E_TOL}")
+    _kernels.reset_counts()
+    t0 = time.time()
+    dm3 = drv.get_3pdm(ket, algo="poly", device=device, device_min_flop=0)
+    t3 = time.time() - t0
+    k17 = _kernels.launch_counts()["K17_npdm_gemm"]
+    print(f"[14c su2_pdm] get_3pdm poly {t3:.1f} s, K17 {k17}", flush=True)
+    _hold("14c su2_pdm order 3 get_3pdm poly vs det", dm3,
+          npdm_spatial(sz, 3), PDM_TOL)
+    if device.type == "cuda" and not k17:
+        fail("14c: K17 never launched")
+    counts["K17_npdm_gemm"] = k17
+    return counts
 
 
 @contextlib.contextmanager
@@ -4456,6 +4718,7 @@ def main():
     except ImportError as exc:
         fail(f"the port package is not importable ({exc}); run from the "
              "repository root")
+    from block2_preview_tpu_torch.core.fcidump import FCIDUMP
     from block2_preview_tpu_torch.dmrg.effective import EffectiveHamiltonian2
     device = resolve_device("cuda")
     t_start = time.time()
@@ -4478,6 +4741,7 @@ def main():
         hub = hubbard_npdm_states(device)
         ref10a = pool.apply_async(npdm_host_refs, hub[3:])
         ref7a = pool.apply_async(host_excited)
+        ref14a = pool.apply_async(host_sany)
         counts, ket, e5, e5_0 = phase_full(device, drv, mpo, D=D,
                                            n_orb=n_orb)
         later = ("K7_tiled", "K8_bucket", "K9_bucket_blocking", "K10_slab",
@@ -4544,7 +4808,10 @@ def main():
                                                    hub[3], e5))}, "phase",
                              deadline=2 * RANK_TIMEOUT)
         runs13 = su2_spawn(device, SU2_QC)
-        at("phases 11 and 13b started (the host references waited for)")
+        runs14 = spawn_procs({"14b": (tj_proc, (str(device), SU2_TJ))},
+                             "phase")
+        at("phases 11, 13b and 14b started (the host references waited "
+           "for)")
         k12 = phase_gf_hubbard(device, gs_hub, e_hub, ed12.get())
         at("phase 12a")
         # one sweep: the total passed 1140 s on slower hosts (PERF.md §6)
@@ -4558,12 +4825,26 @@ def main():
         counts.update(runs11()["11"])
         at("phase 11 joined")
         t13 = time.time()
-        k5_13, k7_13 = phase_su2_hubbard(device, hub13, ed13)
+        state13 = {}
+        k5_13, k7_13 = phase_su2_hubbard(device, hub13, ed13, keep=state13)
         at("phase 13a")
+        # 14b's process ends before 13b's kernel rows time the card
+        k5_14b, k7_14b = phase_sany_su2(runs14)
+        at("phase 14b")
         k5_13b, k7_13b = phase_su2_qc(runs13, qc13)
-        counts["K5_block"] += k5_13 + k5_13b
-        counts["K7_tiled"] += k7_13 + k7_13b
+        counts["K5_block"] += k5_13 + k5_13b + k5_14b
+        counts["K7_tiled"] += k7_13 + k7_13b + k7_14b
         at(f"phase 13b (phase 13: {time.time() - t13:.1f} s)")
+        c14a = phase_sany(device, ref14a, e_hub)
+        for k in ("K1_matvec", "K2_diag", "K3_mix", "K4_place", "K5_block",
+                  "K6_noise"):
+            counts[k] += c14a[k]
+        at("phase 14a")
+        fd13 = FCIDUMP.hubbard(SU2_HUB["L"], u=2, t=1)
+        c14c = phase_su2_pdm(device, state13, fd13.h1e, fd13.g2e)
+        for k in ("K5_block", "K7_tiled", "K17_npdm_gemm"):
+            counts[k] += c14c[k]
+        at(f"phase 14c (phases 13-14: {time.time() - t13:.1f} s)")
         site = mid_site(mpo, ket5, t)
         rows = phase_kernels(device, mpo, ket5, t, site=site)
         eff = EffectiveHamiltonian2(site[0], t)

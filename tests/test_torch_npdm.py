@@ -216,12 +216,14 @@ def test_energy_from_rdms_matches_expectation(l6):
 
 
 def test_refusals_and_defaults(l4):
-    """SU(2) states (A6) raise, and so does a device that is neither a
-    torch device nor a DeviceMesh (a mesh closes on row slices since A10,
-    tests/test_torch_shard.py); the entry points default to the card."""
+    """A state that is neither an SZ MPS nor a solved SU2MPSSpec (SU(2)
+    states expand to SZ since A6b.3, tests/test_torch_su2_pdm.py) raises,
+    and so does a device that is neither a torch device nor a DeviceMesh
+    (a mesh closes on row slices since A10, tests/test_torch_shard.py);
+    the entry points default to the card."""
     _, ket = l4
     k = interop.mps(ket)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(TypeError, match="SU2MPSSpec"):
         port_driver(4).get_npdm(object(), 3, algo="poly")
     with pytest.raises(TypeError, match="DeviceMesh"):
         npdm_scheme.pooled_gram(k, 2, device=object())

@@ -226,8 +226,9 @@ def test_one_site_refusals(chain6):
 
 def test_expr_builder_and_site_mpo_match_reference():
     """ExprBuilder's SZ term table (complex sums of "cd"/"CD", a two-body
-    string, a constant) and get_site_mpo against the JAX driver's; an
-    SAny-SU(2) expression raises and names A6."""
+    string, a constant) and get_site_mpo against the JAX driver's; a
+    coupled SAny-SU(2) expression outside the SAnySU2 mode (A6b.1) raises
+    and names that mode."""
     drv, _ = hubbard_driver(L6)
     port = DMRGDriver()
     port.initialize_system(n_sites=L6, n_elec=L6, spin=0)
@@ -249,7 +250,7 @@ def test_expr_builder_and_site_mpo_match_reference():
         for a, b in zip(got_m.tensors, ref_m.tensors):
             assert a.keys() == b.keys()
             assert all(np.array_equal(a[key], b[key]) for key in a)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="SAnySU2"):
         port.expr_builder().add_term("((C+D)2+(C+D)2)0", [0, 1], 1.0)
 
 

@@ -4,7 +4,7 @@ against the JAX package's driver in its SU2 mode on in-code Hamiltonians
 (Hubbard-L6 and seeded K=6 integrals): the host engine
 (``backend="numpy"``) to 1e-10 Ha, the device path on the kernels' twins
 (``device="cpu"``) to 1e-8 Ha, the SZ-only backends refused, the card as
-the default, and what is still missing named (ROADMAP A6b)."""
+the default, and what is still missing named (ROADMAP A6b.4, A6b.5)."""
 
 import numpy as np
 import pytest
@@ -113,19 +113,24 @@ def test_card_is_the_default_and_refusals_name_a6b():
     with pytest.raises(NotImplementedError, match="one-site"):
         d.dmrg(mpo, d.get_random_mps(20), device="cpu",
                twodot_to_onedot=2, **SCHED)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    with pytest.raises(NotImplementedError, match="A6b.5"):
         d.dmrg(mpo, d.get_random_mps(20), device="cpu", mesh=object(),
                **SCHED)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    # SU(2) PDMs (A6b.3) take a solved state; CSF coefficients are A6b.4
+    with pytest.raises(ValueError, match="solved"):
         d.get_npdm(d.get_random_mps(20))
-    for what in ("expr_builder", "get_mpo", "get_site_mpo"):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            fn = getattr(d, what)
-            fn() if what == "expr_builder" else fn(None, 0)
-    for mode in (SymmetryTypes.SGF, SymmetryTypes.SAny):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            DMRGDriver(mode)
+    with pytest.raises(NotImplementedError, match="A6b.4"):
+        d.get_csf_coefficients(d.get_random_mps(20))
+    # the SU2 mode's term tables are SZ ones, as in the JAX package; an
+    # SU2TermTable needs the SAnySU2 mode (A6b.1)
+    from block2_preview_tpu_torch.dmrg.su2_qc import SU2TermTable
+    with pytest.raises(ValueError, match="SAnySU2"):
+        d.get_mpo(SU2TermTable(6))
+    assert d.get_site_mpo("c", 0).n_sites == 6
+    with pytest.raises(NotImplementedError, match="SGF"):
+        DMRGDriver(SymmetryTypes.SGF)
+    assert DMRGDriver(SymmetryTypes.SAny).symm_type == SymmetryTypes.SAny
     sz = DMRGDriver(SymmetryTypes.SZ)
     sz.initialize_system(4, 4, 0)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    with pytest.raises(ValueError, match="SAnySU2"):
         sz.expr_builder().add_term("(C+D)0", [0, 1], 1.0)
